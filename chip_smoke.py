@@ -5,10 +5,14 @@
 
 Phases, each of which raises (nonzero exit) on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA library from csrc/ (nvcc), print the build time;
-  3. each CUDA kernel against its plain PyTorch twin, on the card, at the
-     SPRITES serving shape (n = 50,000, m = 72, L = 64) and at a ragged
-     small shape; max errors and the times of both;
+  2. build the CUDA library from csrc/ (one nvcc per source, all at once),
+     print the build time;
+  3. each CUDA kernel against its plain PyTorch twin, on the card:
+     B2/B3 at the SPRITES serving shape (n = 50,000, m = 72, L = 64) and at
+     a ragged small shape, B2 also at the MNIST training shapes (256 and
+     8,100 rows, m = 32, L = 16), B1 chol_inverse at (17, 32, 32),
+     (65, 72, 72) and a ragged (5, 37, 37); max errors and the times of
+     kernel, twin and (B2) one library call;
   4. the serve, through svgpvae_tpu_torch.cli.serve.main: the
      1000-character synthetic corpus in memory (N = 50,000 train frames),
      seed-0 weights, 8 requests -- once with the default linear x linear
@@ -18,11 +22,25 @@ Phases, each of which raises (nonzero exit) on failure:
      launched inside its `serving.fit`;
   5. for each of the two serves, the card's encodings and aux data
      copied to the CPU, the fit and one request's p_m/p_v redone there
-     with the plain twins, and compared.
+     with the plain twins, and compared;
+  6. the rotated-MNIST training run, through
+     svgpvae_tpu_torch.cli.mnist.main at the north-star width: the
+     36-digit synthetic set in memory (N_train = 8,100, an 800-object
+     GPLVM table, batch 256, L = 16, m = 32), Hensman + GECO,
+     --opt_regime joint-2 --eval_every 2 (64 steps, one eval pass with
+     the cgen MSE).  Launch counters are zeroed just before and read just
+     after; B1 must launch exactly once in every step and B2 at least
+     once;
+  7. one mid-run training step (its parameters, GECO state, batch and
+     noise, copied from the card) redone on the CPU with the twins, in
+     fp32 and in f64: the card's loss, GECO state and every gradient
+     against the CPU fp32 twin, within a stated multiple of the CPU's own
+     fp32-vs-f64 gap.
 
-The line before the last is {"kernels": [...]} (per kernel: main-path
-launches, and the max error and times measured in phase 3 at the serving
-shape); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
+The line before the last is {"kernels": [...]} (per kernel: launches on
+the main paths of phases 4 and 6, and the max error and times measured in
+phase 3 at the shape named in the entry, with the bound computed from
+that shape); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
 device; exits nonzero without one.  TF32 is off for matmuls and cuDNN
 throughout.
 """
@@ -30,6 +48,7 @@ throughout.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,11 +72,50 @@ KERNEL_RTOL = 1e-4
 CPU_RTOL = 1e-4
 SERVE_CHARS = 1000   # 50,000 train frames, 250 unseen characters
 SERVE_REQUESTS = 8
-SOURCE = "svgpvae_tpu_torch/csrc/gp_stats.cu"
-REPLACES = {
-    "fused_kernel_stats": "svgpvae_tpu/ops/fused_kernel_stats.py:42",
-    "gp_sufficient_stats": "svgpvae_tpu/ops/gp_stats.py:41",
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "chol_inverse": ("svgpvae_tpu_torch/csrc/chol_inverse.cu",
+                     "svgpvae_tpu/ops/chol_inverse.py:174"),
+    "gp_sufficient_stats": ("svgpvae_tpu_torch/csrc/gp_stats.cu",
+                            "svgpvae_tpu/ops/gp_stats.py:63"),
+    "fused_kernel_stats": ("svgpvae_tpu_torch/csrc/gp_stats.cu",
+                           "svgpvae_tpu/ops/fused_kernel_stats.py:100"),
 }
+# B1 vs its Cholesky twin: Gauss-Jordan and Cholesky are both
+# backward-stable at ~cond * eps; the inverse within 5e-4 of its own max
+# |entry| and logdet within rtol 1e-5 (1e-4 at m = 72), the tolerances
+# tests/test_fused_gp.py holds the TPU kernel to.  Inputs: PD stacks of
+# condition 1e4 (1e3 at m = 72).
+B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
+             ("ragged", 5, 37, 1e4)]
+B1_INV_TOL = 5e-4
+# B2 at the MNIST training shapes: the step's minibatch and the cgen pass
+TRAIN_STATS = [("train_step", dict(n=256, m=32, L=16, d1=1, d2=8)),
+               ("cgen", dict(n=8_100, m=32, L=16, d1=1, d2=8))]
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
+# cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Training run (phase 6): the north-star config on the 36-digit set
+TRAIN_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
+              "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
+              "--synthetic_digits", "--opt_regime", "joint-2",
+              "--eval_every", "2", "--device", "cuda", "--seed", "0"]
+TRAIN_STEPS = 64       # 2 epochs x (31 full batches + the tail of 164)
+CAPTURE_STEP = 40      # the mid-run step rechecked on the CPU (phase 7)
+# Card (kernels, cuDNN, cuBLAS) vs CPU (twins) on one step, both fp32:
+# each is off the exact answer by fp32 round-off, so the card is held to
+# 10x the CPU's own fp32-vs-f64 gap (the larger of two: the batch in its
+# order and reversed).  One sample of a gap can come out far below the
+# round-off the card's summation order gives (measured: 1.7e-7 on the last
+# decoder bias, whose gradient sums 256 x 28 x 28 = 200,704 terms, against
+# a card-vs-CPU 6.6e-6), so each gap is floored: a gradient's at the
+# random-walk round-off of the step's longest sum, sqrt(200,704) x 2^-24 =
+# 2.7e-5 of its max |entry|; the GECO state's and the loss's at one fp32
+# ulp of their scale (for the loss, the magnitudes it is the difference
+# of: |inside-ELBO| + |CE term| + |loss|, ~1.7e4 against a loss of ~40).
+RECHECK_FACTOR = 10.0
+SUM_FLOOR = math.sqrt(256 * 28 * 28) * 2.0 ** -24
+FP32_ULP = 2.0 ** -23
 
 
 def log(msg: str) -> None:
@@ -86,6 +144,58 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of fn() per call, from one CUDA-graph replay of `reps`
+    captured calls (back-to-back kernels with no host dispatch between
+    them), CUDA events around the replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms on an H100, "operations" or "bytes"): the larger of the
+    work over the fp32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def stats_bound(n, m, L, d1=0, d2=0, fused=False) -> tuple:
+    """B2 executes the upper triangle of each Sigma_l (m(m+1)/2 FMA per
+    row and channel) and r (m FMA); B3 also builds K from d1 + d2
+    features.  Bytes: each input read once, each output written once."""
+    flops = n * L * m * (m + 1) + 2 * n * m * L
+    nbytes = 4 * (2 * n * L + L * m * m + L * m)
+    if fused:
+        flops += 2 * n * m * (d1 + d2)
+        nbytes += 4 * (n + m) * (d1 + d2)
+    else:
+        nbytes += 4 * n * m
+    return bound(flops, nbytes)
+
+
+def chol_inverse_bound(B, m) -> tuple:
+    """In-place Gauss-Jordan: m pivots x m x m FMA per matrix; reads M,
+    writes M^-1 and logdet."""
+    return bound(2 * B * m ** 3, 4 * (2 * B * m * m + B))
 
 
 def stats_inputs(rng, n, m, L, d1, d2, family):
@@ -153,18 +263,109 @@ def phase_kernels(device) -> list:
             err = max(e for e, _ in errs)
             ms = cuda_ms(run)
             plain_ms = cuda_ms(twin)
+            library_ms = None
+            if name == "gp_sufficient_stats":
+                library_ms = cuda_ms(lambda: torch.einsum(
+                    "nl,nm,np->lmp", prec, knm, knm))
             tag = f"{name}[{family},normalize={normalize}] {shape_name} {shape}"
             log(f"{tag}: " + "; ".join(
                 f"{o} max_abs_err {e:.3e} (max|twin| {scale:.3e}, limit "
                 f"{KERNEL_RTOL * scale:.3e})"
                 for o, (e, scale) in zip(OUTPUTS, errs))
-                + f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+                + f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
+                + ("" if library_ms is None
+                   else f", library einsum {library_ms:.4f} ms"))
             if not ok:
                 raise AssertionError(f"{tag}: kernel disagrees with its twin")
-            records.append(dict(name=name, family=family, normalize=normalize,
-                                shape=shape_name, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms))
+            records.append(dict(
+                name=name, family=family, normalize=normalize,
+                shape=shape_name, dims=shape, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound=stats_bound(fused=name == "fused_kernel_stats",
+                                  **shape)))
     return records
+
+
+def phase_train_stats(device) -> None:
+    """B2 against its twin at the MNIST training shapes (K built by the
+    mnist-family kernel from random angles and object vectors)."""
+    import torch
+    from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
+    from svgpvae_tpu_torch.ops import gp_stats as gps
+
+    rng = np.random.RandomState(1)
+    for tag, shape in TRAIN_STATS:
+        f1, f2, ip1, ip2, prec, py = (
+            torch.from_numpy(a).to(device)
+            for a in stats_inputs(rng, family="mnist", **shape))
+        knm = fks.fused_kernel_matrix(f1, f2, ip1, ip2, 1.0, 1.0,
+                                      "mnist").contiguous()
+        got = gps.gp_sufficient_stats(knm, prec, py)
+        torch.cuda.synchronize()
+        errs = output_errs(got, gps.gp_sufficient_stats_reference(
+            knm, prec, py))
+        ms = cuda_ms(lambda: gps.gp_sufficient_stats(knm, prec, py))
+        plain_ms = cuda_ms(lambda: gps.gp_sufficient_stats_reference(
+            knm, prec, py))
+        library_ms = cuda_ms(lambda: torch.einsum("nl,nm,np->lmp", prec,
+                                                  knm, knm))
+        dev_ms = graph_ms(lambda: gps.gp_sufficient_stats(knm, prec, py))
+        b_ms, b_by = stats_bound(**shape)
+        log(f"gp_sufficient_stats {tag} {shape}: " + "; ".join(
+            f"{o} max_abs_err {e:.3e} (max|twin| {sc:.3e})"
+            for o, (e, sc) in zip(OUTPUTS, errs))
+            + f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms of device "
+            f"time in a graph replay), twin {plain_ms:.4f} ms, library "
+            f"einsum {library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if not all(np.isfinite(e) and e <= KERNEL_RTOL * sc
+                   for e, sc in errs):
+            raise AssertionError(f"gp_sufficient_stats {tag}: kernel "
+                                 "disagrees with its twin")
+
+
+def pd_stack(rng, B, m, cond):
+    out = np.empty((B, m, m))
+    for i in range(B):
+        q, _ = np.linalg.qr(rng.randn(m, m))
+        out[i] = (q * np.logspace(0, np.log10(cond), m)) @ q.T
+    return out.astype(np.float32)
+
+
+def phase_chol_inverse(device) -> dict:
+    """B1 against its Cholesky twin on the card; returns the record of
+    the training shape (17, 32, 32)."""
+    import torch
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+
+    rng = np.random.RandomState(2)
+    records = {}
+    for tag, B, m, cond in B1_SHAPES:
+        M = torch.from_numpy(pd_stack(rng, B, m, cond)).to(device)
+        inv, ld = ci.chol_inverse_kernel(M)
+        torch.cuda.synchronize()
+        inv_t, ld_t = ci.chol_inverse_reference(M)
+        scale = float(inv_t.abs().max())
+        inv_err = float((inv - inv_t).abs().max())
+        ld_rel = float(((ld - ld_t).abs() / ld_t.abs().clamp(min=1e-30))
+                       .max())
+        ld_rtol = 1e-4 if m >= 72 else 1e-5
+        ms = cuda_ms(lambda: ci.chol_inverse_kernel(M), reps=50)
+        plain_ms = cuda_ms(lambda: ci.chol_inverse_reference(M), reps=50)
+        dev_ms = graph_ms(lambda: ci.chol_inverse_kernel(M))
+        b_ms, b_by = chol_inverse_bound(B, m)
+        log(f"chol_inverse {tag} (B, m) = ({B}, {m}), cond {cond:.0e}: "
+            f"inverse max_abs_err {inv_err:.3e} (max|twin| {scale:.3e}, "
+            f"limit {B1_INV_TOL * scale:.3e}); logdet max rel err "
+            f"{ld_rel:.3e} (limit {ld_rtol:.0e}); kernel {ms:.4f} ms per "
+            f"call ({dev_ms:.4f} ms of device time in a graph replay), "
+            f"twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if not (inv_err <= B1_INV_TOL * scale and ld_rel <= ld_rtol):
+            raise AssertionError(f"chol_inverse {tag}: kernel disagrees "
+                                 "with its twin")
+        records[tag] = dict(max_abs_err=inv_err, ms=ms, plain_ms=plain_ms,
+                            graph_ms=dev_ms, bound=(b_ms, b_by),
+                            dims=dict(B=B, m=m))
+    return records["train"]
 
 
 def check_finite(**tensors) -> None:
@@ -179,8 +380,6 @@ def phase_serve() -> tuple:
     from svgpvae_tpu_torch import data
     from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import serve
-    from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
-    from svgpvae_tpu_torch.ops import gp_stats as gps
 
     t0 = time.perf_counter()
     splits = data.generate_synthetic_sprites(
@@ -193,8 +392,7 @@ def phase_serve() -> tuple:
             "--n_requests", str(SERVE_REQUESTS), "--device", "cuda",
             "--seed", "0"]
 
-    gps.gp_sufficient_stats.launches = 0
-    fks.fused_kernel_stats.launches = 0
+    ops.reset_launch_counts()
     results = {}
     for name, extra, kernel in (("linear", [], "fused_kernel_stats"),
                                 ("K_SE", ["--K_SE"], "gp_sufficient_stats")):
@@ -221,7 +419,7 @@ def phase_serve() -> tuple:
                                  f"{kernel}")
         results[name] = res
     launches = ops.launch_counts()
-    log(f"main-path launches: {launches}")
+    log(f"serve main-path launches: {launches}")
     return results, launches
 
 
@@ -265,6 +463,139 @@ def phase_cpu_check(name, res) -> None:
                                  "with the CPU twins")
 
 
+def phase_train() -> tuple:
+    """The north-star training run on the card; returns its result and the
+    launch counts of the whole run."""
+    import torch
+    from svgpvae_tpu_torch import data, ops
+    from svgpvae_tpu_torch.cli import mnist
+
+    t0 = time.perf_counter()
+    base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
+    splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
+    log(f"rotated 36-digit set: {len(splits['train']['images'])} train, "
+        f"{len(splits['eval']['images'])} eval, "
+        f"{len(splits['test']['images'])} test frames, generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = mnist.main(TRAIN_ARGV, splits=splits, capture_step=CAPTURE_STEP)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    st = res["state"]
+    gp = st.params["gp"]
+    dims = (len(splits["train"]["images"]), gp.inducing_points.shape[0],
+            gp.object_vectors.shape[0], st.params["vae"].L)
+    if dims != (8_100, 32, 800, 16) or len(res["step_seconds"]) != TRAIN_STEPS:
+        raise AssertionError(f"trained N, m, n_objects, L = {dims} over "
+                             f"{len(res['step_seconds'])} steps")
+    for i, m in enumerate(res["metrics"]):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {m}")
+    ev = res["evals"][-1]
+    if not all(np.isfinite(ev[k]) for k in ("eval_mse", "test_mse",
+                                            "cgen_mse")):
+        raise AssertionError(f"non-finite eval pass {ev}")
+    check_finite(**{f"gp/{k}": v for k, v in gp.named_tensors().items()})
+    for i, sl in enumerate(res["step_launches"]):
+        if sl["chol_inverse"] != 1 or sl["gp_sufficient_stats"] < 1:
+            raise AssertionError(f"step {i} launched {sl}: chol_inverse "
+                                 "must launch once, gp_sufficient_stats at "
+                                 "least once")
+    sec = np.asarray(res["step_seconds"])
+    in_steps = {k: sum(sl[k] for sl in res["step_launches"])
+                for k in launches}
+    log(f"train: {TRAIN_STEPS} steps; first step {1e3 * sec[0]:.2f} ms, "
+        f"then p50 {1e3 * np.percentile(sec[1:], 50):.3f} ms, p90 "
+        f"{1e3 * np.percentile(sec[1:], 90):.3f} ms; eval MSE "
+        f"{ev['eval_mse']:.6f}, test MSE {ev['test_mse']:.6f}, cgen MSE "
+        f"{ev['cgen_mse']:.6f} (eval+test {ev['seconds']['eval_test']:.3f} "
+        f"s, cgen {ev['seconds']['cgen']:.3f} s); max_memory_allocated "
+        f"{peak / 2**20:.1f} MiB; launches inside the steps {in_steps}, "
+        f"in the whole run {launches}")
+    return res, launches
+
+
+def phase_train_cpu_check(res) -> None:
+    """Redo the captured step on the CPU with the twins: in fp32 with the
+    batch in its order and reversed (the step's sums are order-invariant,
+    so the two differ by fp32 round-off alone), and in f64."""
+    import torch
+    from svgpvae_tpu_torch import gp as gpm, models, train
+    from svgpvae_tpu_torch.cli import mnist
+    from svgpvae_tpu_torch.nn import MnistVAE
+
+    cap = res["captured"]
+    card_gp = res["state"].params["gp"]
+    args = mnist.build_parser().parse_args(TRAIN_ARGV)
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, device=torch.device("cuda"))
+    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
+           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
+
+    def cpu_step(dtype, reverse):
+        def cpu(t):
+            return t.detach().to("cpu", dtype)
+        vae = MnistVAE(L=args.L)
+        vae.load_state_dict({k: cpu(v) for k, v in cap["vae"].items()})
+        gp = gpm.MnistSVGP(config=card_gp.config,
+                           **{k: cpu(v) for k, v in cap["gp"].items()})
+        params = {"vae": vae.to(dtype), "gp": gp}
+        trainable = train.trainable_tensors(params, lambda name: True)
+        def cpu_b(t):  # a batch-axis tensor, in its order or reversed
+            return cpu(t).flip(0) if reverse else cpu(t)
+        batch = tuple(cpu_b(x) for x in cap["batch"])
+        eps = cpu_b(cap["eps"])
+        forward, outs = mnist.make_forward(args, lambda kind, shape: eps), []
+
+        def recording(*a):
+            outs.append(forward(*a))
+            return outs[-1]
+
+        loss, (geco, _) = mnist.make_loss_fn(args, recording)(
+            params, batch, train.GECOState(
+                C_ma=cpu(cap["geco"].C_ma),
+                lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        out = {"loss": loss.detach(), "C_ma": geco.C_ma,
+               "lagrange_mult": geco.lagrange_mult,
+               **dict(zip(trainable, grads))}
+        terms = float(abs(outs[-1].inside_elbo.detach())
+                      + abs(outs[-1].ce_term.detach()) + abs(loss.detach()))
+        return {k: v.detach().double() for k, v in out.items()}, terms
+
+    t0 = time.perf_counter()
+    r32, _ = cpu_step(torch.float32, reverse=False)
+    r32_rev, _ = cpu_step(torch.float32, reverse=True)
+    r64, loss_terms = cpu_step(torch.float64, reverse=False)
+    log(f"cpu step {cap['step']} (fp32 twice, f64): "
+        f"{time.perf_counter() - t0:.2f} s")
+    rows = []
+    for k, g in got.items():
+        g = g.detach().cpu().double()
+        scale = loss_terms if k == "loss" else float(r64[k].abs().max())
+        err = float((g - r32[k]).abs().max())
+        gap = max(float((r32[k] - r64[k]).abs().max()),
+                  float((r32_rev[k] - r64[k]).abs().max()))
+        floor = (FP32_ULP if k in ("loss", "C_ma", "lagrange_mult")
+                 else SUM_FLOOR) * scale
+        limit = RECHECK_FACTOR * max(gap, floor)
+        rows.append((k, err, limit))
+        log(f"step {cap['step']} {k}: card vs cpu fp32 {err:.3e}, cpu fp32 "
+            f"vs f64 {gap:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
+            + (f"; card {float(g):.9g}, cpu fp32 {float(r32[k]):.9g}, "
+               f"cpu f64 {float(r64[k]):.12g}" if g.numel() == 1 else ""))
+    bad = [k for k, err, limit in rows if not err <= limit]
+    if bad:
+        raise AssertionError(f"step {cap['step']}: the card disagrees with "
+                             f"the CPU twins on {bad}")
+    log(f"step {cap['step']}: {len(got) - 3} gradients and the loss/GECO "
+        f"within {RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap (floored); "
+        f"worst "
+        f"err/limit {max(err / limit for _, err, limit in rows):.3f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -286,19 +617,30 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     records = phase_kernels(device)
-    results, launches = phase_serve()
+    phase_train_stats(device)
+    b1 = phase_chol_inverse(device)
+    results, serve_launches = phase_serve()
     for name, res in results.items():
         phase_cpu_check(name, res)
+    train_res, train_launches = phase_train()
+    phase_train_cpu_check(train_res)
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"
                 and not r["normalize"]}
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-             launches=launches[name],
-             max_abs_err=at_slice[name]["max_abs_err"],
-             ms=at_slice[name]["ms"], plain_ms=at_slice[name]["plain_ms"])
-        for name, replaces in REPLACES.items()]}))
+    at_slice["chol_inverse"] = dict(b1, library_ms=None)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        r = at_slice[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve_launches[name] + train_launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            shape=r["dims"],
+            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,3 +1,10 @@
+from svgpvae_tpu_torch.data.mnist import (  # noqa: F401
+    generate_init_inducing_points,
+    generate_rotated_mnist,
+    load_rotated_mnist,
+    pca_embeddings,
+    synthetic_digit_base_images,
+)
 from svgpvae_tpu_torch.data.sprites import (  # noqa: F401
     N_ACTIONS,
     generate_synthetic_sprites,

@@ -1,0 +1,122 @@
+"""Fused GP block for the SVGPVAE training step (port of the Hensman part
+of svgpvae_tpu/gp/fused.py).
+
+In the training forward the posterior is evaluated AT the minibatch
+points, so the two passes of the reference structure (`posterior_params`
+then `variational_loss`, gp/svgp.py) share most of their quantities:
+
+  mean_vector_l = K_nm K_mm^{-1} mu_hat_l = p_m(train points)
+  w_i^T A_hat_l w_i = K_nm,i Sigma_l^{-1} K_mn,i = sig_quad(train)_il
+  k_tilde = K_nn_diag - nystrom(train)
+
+and the KL( N(mu_hat, A_hat) || N(0, K_mm) ) with A_hat = K Sigma^{-1} K
+closes over the Sigma factorization alone (logdet A_hat = 2 logdet K_mm -
+logdet Sigma_l, tr(K_mm^{-1} A_hat) = tr(Sigma_l^{-1} K_mm)).  What
+remains per step is ONE inverse-or-factorization of the (L+1, m, m) stack
+[K_mm; Sigma_1..L] plus matmuls.
+
+`inverse_impl="pallas"` (the JAX name, kept so one argv drives both
+drivers) takes explicit inverses and logdets of that stack from
+`ops.chol_inverse.chol_inverse`: the hand-written CUDA kernel B1 on a
+CUDA tensor, its plain Cholesky twin on a CPU tensor.  `"chol"` factorizes
+with torch.linalg.cholesky and solves.  The jitter policy is that of the
+two-pass path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch.gp.svgp import sigma_jitter
+from svgpvae_tpu_torch.ops.chol_inverse import chol_inverse
+from svgpvae_tpu_torch.ops.gp_stats import gp_stats
+
+INVERSE_IMPLS = ("chol", "pallas")
+KL_IMPLS = ("identity", "rejitter")
+
+
+@linalg.precise
+def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
+                     inverse_impl: str = "chol", kl_impl: str = "identity"):
+    """Posterior params + Hensman inside-ELBO terms in one pass.
+
+    aux (b, D) minibatch index points; y/noise (b, L) encoder means /
+    variances.  Returns (p_m (b, L), p_v (b, L), sum_terms (L,),
+    kl_terms (L,), mu_hat (L, m)).
+
+    kl_impl "identity" uses the closed-form logdet A_hat; "rejitter"
+    materializes A_hat = Kmm Sigma^{-1} Kmm and refactorizes it with
+    jitter (the exact two-pass KL; with inverse_impl="pallas" its logdet
+    comes from a second chol_inverse call).
+    """
+    if inverse_impl not in INVERSE_IMPLS or kl_impl not in KL_IMPLS:
+        raise ValueError(f"inverse_impl {inverse_impl!r}, kl_impl {kl_impl!r}")
+    cfg = gp.config
+    b, L = y.shape
+    scale = (cfg.N_train / b) if cfg.N_train else 1.0
+
+    z = gp.inducing_points
+    m = z.shape[0]
+    Kmm = gp.kmat(z, z)                                   # (m, m)
+    Knm = gp.kmat(aux, z, x_inducing=False)               # (b, m)
+    Knn_diag = gp.kdiag(aux, aux, x_inducing=False,
+                        y_inducing=False)                 # (b,)
+
+    precision = linalg.reciprocal_no_nan(noise)           # (b, L)
+    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
+    M = torch.cat([linalg.add_jitter(Kmm, cfg.jitter)[None],
+                   linalg.add_jitter(Sigma, sigma_jitter(Sigma, cfg))])
+
+    if inverse_impl == "pallas":
+        Minv, logdets = chol_inverse(M)
+        Kmm_inv, Sigma_inv = Minv[0], Minv[1:]
+        logdet_K, logdet_S = logdets[0], logdets[1:]
+        sir = torch.einsum("lmp,lp->lm", Sigma_inv, r)              # (L, m)
+        W_ny = Kmm_inv @ Knm.T                                      # (m, b)
+        SigInv_Kmn = torch.einsum("lmp,bp->lmb", Sigma_inv, Knm)    # (L, m, b)
+        tr_SiK = torch.sum(Sigma_inv * Kmm[None], dim=(-2, -1))     # (L,)
+    else:
+        chol = linalg.safe_cholesky(M, 0.0)  # NaN, not an error, if not PD
+        Kmm_chol, Sigma_chol = chol[0], chol[1:]
+        logdet_K = linalg.logdet_from_chol(Kmm_chol)
+        logdet_S = linalg.logdet_from_chol(Sigma_chol)
+        sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]
+        W_ny = linalg.cho_solve(Kmm_chol, Knm.T)
+        SigInv_Kmn = linalg.cho_solve(Sigma_chol, Knm.T.expand(L, m, b))
+        E = linalg.cho_solve(Sigma_chol, Kmm.expand(L, m, m))  # Sigma^-1 Kmm
+        tr_SiK = torch.diagonal(E, dim1=-2, dim2=-1).sum(dim=-1)
+
+    # posterior at the batch points (== the Hensman mean vector / wAw)
+    p_m = scale * torch.einsum("bm,lm->bl", Knm, sir)       # (b, L)
+    nystrom = torch.sum(Knm * W_ny.T, dim=-1)               # (b,)
+    sig_quad = torch.einsum("bm,lmb->bl", Knm, SigInv_Kmn)  # (b, L)
+    k_tilde = Knn_diag - nystrom                            # (b,)
+    p_v = k_tilde[:, None] + sig_quad                       # (b, L)
+
+    sum_terms = -0.5 * (
+        torch.sum(precision * k_tilde[:, None], dim=0)
+        + torch.sum(precision * sig_quad, dim=0)
+        + torch.sum(torch.log(noise), dim=0)
+        + b * linalg.LOG_2PI
+        + torch.sum(precision * (y - p_m) ** 2, dim=0))    # (L,)
+
+    mu_hat = scale * torch.einsum("mp,lp->lm", Kmm, sir)    # (L, m)
+
+    if kl_impl == "rejitter" and inverse_impl == "pallas":
+        A_hat = Kmm[None] @ (Sigma_inv @ Kmm.expand(L, m, m))
+        _, logdet_A = chol_inverse(linalg.add_jitter(A_hat, cfg.jitter))
+        tr_KiA = torch.sum(Kmm_inv[None] * A_hat, dim=(-2, -1))
+        quad_mu = torch.einsum("lm,mp,lp->l", mu_hat, Kmm_inv, mu_hat)
+        kl_terms = 0.5 * (logdet_K - logdet_A - m + tr_KiA + quad_mu)
+    elif kl_impl == "rejitter":
+        A_hat = Kmm[None] @ E
+        kl_terms = linalg.mvn_kl_against_prior(mu_hat, A_hat, Kmm_chol,
+                                               cfg.jitter)
+    else:
+        quad = scale * scale * torch.einsum("lm,mp,lp->l", sir, Kmm, sir)
+        kl_terms = 0.5 * (tr_SiK + quad - m - logdet_K + logdet_S)
+
+    return p_m, p_v, sum_terms, kl_terms, mu_hat

@@ -1,28 +1,31 @@
-"""Sparse variational GP for SPRITES: the test-time pipeline
-(port of the SPRITES part of svgpvae_tpu/gp/svgp.py).
+"""Sparse variational GP core (port of svgpvae_tpu/gp/svgp.py: the MNIST
+and SPRITES GP families, the two-pass batch-level Hensman math, and the
+SPRITES test-time pipeline).
 
-Parameters are a small dataclass of tensors; all L latent channels are
-processed at once with batched Cholesky factorizations.  The full-train-set
-conditioning (`precompute_test_posterior_terms`) runs the CUDA
-sufficient-statistics kernels on CUDA tensors (B3 `fused_kernel_stats` for
-the linear x linear kernel, B2 `gp_sufficient_stats` for the SE kernel),
-and their plain twins on CPU tensors.
+Parameters are small dataclasses of tensors; all L latent channels are
+processed at once with batched Cholesky factorizations.  The batch-level
+sufficient statistics go through `ops.gp_stats.gp_stats` (B2 CUDA forward,
+einsum backward); the full-train-set conditioning
+(`precompute_test_posterior_terms`) runs B3 `fused_kernel_stats` for the
+SPRITES linear x linear kernel and B2 for the SE kernel.  CPU tensors take
+the kernels' plain twins.
 
-Shapes: m = #inducing points, L = #latent channels, x = #query points,
-N = full-train size.
+Shapes: b = minibatch, m = #inducing points, L = #latent channels,
+x = #query points, N = full-train size.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from svgpvae_tpu_torch import kernels, linalg
 from svgpvae_tpu_torch.ops.fused_kernel_stats import fused_kernel_stats
-from svgpvae_tpu_torch.ops.gp_stats import gp_sufficient_stats
+from svgpvae_tpu_torch.ops.gp_stats import gp_stats, gp_sufficient_stats
 
 
 # Relative ridge of the Sigma_l factorization, scaled by Sigma's max
@@ -34,10 +37,73 @@ SIGMA_REL_JITTER = 1e-5
 
 @dataclasses.dataclass(frozen=True)
 class SVGPConfig:
-    """Static GP configuration (the fields the serving path reads)."""
+    """Static GP configuration.  N_train > 0 enables the minibatch bias
+    correction (N/b) of the batch-level SVGP."""
 
     jitter: float = 1e-6
     K_obj_normalize: bool = False
+    N_train: int = 0
+
+
+def _to(obj, *args, **kwargs):
+    """A copy of a parameter dataclass with Tensor.to(*args, **kwargs)
+    applied to every tensor field (device and/or dtype)."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(*args, **kwargs)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), Tensor)})
+
+
+@dataclasses.dataclass
+class MnistSVGP:
+    """Rotated-MNIST batch-level SVGP: product kernel = ExpSinSquared
+    (period 2 pi) over the angle column x Linear over the M-dim object
+    vector.  Object vectors come from the aux data (columns 2:) or, when
+    the trainable GPLVM table is present, are gathered by the id column
+    (column 0) -- inducing rows always carry their own."""
+
+    config: SVGPConfig
+    inducing_points: Tensor  # (m, 2 + M): [id, angle, obj...]
+    length_scale: Tensor     # scalar
+    amplitude: Tensor        # scalar
+    object_vectors: Optional[Tensor] = None  # (n_objects, M) GPLVM table
+
+    def _features(self, aux: Tensor, inducing: bool) -> Tuple[Tensor, Tensor]:
+        view = aux[:, 1:2]
+        if self.object_vectors is None or inducing:
+            return view, aux[:, 2:]
+        # float ids in column 0, truncated like the JAX astype(int32)
+        return view, self.object_vectors[aux[:, 0].long()]
+
+    def kmat(self, x: Tensor, y: Tensor, x_inducing: bool = True,
+             y_inducing: bool = True) -> Tensor:
+        xv, xo = self._features(x, x_inducing)
+        yv, yo = self._features(y, y_inducing)
+        k_view = kernels.exp_sin_squared_matrix(
+            xv, yv, self.amplitude, self.length_scale, 2.0 * math.pi)
+        k_obj = kernels.linear_matrix(xo, yo)
+        if self.config.K_obj_normalize:
+            k_obj = kernels.cosine_normalize_matrix(k_obj, xo, yo)
+        return k_view * k_obj
+
+    def kdiag(self, x: Tensor, y: Tensor, x_inducing: bool = True,
+              y_inducing: bool = True) -> Tensor:
+        xv, xo = self._features(x, x_inducing)
+        yv, yo = self._features(y, y_inducing)
+        k_view = kernels.exp_sin_squared_diag(
+            xv, yv, self.amplitude, self.length_scale, 2.0 * math.pi)
+        k_obj = kernels.linear_diag(xo, yo)
+        if self.config.K_obj_normalize:
+            k_obj = kernels.cosine_normalize_diag(k_obj, xo, yo)
+        return k_view * k_obj
+
+    def named_tensors(self) -> Dict[str, Tensor]:
+        """{field: tensor} of the parameters (the table only if present)."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), Tensor)}
+
+    to = _to
 
 
 @dataclasses.dataclass
@@ -96,13 +162,20 @@ class SpritesSVGP:
                 k_c = kernels.cosine_normalize_diag(k_c, xc, yc)
         return k_a * k_c
 
-    def to(self, *args, **kwargs) -> "SpritesSVGP":
-        """A copy with Tensor.to(*args, **kwargs) applied to every tensor
-        field (device and/or dtype)."""
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(*args, **kwargs)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), Tensor)})
+    to = _to
+
+
+def init_mnist_svgp(initial_inducing_points, object_vectors_init=None,
+                    config: SVGPConfig = SVGPConfig(),
+                    dtype=torch.float32) -> MnistSVGP:
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype)
+
+    return MnistSVGP(
+        config=config, inducing_points=t(initial_inducing_points),
+        length_scale=t(1.0), amplitude=t(1.0),
+        object_vectors=None if object_vectors_init is None
+        else t(object_vectors_init))
 
 
 def init_sprites_svgp(initial_inducing_points, initial_gplvm_action,
@@ -121,12 +194,109 @@ def init_sprites_svgp(initial_inducing_points, initial_gplvm_action,
         L_action=L_action, use_se_kernel=use_se_kernel)
 
 
-def _sigma_cholesky(Sigma: Tensor, cfg: SVGPConfig) -> Tensor:
-    """Cholesky of Sigma with absolute + relative jitter; the relative part
-    scales with the max diagonal over ALL channels (as the JAX package)."""
+def sigma_jitter(Sigma: Tensor, cfg: SVGPConfig):
+    """Absolute + relative ridge of the Sigma_l factorization; the relative
+    part scales with the max diagonal over ALL channels (as the JAX
+    package: the f32 assembly's round-off scales with lambda_max)."""
     diag_scale = torch.max(torch.diagonal(Sigma, dim1=-2, dim2=-1))
-    return linalg.safe_cholesky(Sigma,
-                                cfg.jitter + SIGMA_REL_JITTER * diag_scale)
+    return cfg.jitter + SIGMA_REL_JITTER * diag_scale
+
+
+def _sigma_cholesky(Sigma: Tensor, cfg: SVGPConfig) -> Tensor:
+    return linalg.safe_cholesky(Sigma, sigma_jitter(Sigma, cfg))
+
+
+# ---------------------------------------------------------------------------
+# batch-level two-pass math (the parity anchor, and the CPU default)
+# ---------------------------------------------------------------------------
+
+
+@linalg.precise
+def kernel_matrices(gp, aux: Tensor):
+    """The per-step kernel bundle, shared across the L channels:
+    (Kmm, Kmm_chol, Knm, Knn_diag)."""
+    z = gp.inducing_points
+    Kmm = gp.kmat(z, z)
+    Kmm_chol = linalg.safe_cholesky(Kmm, gp.config.jitter)
+    Knm = gp.kmat(aux, z, x_inducing=False)
+    Knn_diag = gp.kdiag(aux, aux, x_inducing=False, y_inducing=False)
+    return Kmm, Kmm_chol, Knm, Knn_diag
+
+
+@linalg.precise
+def posterior_params(gp, aux_test: Tensor, aux_train: Tensor, y: Tensor,
+                     noise: Tensor):
+    """Approximate GP posterior for ALL channels.
+
+    aux_test (x, D) index points to evaluate at, aux_train (b, D)
+    minibatch index points, y/noise (b, L) encoder means/variances.
+    Returns p_m (x, L), p_v (x, L), mu_hat (L, m), A_hat (L, m, m).
+    """
+    cfg = gp.config
+    b = y.shape[0]
+    scale = (cfg.N_train / b) if cfg.N_train else 1.0
+
+    z = gp.inducing_points
+    Kmm = gp.kmat(z, z)
+    Kmm_chol = linalg.safe_cholesky(Kmm, cfg.jitter)
+    Knm = gp.kmat(aux_train, z, x_inducing=False)  # (b, m)
+    Kxm = gp.kmat(aux_test, z, x_inducing=False)   # (x, m)
+    Kxx_diag = gp.kdiag(aux_test, aux_test, x_inducing=False,
+                        y_inducing=False)          # (x,)
+
+    precision = linalg.reciprocal_no_nan(noise)    # (b, L)
+    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    Sigma = Kmm[None] + scale * sigma_contrib
+    Sigma_chol = _sigma_cholesky(Sigma, cfg)       # (L, m, m)
+    sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]  # (L, m)
+
+    p_m = scale * torch.einsum("xm,lm->xl", Kxm, sir)
+
+    # Nystrom term diag(K_xm K_mm^{-1} K_mx), shared over channels
+    KmmInv_Kmx = linalg.cho_solve(Kmm_chol, Kxm.T)                 # (m, x)
+    nystrom = torch.sum(Kxm * KmmInv_Kmx.T, dim=-1)                # (x,)
+    SigInv_Kmx = linalg.cho_solve(
+        Sigma_chol, Kxm.T.expand(Sigma.shape[0], *Kxm.T.shape))    # (L, m, x)
+    sig_quad = torch.einsum("xm,lmx->xl", Kxm, SigInv_Kmx)         # (x, L)
+    p_v = (Kxx_diag - nystrom)[:, None] + sig_quad
+
+    mu_hat = scale * (Kmm @ sir[..., None])[..., 0]                # (L, m)
+    A_hat = Kmm[None] @ linalg.cho_solve(Sigma_chol,
+                                         Kmm.expand(Sigma.shape))
+    return p_m, p_v, mu_hat, A_hat
+
+
+@linalg.precise
+def hensman_terms(gp, Kmm_chol: Tensor, Knm: Tensor, Knn_diag: Tensor,
+                  y: Tensor, noise: Tensor, mu_hat: Tensor, A_hat: Tensor):
+    """Hensman inside-ELBO pieces for all channels at once:
+    (sum_terms (L,), kl_terms (L,))."""
+    cfg = gp.config
+    b = y.shape[0]
+
+    W = linalg.cho_solve(Kmm_chol, Knm.T)            # (m, b)
+    precision = linalg.reciprocal_no_nan(noise)      # (b, L)
+    mean_vec = torch.einsum("mb,lm->bl", W, mu_hat)  # (b, L)
+    k_tilde = Knn_diag - torch.sum(Knm * W.T, dim=-1)             # (b,)
+    wAw = torch.einsum("mb,lmp,pb->bl", W, A_hat, W)              # (b, L)
+
+    sum_terms = -0.5 * (
+        torch.sum(precision * k_tilde[:, None], dim=0)
+        + torch.sum(precision * wAw, dim=0)
+        + torch.sum(torch.log(noise), dim=0)
+        + b * linalg.LOG_2PI
+        + torch.sum(precision * (y - mean_vec) ** 2, dim=0))     # (L,)
+    kl_terms = linalg.mvn_kl_against_prior(mu_hat, A_hat, Kmm_chol,
+                                           cfg.jitter)            # (L,)
+    return sum_terms, kl_terms
+
+
+def variational_loss(gp, aux: Tensor, y: Tensor, noise: Tensor,
+                     mu_hat: Tensor, A_hat: Tensor):
+    """Per-channel inside-ELBO terms (sum_terms (L,), kl_terms (L,)) of the
+    Hensman bound (the Titsias bound is not ported yet)."""
+    _, Kmm_chol, Knm, Knn_diag = kernel_matrices(gp, aux)
+    return hensman_terms(gp, Kmm_chol, Knm, Knn_diag, y, noise, mu_hat, A_hat)
 
 
 def _fused_precompute_stats(gp: SpritesSVGP, aux_train: Tensor,

@@ -1,8 +1,13 @@
 from svgpvae_tpu_torch.models.svgpvae import (  # noqa: F401
+    GP_BLOCK_AUTO_TABLE,
     PVAR_CLIP,
     QVAR_CLIP,
+    SVGPVAEOutputs,
     batching_encode_svgpvae,
+    forward_pass_svgpvae,
     precompute_gp_params,
+    predict_cgen_mnist,
     predict_cgen_sprites,
+    resolve_gp_block_impl,
     sprites_aux_data,
 )

@@ -1,12 +1,13 @@
-"""SVGPVAE test-time passes for SPRITES (port of the serving part of
-svgpvae_tpu/models/svgpvae.py): encode, character auxiliary data,
-full-train-set precompute, and conditional generation for unseen
-characters.  Inference only, so everything runs under no_grad.
+"""SVGPVAE passes (port of svgpvae_tpu/models/svgpvae.py): the
+rotated-MNIST training forward (Hensman bound, optionally GECO) and its
+conditional generation, and the SPRITES test-time passes (encode,
+character auxiliary data, full-train-set precompute, conditional
+generation for unseen characters, all under no_grad).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -18,6 +19,161 @@ from svgpvae_tpu_torch import linalg
 QVAR_CLIP = (1e-3, 10.0)
 # GP posterior variance clip for SPRITES (reference: SVGPVAE_model.py:891-892)
 PVAR_CLIP = (1e-4, 100.0)
+# f32 guard on the MNIST posterior variance before the CE log
+MNIST_PVAR_FLOOR = 1e-6
+
+GP_BLOCK_IMPLS = ("reference", "fused", "fused_pallas", "fused_rejitter",
+                  "fused_rejitter_pallas")
+
+# --gp_block_impl 'auto': (workload, bound, backend) -> (impl, reason).
+# Only the cells of the paths the port has are here.  The JAX table's
+# "tpu" column becomes "cuda": on a CUDA device the north-star step runs
+# the fused block with the hand-written B1 kernel (a `*_pallas` impl means
+# "B1's kernel on a CUDA tensor, its plain twin on a CPU tensor"), as the
+# SPRITES serving slice runs B2/B3 unconditionally on CUDA.
+GP_BLOCK_AUTO_TABLE = {
+    ("mnist", "hensman", "cuda"): (
+        "fused_pallas", "one (17, 32, 32) B1 launch per step replaces the "
+        "batched Cholesky and its solves; the slice's kernel path"),
+    ("mnist", "hensman", "other"): (
+        "reference", "two-pass path, the parity anchor (as the JAX CPU "
+        "cell)"),
+}
+
+
+def resolve_gp_block_impl(impl: str, workload: str = "mnist",
+                          titsias: bool = False,
+                          device: torch.device = torch.device("cpu")) -> str:
+    """Resolve 'auto' through GP_BLOCK_AUTO_TABLE by workload, bound and
+    the device's backend; explicit impls pass through untouched."""
+    if impl != "auto":
+        if impl not in GP_BLOCK_IMPLS:
+            raise ValueError(f"unknown gp_block_impl {impl!r}")
+        return impl
+    backend = "cuda" if torch.device(device).type == "cuda" else "other"
+    key = (workload, "titsias" if titsias else "hensman", backend)
+    if key not in GP_BLOCK_AUTO_TABLE:
+        raise NotImplementedError(f"{key}: not ported yet")
+    return GP_BLOCK_AUTO_TABLE[key][0]
+
+
+class SVGPVAEOutputs(NamedTuple):
+    elbo: Tensor            # objective (GECO: minimized; else maximized)
+    recon_loss: Tensor      # per-pixel MSE sum (plain) / GECO constraint sum
+    kl_term: Tensor
+    inside_elbo: Tensor
+    ce_term: Tensor
+    p_m: Tensor
+    p_v: Tensor
+    qnet_mu: Tensor
+    qnet_var: Tensor
+    recon_images: Tensor
+    inside_elbo_recon: Tensor
+    inside_elbo_kl: Tensor
+    latent_samples: Tensor
+    C_ma: Tensor
+    lagrange_mult: Tensor
+
+
+def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
+                         lagrange_mult, alpha, kappa, clip_qs: bool = True,
+                         geco: bool = False, lagrange_max: float = 1e5,
+                         gp_block_impl: str = "reference",
+                         entropy_ce: bool = False) -> SVGPVAEOutputs:
+    """Rotated-MNIST training forward: encoder -> GP posterior + Hensman
+    inside-ELBO for all channels -> cross-entropy term -> reparameterized
+    sample with the given `eps` (b, L) -> decoder -> objective.
+
+    batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)).
+
+    GECO:
+      recon = sum_b( mean_px_sq_err - kappa^2 )
+      C_ma' = alpha * C_ma + (1 - alpha) * recon / b
+      objective = -KL + lambda * (recon/b + detach(C_ma' - recon/b))
+      lambda' = min(lambda * exp(C_ma'), lagrange_max)
+    C_ma' and lambda' come back detached (the next step's state); alpha = 0
+    at step 0 is the caller's (train.geco_effective_alpha).
+    """
+    if gp_block_impl not in GP_BLOCK_IMPLS:
+        raise ValueError(f"gp_block_impl {gp_block_impl!r} ('auto' must be "
+                         "resolved by the caller)")
+    images, aux_data = batch
+    b = images.shape[0]
+    K = images.shape[1] * images.shape[2] * images.shape[3]
+
+    qnet_mu, qnet_var = vae.encode(images)
+    L = qnet_mu.shape[1]
+    if clip_qs:
+        qnet_var = torch.clamp(qnet_var, *QVAR_CLIP)
+
+    if gp_block_impl == "reference":
+        p_m, p_v, mu_hat, A_hat = gpm.posterior_params(
+            gp_params, aux_data, aux_data, qnet_mu, qnet_var)
+        sum_terms, kl_terms = gpm.variational_loss(
+            gp_params, aux_data, qnet_mu, qnet_var, mu_hat, A_hat)
+    else:
+        p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_hensman(
+            gp_params, aux_data, qnet_mu, qnet_var,
+            inverse_impl="pallas" if gp_block_impl.endswith("_pallas")
+            else "chol",
+            kl_impl="rejitter" if "rejitter" in gp_block_impl
+            else "identity")
+
+    inside_elbo_recon = torch.sum(sum_terms)
+    inside_elbo_kl = torch.sum(kl_terms)
+    n_total = gp_params.config.N_train or b
+    inside_elbo = inside_elbo_recon - (b / n_total) * inside_elbo_kl
+
+    # f32 guard: Kxx - nystrom + sig_quad can dip slightly negative
+    p_v = torch.clamp(p_v, min=MNIST_PVAR_FLOOR)
+
+    if entropy_ce:
+        # exact entropy of the sampling distribution N(p_m, p_v)
+        ce_term = torch.sum(-0.5 * (1.0 + linalg.LOG_2PI + torch.log(p_v)))
+    else:
+        ce_term = torch.sum(linalg.gauss_cross_entropy(p_m, p_v, qnet_mu,
+                                                       qnet_var))
+    kl_term = -ce_term + inside_elbo
+
+    latent_samples = p_m + eps * linalg.stable_sqrt(p_v)
+    recon_images = vae.decode(latent_samples)
+
+    sq_err = (images - recon_images) ** 2
+    if geco:
+        per_image_mse = torch.mean(sq_err, dim=(1, 2, 3))
+        recon_loss = torch.sum(per_image_mse - kappa * kappa)
+        C_ma_new = (alpha * C_ma + (1.0 - alpha) * recon_loss / b).detach()
+        elbo = -kl_term + lagrange_mult * (
+            recon_loss / b + (C_ma_new - recon_loss / b).detach())
+        lagrange_new = torch.clamp(lagrange_mult * torch.exp(C_ma_new),
+                                   max=lagrange_max).detach()
+    else:
+        recon_loss = torch.sum(sq_err) / K
+        elbo = -recon_loss + (beta / L) * kl_term
+        C_ma_new, lagrange_new = C_ma, lagrange_mult
+
+    return SVGPVAEOutputs(
+        elbo=elbo, recon_loss=recon_loss, kl_term=kl_term,
+        inside_elbo=inside_elbo, ce_term=ce_term, p_m=p_m, p_v=p_v,
+        qnet_mu=qnet_mu, qnet_var=qnet_var, recon_images=recon_images,
+        inside_elbo_recon=inside_elbo_recon, inside_elbo_kl=inside_elbo_kl,
+        latent_samples=latent_samples, C_ma=C_ma_new,
+        lagrange_mult=lagrange_new)
+
+
+@torch.no_grad()
+def predict_cgen_mnist(vae, gp_params, test_batch, train_means: Tensor,
+                       train_vars: Tensor, aux_data_train: Tensor,
+                       eps: Tensor):
+    """Conditional generation for rotated MNIST: the GP posterior at the
+    test aux data conditioned on ALL train encodings, sampled with `eps`
+    (x, L), decoded.  Returns (recon images, per-pixel MSE sum)."""
+    images_test, aux_test = test_batch
+    K = images_test.shape[1] * images_test.shape[2]
+    p_m, p_v, _, _ = gpm.posterior_params(
+        gp_params, aux_test, aux_data_train, train_means, train_vars)
+    recon = vae.decode(p_m + eps * linalg.stable_sqrt(p_v))
+    return recon, torch.sum((images_test - recon) ** 2) / K
 
 
 @torch.no_grad()

@@ -1,11 +1,12 @@
-"""SPRITES networks as torch nn.Modules (port of the SPRITES part of
-svgpvae_tpu/nn/nets.py, reference form only: 16 filters, plain convs).
+"""SPRITES and rotated-MNIST networks as torch nn.Modules (port of the
+SPRITES and MNIST parts of svgpvae_tpu/nn/nets.py; SPRITES in the
+reference form only: 16 filters, plain convs).
 
-Public methods take and return NHWC images, (b, 64, 64, 3), like the flax
-modules; the modules work in NCHW inside.  XLA's SAME padding is
-reproduced exactly: a 3x3 stride-2 conv on an even size (64 -> 32 -> 16 ->
-8 here) pads (0, 1), not (1, 1), so those convs pad explicitly and use
-padding=0.
+Public methods take and return NHWC images, (b, 64, 64, 3) or
+(b, 28, 28, 1), like the flax modules; the modules work in NCHW inside.
+XLA's SAME padding is reproduced exactly: a 3x3 stride-2 conv on an even
+size (64 -> 32 -> 16 -> 8 here) pads (0, 1), not (1, 1), so those convs
+pad explicitly and use padding=0.  At stride 1 SAME is (1, 1).
 """
 
 from __future__ import annotations
@@ -105,3 +106,49 @@ class SpritesReprNet(nn.Module):
         for conv in self.convs:
             h = F.elu(conv(h))
         return h.mean(dim=(2, 3))
+
+
+MNIST_FILTERS = 8  # the reference's conv width
+
+
+class MnistVAE(nn.Module):
+    """Conv VAE for rotated MNIST: encoder 3x Conv(8, 3, stride 2, VALID,
+    elu) (28 -> 13 -> 6 -> 2) -> Linear(2L), split into mean and
+    safe_exp(log-variance); decoder Linear(128) -> (8, 4, 4) -> up2 +
+    Conv(8, 3, SAME) -> up2 + Conv(8, 3, VALID) -> up2 + Conv(1, 3, SAME),
+    all elu.
+
+    The Linear layers use torch's (C, H, W) flatten order;
+    utils.convert.mnist_vae_state permutes flax's (H, W, C) order to it.
+    """
+
+    def __init__(self, L: int = 16):
+        super().__init__()
+        self.L = L
+        f = MNIST_FILTERS
+        self.enc_convs = nn.ModuleList(
+            nn.Conv2d(1 if i == 0 else f, f, 3, stride=2) for i in range(3))
+        self.enc_out = nn.Linear(4 * f, 2 * L)
+        self.dec_in = nn.Linear(L, 16 * f)
+        self.dec_convs = nn.ModuleList([
+            nn.Conv2d(f, f, 3, padding=1), nn.Conv2d(f, f, 3),
+            nn.Conv2d(f, 1, 3, padding=1)])
+
+    def encode(self, images: Tensor) -> Tuple[Tensor, Tensor]:
+        """NHWC images (b, 28, 28, 1) -> (mean (b, L), var (b, L))."""
+        h = images.permute(0, 3, 1, 2)
+        for conv in self.enc_convs:
+            h = F.elu(conv(h))
+        enc = self.enc_out(h.flatten(1))
+        return enc[:, :self.L], safe_exp(enc[:, self.L:])
+
+    def decode(self, latents: Tensor) -> Tensor:
+        """(b, L) -> NHWC images (b, 28, 28, 1)."""
+        h = self.dec_in(latents).view(-1, MNIST_FILTERS, 4, 4)
+        for conv in self.dec_convs:
+            h = F.elu(conv(upsample2x(h)))
+        return h.permute(0, 2, 3, 1)
+
+    def forward(self, images: Tensor):
+        mean, var = self.encode(images)
+        return self.decode(mean), mean, var

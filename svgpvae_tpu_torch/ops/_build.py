@@ -4,6 +4,8 @@ a plain C interface -> ctypes).
 The library is compiled from `svgpvae_tpu_torch/csrc/*.cu` at first use,
 into `svgpvae_tpu_torch/_build/` (listed in .gitignore), under a name keyed
 by the sources' hash, so an edited source is never served by a stale build.
+Each source is compiled by its own nvcc process, all started together, and
+the objects are then linked into one shared library.
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no nvcc.
 """
@@ -23,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -40,6 +42,8 @@ _SIGNATURES = {
     "svgp_fused_kernel_stats": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _P], _I),
+    "svgp_chol_inverse_max_m": ([_I, _PI], _I),
+    "svgp_chol_inverse": ([_P, _P, _P, _I, _I, _P], _I),
 }
 
 
@@ -65,18 +69,29 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails, after every one has ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def _compile(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: concurrent builders never see a half file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(work, s.stem + ".o") for s in srcs]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                  for s, o in zip(srcs, objs)])
+        tmp = os.path.join(work, target.name)
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, target)  # atomic: never a half-written library
 
 
 def load() -> ctypes.CDLL:

@@ -10,6 +10,10 @@ tensors, and runs its plain twin `gp_sufficient_stats_reference` for CPU
 tensors.  Unlike the TPU dispatcher there is no n/m threshold: on CUDA the
 kernel always runs.  The kernel's bound and design are described in the
 CUDA source.
+
+`gp_stats` is the differentiable form (the JAX custom_vjp of the same
+name): its forward is `gp_sufficient_stats`, its backward the einsum VJP
+of svgpvae_tpu/ops/gp_stats.py::_gp_stats_bwd.
 """
 
 from __future__ import annotations
@@ -96,3 +100,36 @@ def gp_sufficient_stats(Knm: torch.Tensor, prec: torch.Tensor,
 
 
 gp_sufficient_stats.launches = 0
+
+
+class _GPStats(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its twin (CPU).  Backward: einsums."""
+
+    @staticmethod
+    def forward(ctx, Knm, prec, py):
+        ctx.save_for_backward(Knm, prec, py)
+        return gp_sufficient_stats(Knm, prec, py)
+
+    @staticmethod
+    @linalg.precise
+    def backward(ctx, d_sigma, d_r):
+        Knm, prec, py = ctx.saved_tensors
+        # Sigma_l = K^T diag(prec_l) K  =>
+        #   dK    += sum_l prec[:, l] * (K @ (dSigma_l + dSigma_l^T))
+        #   dprec[n, l] = K[n] dSigma_l K[n]^T
+        sym = d_sigma + d_sigma.transpose(-1, -2)              # (L, m, m)
+        k_sym = torch.einsum("nm,lmp->lnp", Knm, sym)          # (L, n, m)
+        dK = torch.einsum("nl,lnp->np", prec, k_sym)
+        dprec = 0.5 * torch.einsum("nm,lnm->nl", Knm, k_sym)
+        # r_l = K^T py_l  =>  dK += py @ d_r ; dpy = K @ d_r^T
+        dK = dK + py @ d_r
+        dpy = Knm @ d_r.T
+        return dK, dprec, dpy
+
+
+def gp_stats(Knm: torch.Tensor, prec: torch.Tensor, py: torch.Tensor):
+    """Differentiable (Sigma (L, m, m), r (L, m)) in all three arguments.
+    The inputs are made contiguous first (a kernel matrix may arrive as a
+    strided view); the kernel takes nothing else."""
+    return _GPStats.apply(Knm.contiguous(), prec.contiguous(),
+                          py.contiguous())

@@ -1,0 +1,9 @@
+from svgpvae_tpu_torch.train.geco import geco_effective_alpha  # noqa: F401
+from svgpvae_tpu_torch.train.state import GECOState, TrainState  # noqa: F401
+from svgpvae_tpu_torch.train.trainer import (  # noqa: F401
+    cosine_decay_lr,
+    make_optimizer,
+    parse_opt_regime,
+    train_step,
+    trainable_tensors,
+)

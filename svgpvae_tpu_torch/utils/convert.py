@@ -10,6 +10,12 @@ tools/export_jax_params.py writes):
 and returns {"vae": SpritesVAE state dict, "repr": SpritesReprNet state
 dict, "gp": {field: tensor}} for `load_state_dict` and
 `gp.svgp.init_sprites_svgp`.
+
+`mnist_params_from_jax` does the same for a rotated-MNIST SVGPVAE
+({"vae": flax MnistVAE params, "gp": MnistSVGP}, flattened alike:
+vae/params/encoder/Conv_0/kernel, ..., gp/inducing_points, ...) and
+returns {"vae": MnistVAE state dict, "gp": {field: tensor}}; the GPLVM
+table gp/object_vectors is optional.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 GP_FIELDS = ("inducing_points", "gplvm_action", "l_action", "sigma_action",
              "l_character", "sigma_character")
+MNIST_GP_FIELDS = ("inducing_points", "length_scale", "amplitude")
 
 
 def _t(a) -> torch.Tensor:
@@ -37,7 +44,7 @@ def _module(flat: Dict[str, np.ndarray], prefix: str):
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in flat.items():
         if key.startswith(prefix + "/"):
-            layer, leaf = key[len(prefix) + 1:].split("/")
+            layer, leaf = key[len(prefix) + 1:].rsplit("/", 1)
             out.setdefault(layer, {})[leaf] = np.asarray(value)
     return out
 
@@ -93,3 +100,45 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
         "repr": sprites_repr_state(_module(flat, "repr/params")),
         "gp": {k: _t(flat[f"gp/{k}"]) for k in GP_FIELDS},
     }
+
+
+def mnist_vae_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:
+    """State dict of nn.nets.MnistVAE from the flax MnistVAE params
+    ({"encoder/Conv_0": {...}, ..., "decoder/Dense_0": {...}}).
+
+    The encoder flattens (2, 2, 8) NHWC maps in (h, w, c) order and the
+    decoder reshapes its Dense output to (4, 4, 8) NHWC; torch flattens
+    and reshapes (c, h, w), so the Dense rows/columns are permuted.
+    """
+    state = {}
+    for i in range(3):
+        for side, name in (("encoder", "enc_convs"), ("decoder", "dec_convs")):
+            conv = p[f"{side}/Conv_{i}"]
+            state[f"{name}.{i}.weight"] = _conv(conv["kernel"])
+            state[f"{name}.{i}.bias"] = _t(conv["bias"])
+    f = p["encoder/Conv_0"]["bias"].shape[0]
+
+    w = p["encoder/Dense_0"]["kernel"]  # (2*2*f, 2L) rows in (h, w, c) order
+    w = w.reshape(2, 2, f, -1).transpose(2, 0, 1, 3).reshape(w.shape)
+    state["enc_out.weight"] = _t(w.T)
+    state["enc_out.bias"] = _t(p["encoder/Dense_0"]["bias"])
+
+    w = p["decoder/Dense_0"]["kernel"]  # (L, 4*4*f) columns in (h, w, c)
+    L = w.shape[0]
+    w = w.reshape(L, 4, 4, f).transpose(0, 3, 1, 2).reshape(w.shape)
+    state["dec_in.weight"] = _t(w.T)
+    b = p["decoder/Dense_0"]["bias"].reshape(4, 4, f).transpose(2, 0, 1)
+    state["dec_in.bias"] = _t(b.reshape(-1))
+    return state
+
+
+def mnist_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
+    """Flat JAX rotated-MNIST SVGPVAE parameters -> the port's (see the
+    module doc)."""
+    missing = [f"gp/{k}" for k in MNIST_GP_FIELDS if f"gp/{k}" not in flat]
+    if missing:
+        raise KeyError(f"missing GP parameters: {missing}")
+    gp = {k: _t(flat[f"gp/{k}"]) for k in MNIST_GP_FIELDS}
+    if "gp/object_vectors" in flat:
+        gp["object_vectors"] = _t(flat["gp/object_vectors"])
+    return {"vae": mnist_vae_state(_module(flat, "vae/params")), "gp": gp}

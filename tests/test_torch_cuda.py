@@ -10,12 +10,19 @@ imports jax):
 Tolerance: fp32 kernel vs fp32 twin, the same sums in another order;
 max abs error <= 1e-4 of max|twin| (as chip_smoke.py: the random-walk
 estimate sqrt(n)*eps is ~1e-5 of the scale at these n).
+
+B1 (chol_inverse), Gauss-Jordan against the Cholesky twin and float64, on
+PD stacks of condition 1e4 (m <= 37) and 1e3 (m = 72): the inverse within
+5e-4 of its own max |entry|, logdet within rtol 1e-5 (1e-4 at m = 72) --
+the tolerances tests/test_fused_gp.py holds the TPU kernel to, since both
+methods are backward-stable at ~cond * eps.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from svgpvae_tpu_torch.ops import chol_inverse as ci
 from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
 from svgpvae_tpu_torch.ops import gp_stats as gps
 
@@ -133,3 +140,99 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
         gps.gp_sufficient_stats(knm.T.contiguous().T, prec, prec)
     with pytest.raises(ValueError, match="CUDA"):
         gps.gp_sufficient_stats(knm, prec.cpu(), prec)
+
+
+def _pd_stack(rng, B, m, cond):
+    out = np.empty((B, m, m))
+    for i in range(B):
+        Q, _ = np.linalg.qr(rng.randn(m, m))
+        out[i] = (Q * np.logspace(0, np.log10(cond), m)) @ Q.T
+    return out
+
+
+B1_CASES = [(17, 32, 1e4), (65, 72, 1e3), (5, 37, 1e4), (5, 15, 1e4),
+            (3, 1, 1.0), (2, 130, 1e2)]
+
+
+@pytest.mark.parametrize("B,m,cond", B1_CASES)
+def test_chol_inverse_kernel_matches_twin_and_f64(cuda, B, m, cond):
+    a = _pd_stack(np.random.RandomState(B + m), B, m, cond)
+    M = torch.from_numpy(a.astype(np.float32)).to(cuda)
+    before = ci.chol_inverse_kernel.launches
+    inv, ld = ci.chol_inverse_kernel(M)
+    torch.cuda.synchronize()
+    assert ci.chol_inverse_kernel.launches == before + 1
+    inv_t, ld_t = ci.chol_inverse_reference(M)
+    inv64 = np.linalg.inv(a.astype(np.float32).astype(np.float64))
+    ld64 = np.linalg.slogdet(a.astype(np.float32).astype(np.float64))[1]
+    rtol_ld = 1e-4 if m >= 72 else 1e-5
+    for want_inv, want_ld in ((inv_t.cpu().double().numpy(),
+                               ld_t.cpu().double().numpy()), (inv64, ld64)):
+        scale = np.abs(want_inv).max()
+        np.testing.assert_allclose(inv.cpu().double().numpy() / scale,
+                                   want_inv / scale, atol=5e-4)
+        np.testing.assert_allclose(ld.cpu().double().numpy(), want_ld,
+                                   rtol=rtol_ld, atol=1e-6)
+
+
+def test_chol_inverse_kernel_gives_nan_logdet_off_pd(cuda):
+    M = torch.eye(4, device=cuda).repeat(2, 1, 1)
+    M[1, 2, 2] = -1.0
+    _, ld = ci.chol_inverse_kernel(M)
+    assert float(ld[0]) == 0.0 and bool(torch.isnan(ld[1]))
+
+
+def test_chol_inverse_kernel_refuses_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError, match="does not fit"):
+        too_big = ci.max_m(cuda) + 1
+        ci.chol_inverse_kernel(torch.eye(too_big, device=cuda)[None])
+    with pytest.raises(TypeError):
+        ci.chol_inverse_kernel(torch.eye(4, device=cuda, dtype=torch.float64)
+                               [None])
+    with pytest.raises(ValueError, match="contiguous"):
+        ci.chol_inverse_kernel(torch.eye(4, device=cuda).expand(3, 4, 4))
+
+
+def test_chol_inverse_autograd_matches_twin_autograd(cuda):
+    """Through M = B B^T + I (dL/dB is unique there)."""
+    rng = np.random.RandomState(4)
+    Bm = torch.tensor(rng.randn(17, 32, 32), dtype=torch.float32,
+                      device=cuda, requires_grad=True)
+    gi = torch.tensor(rng.randn(17, 32, 32), dtype=torch.float32, device=cuda)
+    gl = torch.tensor(rng.randn(17), dtype=torch.float32, device=cuda)
+
+    def grad(fn):
+        M = Bm @ Bm.transpose(1, 2) + torch.eye(32, device=cuda)
+        inv, ld = fn(M)
+        (g,) = torch.autograd.grad(torch.sum(inv * gi) + torch.sum(ld * gl),
+                                   Bm)
+        return g
+
+    before = ci.chol_inverse_kernel.launches
+    got = grad(ci.chol_inverse)
+    assert ci.chol_inverse_kernel.launches == before + 1
+    want = grad(ci.chol_inverse_reference)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-4 * scale
+
+
+def test_gp_stats_backward_matches_twin(cuda):
+    rng = np.random.RandomState(8)
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                         requires_grad=True)
+            for a in (rng.randn(256, 32), rng.rand(256, 16) + 0.5,
+                      rng.randn(256, 16))]
+    d_sigma = torch.tensor(rng.randn(16, 32, 32), dtype=torch.float32,
+                           device=cuda)
+    d_r = torch.tensor(rng.randn(16, 32), dtype=torch.float32, device=cuda)
+
+    def grads(fn):
+        sigma, r = fn(*args)
+        return torch.autograd.grad(torch.sum(sigma * d_sigma)
+                                   + torch.sum(r * d_r), args)
+
+    before = gps.gp_sufficient_stats.launches
+    got = grads(gps.gp_stats)
+    assert gps.gp_sufficient_stats.launches == before + 1
+    for g, w in zip(got, grads(gps.gp_sufficient_stats_reference)):
+        assert float((g - w).abs().max()) <= KERNEL_RTOL * float(w.abs().max())

@@ -315,7 +315,8 @@ def test_serve_main_matches_jax_steps(tmp_path):
     assert got["n_queries"] == 72
     np.testing.assert_allclose(got["cgen_mse"], mse, rtol=RTOL32)
     # CPU tensors: the fit ran the plain twins and launched no kernel
-    assert got["fit_launches"] == {"fused_kernel_stats": 0,
+    assert got["fit_launches"] == {"chol_inverse": 0,
+                                   "fused_kernel_stats": 0,
                                    "gp_sufficient_stats": 0}
 
 

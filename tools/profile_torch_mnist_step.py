@@ -1,0 +1,130 @@
+"""Profile the PyTorch port's rotated-MNIST training step on a CUDA card.
+
+    PYTHONPATH=. python3 tools/profile_torch_mnist_step.py [--steps 20]
+
+The north-star step of `svgpvae_tpu_torch.cli.mnist` (Hensman + GECO,
+batch 256, L = 16, m = 32, the 36-digit synthetic set with its 800-object
+GPLVM table, --gp_block_impl auto = fused_pallas on CUDA), built from the
+driver's own pieces.  After WARMUP steps it times --steps steps on the host
+clock (each ended by torch.cuda.synchronize), then runs --steps more under
+torch.profiler and prints:
+  * the step time without and with the profiler;
+  * the device's busy time per step (the union of the CUDA kernels'
+    intervals, user annotations left out) and its idle share of the
+    unprofiled step;
+  * kernel launches per step, and the kernels that take the most device
+    time (name, calls per step, device ms per step).
+TF32 is off, as in cli/mnist.py.  The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from svgpvae_tpu_torch import data, models, train
+from svgpvae_tpu_torch.cli import mnist
+
+ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
+        "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
+        "--device", "cuda", "--seed", "0"]
+WARMUP = 10
+
+
+def busy_ms(events) -> float:
+    """Union of the device kernels' [start, end) intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=20)
+    opts = p.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+
+    args = mnist.build_parser().parse_args(ARGV)
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, device=device)
+    base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
+    splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
+    n_train = len(splits["train"]["images"])
+    vae, gp = mnist.build_model(args, splits, n_train, device)
+    params = {"vae": vae, "gp": gp}
+    trainable = train.trainable_tensors(params, lambda name: True)
+    state = train.TrainState(params=params,
+                             optimizer=train.make_optimizer(trainable,
+                                                            args.lr),
+                             geco=train.GECOState.init(device=device))
+    loss_fn = mnist.make_loss_fn(args, mnist.make_forward(
+        args, mnist.default_eps_fn(args.seed, device)))
+    im = torch.as_tensor(splits["train"]["images"], dtype=torch.float32,
+                         device=device)
+    aux = torch.as_tensor(splits["train"]["aux_data"], dtype=torch.float32,
+                          device=device)
+    bs = args.batch_size
+    batches = [(im[i:i + bs], aux[i:i + bs])
+               for i in range(0, n_train - bs + 1, bs)]
+
+    for i in range(WARMUP):
+        train.train_step(state, batches[i % len(batches)], loss_fn)
+    torch.cuda.synchronize()
+
+    def steps(n):
+        out = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            train.train_step(state, batches[i % len(batches)], loss_fn)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    n = opts.steps
+    plain = steps(n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = steps(n)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = busy_ms(kernels) / n
+    p50 = float(np.median(plain))
+    print(f"{n} steps (batch {bs}, L {args.L}, m 32, gp_block_impl "
+          f"{args.gp_block_impl}): host step p50 {p50:.3f} ms (min "
+          f"{min(plain):.3f}, max {max(plain):.3f}), under the profiler "
+          f"p50 {float(np.median(profiled)):.3f} ms; device busy "
+          f"{busy:.3f} ms per step, idle share {1 - busy / p50:.3f} of the "
+          f"unprofiled p50; {len(kernels) / n:.1f} kernel launches per "
+          f"step")
+    by_name = {}
+    for e in kernels:
+        calls, dur = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, dur + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (calls, dur) in top:
+        print(f"  {dur / 1e3 / n:8.4f} ms/step  {calls / n:5.1f} calls/step  "
+              f"{name[:110]}")
+
+
+if __name__ == "__main__":
+    main()
