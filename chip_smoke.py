@@ -10,9 +10,12 @@ Phases, each of which raises (nonzero exit) on failure:
   3. each CUDA kernel against its plain PyTorch twin, on the card:
      B2/B3 at the SPRITES serving shape (n = 50,000, m = 72, L = 64) and at
      a ragged small shape, B2 also at the MNIST training shapes (256 and
-     8,100 rows, m = 32, L = 16), B1 chol_inverse at (17, 32, 32),
-     (65, 72, 72) and a ragged (5, 37, 37); max errors and the times of
-     kernel, twin and (B2) one library call;
+     164 rows in a step, 28 in the last test batch, 8,100 in the cgen
+     pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32), (65, 72, 72)
+     and a ragged (5, 37, 37); max errors and the times of kernel (per
+     call, and device time in a CUDA-graph replay), twin and (B2) one
+     library call; then one line with each kernel variant's registers
+     per thread and resident blocks per SM at those shapes;
   4. the serve, through svgpvae_tpu_torch.cli.serve.main: the
      1000-character synthetic corpus in memory (N = 50,000 train frames),
      seed-0 weights, 8 requests -- once with the default linear x linear
@@ -90,6 +93,8 @@ B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
 B1_INV_TOL = 5e-4
 # B2 at the MNIST training shapes: the step's minibatch and the cgen pass
 TRAIN_STATS = [("train_step", dict(n=256, m=32, L=16, d1=1, d2=8)),
+               ("train_tail", dict(n=164, m=32, L=16, d1=1, d2=8)),
+               ("test_tail", dict(n=28, m=32, L=16, d1=1, d2=8)),
                ("cgen", dict(n=8_100, m=32, L=16, d1=1, d2=8))]
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3
@@ -263,6 +268,9 @@ def phase_kernels(device) -> list:
             err = max(e for e, _ in errs)
             ms = cuda_ms(run)
             plain_ms = cuda_ms(twin)
+            in_line = (shape_name == "slice" and family == "sprites"
+                       and not normalize)  # the entries of the kernels line
+            dev_ms = graph_ms(run, reps=20) if in_line else None
             library_ms = None
             if name == "gp_sufficient_stats":
                 library_ms = cuda_ms(lambda: torch.einsum(
@@ -272,7 +280,10 @@ def phase_kernels(device) -> list:
                 f"{o} max_abs_err {e:.3e} (max|twin| {scale:.3e}, limit "
                 f"{KERNEL_RTOL * scale:.3e})"
                 for o, (e, scale) in zip(OUTPUTS, errs))
-                + f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
+                + f"; kernel {ms:.4f} ms"
+                + ("" if dev_ms is None
+                   else f" ({dev_ms:.4f} ms of device time in a graph replay)")
+                + f", twin {plain_ms:.4f} ms"
                 + ("" if library_ms is None
                    else f", library einsum {library_ms:.4f} ms"))
             if not ok:
@@ -280,7 +291,7 @@ def phase_kernels(device) -> list:
             records.append(dict(
                 name=name, family=family, normalize=normalize,
                 shape=shape_name, dims=shape, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms,
+                graph_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound=stats_bound(fused=name == "fused_kernel_stats",
                                   **shape)))
     return records
@@ -321,6 +332,27 @@ def phase_train_stats(device) -> None:
                    for e, sc in errs):
             raise AssertionError(f"gp_sufficient_stats {tag}: kernel "
                                  "disagrees with its twin")
+
+
+def phase_occupancy(device) -> None:
+    """Registers per thread and resident blocks per SM of every kernel
+    variant the main paths launch (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library)."""
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+    from svgpvae_tpu_torch.ops import gp_stats as gps
+    rows = {}
+    for tag, n, m, L in (("single launch", 256, 32, 16),
+                         ("small-m chunks + reduce", 8_100, 32, 16),
+                         ("partial sums + reduce", 50_000, 72, 64)):
+        rows[f"gp_sufficient_stats {tag} {(n, m, L)}"] = gps.kernel_info(
+            n, m, L, device)
+    rows["fused_kernel_stats partial sums + reduce (50000, 72, 64)"] = (
+        gps.kernel_info(50_000, 72, 64, device, SLICE["d1"], SLICE["d2"]))
+    for tag, B, m in (("one warp per matrix", 17, 32),
+                      ("shared-memory block", 65, 72)):
+        rows[f"chol_inverse {tag} {(B, m, m)}"] = ci.kernel_info(B, m, device)
+    log("kernel variants (registers per thread, resident blocks per SM): "
+        + json.dumps(rows))
 
 
 def pd_stack(rng, B, m, cond):
@@ -619,6 +651,7 @@ def main() -> int:
     records = phase_kernels(device)
     phase_train_stats(device)
     b1 = phase_chol_inverse(device)
+    phase_occupancy(device)
     results, serve_launches = phase_serve()
     for name, res in results.items():
         phase_cpu_check(name, res)
@@ -638,8 +671,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            shape=r["dims"],
-            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})))
+            shape=r["dims"], graph_ms=r["graph_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

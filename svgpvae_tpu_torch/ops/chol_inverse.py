@@ -5,7 +5,8 @@
 
 Port of svgpvae_tpu/ops/chol_inverse.py.  `chol_inverse_kernel` launches
 the hand-written CUDA kernel (csrc/chol_inverse.cu::svgp_chol_inverse,
-Gauss-Jordan in shared memory, replacing the Pallas kernel
+Gauss-Jordan: one warp per matrix in registers for m <= 32, one block per
+matrix in shared memory above, replacing the Pallas kernel
 svgpvae_tpu/ops/chol_inverse.py::chol_inverse_pallas) for CUDA tensors,
 and runs the plain twin `chol_inverse_reference` (Cholesky-based) for CPU
 tensors.  On CUDA the kernel always runs.  The kernel's bound and design
@@ -44,9 +45,23 @@ def chol_inverse_reference(M: torch.Tensor):
             linalg.logdet_from_chol(chol))
 
 
+INFO_KEYS = ("warp_per_matrix", "threads", "smem_bytes", "registers",
+             "blocks_per_sm", "grid_blocks")
+
+
+def kernel_info(B: int, m: int, device: torch.device) -> dict:
+    """The kernel a (B, m, m) stack launches on `device`: threads, shared
+    memory, registers per thread and resident blocks per SM."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    with torch.cuda.device(device):
+        _build.check(_build.load().svgp_chol_inverse_info(B, m, out),
+                     "svgp_chol_inverse_info")
+    return dict(zip(INFO_KEYS, out))
+
+
 def max_m(device: torch.device) -> int:
-    """Largest m the kernel takes on `device` (one matrix per block, held
-    in shared memory)."""
+    """Largest m the kernel takes on `device` (above m = 32, one matrix
+    per block, held in shared memory)."""
     return _max_m(device.index if device.index is not None
                   else torch.cuda.current_device())
 

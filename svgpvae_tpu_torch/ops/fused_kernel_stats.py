@@ -100,16 +100,15 @@ def fused_kernel_stats(f1: torch.Tensor, f2: torch.Tensor, ip1: torch.Tensor,
     amp = 1.0 if amp is None else float(amp)
     length_scale = 1.0 if length_scale is None else float(length_scale)
     lib = _build.load()
-    n_chunks, rows = launch_plan(lib, n, m, L, device)
-    sigma, r, ws_sigma, ws_r = alloc_outputs(n_chunks, m, L, device)
+    plan = launch_plan(n, m, L, device, d1, d2)
+    sigma, r, ws_sigma, ws_r = alloc_outputs(plan, m, L, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.svgp_fused_kernel_stats(
             f1.data_ptr(), f2.data_ptr(), ip1.data_ptr(), ip2.data_ptr(),
             d1, d2, amp, length_scale, FAMILIES[family], int(normalize),
             prec.data_ptr(), py.data_ptr(), sigma.data_ptr(), r.data_ptr(),
-            ws_sigma.data_ptr(), ws_r.data_ptr(), n, m, L, n_chunks, rows,
-            stream)
+            ws_sigma.data_ptr(), ws_r.data_ptr(), n, m, L, plan, stream)
     _build.check(status, "svgp_fused_kernel_stats")
     fused_kernel_stats.launches += 1
     return sigma, r

@@ -8,8 +8,11 @@ hand-written CUDA kernel (csrc/gp_stats.cu::svgp_gp_stats, replacing the
 Pallas kernel svgpvae_tpu/ops/gp_stats.py::gp_sufficient_stats) for CUDA
 tensors, and runs its plain twin `gp_sufficient_stats_reference` for CPU
 tensors.  Unlike the TPU dispatcher there is no n/m threshold: on CUDA the
-kernel always runs.  The kernel's bound and design are described in the
-CUDA source.
+kernel always runs.  The library's launch plan (asked once per shape and
+device) picks the kernel and the split of n: at m <= 64 one launch with
+no workspace for small n, chunks plus a fixed-order reduce above; at
+larger m (and for B3) partial sums plus the reduce.  The kernels' bound
+and design are described in the CUDA source.
 
 `gp_stats` is the differentiable form (the JAX custom_vjp of the same
 name): its forward is `gp_sufficient_stats`, its backward the einsum VJP
@@ -19,6 +22,7 @@ of svgpvae_tpu/ops/gp_stats.py::_gp_stats_bwd.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -54,22 +58,51 @@ def check_cuda_f32(**tensors) -> torch.device:
     return device
 
 
-def launch_plan(lib, n: int, m: int, L: int, device: torch.device):
-    """(n_chunks, rows_per_chunk) of the partial-sum workspace, as the
-    library splits n for this device's SM count."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_chunks, rows = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib.svgp_stats_plan(n, m, L, sms, ctypes.byref(n_chunks),
-                                     ctypes.byref(rows)), "svgp_stats_plan")
-    return n_chunks.value, rows.value
+INFO_KEYS = ("single_launch", "threads", "smem_bytes", "registers",
+             "blocks_per_sm", "grid_blocks", "reduce_registers",
+             "reduce_blocks_per_sm")
 
 
-def alloc_outputs(n_chunks: int, m: int, L: int, device: torch.device):
-    """Outputs and the per-chunk partial-sum workspace."""
+def launch_plan(n: int, m: int, L: int, device: torch.device, d1: int = 0,
+                d2: int = 0):
+    """The library's launch plan of this shape on `device`, as the C array
+    {n_chunks, rows_per_chunk, tile} its entry points take: n_chunks = 0
+    is the single-launch path (B2 only, no workspace), otherwise the
+    partial-sum workspace has n_chunks chunks.  d1 = d2 = 0 is B2; B3
+    passes its feature widths.  Asked once per shape and device."""
+    return _plan(device.index, n, m, L, d1, d2)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(index: int, n: int, m: int, L: int, d1: int, d2: int):
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        _build.check(_build.load().svgp_stats_plan(n, m, L, d1, d2, out),
+                     "svgp_stats_plan")
+    return out
+
+
+def kernel_info(n: int, m: int, L: int, device: torch.device, d1: int = 0,
+                d2: int = 0) -> dict:
+    """The kernels this shape's plan launches on `device`: threads,
+    shared memory, registers per thread and resident blocks per SM
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    with torch.cuda.device(device):
+        _build.check(_build.load().svgp_stats_info(n, m, L, d1, d2, out),
+                     "svgp_stats_info")
+    return dict(zip(INFO_KEYS, out))
+
+
+def alloc_outputs(plan, m: int, L: int, device: torch.device):
+    """Outputs and the per-chunk partial-sum workspace (None, None on the
+    single-launch path)."""
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((L, m, m), **f32), torch.empty((L, m), **f32),
-            torch.empty((n_chunks, L, m, m), **f32),
-            torch.empty((n_chunks, L, m), **f32))
+    n_chunks = plan[0]
+    ws = ((torch.empty((n_chunks, L, m, m), **f32),
+           torch.empty((n_chunks, L, m), **f32)) if n_chunks else
+          (None, None))
+    return (torch.empty((L, m, m), **f32), torch.empty((L, m), **f32), *ws)
 
 
 def gp_sufficient_stats(Knm: torch.Tensor, prec: torch.Tensor,
@@ -86,14 +119,14 @@ def gp_sufficient_stats(Knm: torch.Tensor, prec: torch.Tensor,
         raise ValueError(f"shapes Knm {tuple(Knm.shape)}, prec "
                          f"{tuple(prec.shape)}, py {tuple(py.shape)}")
     lib = _build.load()
-    n_chunks, rows = launch_plan(lib, n, m, L, device)
-    sigma, r, ws_sigma, ws_r = alloc_outputs(n_chunks, m, L, device)
+    plan = launch_plan(n, m, L, device)
+    sigma, r, *ws = alloc_outputs(plan, m, L, device)
+    ws_ptrs = [None if w is None else w.data_ptr() for w in ws]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.svgp_gp_stats(
             Knm.data_ptr(), prec.data_ptr(), py.data_ptr(), sigma.data_ptr(),
-            r.data_ptr(), ws_sigma.data_ptr(), ws_r.data_ptr(), n, m, L,
-            n_chunks, rows, stream)
+            r.data_ptr(), *ws_ptrs, n, m, L, plan, stream)
     _build.check(status, "svgp_gp_stats")
     gp_sufficient_stats.launches += 1
     return sigma, r

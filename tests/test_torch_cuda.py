@@ -12,10 +12,17 @@ max abs error <= 1e-4 of max|twin| (as chip_smoke.py: the random-walk
 estimate sqrt(n)*eps is ~1e-5 of the scale at these n).
 
 B1 (chol_inverse), Gauss-Jordan against the Cholesky twin and float64, on
-PD stacks of condition 1e4 (m <= 37) and 1e3 (m = 72): the inverse within
-5e-4 of its own max |entry|, logdet within rtol 1e-5 (1e-4 at m = 72) --
-the tolerances tests/test_fused_gp.py holds the TPU kernel to, since both
-methods are backward-stable at ~cond * eps.
+PD stacks of condition up to 1e4 (m <= 37) and 1e3 (m = 72): the inverse
+within 5e-4 of its own max |entry|, logdet within rtol 1e-5 (1e-4 at
+m = 72) -- the tolerances tests/test_fused_gp.py holds the TPU kernel to,
+since both methods are backward-stable at ~cond * eps.
+
+Both kernels have two forms that the library picks by shape: B2 one
+launch (m <= 64, n <= 256), small-m chunks plus a reduce, or the
+partial-sum kernel plus a reduce (m > 64, and B3); B1 one warp per matrix
+(m <= 32) or one shared-memory block per matrix.  The cases cover both
+sides of each boundary, and every form is checked to give the same bits
+from run to run.
 """
 
 import numpy as np
@@ -55,8 +62,19 @@ def _assert_close(got, want):
         assert float((g - w).abs().max()) <= KERNEL_RTOL * scale
 
 
-@pytest.mark.parametrize("n,m,L", [(1, 1, 1), (130, 17, 3), (5000, 72, 64),
-                                   (777, 129, 9)])
+# The launch plan's regimes: B2 at m <= 64 runs one block per channel and
+# n chunk, in one launch up to n = 256 (the training step's 256 and 164
+# rows) and in chunks plus a reduce above; m > 64 (and B3) run the
+# two-pass partial-sum kernel.
+SMALL_MAX_M, SMALL_CHUNK_ROWS = 64, 256
+GP_STATS_CASES = [(1, 1, 1), (130, 17, 3), (5000, 72, 64), (777, 129, 9),
+                  (256, 32, 16), (164, 32, 16), (8100, 32, 16),
+                  (SMALL_CHUNK_ROWS, 32, 16), (SMALL_CHUNK_ROWS + 1, 32, 16),
+                  (300, 33, 5), (4000, 33, 5), (100, SMALL_MAX_M, 3),
+                  (100, SMALL_MAX_M + 1, 3)]
+
+
+@pytest.mark.parametrize("n,m,L", GP_STATS_CASES)
 def test_gp_stats_kernel_matches_twin(cuda, n, m, L):
     *_, prec, py, knm = _inputs(np.random.RandomState(n + m), cuda, n, m, L)
     before = gps.gp_sufficient_stats.launches
@@ -122,11 +140,51 @@ def test_fused_normalize_clamps_zero_rows(cuda):
     _assert_close(got, want)
 
 
-def test_kernels_are_deterministic(cuda):
-    f1, f2, ip1, ip2, prec, py, _ = _inputs(np.random.RandomState(5), cuda,
-                                            3000, 72, 16, 8, 16)
-    a = fks.fused_kernel_stats(f1, f2, ip1, ip2, prec, py, family="sprites")
-    b = fks.fused_kernel_stats(f1, f2, ip1, ip2, prec, py, family="sprites")
+@pytest.mark.parametrize("n,m,L,single_launch", [(256, 32, 16, True),
+                                                  (164, 32, 16, True),
+                                                  (8100, 32, 16, False),
+                                                  (50_000, 72, 64, False)])
+def test_gp_stats_plan_regimes(cuda, n, m, L, single_launch):
+    """The training step's shapes take one launch and no workspace; the
+    cgen and fit shapes two passes, with every block resident in one
+    wave, and the fit's partial-sum kernel at >= 2 blocks per SM."""
+    plan = gps.launch_plan(n, m, L, cuda)
+    info = gps.kernel_info(n, m, L, cuda)
+    assert (plan[0] == 0) == single_launch == bool(info["single_launch"])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert info["grid_blocks"] <= info["blocks_per_sm"] * sms
+    if m > SMALL_MAX_M:
+        assert info["blocks_per_sm"] >= 2
+    assert fks.launch_plan(n, m, L, cuda, 8, 16)[0] >= 1  # B3: two passes
+
+
+def _deterministic_case(case, cuda):
+    rng = np.random.RandomState(5)
+    if case[0] == "chol_inverse":
+        _, B, m = case
+        M = torch.from_numpy(_pd_stack(rng, B, m, 1e3).astype(np.float32))
+        M = M.to(cuda)
+        return lambda: ci.chol_inverse_kernel(M)
+    name, n, m, L = case
+    f1, f2, ip1, ip2, prec, py, knm = _inputs(rng, cuda, n, m, L, 8, 16)
+    if name == "fused_kernel_stats":
+        return lambda: fks.fused_kernel_stats(f1, f2, ip1, ip2, prec, py,
+                                              family="sprites")
+    return lambda: gps.gp_sufficient_stats(knm, prec, py)
+
+
+@pytest.mark.parametrize("case", [
+    ("fused_kernel_stats", 3000, 72, 16),
+    ("gp_sufficient_stats", 256, 32, 16),      # single launch
+    ("gp_sufficient_stats", 8100, 32, 16),     # two passes
+    ("gp_sufficient_stats", 50_000, 72, 64),   # two passes, many chunks
+    ("chol_inverse", 17, 32),                  # one warp per matrix
+    ("chol_inverse", 65, 72),                  # shared-memory block
+])
+def test_kernels_are_deterministic(cuda, case):
+    run = _deterministic_case(case, cuda)
+    a = run()
+    b = run()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -150,8 +208,15 @@ def _pd_stack(rng, B, m, cond):
     return out
 
 
+# m <= 32 runs one warp per matrix (padded in registers), m > 32 one
+# shared-memory block per matrix.  The condition of the small stacks is
+# lower: logdet's fp32 error is ~cond * eps absolute, and |logdet| grows
+# with m (~9 at m = 2 and cond 1e4, where rtol 1e-5 would not hold).
+B1_COND = {1: 1.0, 2: 1e2, 17: 1e3, 31: 1e4, 32: 1e4, 33: 1e4}
 B1_CASES = [(17, 32, 1e4), (65, 72, 1e3), (5, 37, 1e4), (5, 15, 1e4),
-            (3, 1, 1.0), (2, 130, 1e2)]
+            (3, 1, 1.0), (2, 130, 1e2)] + [
+    (B, m, cond) for m, cond in B1_COND.items()
+    for B in (1, 17, 33) if (B, m) != (17, 32)]
 
 
 @pytest.mark.parametrize("B,m,cond", B1_CASES)
@@ -175,11 +240,13 @@ def test_chol_inverse_kernel_matches_twin_and_f64(cuda, B, m, cond):
                                    rtol=rtol_ld, atol=1e-6)
 
 
-def test_chol_inverse_kernel_gives_nan_logdet_off_pd(cuda):
-    M = torch.eye(4, device=cuda).repeat(2, 1, 1)
+@pytest.mark.parametrize("m", [4, 32, 40])  # warp, warp, shared memory
+def test_chol_inverse_kernel_gives_nan_logdet_off_pd(cuda, m):
+    M = torch.eye(m, device=cuda).repeat(2, 1, 1)
     M[1, 2, 2] = -1.0
     _, ld = ci.chol_inverse_kernel(M)
     assert float(ld[0]) == 0.0 and bool(torch.isnan(ld[1]))
+    assert ci.kernel_info(2, m, cuda)["warp_per_matrix"] == (m <= 32)
 
 
 def test_chol_inverse_kernel_refuses_what_it_cannot_take(cuda):

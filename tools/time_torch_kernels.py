@@ -1,0 +1,222 @@
+"""Time the PyTorch port's CUDA kernels at the main path's shapes on one card.
+
+    PYTHONPATH=. python3 tools/time_torch_kernels.py [--root DIR]
+        [--repeats 3] [--sweep] [--profile]
+
+For each (kernel, shape) of the main paths -- B2 gp_sufficient_stats at the
+training step (256 and 164 rows), cgen (8,100) and fit (50,000) shapes, B3
+fused_kernel_stats at the fit shape, B1 chol_inverse at (17, 32, 32) and
+(65, 72, 72) -- it prints one JSON line: the time per call (CUDA events
+over back-to-back calls, the wrapper's host dispatch included) and the
+device time per call (one CUDA-graph replay of 50 captured calls), each
+measured --repeats times, and the bound (chip_smoke.py's formulas).
+Inputs are made from a seed.
+
+--root DIR imports svgpvae_tpu_torch from DIR instead (an unpacked copy
+of another commit, with its own build), so that two commits are compared
+in one session on one card: run the script on each, in turns.
+
+--sweep (this tree only) places B2's regime boundary: device time at
+m = 32, L = 16 over n, in one launch and in 2, 4 and 8 n chunks plus the
+reduce, each forced through the C entry point's plan argument.
+
+--profile (this tree only) traces 10 calls of B2 at (256, 32, 16) with
+torch.profiler and prints the CUDA kernels and memory operations it
+launched per call.
+
+--chol_sweep adds B1's device time at several (B, m) and the device time
+of a one-element add_ in the same kind of graph replay (the floor of one
+launch).
+
+The card's name and power limit come first.  TF32 is off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+STATS_SHAPES = [("train_step", 256, 32, 16), ("train_tail", 164, 32, 16),
+                ("cgen", 8_100, 32, 16), ("fit", 50_000, 72, 64)]
+FUSED_SHAPES = [("fit", 50_000, 72, 64)]
+CHOL_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3)]
+SWEEP_N = [256, 384, 512, 1024, 2048, 4096, 8100]
+CHOL_SWEEP = [(1, 32), (17, 32), (264, 32), (17, 16), (17, 2)]
+
+
+def load_chip_smoke():
+    """chip_smoke.py of this tree, for its timers, bounds and inputs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stats_case(cs, rng, device, n, m, L, fused):
+    import torch
+    from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
+    from svgpvae_tpu_torch.ops import gp_stats as gps
+    f1, f2, ip1, ip2, prec, py = (
+        torch.from_numpy(a).to(device)
+        for a in cs.stats_inputs(rng, n, m, L, 8, 16, "sprites"))
+    if fused:
+        return lambda: fks.fused_kernel_stats(f1, f2, ip1, ip2, prec, py,
+                                              family="sprites")
+    knm = fks.fused_kernel_matrix(f1, f2, ip1, ip2, family="sprites")
+    knm = knm.contiguous()
+    return lambda: gps.gp_sufficient_stats(knm, prec, py)
+
+
+def measure(cs, fn, repeats):
+    per_call = [cs.cuda_ms(fn, reps=50) for _ in range(repeats)]
+    device = [cs.graph_ms(fn) for _ in range(repeats)]
+    return per_call, device
+
+
+def sweep(cs, device, repeats) -> None:
+    """B2 at m = 32, L = 16: the single launch against 2, 4 and 8 n
+    chunks, over n."""
+    import torch
+    from svgpvae_tpu_torch.ops import _build
+    from svgpvae_tpu_torch.ops import gp_stats as gps
+    lib = _build.load()
+    m, L = 32, 16
+    torch.manual_seed(3)
+    gps.launch_plan(50_000, m, L, device)  # sets the kernels' attributes
+    for n in SWEEP_N:
+        knm = torch.randn(n, m, device=device)
+        prec = torch.rand(n, L, device=device) + 0.5
+        py = torch.randn(n, L, device=device)
+        sigma = torch.empty(L, m, m, device=device)
+        r = torch.empty(L, m, device=device)
+        plans = {"single": (0, n, 256)}
+        for chunks in (2, 4, 8):
+            per = -(-n // chunks)
+            rows = -(-per // 4) * 4
+            plans[f"chunks_{-(-n // rows)}"] = (-(-n // rows), rows, 256)
+        want = gps.gp_sufficient_stats_reference(knm, prec, py)
+        row = {"n": n, "m": m, "L": L, "plan": list(gps.launch_plan(
+            n, m, L, device))}
+        for name, plan in plans.items():
+            arr = (ctypes.c_int * 3)(*plan)
+            ws = (torch.empty(plan[0], L, m, m, device=device),
+                  torch.empty(plan[0], L, m, device=device))
+
+            def run():
+                stream = torch.cuda.current_stream().cuda_stream
+                _build.check(lib.svgp_gp_stats(
+                    knm.data_ptr(), prec.data_ptr(), py.data_ptr(),
+                    sigma.data_ptr(), r.data_ptr(),
+                    ws[0].data_ptr() if plan[0] else None,
+                    ws[1].data_ptr() if plan[0] else None, n, m, L, arr,
+                    stream), "svgp_gp_stats")
+            run()
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip((sigma, r), want))
+            row[name] = dict(graph_ms=[cs.graph_ms(run)
+                                       for _ in range(repeats)],
+                             rel_err=err)
+        print(json.dumps({"sweep": row}), flush=True)
+
+
+def profile_b2(cs, device) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(4)
+    fn = stats_case(cs, rng, device, 256, 32, 16, fused=False)
+    fn()
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            names[e.name] = names.get(e.name, 0) + 1
+    print(json.dumps({"profile": "gp_sufficient_stats (256, 32, 16)",
+                      "calls": calls, "device_ops_per_call": {
+                          k: v / calls for k, v in names.items()}}),
+          flush=True)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=None)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--sweep", action="store_true")
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--chol_sweep", action="store_true")
+    opts = p.parse_args()
+    root = Path(opts.root).resolve() if opts.root else HERE
+    sys.path.insert(0, str(root))
+    cs = load_chip_smoke()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("time_torch_kernels: no CUDA device")
+    import svgpvae_tpu_torch
+    from svgpvae_tpu_torch.ops import _build
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+    if Path(svgpvae_tpu_torch.__file__).resolve().parent.parent != root:
+        raise SystemExit(f"imported {svgpvae_tpu_torch.__file__}, not "
+                         f"from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    device = torch.device("cuda", 0)
+    _build.load()
+    tree = str(root.relative_to(HERE)) if root != HERE else "."
+
+    rng = np.random.RandomState(0)
+    for kernel, shapes, fused in (("gp_sufficient_stats", STATS_SHAPES, False),
+                                  ("fused_kernel_stats", FUSED_SHAPES, True)):
+        for tag, n, m, L in shapes:
+            fn = stats_case(cs, rng, device, n, m, L, fused)
+            per_call, dev = measure(cs, fn, opts.repeats)
+            b_ms, b_by = cs.stats_bound(n, m, L, 8, 16, fused=fused)
+            print(json.dumps(dict(tree=tree, kernel=kernel, shape=tag,
+                                  dims=[n, m, L], ms=per_call, graph_ms=dev,
+                                  bound_ms=b_ms, bound_by=b_by)), flush=True)
+    for tag, B, m, cond in CHOL_SHAPES:
+        M = torch.from_numpy(cs.pd_stack(rng, B, m, cond)).to(device)
+        per_call, dev = measure(cs, lambda: ci.chol_inverse_kernel(M),
+                                opts.repeats)
+        b_ms, b_by = cs.chol_inverse_bound(B, m)
+        print(json.dumps(dict(tree=tree, kernel="chol_inverse", shape=tag,
+                              dims=[B, m, m], ms=per_call, graph_ms=dev,
+                              bound_ms=b_ms, bound_by=b_by)), flush=True)
+    if opts.chol_sweep:
+        one = torch.zeros(1, device=device)
+        print(json.dumps(dict(tree=tree, floor_graph_ms=[
+            cs.graph_ms(lambda: one.add_(1.0))
+            for _ in range(opts.repeats)])), flush=True)
+        for B, m in CHOL_SWEEP:
+            M = torch.from_numpy(cs.pd_stack(rng, B, m, 1e3)).to(device)
+            print(json.dumps(dict(
+                tree=tree, kernel="chol_inverse", dims=[B, m, m],
+                graph_ms=[cs.graph_ms(lambda: ci.chol_inverse_kernel(M))
+                          for _ in range(opts.repeats)])), flush=True)
+    if opts.sweep:
+        sweep(cs, device, opts.repeats)
+    if opts.profile:
+        profile_b2(cs, device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
