@@ -15,7 +15,9 @@ Phases, each of which raises (nonzero exit) on failure:
      and a ragged (5, 37, 37); max errors and the times of kernel (per
      call, and device time in a CUDA-graph replay), twin and (B2) one
      library call; then one line with each kernel variant's registers
-     per thread and resident blocks per SM at those shapes;
+     and local memory per thread and resident blocks per SM at those
+     shapes (B3: its K-build kernel too; it runs no thread-block
+     clusters);
   4. the serve, through svgpvae_tpu_torch.cli.serve.main: the
      1000-character synthetic corpus in memory (N = 50,000 train frames),
      seed-0 weights, 8 requests -- once with the default linear x linear
@@ -335,8 +337,9 @@ def phase_train_stats(device) -> None:
 
 
 def phase_occupancy(device) -> None:
-    """Registers per thread and resident blocks per SM of every kernel
-    variant the main paths launch (cudaFuncGetAttributes and
+    """Registers and local memory per thread and resident blocks per SM
+    of every kernel variant the main paths launch, B3's K-build kernel
+    included (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library)."""
     from svgpvae_tpu_torch.ops import chol_inverse as ci
     from svgpvae_tpu_torch.ops import gp_stats as gps
@@ -346,13 +349,15 @@ def phase_occupancy(device) -> None:
                          ("partial sums + reduce", 50_000, 72, 64)):
         rows[f"gp_sufficient_stats {tag} {(n, m, L)}"] = gps.kernel_info(
             n, m, L, device)
-    rows["fused_kernel_stats partial sums + reduce (50000, 72, 64)"] = (
-        gps.kernel_info(50_000, 72, 64, device, SLICE["d1"], SLICE["d2"]))
+    b3 = ("fused_kernel_stats K build + partial sums + reduce, cluster "
+          "size 1 (no thread-block clusters) (50000, 72, 64)")
+    rows[b3] = gps.kernel_info(50_000, 72, 64, device, SLICE["d1"],
+                               SLICE["d2"])
     for tag, B, m in (("one warp per matrix", 17, 32),
                       ("shared-memory block", 65, 72)):
         rows[f"chol_inverse {tag} {(B, m, m)}"] = ci.kernel_info(B, m, device)
-    log("kernel variants (registers per thread, resident blocks per SM): "
-        + json.dumps(rows))
+    log("kernel variants (registers and local bytes per thread, resident "
+        "blocks per SM): " + json.dumps(rows))
 
 
 def pd_stack(rng, B, m, cond):

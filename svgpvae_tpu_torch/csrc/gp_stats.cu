@@ -7,8 +7,7 @@
 //   * svgpvae_tpu/ops/gp_stats.py::gp_sufficient_stats (body _stats_kernel):
 //     K_nm is read from device memory            -> svgp_gp_stats
 //   * svgpvae_tpu/ops/fused_kernel_stats.py::fused_kernel_stats (body
-//     _kernel_body): each K tile is built in-kernel from the raw features,
-//     so the (n, m) kernel matrix never reaches device memory
+//     _kernel_body): K built from the raw features
 //                                                 -> svgp_fused_kernel_stats
 //
 // What bounds it on the card.  At the SPRITES precompute shape
@@ -41,8 +40,8 @@
 // one wave (2 x 132 / L blocks at L = 16), whose upper triangles go to
 // the workspace for stats_reduce_kernel.
 //
-// m > SMALL_MAX_M and every B3 call (the SPRITES fit): stats_partial_kernel
-// + stats_reduce_kernel.  The TPU grid walks its n tiles in order and
+// m > SMALL_MAX_M (the SPRITES fit): stats_partial_kernel +
+// stats_reduce_kernel.  The TPU grid walks its n tiles in order and
 // carries the (L, m, m) sum in VMEM.  Hopper blocks run in parallel, so
 // each block owns one (n chunk x CHANNELS_PER_BLOCK channels x triangle
 // slice), accumulates in registers, and writes its partial sums to the
@@ -62,11 +61,31 @@
 //     per 64 FMAs and a second barrier per tile), 4 x 4 tiles (three per
 //     64), 4 x 8 tiles for channel pairs (four per 64), 3 channels at 18
 //     warps per SM; see PERF.md;
-//   * overlap: the next 64-row tile's K (or features), prec and py are
-//     copied with cp.async into the second of two buffers while the
-//     current tile is consumed;
-//   * B3 builds each K tile from the staged features in 1 x 4 strips; the
-//     inducing features are staged (transposed) once per block.
+//   * overlap: the next 64-row tile's K, prec and py are copied with
+//     cp.async into the second of two buffers while the current tile is
+//     consumed;
+//   * r is its own short pass over the staged tile: a thread owns one
+//     channel's 4 columns for the whole kernel, one 16-byte K load and
+//     one py load per 4 FMAs.
+//
+// B3 (build_k_kernel, then B2's path above on the result).  The TPU
+// kernel builds each K tile in VMEM, once for all L channels, so K never
+// reaches HBM.  On Hopper a block holds 4 channels (registers), so 16
+// blocks need each tile at the fit shape; built in each block, that is
+// 16 builds of every tile (19% more instructions than the Sigma loop)
+// between block-wide barriers.  K itself is small: 14.4 MB at
+// n = 50,000, m = 72, which the 50 MB L2 holds.  So B3 writes K once,
+// one 1 x 4 strip per thread (d1 and d2 unrolled for the widths the paths
+// use: 8 + 16 and 1 + 8), and B2's kernels read it back from L2: the
+// build is 0.02 ms of a 0.61 ms call at the fit shape, so what bounds B3
+// is the partial-sum body above.  Measured on an
+// H100 against the alternative that keeps K on chip -- clusters of 2, 4
+// or 8 blocks that build each tile once per cluster and share it through
+// distributed shared memory, the build spread between the Sigma rows or
+// given to a producer warp -- every clustered form was slower
+// (0.72-0.81 ms): the build and cluster bookkeeping beside 128
+// accumulators spill at the 168-register cap that four blocks per SM
+// need, and a producer warp leaves room for three; see PERF.md.
 // Ragged m and n are masked (zero-filled rows and columns of the shared
 // tiles), not padded in device memory; Sigma's lower triangle is never
 // computed.
@@ -92,6 +111,10 @@ constexpr int MAX_THREADS = 192;        // threads per block (micro-tiles)
 constexpr int MIN_BLOCKS_PER_SM = 2;    // -> at most 168 registers
 constexpr int MIN_TILES_PER_CHUNK = 2;  // keeps the workspace small
 constexpr int REDUCE_THREADS = 256;
+// B3's K-build pass
+constexpr int BUILD_THREADS = 256;
+constexpr int BUILD_BLOCKS_PER_SM = 4;  // grid-stride loop over (row, strip)
+constexpr float NORM_CLAMP = 1e-30f;
 // B2 at small m (single launch up to SMALL_CHUNK_ROWS rows)
 constexpr int SMALL_MAX_M = 64;
 constexpr int SMALL_CHUNK_ROWS = 256;   // rows per block, at least
@@ -108,7 +131,7 @@ struct Features {
   const float* ip1;  // (m, d1) inducing-side features
   const float* ip2;  // (m, d2)
   int d1, d2;
-  float amp, length_scale;
+  float amp2, inv_l2;  // mnist: amp^2 and 1 / length_scale^2
   int family;
   int normalize;
 };
@@ -166,7 +189,7 @@ __device__ inline void stage_async(float* dst, int ld, const float* src,
 }
 
 // ---------------------------------------------------------------------------
-// B3: K tiles from the features
+// B3: K from the features
 
 __device__ inline float sq_norm(const float* __restrict__ a, int d,
                                int stride) {
@@ -175,54 +198,149 @@ __device__ inline float sq_norm(const float* __restrict__ a, int d,
   return s;
 }
 
-// K[t, j..j+3] of one tile from the staged features: F1/F2 rows of the
-// tile (tile x d), inducing features transposed (d x mp, zero columns
-// past m), clamped data-row norms rn and inducing-row norms in (ones past
-// m) -- the formulas of fused_kernel_stats_reference.  Zero feature rows
-// (past n) and zero inducing columns give K = 0.
-__device__ inline float4 kernel_strip(const Features& ft, const float* F1,
-                                      const float* F2, const float* IP1,
-                                      const float* IP2, const float* rn1,
-                                      const float* rn2, const float* in1,
-                                      const float* in2, int t, int j, int mp) {
-  float ka[4] = {0.f, 0.f, 0.f, 0.f}, kb[4] = {0.f, 0.f, 0.f, 0.f};
-  const float* f2 = F2 + t * ft.d2;
-  for (int k = 0; k < ft.d2; ++k) {
-    const float x = f2[k];
-    const float4 z = *reinterpret_cast<const float4*>(IP2 + k * mp + j);
-    kb[0] = fmaf(x, z.x, kb[0]);
-    kb[1] = fmaf(x, z.y, kb[1]);
-    kb[2] = fmaf(x, z.z, kb[2]);
-    kb[3] = fmaf(x, z.w, kb[3]);
+// k[q] += sum_c x[c] IPT[c, j + q] (q < 4) and sq += sum_c x[c]^2, over
+// a data row x (d features) and the transposed inducing features IPT
+// (d x mp).  D > 0 is d at compile time (unrolled, 16-byte row loads when
+// D % 4 == 0); D = 0 reads d at run time.
+template <int D>
+__device__ inline void dot_strip(const float* __restrict__ x,
+                                 const float* __restrict__ IPT, int d, int j,
+                                 int mp, float (&k)[4], float& sq) {
+  auto step = [&](float xv, int c) {
+    const float4 z = *reinterpret_cast<const float4*>(IPT + c * mp + j);
+    k[0] = fmaf(xv, z.x, k[0]);
+    k[1] = fmaf(xv, z.y, k[1]);
+    k[2] = fmaf(xv, z.z, k[2]);
+    k[3] = fmaf(xv, z.w, k[3]);
+    sq = fmaf(xv, xv, sq);
+  };
+  if constexpr (D > 0 && D % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(x + c);
+      step(v.x, c);
+      step(v.y, c + 1);
+      step(v.z, c + 2);
+      step(v.w, c + 3);
+    }
+  } else if constexpr (D > 0) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) step(x[c], c);
+  } else {
+    for (int c = 0; c < d; ++c) step(x[c], c);
   }
-  if (ft.family == FAMILY_MNIST) {
-    const float v = F1[t * ft.d1];  // periodic part over column 0 only
-    const float inv_l2 = 1.f / (ft.length_scale * ft.length_scale);
+}
+
+// The B3 variant a launch runs: family, d1, d2 and normalize fixed at
+// compile time where >= 0 (> 0 for d), read from Features where not.
+template <int FAM, int D1, int D2, int NORM>
+struct Variant {
+  __device__ static int family(const Features& ft) {
+    return FAM >= 0 ? FAM : ft.family;
+  }
+  __device__ static bool normalize(const Features& ft) {
+    return NORM >= 0 ? NORM == 1 : ft.normalize != 0;
+  }
+  __device__ static int d1(const Features& ft) { return D1 > 0 ? D1 : ft.d1; }
+  __device__ static int d2(const Features& ft) { return D2 > 0 ? D2 : ft.d2; }
+};
+
+// K[t, j..j+3] of one data row from its features f1 (d1), f2 (d2), the
+// transposed inducing features IP1 (d1 x mp), IP2 (d2 x mp; zero columns
+// past m) and the inducing-row norms in1, in2 (ones past m) -- the
+// formulas of fused_kernel_stats_reference, with the data-row norms
+// clamped at NORM_CLAMP.  Zero feature rows (past n) and zero inducing
+// columns give K = 0.
+template <class V, int D1, int D2>
+__device__ inline float4 build_strip(const Features& ft, const float* f1,
+                                     const float* f2, const float* IP1,
+                                     const float* IP2, const float* in1,
+                                     const float* in2, int j, int mp) {
+  const int family = V::family(ft);
+  float ka[4] = {0.f, 0.f, 0.f, 0.f}, kb[4] = {0.f, 0.f, 0.f, 0.f};
+  float s1 = 0.f, s2 = 0.f;
+  dot_strip<D2>(f2, IP2, V::d2(ft), j, mp, kb, s2);
+  if (family == FAMILY_MNIST) {
+    const float v = f1[0];  // periodic part over column 0 only
+    const float4 z = *reinterpret_cast<const float4*>(IP1 + j);
+    const float zv[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float s = sinf(0.5f * fabsf(v - IP1[j + q]));
-      ka[q] = (ft.amp * ft.amp) * expf(-2.f * s * s * inv_l2);
+      const float s = sinf(0.5f * fabsf(v - zv[q]));
+      ka[q] = ft.amp2 * expf(-2.f * s * s * ft.inv_l2);
     }
   } else {
-    const float* f1 = F1 + t * ft.d1;
-    for (int k = 0; k < ft.d1; ++k) {
-      const float x = f1[k];
-      const float4 z = *reinterpret_cast<const float4*>(IP1 + k * mp + j);
-      ka[0] = fmaf(x, z.x, ka[0]);
-      ka[1] = fmaf(x, z.y, ka[1]);
-      ka[2] = fmaf(x, z.z, ka[2]);
-      ka[3] = fmaf(x, z.w, ka[3]);
-    }
+    dot_strip<D1>(f1, IP1, V::d1(ft), j, mp, ka, s1);
   }
-  if (ft.normalize) {
+  if (V::normalize(ft)) {
+    const float4 i1 = *reinterpret_cast<const float4*>(in1 + j);
+    const float4 i2 = *reinterpret_cast<const float4*>(in2 + j);
+    const float n1[4] = {i1.x, i1.y, i1.z, i1.w};
+    const float n2[4] = {i2.x, i2.y, i2.z, i2.w};
+    const float r1 = fmaxf(sqrtf(s1), NORM_CLAMP);
+    const float r2 = fmaxf(sqrtf(s2), NORM_CLAMP);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      kb[q] = kb[q] / (rn2[t] * in2[j + q]);
-      if (ft.family == FAMILY_SPRITES) ka[q] = ka[q] / (rn1[t] * in1[j + q]);
+      kb[q] = kb[q] / (r2 * n2[q]);
+      if (family == FAMILY_SPRITES) ka[q] = ka[q] / (r1 * n1[q]);
     }
   }
   return make_float4(ka[0] * kb[0], ka[1] * kb[1], ka[2] * kb[2],
                      ka[3] * kb[3]);
+}
+
+// B3's first pass: K (n, m) from the features, one 1 x 4 strip per
+// thread and step of a grid-stride loop, each written once to device
+// memory (14.4 MB at the fit shape: it stays in the 50 MB L2 for the
+// partial-sum pass that reads it).  The inducing features are staged
+// (transposed) with their norms in shared memory once per block.
+template <int FAM, int D1, int D2, int NORM>
+__global__ void __launch_bounds__(BUILD_THREADS)
+build_k_kernel(Features ft, float* __restrict__ knm, int n, int m) {
+  using V = Variant<FAM, D1, D2, NORM>;
+  extern __shared__ __align__(16) float smem[];
+  const int d1 = V::d1(ft), d2 = V::d2(ft), mp = pad8(m);
+  float* in1 = smem;            // mp       inducing-row norms
+  float* in2 = smem + mp;
+  float* IP1 = smem + 2 * mp;   // d1 x mp  inducing features^T
+  float* IP2 = IP1 + d1 * mp;   // d2 x mp
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  for (int i = tid; i < d1 * mp; i += nthr) {
+    const int k = i / mp, j = i % mp;
+    IP1[i] = j < m ? ft.ip1[(size_t)j * d1 + k] : 0.f;
+  }
+  for (int i = tid; i < d2 * mp; i += nthr) {
+    const int k = i / mp, j = i % mp;
+    IP2[i] = j < m ? ft.ip2[(size_t)j * d2 + k] : 0.f;
+  }
+  __syncthreads();
+  if (V::normalize(ft)) {
+    for (int j = tid; j < mp; j += nthr) {
+      // ones past m, so the zero padding columns stay 0, not 0/0
+      in1[j] = (j < m && V::family(ft) == FAMILY_SPRITES)
+                   ? sqrtf(sq_norm(IP1 + j, d1, mp)) : 1.f;
+      in2[j] = j < m ? sqrtf(sq_norm(IP2 + j, d2, mp)) : 1.f;
+    }
+    __syncthreads();
+  }
+  const int strips = (m + 3) / 4;
+  const long long total = (long long)n * strips;
+  for (long long u = (long long)blockIdx.x * nthr + tid; u < total;
+       u += (long long)gridDim.x * nthr) {
+    const int t = (int)(u / strips), j = 4 * (int)(u - (long long)t * strips);
+    const float4 k = build_strip<V, D1, D2>(
+        ft, ft.f1 + (size_t)t * d1, ft.f2 + (size_t)t * d2, IP1, IP2, in1,
+        in2, j, mp);
+    float* out = knm + (size_t)t * m + j;
+    if (m % 4 == 0) {
+      *reinterpret_cast<float4*>(out) = k;
+    } else {  // ragged m: the row stride is not a multiple of 16 bytes
+      out[0] = k.x;
+      if (j + 1 < m) out[1] = k.y;
+      if (j + 2 < m) out[2] = k.z;
+      if (j + 3 < m) out[3] = k.w;
+    }
+  }
 }
 
 // (ti, tj), ti <= tj, of micro-tile p of the upper triangle of an
@@ -260,62 +378,43 @@ __device__ inline void wide_tile(int q, int mt8, int* ti, int* tj) {
 
 // Shared-memory layout of stats_partial_kernel, in floats; every offset is
 // a multiple of 4.  Two raw stage buffers (what cp.async fills), then the
-// built K tile (B3), r accumulators and the block-constant inducing
-// features (B3).
+// r accumulators.
 struct PartialLayout {
-  int raw;                         // floats per raw stage buffer
-  int k, f1, f2, p, y;             // offsets inside a raw buffer
-  int kb, rs, rn1, rn2, in1, in2, ip1, ip2;
-  int total;
+  int raw;       // floats per raw stage buffer
+  int k, p, y;   // offsets inside a raw buffer
+  int rs, total;
 };
 
-__host__ __device__ inline PartialLayout partial_layout(int tile, int m,
-                                                        int d1, int d2,
-                                                        bool features) {
+__host__ __device__ inline PartialLayout partial_layout(int tile, int m) {
   constexpr int G = CHANNELS_PER_BLOCK;
   const int mp = pad8(m);
   PartialLayout s;
   int o = 0;
-  s.k = o;   o += features ? 0 : tile * mp;
-  s.f1 = o;  o += tile * d1;
-  s.f2 = o;  o += tile * d2;
+  s.k = o;   o += tile * mp;
   s.p = o;   o += tile * G;
   s.y = o;   o += tile * G;
   s.raw = o;
   o = 2 * s.raw;
-  s.kb = o;  o += features ? tile * mp : 0;
   s.rs = o;  o += G * mp;
-  s.rn1 = o; o += features ? tile : 0;
-  s.rn2 = o; o += features ? tile : 0;
-  s.in1 = o; o += features ? mp : 0;
-  s.in2 = o; o += features ? mp : 0;
-  s.ip1 = o; o += d1 * mp;
-  s.ip2 = o; o += d2 * mp;
   s.total = o;
   return s;
 }
 
-// grid: (n_chunks, ceil(L / CHANNELS_PER_BLOCK), triangle slices)
-template <bool FROM_FEATURES>
+// grid: (n_chunks, ceil(L / CHANNELS_PER_BLOCK), triangle slices).  The
+// layout comes in as a parameter (partial_layout(tile, m), computed on
+// the host), so its offsets are operands, not registers: beside the 128
+// accumulators the 168 registers then hold everything else, no spills.
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS_PER_SM)
-stats_partial_kernel(const float* __restrict__ knm, Features ft,
+stats_partial_kernel(const float* __restrict__ knm,
                      const float* __restrict__ prec,
                      const float* __restrict__ py,
                      float* __restrict__ ws_sigma, float* __restrict__ ws_r,
-                     int n, int m, int L, int rows_per_chunk, int tile) {
+                     int n, int m, int L, int rows_per_chunk, int tile,
+                     PartialLayout lay) {
   constexpr int G = CHANNELS_PER_BLOCK;
   extern __shared__ __align__(16) float smem[];
   const int mp = pad8(m);
-  const int d1 = FROM_FEATURES ? ft.d1 : 0, d2 = FROM_FEATURES ? ft.d2 : 0;
-  const PartialLayout lay = partial_layout(tile, m, d1, d2, FROM_FEATURES);
-  float* Kb = smem + lay.kb;    // tile x mp     built K tile (B3)
   float* Rs = smem + lay.rs;    // G x mp        r accumulators
-  float* rn1 = smem + lay.rn1;  // tile          clamped data-row norms
-  float* rn2 = smem + lay.rn2;
-  float* in1 = smem + lay.in1;  // mp            inducing-row norms
-  float* in2 = smem + lay.in2;
-  float* IP1 = smem + lay.ip1;  // d1 x mp       inducing features^T
-  float* IP2 = smem + lay.ip2;  // d2 x mp
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -332,25 +431,6 @@ stats_partial_kernel(const float* __restrict__ knm, Features ft,
   if (active) wide_tile(p_tile, mp / 8, &ti, &tj);
 
   for (int i = tid; i < G * mp; i += nthr) Rs[i] = 0.f;
-  if constexpr (FROM_FEATURES) {
-    for (int i = tid; i < d1 * mp; i += nthr) {
-      const int k = i / mp, j = i % mp;
-      IP1[i] = j < m ? ft.ip1[(size_t)j * d1 + k] : 0.f;
-    }
-    for (int i = tid; i < d2 * mp; i += nthr) {
-      const int k = i / mp, j = i % mp;
-      IP2[i] = j < m ? ft.ip2[(size_t)j * d2 + k] : 0.f;
-    }
-    if (ft.normalize) {
-      __syncthreads();
-      for (int j = tid; j < mp; j += nthr) {
-        // ones past m, so the zero padding columns stay 0, not 0/0
-        in1[j] = (j < m && ft.family == FAMILY_SPRITES)
-                     ? sqrtf(sq_norm(IP1 + j, d1, mp)) : 1.f;
-        in2[j] = j < m ? sqrtf(sq_norm(IP2 + j, d2, mp)) : 1.f;
-      }
-    }
-  }
 
   const int row_begin = chunk * rows_per_chunk;
   const int row_end = min(n, row_begin + rows_per_chunk);
@@ -359,15 +439,8 @@ stats_partial_kernel(const float* __restrict__ knm, Features ft,
     float* raw = smem + buf * lay.raw;
     const int row0 = row_begin + it * tile;
     const int rows = row_end - row0;
-    if constexpr (FROM_FEATURES) {
-      stage_async(raw + lay.f1, d1, ft.f1 + (size_t)row0 * d1, d1, d1, rows,
-                  tile, tid, nthr);
-      stage_async(raw + lay.f2, d2, ft.f2 + (size_t)row0 * d2, d2, d2, rows,
-                  tile, tid, nthr);
-    } else {
-      stage_async(raw + lay.k, mp, knm + (size_t)row0 * m, m, m, rows, tile,
-                  tid, nthr);
-    }
+    stage_async(raw + lay.k, mp, knm + (size_t)row0 * m, m, m, rows, tile,
+                tid, nthr);
     stage_async(raw + lay.p, G, prec + (size_t)row0 * L + l0, L, n_ch, rows,
                 tile, tid, nthr);
     stage_async(raw + lay.y, G, py + (size_t)row0 * L + l0, L, n_ch, rows,
@@ -387,47 +460,13 @@ stats_partial_kernel(const float* __restrict__ knm, Features ft,
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     const float* raw = smem + buf * lay.raw;
-    const float* P = raw + lay.p;  // tile x G
-    const float* Y = raw + lay.y;  // tile x G
+    const float* Kt = raw + lay.k;  // tile x mp
+    const float* P = raw + lay.p;   // tile x G
+    const float* Y = raw + lay.y;   // tile x G
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; tile it - 1 is fully consumed
     if (it + 1 < n_tiles) stage(it + 1, buf ^ 1);
 
-    const float* Kt;  // the K tile of this step (tile x mp)
-    if constexpr (FROM_FEATURES) {
-      const float* F1 = raw + lay.f1;
-      const float* F2 = raw + lay.f2;
-      if (ft.normalize) {
-        for (int t = tid; t < tile; t += nthr) {
-          // clamp: an all-zero data row would otherwise give 0/0
-          rn1[t] = ft.family == FAMILY_SPRITES
-                       ? fmaxf(sqrtf(sq_norm(F1 + t * d1, d1, 1)), 1e-30f)
-                       : 1.f;
-          rn2[t] = fmaxf(sqrtf(sq_norm(F2 + t * d2, d2, 1)), 1e-30f);
-        }
-        __syncthreads();
-      }
-      const int strips = mp / 4;
-      for (int i = tid; i < tile * strips; i += nthr) {
-        const int t = i / strips, j = 4 * (i - t * strips);
-        *reinterpret_cast<float4*>(Kb + t * mp + j) = kernel_strip(
-            ft, F1, F2, IP1, IP2, rn1, rn2, in1, in2, t, j, mp);
-      }
-      Kt = Kb;
-      __syncthreads();  // the K tile is built
-    } else {
-      Kt = raw + lay.k;
-    }
-
-    if (does_r) {
-      // each (g, j) accumulator is owned by one thread across all tiles
-      for (int i = tid; i < G * m; i += nthr) {
-        const int g = i / m, j = i % m;
-        float s = Rs[g * mp + j];
-        for (int t = 0; t < tile; ++t) s = fmaf(Y[t * G + g], Kt[t * mp + j], s);
-        Rs[g * mp + j] = s;
-      }
-    }
     if (active) {
 #pragma unroll 2
       for (int t = 0; t < tile; ++t) {
@@ -451,6 +490,25 @@ stats_partial_kernel(const float* __restrict__ knm, Features ft,
         }
       }
     }
+    if (does_r) {
+      // unit u = (channel g, columns 4 s..4 s+3) is owned by one thread
+      // across all tiles: one 16-byte K load and one Y load per 4 FMAs
+      const int strips = mp / 4;
+      for (int u = tid; u < G * strips; u += nthr) {
+        const int g = u / strips, j = 4 * (u - g * strips);
+        float4 s = *reinterpret_cast<const float4*>(Rs + g * mp + j);
+#pragma unroll 4
+        for (int t = 0; t < tile; ++t) {
+          const float y = Y[t * G + g];
+          const float4 k = *reinterpret_cast<const float4*>(Kt + t * mp + j);
+          s.x = fmaf(y, k.x, s.x);
+          s.y = fmaf(y, k.y, s.y);
+          s.z = fmaf(y, k.z, s.z);
+          s.w = fmaf(y, k.w, s.w);
+        }
+        *reinterpret_cast<float4*>(Rs + g * mp + j) = s;
+      }
+    }
   }
 
   if (active) {
@@ -471,10 +529,12 @@ stats_partial_kernel(const float* __restrict__ knm, Features ft,
       }
     }
   }
-  if (does_r) {
-    for (int i = tid; i < G * m; i += nthr) {
-      const int g = i / m, j = i % m, l = l0 + g;
-      if (l < L) ws_r[((size_t)chunk * L + l) * m + j] = Rs[g * mp + j];
+  if (does_r) {  // each thread writes the r columns it owns
+    const int strips = mp / 4;
+    for (int u = tid; u < G * strips; u += nthr) {
+      const int g = u / strips, j = 4 * (u - g * strips), l = l0 + g;
+      for (int q = 0; q < 4 && l < L && j + q < m; ++q)
+        ws_r[((size_t)chunk * L + l) * m + j + q] = Rs[g * mp + j + q];
     }
   }
 }
@@ -667,27 +727,40 @@ TriangleGrid triangle_grid(int m) {
   return {threads, (n_tri + threads - 1) / threads};
 }
 
-size_t partial_smem_bytes(int tile, int m, int d1, int d2, bool features) {
-  return sizeof(float) * (size_t)partial_layout(tile, m, d1, d2, features).total;
+size_t partial_smem_bytes(int tile, int m) {
+  return sizeof(float) * (size_t)partial_layout(tile, m).total;
 }
 
 size_t small_smem_bytes(int tile, int m) {
   return sizeof(float) * (size_t)small_layout(tile, m).total;
 }
 
-const void* partial_fn(bool features) {
-  return features ? (const void*)stats_partial_kernel<true>
-                  : (const void*)stats_partial_kernel<false>;
+size_t build_smem_bytes(int m, int d1, int d2) {
+  return sizeof(float) * (size_t)(2 + d1 + d2) * pad8(m);
 }
 
-// B2 at small m goes through stats_small_kernel, everything else through
+// small m goes through stats_small_kernel, the rest through
 // stats_partial_kernel
-bool uses_small(int m, bool features) { return !features && m <= SMALL_MAX_M; }
+bool uses_small(int m) { return m <= SMALL_MAX_M; }
+
+// B3's K-build kernel for a call: compiled for the feature widths the
+// paths use (SPRITES 8 + 16, the MNIST GPLVM's 1 + 8) and normalize, else
+// the run-time form.
+const void* build_fn(int family, int d1, int d2, int normalize) {
+  if (family == FAMILY_SPRITES && d1 == 8 && d2 == 16)
+    return normalize ? (const void*)build_k_kernel<FAMILY_SPRITES, 8, 16, 1>
+                     : (const void*)build_k_kernel<FAMILY_SPRITES, 8, 16, 0>;
+  if (family == FAMILY_MNIST && d1 == 1 && d2 == 8)
+    return normalize ? (const void*)build_k_kernel<FAMILY_MNIST, 1, 8, 1>
+                     : (const void*)build_k_kernel<FAMILY_MNIST, 1, 8, 0>;
+  return (const void*)build_k_kernel<-1, 0, 0, -1>;
+}
 
 struct Plan {
   int n_chunks;  // 0: single launch, no workspace
   int rows_per_chunk;
   int tile;
+  int build_blocks;  // B3's K-build grid (a grid-stride loop)
 };
 
 // The kernel, grid, threads and shared memory that a plan launches (the
@@ -699,26 +772,22 @@ struct Kernel {
   size_t smem;
 };
 
-Kernel plan_kernel(const Plan& plan, int m, int L, int d1, int d2) {
-  const bool features = d1 > 0 || d2 > 0;
+Kernel plan_kernel(const Plan& plan, int m, int L) {
   const unsigned chunks = plan.n_chunks > 0 ? plan.n_chunks : 1;
-  if (uses_small(m, features))
+  if (uses_small(m))
     return {(const void*)stats_small_kernel, dim3(L, chunks),
             small_groups(m) * small_tiles(m), small_smem_bytes(plan.tile, m)};
   const TriangleGrid tg = triangle_grid(m);
-  return {partial_fn(features),
+  return {(const void*)stats_partial_kernel,
           dim3(chunks, (L + CHANNELS_PER_BLOCK - 1) / CHANNELS_PER_BLOCK,
                tg.slices),
-          tg.threads, partial_smem_bytes(plan.tile, m, d1, d2, features)};
+          tg.threads, partial_smem_bytes(plan.tile, m)};
 }
 
 // What a launch of this shape looks like on the current device; sets each
 // kernel's dynamic shared-memory limit to the device's opt-in maximum.
-int make_plan(int n, int m, int L, int d1, int d2, Plan* plan) {
-  const bool features = d1 > 0 || d2 > 0;
-  if (n < 1 || m < 1 || L < 1 || d1 < 0 || d2 < 0 ||
-      (features && (d1 < 1 || d2 < 1)))
-    return (int)cudaErrorInvalidValue;
+int make_plan(int n, int m, int L, Plan* plan) {
+  if (n < 1 || m < 1 || L < 1) return (int)cudaErrorInvalidValue;
   int device = 0, sms = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
@@ -726,8 +795,11 @@ int make_plan(int n, int m, int L, int d1, int d2, Plan* plan) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
-  for (const void* fn : {partial_fn(false), partial_fn(true),
-                         (const void*)stats_small_kernel}) {
+  for (const void* fn :
+       {(const void*)stats_partial_kernel, (const void*)stats_small_kernel,
+        build_fn(FAMILY_SPRITES, 8, 16, 0), build_fn(FAMILY_SPRITES, 8, 16, 1),
+        build_fn(FAMILY_MNIST, 1, 8, 0), build_fn(FAMILY_MNIST, 1, 8, 1),
+        (const void*)build_k_kernel<-1, 0, 0, -1>}) {
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
@@ -737,14 +809,15 @@ int make_plan(int n, int m, int L, int d1, int d2, Plan* plan) {
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (e != cudaSuccess) return (int)e;
+  const int build_blocks = BUILD_BLOCKS_PER_SM * sms;
 
-  if (uses_small(m, features)) {
+  if (uses_small(m)) {
     // one block per (channel, chunk) of at least SMALL_CHUNK_ROWS rows, at
     // most one wave; one chunk is the single launch
     int tile = SMALL_TILE_N;
     while (tile > MIN_TILE_N && small_smem_bytes(tile, m) > (size_t)optin)
       tile /= 2;
-    const Kernel k = plan_kernel({0, n, tile}, m, L, d1, d2);
+    const Kernel k = plan_kernel({0, n, tile, build_blocks}, m, L);
     if (k.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
     int resident = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, k.fn,
@@ -754,19 +827,18 @@ int make_plan(int n, int m, int L, int d1, int d2, Plan* plan) {
     const long long wave = (long long)resident * sms / L;
     if (chunks > wave) chunks = wave;
     if (chunks <= 1) {
-      *plan = {0, n, tile};
+      *plan = {0, n, tile, build_blocks};
       return 0;
     }
     const long long rows = ((n + chunks - 1) / chunks + 3) / 4 * 4;
-    *plan = {(int)((n + rows - 1) / rows), (int)rows, tile};
+    *plan = {(int)((n + rows - 1) / rows), (int)rows, tile, build_blocks};
     return 0;
   }
 
   int tile = TILE_N;
-  while (tile > MIN_TILE_N &&
-         partial_smem_bytes(tile, m, d1, d2, features) > (size_t)optin)
+  while (tile > MIN_TILE_N && partial_smem_bytes(tile, m) > (size_t)optin)
     tile /= 2;
-  const Kernel k = plan_kernel({1, n, tile}, m, L, d1, d2);
+  const Kernel k = plan_kernel({1, n, tile, build_blocks}, m, L);
   if (k.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   int resident = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, k.fn,
@@ -781,7 +853,7 @@ int make_plan(int n, int m, int L, int d1, int d2, Plan* plan) {
   if (chunks > most) chunks = most;
   if (chunks < 1) chunks = 1;
   const long long rows = (n_tiles + chunks - 1) / chunks * TILE_N;
-  *plan = {(int)((n + rows - 1) / rows), (int)rows, tile};
+  *plan = {(int)((n + rows - 1) / rows), (int)rows, tile, build_blocks};
   return 0;
 }
 
@@ -802,34 +874,25 @@ int launch_reduce(const float* ws_sigma, const float* ws_r, float* sigma,
   return (int)cudaGetLastError();
 }
 
-template <bool FROM_FEATURES>
-int launch_partial(const float* knm, const Features& ft, const float* prec,
-                   const float* py, float* sigma, float* r, float* ws_sigma,
-                   float* ws_r, int n, int m, int L, const Plan& plan,
-                   cudaStream_t stream) {
-  if (!valid_plan(plan, n, m, L) || plan.n_chunks < 1 ||
-      plan.rows_per_chunk % plan.tile != 0)
-    return (int)cudaErrorInvalidValue;
-  const Kernel k = plan_kernel(plan, m, L, FROM_FEATURES ? ft.d1 : 0,
-                               FROM_FEATURES ? ft.d2 : 0);
-  stats_partial_kernel<FROM_FEATURES><<<k.grid, k.threads, k.smem, stream>>>(
-      knm, ft, prec, py, ws_sigma, ws_r, n, m, L, plan.rows_per_chunk,
-      plan.tile);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_reduce(ws_sigma, ws_r, sigma, r, plan.n_chunks, m, L, stream);
-}
-
-int launch_small(const float* knm, const float* prec, const float* py,
+// (Sigma, r) from K_nm in device memory: the plan's kernel, then the
+// reduce when it has chunks.
+int launch_stats(const float* knm, const float* prec, const float* py,
                  float* sigma, float* r, float* ws_sigma, float* ws_r, int n,
                  int m, int L, const Plan& plan, cudaStream_t stream) {
-  if (!valid_plan(plan, n, m, L) || m > SMALL_MAX_M)
+  if (!valid_plan(plan, n, m, L) ||
+      (!uses_small(m) &&
+       (plan.n_chunks < 1 || plan.rows_per_chunk % plan.tile != 0)))
     return (int)cudaErrorInvalidValue;
   const bool single = plan.n_chunks == 0;
-  const Kernel k = plan_kernel(plan, m, L, 0, 0);
-  stats_small_kernel<<<k.grid, k.threads, k.smem, stream>>>(
-      knm, prec, py, single ? sigma : ws_sigma, single ? r : ws_r, n, m, L,
-      plan.rows_per_chunk, plan.tile, single);
+  const Kernel k = plan_kernel(plan, m, L);
+  if (uses_small(m))
+    stats_small_kernel<<<k.grid, k.threads, k.smem, stream>>>(
+        knm, prec, py, single ? sigma : ws_sigma, single ? r : ws_r, n, m, L,
+        plan.rows_per_chunk, plan.tile, single);
+  else
+    stats_partial_kernel<<<k.grid, k.threads, k.smem, stream>>>(
+        knm, prec, py, ws_sigma, ws_r, n, m, L, plan.rows_per_chunk,
+        plan.tile, partial_layout(plan.tile, m));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || single) return (int)e;
   return launch_reduce(ws_sigma, ws_r, sigma, r, plan.n_chunks, m, L, stream);
@@ -844,30 +907,34 @@ const char* svgp_error_string(int status) {
 }
 
 // The launch plan of a shape on the current device, as {n_chunks,
-// rows_per_chunk, tile}: n_chunks = 0 is the single launch (no
-// workspace); otherwise the caller sizes the partial-sum workspace as
-// n_chunks x L x (m x m + m) floats.  d1 = d2 = 0 is B2 (K from memory),
-// d1, d2 >= 1 is B3.
-int svgp_stats_plan(int n, int m, int L, int d1, int d2, int* out) {
+// rows_per_chunk, tile, build_blocks}: n_chunks = 0 is the single launch
+// (no workspace); otherwise the caller sizes the partial-sum workspace as
+// n_chunks x L x (m x m + m) floats.  build_blocks is the grid of B3's
+// K-build pass.  B2 and B3 share the plan.
+int svgp_stats_plan(int n, int m, int L, int* out) {
   Plan plan;
-  const int status = make_plan(n, m, L, d1, d2, &plan);
+  const int status = make_plan(n, m, L, &plan);
   if (status != 0) return status;
   out[0] = plan.n_chunks;
   out[1] = plan.rows_per_chunk;
   out[2] = plan.tile;
+  out[3] = plan.build_blocks;
   return 0;
 }
 
 // The kernels a shape's plan launches, on the current device: info =
 // {single launch (1) or two passes (0), threads per block, dynamic shared
 // memory bytes, registers per thread, resident blocks per SM, blocks in
-// the grid, and for two passes the reduce kernel's registers per thread
-// and resident blocks per SM (0 otherwise)}.
+// the grid, for two passes the reduce kernel's registers per thread and
+// resident blocks per SM (0 otherwise), local-memory bytes per thread
+// (spills), and for B3 (d1, d2 >= 1) the K-build kernel's registers,
+// resident blocks per SM and local bytes, the worst over the kernels
+// these widths may launch (0 for B2)}.
 int svgp_stats_info(int n, int m, int L, int d1, int d2, int* info) {
   Plan plan;
-  int status = make_plan(n, m, L, d1, d2, &plan);
+  int status = make_plan(n, m, L, &plan);
   if (status != 0) return status;
-  const Kernel k = plan_kernel(plan, m, L, d1, d2);
+  const Kernel k = plan_kernel(plan, m, L);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, k.fn);
   int resident = 0;
@@ -882,6 +949,8 @@ int svgp_stats_info(int n, int m, int L, int d1, int d2, int* info) {
   info[4] = resident;
   info[5] = (int)(k.grid.x * k.grid.y * k.grid.z);
   info[6] = info[7] = 0;
+  info[8] = (int)attr.localSizeBytes;
+  info[9] = info[10] = info[11] = 0;
   if (plan.n_chunks > 0) {
     e = cudaFuncGetAttributes(&attr, (const void*)stats_reduce_kernel);
     if (e == cudaSuccess)
@@ -891,40 +960,60 @@ int svgp_stats_info(int n, int m, int L, int d1, int d2, int* info) {
     info[6] = attr.numRegs;
     info[7] = resident;
   }
+  if (d1 > 0 && d2 > 0) {
+    info[10] = 1 << 30;
+    for (int family : {FAMILY_MNIST, FAMILY_SPRITES})
+      for (int normalize : {0, 1}) {
+        const void* fn = build_fn(family, d1, d2, normalize);
+        e = cudaFuncGetAttributes(&attr, fn);
+        if (e == cudaSuccess)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &resident, fn, BUILD_THREADS, build_smem_bytes(m, d1, d2));
+        if (e != cudaSuccess) return (int)e;
+        info[9] = attr.numRegs > info[9] ? attr.numRegs : info[9];
+        info[10] = resident < info[10] ? resident : info[10];
+        info[11] = (int)attr.localSizeBytes > info[11]
+                       ? (int)attr.localSizeBytes : info[11];
+      }
+  }
   return 0;
 }
 
-// B2: K_nm (n, m) read from device memory.  plan = {n_chunks,
-// rows_per_chunk, tile} from svgp_stats_plan; n_chunks = 0 takes no
-// workspace (ws_sigma, ws_r may be null).
+// B2: K_nm (n, m) read from device memory.  plan from svgp_stats_plan;
+// n_chunks = 0 takes no workspace (ws_sigma, ws_r may be null).
 int svgp_gp_stats(const float* knm, const float* prec, const float* py,
                   float* sigma, float* r, float* ws_sigma, float* ws_r, int n,
                   int m, int L, const int* plan, void* stream) {
-  const Plan p = {plan[0], plan[1], plan[2]};
-  if (uses_small(m, false))
-    return launch_small(knm, prec, py, sigma, r, ws_sigma, ws_r, n, m, L, p,
-                        (cudaStream_t)stream);
-  Features none = {};
-  return launch_partial<false>(knm, none, prec, py, sigma, r, ws_sigma, ws_r,
-                               n, m, L, p, (cudaStream_t)stream);
+  return launch_stats(knm, prec, py, sigma, r, ws_sigma, ws_r, n, m, L,
+                      {plan[0], plan[1], plan[2], plan[3]},
+                      (cudaStream_t)stream);
 }
 
-// B3: K built in-kernel from f1 (n, d1), f2 (n, d2), ip1 (m, d1), ip2 (m, d2).
-// family: 0 = mnist (periodic over f1[:, 0] x linear over f2),
-//         1 = sprites (linear x linear).  Always two passes.
+// B3: K built from f1 (n, d1), f2 (n, d2), ip1 (m, d1), ip2 (m, d2) into
+// the workspace knm (n, m), then B2 on it.  family: 0 = mnist (periodic
+// over f1[:, 0] x linear over f2), 1 = sprites (linear x linear).
 int svgp_fused_kernel_stats(const float* f1, const float* f2, const float* ip1,
                             const float* ip2, int d1, int d2, float amp,
                             float length_scale, int family, int normalize,
                             const float* prec, const float* py, float* sigma,
-                            float* r, float* ws_sigma, float* ws_r, int n,
-                            int m, int L, const int* plan, void* stream) {
-  if (d1 < 1 || d2 < 1 || (family != FAMILY_MNIST && family != FAMILY_SPRITES))
+                            float* r, float* ws_sigma, float* ws_r, float* knm,
+                            int n, int m, int L, const int* plan,
+                            void* stream) {
+  const Plan p = {plan[0], plan[1], plan[2], plan[3]};
+  if (d1 < 1 || d2 < 1 || p.build_blocks < 1 ||
+      (family != FAMILY_MNIST && family != FAMILY_SPRITES))
     return (int)cudaErrorInvalidValue;
-  Features ft = {f1, f2, ip1, ip2, d1, d2, amp, length_scale, family,
-                 normalize};
-  return launch_partial<true>(nullptr, ft, prec, py, sigma, r, ws_sigma,
-                              ws_r, n, m, L, {plan[0], plan[1], plan[2]},
-                              (cudaStream_t)stream);
+  Features ft = {f1, f2, ip1, ip2, d1, d2, amp * amp,
+                 1.f / (length_scale * length_scale), family, normalize != 0};
+  void* args[] = {&ft, &knm, &n, &m};
+  cudaError_t e = cudaLaunchKernel(build_fn(family, d1, d2, normalize),
+                                   dim3(p.build_blocks), dim3(BUILD_THREADS),
+                                   args, build_smem_bytes(m, d1, d2),
+                                   (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_stats(knm, prec, py, sigma, r, ws_sigma, ws_r, n, m, L, p,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

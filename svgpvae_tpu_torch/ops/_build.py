@@ -36,12 +36,12 @@ _F = ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "svgp_error_string": ([_I], ctypes.c_char_p),
-    "svgp_stats_plan": ([_I, _I, _I, _I, _I, _PI], _I),
+    "svgp_stats_plan": ([_I, _I, _I, _PI], _I),
     "svgp_stats_info": ([_I, _I, _I, _I, _I, _PI], _I),
     "svgp_gp_stats": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _PI, _P], _I),
     "svgp_fused_kernel_stats": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
-                                 _P, _P, _P, _P, _P, _P, _I, _I, _I, _PI,
-                                 _P], _I),
+                                 _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _PI, _P], _I),
     "svgp_chol_inverse_max_m": ([_I, _PI], _I),
     "svgp_chol_inverse_info": ([_I, _I, _PI], _I),
     "svgp_chol_inverse": ([_P, _P, _P, _I, _I, _P], _I),

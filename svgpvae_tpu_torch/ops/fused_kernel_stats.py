@@ -1,8 +1,7 @@
 """Product-kernel construction fused with the GP sufficient statistics.
 
 Port of svgpvae_tpu/ops/fused_kernel_stats.py.  The same (Sigma, r) as
-ops.gp_stats, but K_nm is built from the raw auxiliary features, so the
-(n, m) kernel matrix never reaches device memory:
+ops.gp_stats, but from the raw auxiliary features instead of K_nm:
 
   mnist family:   K = amp^2 exp(-2 sin^2(|view_i - ip_view_j| / 2) / l^2)
                       * <obj_i, ip_obj_j>          (obj part optionally
@@ -13,11 +12,14 @@ ops.gp_stats, but K_nm is built from the raw auxiliary features, so the
 
 Cosine normalization clamps data-row norms at 1e-30 (an all-zero row gives
 0, not 0/0), as the TPU kernel does.  `fused_kernel_stats` launches the
-hand-written CUDA kernel (csrc/gp_stats.cu::svgp_fused_kernel_stats,
+hand-written CUDA kernels (csrc/gp_stats.cu::svgp_fused_kernel_stats,
 replacing the Pallas kernel
 svgpvae_tpu/ops/fused_kernel_stats.py::fused_kernel_stats) for CUDA
 tensors, and runs the plain twin `fused_kernel_stats_reference` for CPU
-tensors.  Forward only.
+tensors.  On the card, one kernel writes K_nm into an (n, m) workspace
+(14.4 MB at the SPRITES fit, resident in the H100's L2) and B2's kernels
+contract it; the source says why that beats keeping K on chip.  Forward
+only.
 """
 
 from __future__ import annotations
@@ -100,15 +102,17 @@ def fused_kernel_stats(f1: torch.Tensor, f2: torch.Tensor, ip1: torch.Tensor,
     amp = 1.0 if amp is None else float(amp)
     length_scale = 1.0 if length_scale is None else float(length_scale)
     lib = _build.load()
-    plan = launch_plan(n, m, L, device, d1, d2)
-    sigma, r, ws_sigma, ws_r = alloc_outputs(plan, m, L, device)
+    plan = launch_plan(n, m, L, device)
+    sigma, r, *ws = alloc_outputs(plan, m, L, device)
+    ws_ptrs = [None if w is None else w.data_ptr() for w in ws]
+    knm = torch.empty((n, m), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.svgp_fused_kernel_stats(
             f1.data_ptr(), f2.data_ptr(), ip1.data_ptr(), ip2.data_ptr(),
             d1, d2, amp, length_scale, FAMILIES[family], int(normalize),
             prec.data_ptr(), py.data_ptr(), sigma.data_ptr(), r.data_ptr(),
-            ws_sigma.data_ptr(), ws_r.data_ptr(), n, m, L, plan, stream)
+            *ws_ptrs, knm.data_ptr(), n, m, L, plan, stream)
     _build.check(status, "svgp_fused_kernel_stats")
     fused_kernel_stats.launches += 1
     return sigma, r

@@ -11,8 +11,9 @@ tensors.  Unlike the TPU dispatcher there is no n/m threshold: on CUDA the
 kernel always runs.  The library's launch plan (asked once per shape and
 device) picks the kernel and the split of n: at m <= 64 one launch with
 no workspace for small n, chunks plus a fixed-order reduce above; at
-larger m (and for B3) partial sums plus the reduce.  The kernels' bound
-and design are described in the CUDA source.
+larger m partial sums plus the reduce.  B3 builds K into a workspace
+and runs the same plan on it.  The kernels' bound and design are
+described in the CUDA source.
 
 `gp_stats` is the differentiable form (the JAX custom_vjp of the same
 name): its forward is `gp_sufficient_stats`, its backward the einsum VJP
@@ -60,24 +61,25 @@ def check_cuda_f32(**tensors) -> torch.device:
 
 INFO_KEYS = ("single_launch", "threads", "smem_bytes", "registers",
              "blocks_per_sm", "grid_blocks", "reduce_registers",
-             "reduce_blocks_per_sm")
+             "reduce_blocks_per_sm", "local_bytes", "build_registers",
+             "build_blocks_per_sm", "build_local_bytes")
 
 
-def launch_plan(n: int, m: int, L: int, device: torch.device, d1: int = 0,
-                d2: int = 0):
+def launch_plan(n: int, m: int, L: int, device: torch.device):
     """The library's launch plan of this shape on `device`, as the C array
-    {n_chunks, rows_per_chunk, tile} its entry points take: n_chunks = 0
-    is the single-launch path (B2 only, no workspace), otherwise the
-    partial-sum workspace has n_chunks chunks.  d1 = d2 = 0 is B2; B3
-    passes its feature widths.  Asked once per shape and device."""
-    return _plan(device.index, n, m, L, d1, d2)
+    {n_chunks, rows_per_chunk, tile, build_blocks} its entry points take:
+    n_chunks = 0 is the single-launch path (no workspace), otherwise the
+    partial-sum workspace has n_chunks chunks; build_blocks is the grid of
+    B3's K-build pass.  B2 and B3 share it.  Asked once per shape and
+    device."""
+    return _plan(device.index, n, m, L)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(index: int, n: int, m: int, L: int, d1: int, d2: int):
-    out = (ctypes.c_int * 3)()
+def _plan(index: int, n: int, m: int, L: int):
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(index):
-        _build.check(_build.load().svgp_stats_plan(n, m, L, d1, d2, out),
+        _build.check(_build.load().svgp_stats_plan(n, m, L, out),
                      "svgp_stats_plan")
     return out
 
@@ -85,8 +87,11 @@ def _plan(index: int, n: int, m: int, L: int, d1: int, d2: int):
 def kernel_info(n: int, m: int, L: int, device: torch.device, d1: int = 0,
                 d2: int = 0) -> dict:
     """The kernels this shape's plan launches on `device`: threads,
-    shared memory, registers per thread and resident blocks per SM
-    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    shared memory, registers and local memory (spills) per thread and
+    resident blocks per SM (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor); with B3's feature
+    widths d1, d2 also its K-build kernel's, the worst over the kernels
+    those widths may launch."""
     out = (ctypes.c_int * len(INFO_KEYS))()
     with torch.cuda.device(device):
         _build.check(_build.load().svgp_stats_info(n, m, L, d1, d2, out),

@@ -17,12 +17,13 @@ within 5e-4 of its own max |entry|, logdet within rtol 1e-5 (1e-4 at
 m = 72) -- the tolerances tests/test_fused_gp.py holds the TPU kernel to,
 since both methods are backward-stable at ~cond * eps.
 
-Both kernels have two forms that the library picks by shape: B2 one
-launch (m <= 64, n <= 256), small-m chunks plus a reduce, or the
-partial-sum kernel plus a reduce (m > 64, and B3); B1 one warp per matrix
-(m <= 32) or one shared-memory block per matrix.  The cases cover both
-sides of each boundary, and every form is checked to give the same bits
-from run to run.
+The kernels have forms that the library picks by shape: B2 one launch
+(m <= 64, n <= 256), small-m chunks plus a reduce, or the partial-sum
+kernel plus a reduce (m > 64); B3 a K-build kernel (compiled-in or
+run-time feature widths) and then B2's form for the shape; B1 one warp
+per matrix (m <= 32) or one shared-memory block per matrix.  The cases
+cover both sides of each boundary, and every form is checked to give the
+same bits from run to run.
 """
 
 import numpy as np
@@ -84,6 +85,9 @@ def test_gp_stats_kernel_matches_twin(cuda, n, m, L):
     _assert_close(got, gps.gp_sufficient_stats_reference(knm, prec, py))
 
 
+# B3 writes K with a kernel compiled for d = 8 + 16 (sprites) and 1 + 8
+# (mnist), other widths taking the run-time form, then runs B2's plan on
+# it: one launch (m <= 64, n <= 256), small-m chunks, or partial sums.
 FEATURE_CASES = [
     # family, n, m, d1, d2, L
     ("mnist", 200, 20, 1, 8, 4),
@@ -91,6 +95,15 @@ FEATURE_CASES = [
     ("sprites", 150, 30, 3, 5, 6),
     ("sprites", 97, 13, 8, 16, 5),
     ("sprites", 5000, 72, 8, 16, 64),
+    # L not a multiple of 4 (a ragged last channel group) or of 16
+    ("sprites", 700, 72, 8, 16, 9),
+    ("sprites", 2000, 72, 8, 16, 63),
+    ("sprites", 300, 30, 2, 7, 5),
+    # n below one 64-row tile, and n not a multiple of 64
+    ("sprites", 40, 72, 8, 16, 16),
+    ("mnist", 1000, 33, 1, 8, 8),      # and >= 3 tiles (normalize too)
+    ("mnist", 3000, 72, 1, 8, 64),
+    ("mnist", 500, 40, 3, 5, 12),      # mnist, run-time form
 ]
 
 
@@ -147,7 +160,9 @@ def test_fused_normalize_clamps_zero_rows(cuda):
 def test_gp_stats_plan_regimes(cuda, n, m, L, single_launch):
     """The training step's shapes take one launch and no workspace; the
     cgen and fit shapes two passes, with every block resident in one
-    wave, and the fit's partial-sum kernel at >= 2 blocks per SM."""
+    wave, and the fit's partial-sum kernel at >= 2 blocks per SM.  None
+    of them spills.  B3 runs the same plan after its K-build kernel; at
+    the fit its partial-sum kernel keeps 4 blocks (12 warps) per SM."""
     plan = gps.launch_plan(n, m, L, cuda)
     info = gps.kernel_info(n, m, L, cuda)
     assert (plan[0] == 0) == single_launch == bool(info["single_launch"])
@@ -155,7 +170,13 @@ def test_gp_stats_plan_regimes(cuda, n, m, L, single_launch):
     assert info["grid_blocks"] <= info["blocks_per_sm"] * sms
     if m > SMALL_MAX_M:
         assert info["blocks_per_sm"] >= 2
-    assert fks.launch_plan(n, m, L, cuda, 8, 16)[0] >= 1  # B3: two passes
+    assert info["local_bytes"] == 0 and info["registers"] <= 168
+    b3 = gps.kernel_info(n, m, L, cuda, 8, 16)
+    assert b3["build_blocks_per_sm"] >= 1
+    assert {k: b3[k] for k in gps.INFO_KEYS[:9]} == {
+        k: info[k] for k in gps.INFO_KEYS[:9]}  # the same plan as B2
+    if (n, m, L) == (50_000, 72, 64):
+        assert info["blocks_per_sm"] >= 4
 
 
 def _deterministic_case(case, cuda):
@@ -175,6 +196,7 @@ def _deterministic_case(case, cuda):
 
 @pytest.mark.parametrize("case", [
     ("fused_kernel_stats", 3000, 72, 16),
+    ("fused_kernel_stats", 50_000, 72, 64),    # the serve's fit
     ("gp_sufficient_stats", 256, 32, 16),      # single launch
     ("gp_sufficient_stats", 8100, 32, 16),     # two passes
     ("gp_sufficient_stats", 50_000, 72, 64),   # two passes, many chunks

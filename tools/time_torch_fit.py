@@ -1,6 +1,6 @@
 """Time the PyTorch port's serving fit on a CUDA card, by part.
 
-    PYTHONPATH=. python3 tools/time_torch_fit.py
+    PYTHONPATH=. python3 tools/time_torch_fit.py [--trace]
 
 Times `gp.precompute_test_posterior_terms` (what `serving.fit` runs) at the
 SPRITES serving shape (N = 50,000 train frames, m = 72 inducing points,
@@ -13,10 +13,15 @@ the sufficient statistics, the Cholesky of Sigma and the inverse of K_mm.
 Encodings and aux data are random, in the ranges the serve produces; the
 GP parameters are drawn from seed 0 as `cli.serve` draws them.  TF32 is
 off, as in the serve.
+
+--trace runs each first call under torch.profiler and adds what it spent
+loading CUDA modules and functions on first use (host ms) and the device
+ms of the GP-statistics kernels.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -41,6 +46,20 @@ def host_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
+def traced_ms(fn) -> tuple:
+    """(host ms of fn(), host ms of CUDA module and function loading, device
+    ms of the GP-statistics kernels), fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms = host_ms(fn)
+    rows = prof.key_averages()
+    loading = sum(e.self_cpu_time_total for e in rows if "Loading" in e.key)
+    stats = sum(e.self_device_time_total for e in rows
+                if "stats" in e.key or "build_k" in e.key)
+    return ms, loading / 1e3, stats / 1e3
+
+
 def fit_inputs(n: int, L: int, L_character: int, seed: int, device):
     """(means, variances, aux) like the encoder's: variances clipped to
     QVAR_CLIP, aux = [action id as float, character vector]."""
@@ -53,14 +72,19 @@ def fit_inputs(n: int, L: int, L_character: int, seed: int, device):
             for a in (means, variances, aux)]
 
 
-def time_family(argv, device) -> None:
+def time_family(argv, device, trace: bool) -> None:
     args = serve.build_parser().parse_args(argv)
     _, _, gp = serve.build_model(args, device)
     means, variances, aux = fit_inputs(N, args.L, args.L_character, SEED,
                                        device)
     fit = lambda: svgp.precompute_test_posterior_terms(gp, means, variances,
                                                        aux)
-    first = host_ms(fit)
+    if trace:
+        first, loading, stats = traced_ms(fit)
+        note = (f" (traced: {loading:.1f} ms loading CUDA modules and "
+                f"functions, {stats:.3f} ms of GP-statistics kernels)")
+    else:
+        first, note = host_ms(fit), ""
     warm = [host_ms(fit) for _ in range(REPS)]
 
     precision = linalg.reciprocal_no_nan(variances).contiguous()
@@ -78,12 +102,16 @@ def time_family(argv, device) -> None:
     split = {k: [host_ms(f) for _ in range(REPS)] for k, f in parts.items()}
     name = "K_SE" if args.K_SE else "linear"
     fmt = lambda ts: ", ".join(f"{t:.3f}" for t in ts)
-    print(f"fit[{name}] N={N}: first call {first:.3f} ms; warm {fmt(warm)} ms")
+    print(f"fit[{name}] N={N}: first call {first:.3f} ms{note}; warm "
+          f"{fmt(warm)} ms")
     for k, ts in split.items():
         print(f"  {k}: {fmt(ts)} ms")
 
 
 def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--trace", action="store_true")
+    trace = p.parse_args().trace
     if not torch.cuda.is_available():
         raise SystemExit("time_torch_fit: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,7 +122,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     for extra in ([], ["--K_SE"]):
         time_family(["--device", "cuda", "--seed", str(SEED)] + extra,
-                    device)
+                    device, trace)
 
 
 if __name__ == "__main__":

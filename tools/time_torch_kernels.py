@@ -1,16 +1,20 @@
 """Time the PyTorch port's CUDA kernels at the main path's shapes on one card.
 
     PYTHONPATH=. python3 tools/time_torch_kernels.py [--root DIR]
-        [--repeats 3] [--sweep] [--profile]
+        [--repeats 3] [--kernels K1,K2] [--sweep] [--profile]
 
 For each (kernel, shape) of the main paths -- B2 gp_sufficient_stats at the
 training step (256 and 164 rows), cgen (8,100) and fit (50,000) shapes, B3
-fused_kernel_stats at the fit shape, B1 chol_inverse at (17, 32, 32) and
-(65, 72, 72) -- it prints one JSON line: the time per call (CUDA events
-over back-to-back calls, the wrapper's host dispatch included) and the
-device time per call (one CUDA-graph replay of 50 captured calls), each
-measured --repeats times, and the bound (chip_smoke.py's formulas).
+fused_kernel_stats at the fit shape (sprites, and beside it with
+normalize, in the mnist family with d = 1 + 8, and at L = 16), B1
+chol_inverse at (17, 32, 32) and (65, 72, 72) -- it prints one JSON line:
+the time per call (CUDA events over back-to-back calls, the wrapper's
+host dispatch included) and the device time per call (one CUDA-graph
+replay of 50 captured calls), each measured --repeats times, and the
+bound (chip_smoke.py's formulas).
 Inputs are made from a seed.
+
+--kernels times only the named kernels (default: all three).
 
 --root DIR imports svgpvae_tpu_torch from DIR instead (an unpacked copy
 of another commit, with its own build), so that two commits are compared
@@ -20,9 +24,9 @@ in one session on one card: run the script on each, in turns.
 m = 32, L = 16 over n, in one launch and in 2, 4 and 8 n chunks plus the
 reduce, each forced through the C entry point's plan argument.
 
---profile (this tree only) traces 10 calls of B2 at (256, 32, 16) with
-torch.profiler and prints the CUDA kernels and memory operations it
-launched per call.
+--profile traces 10 calls of B2 at (256, 32, 16) and of B3 at the fit
+shape with torch.profiler and prints the CUDA kernels and memory
+operations each call launched, with their device time per call.
 
 --chol_sweep adds B1's device time at several (B, m) and the device time
 of a one-element add_ in the same kind of graph replay (the floor of one
@@ -46,7 +50,11 @@ import numpy as np
 HERE = Path(__file__).resolve().parent.parent
 STATS_SHAPES = [("train_step", 256, 32, 16), ("train_tail", 164, 32, 16),
                 ("cgen", 8_100, 32, 16), ("fit", 50_000, 72, 64)]
-FUSED_SHAPES = [("fit", 50_000, 72, 64)]
+# B3: (tag, n, m, L, family, normalize, d1, d2); the serve's fit first
+FUSED_SHAPES = [("fit", 50_000, 72, 64, "sprites", False, 8, 16),
+                ("fit_normalize", 50_000, 72, 64, "sprites", True, 8, 16),
+                ("fit_mnist", 50_000, 72, 64, "mnist", False, 1, 8),
+                ("fit_L16", 50_000, 72, 16, "sprites", False, 8, 16)]
 CHOL_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3)]
 SWEEP_N = [256, 384, 512, 1024, 2048, 4096, 8100]
 CHOL_SWEEP = [(1, 32), (17, 32), (264, 32), (17, 16), (17, 2)]
@@ -61,16 +69,18 @@ def load_chip_smoke():
     return mod
 
 
-def stats_case(cs, rng, device, n, m, L, fused):
+def stats_case(cs, rng, device, n, m, L, fused, family="sprites",
+               normalize=False, d1=8, d2=16):
     import torch
     from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
     from svgpvae_tpu_torch.ops import gp_stats as gps
     f1, f2, ip1, ip2, prec, py = (
         torch.from_numpy(a).to(device)
-        for a in cs.stats_inputs(rng, n, m, L, 8, 16, "sprites"))
+        for a in cs.stats_inputs(rng, n, m, L, d1, d2, family))
     if fused:
+        amp, ls = (0.9, 1.3) if family == "mnist" else (None, None)
         return lambda: fks.fused_kernel_stats(f1, f2, ip1, ip2, prec, py,
-                                              family="sprites")
+                                              amp, ls, family, normalize)
     knm = fks.fused_kernel_matrix(f1, f2, ip1, ip2, family="sprites")
     knm = knm.contiguous()
     return lambda: gps.gp_sufficient_stats(knm, prec, py)
@@ -98,16 +108,16 @@ def sweep(cs, device, repeats) -> None:
         py = torch.randn(n, L, device=device)
         sigma = torch.empty(L, m, m, device=device)
         r = torch.empty(L, m, device=device)
-        plans = {"single": (0, n, 256)}
+        plans = {"single": (0, n, 256, 1)}
         for chunks in (2, 4, 8):
             per = -(-n // chunks)
             rows = -(-per // 4) * 4
-            plans[f"chunks_{-(-n // rows)}"] = (-(-n // rows), rows, 256)
+            plans[f"chunks_{-(-n // rows)}"] = (-(-n // rows), rows, 256, 1)
         want = gps.gp_sufficient_stats_reference(knm, prec, py)
         row = {"n": n, "m": m, "L": L, "plan": list(gps.launch_plan(
             n, m, L, device))}
         for name, plan in plans.items():
-            arr = (ctypes.c_int * 3)(*plan)
+            arr = (ctypes.c_int * 4)(*plan)
             ws = (torch.empty(plan[0], L, m, m, device=device),
                   torch.empty(plan[0], L, m, device=device))
 
@@ -129,28 +139,34 @@ def sweep(cs, device, repeats) -> None:
         print(json.dumps({"sweep": row}), flush=True)
 
 
-def profile_b2(cs, device) -> None:
+def profile_kernels(cs, device) -> None:
+    """torch.profiler over 10 calls of B2 at (256, 32, 16) and of B3 at the
+    fit shape: the CUDA kernels and memory operations each call launched,
+    with their device time per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(4)
-    fn = stats_case(cs, rng, device, 256, 32, 16, fused=False)
-    fn()
-    torch.cuda.synchronize()
-    calls = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for fused, (n, m, L) in ((False, (256, 32, 16)), (True, (50_000, 72, 64))):
+        name = "fused_kernel_stats" if fused else "gp_sufficient_stats"
+        fn = stats_case(cs, rng, device, n, m, L, fused=fused)
+        fn()
         torch.cuda.synchronize()
-    names = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation):
-            names[e.name] = names.get(e.name, 0) + 1
-    print(json.dumps({"profile": "gp_sufficient_stats (256, 32, 16)",
-                      "calls": calls, "device_ops_per_call": {
-                          k: v / calls for k, v in names.items()}}),
-          flush=True)
+        calls = 10
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation):
+                count, us = ops.get(e.name, (0, 0.0))
+                ops[e.name] = (count + 1, us + e.device_time)
+        print(json.dumps({"profile": f"{name} {(n, m, L)}", "calls": calls,
+                          "device_ops_per_call": {
+                              k: dict(launches=c / calls, us=t / calls)
+                              for k, (c, t) in ops.items()}}), flush=True)
 
 
 def main() -> int:
@@ -160,7 +176,11 @@ def main() -> int:
     p.add_argument("--sweep", action="store_true")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--chol_sweep", action="store_true")
+    p.add_argument("--kernels", default="gp_sufficient_stats,"
+                   "fused_kernel_stats,chol_inverse",
+                   help="comma-separated kernels to time")
     opts = p.parse_args()
+    kernels = opts.kernels.split(",")
     root = Path(opts.root).resolve() if opts.root else HERE
     sys.path.insert(0, str(root))
     cs = load_chip_smoke()
@@ -183,16 +203,23 @@ def main() -> int:
     tree = str(root.relative_to(HERE)) if root != HERE else "."
 
     rng = np.random.RandomState(0)
-    for kernel, shapes, fused in (("gp_sufficient_stats", STATS_SHAPES, False),
-                                  ("fused_kernel_stats", FUSED_SHAPES, True)):
-        for tag, n, m, L in shapes:
-            fn = stats_case(cs, rng, device, n, m, L, fused)
-            per_call, dev = measure(cs, fn, opts.repeats)
-            b_ms, b_by = cs.stats_bound(n, m, L, 8, 16, fused=fused)
-            print(json.dumps(dict(tree=tree, kernel=kernel, shape=tag,
-                                  dims=[n, m, L], ms=per_call, graph_ms=dev,
-                                  bound_ms=b_ms, bound_by=b_by)), flush=True)
-    for tag, B, m, cond in CHOL_SHAPES:
+    cases = ([("gp_sufficient_stats", tag, (n, m, L), {})
+              for tag, n, m, L in STATS_SHAPES]
+             + [("fused_kernel_stats", tag, (n, m, L),
+                 dict(family=fam, normalize=nz, d1=d1, d2=d2))
+                for tag, n, m, L, fam, nz, d1, d2 in FUSED_SHAPES])
+    for kernel, tag, (n, m, L), opt in cases:
+        if kernel not in kernels:
+            continue
+        fused = kernel == "fused_kernel_stats"
+        fn = stats_case(cs, rng, device, n, m, L, fused, **opt)
+        per_call, dev = measure(cs, fn, opts.repeats)
+        b_ms, b_by = cs.stats_bound(n, m, L, opt.get("d1", 8),
+                                    opt.get("d2", 16), fused=fused)
+        print(json.dumps(dict(tree=tree, kernel=kernel, shape=tag,
+                              dims=[n, m, L], ms=per_call, graph_ms=dev,
+                              bound_ms=b_ms, bound_by=b_by)), flush=True)
+    for tag, B, m, cond in CHOL_SHAPES if "chol_inverse" in kernels else []:
         M = torch.from_numpy(cs.pd_stack(rng, B, m, cond)).to(device)
         per_call, dev = measure(cs, lambda: ci.chol_inverse_kernel(M),
                                 opts.repeats)
@@ -214,7 +241,7 @@ def main() -> int:
     if opts.sweep:
         sweep(cs, device, opts.repeats)
     if opts.profile:
-        profile_b2(cs, device)
+        profile_kernels(cs, device)
     return 0
 
 
