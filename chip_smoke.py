@@ -40,14 +40,30 @@ Phases, each of which raises (nonzero exit) on failure:
      noise, copied from the card) redone on the CPU with the twins, in
      fp32 and in f64: the card's loss, GECO state and every gradient
      against the CPU fp32 twin, within a stated multiple of the CPU's own
-     fp32-vs-f64 gap.
+     fp32-vs-f64 gap;
+  8. the SPRITES training run, through svgpvae_tpu_torch.cli.sprites.main
+     at the JAX CLI's widths: phase 4's 1000-character corpus in
+     memory (N_train = 50,000, batch 500 = 10 characters x 50 frames,
+     64x64x3 frames, L = 64, L_action = 8, L_character = 16, 72 inducing
+     points, jitter 0.01), Hensman + GECO, --nr_epochs_repr_nn 2
+     (20 pretraining steps), --opt_regime joint-1 --eval_every 1 (100
+     steps, one eval pass over the 250 unseen characters).  Launch
+     counters are zeroed just before and read just after; every step must
+     launch B1 twice (fused_rejitter_pallas: [K_mm; Sigma], then A_hat)
+     and B2 once, and the eval pass's fit B3 once;
+  9. SPRITES step 60 checked on the CPU: (a) its two B1 input stacks,
+     recomputed on the card from the captured inputs, through the kernel
+     against a float64 inversion of the same fp32 stacks, within a stated
+     multiple of the fp32 twin's own gap to float64; (b) the whole step
+     redone on the CPU with the twins (fp32 in the batch's order, fp32
+     with its characters reversed, f64), as phase 7.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4 and 6, and the max error and times measured in
-phase 3 at the shape named in the entry, with the bound computed from
+the main paths of phases 4, 6 and 8, and the max error and times measured
+in phase 3 at the shape named in the entry, with the bound computed from
 that shape); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
 device; exits nonzero without one.  TF32 is off for matmuls and cuDNN
-throughout.
+throughout.  Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -91,13 +107,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # tests/test_fused_gp.py holds the TPU kernel to.  Inputs: PD stacks of
 # condition 1e4 (1e3 at m = 72).
 B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
-             ("ragged", 5, 37, 1e4)]
+             ("sprites_A_hat", 64, 72, 1e3), ("ragged", 5, 37, 1e4)]
 B1_INV_TOL = 5e-4
-# B2 at the MNIST training shapes: the step's minibatch and the cgen pass
-TRAIN_STATS = [("train_step", dict(n=256, m=32, L=16, d1=1, d2=8)),
-               ("train_tail", dict(n=164, m=32, L=16, d1=1, d2=8)),
-               ("test_tail", dict(n=28, m=32, L=16, d1=1, d2=8)),
-               ("cgen", dict(n=8_100, m=32, L=16, d1=1, d2=8))]
+# B2 at the training shapes: MNIST's minibatch, tail, last test batch and
+# cgen pass (the mnist-family K), SPRITES's minibatch and test batch
+TRAIN_STATS = [("train_step", "mnist", dict(n=256, m=32, L=16, d1=1, d2=8)),
+               ("train_tail", "mnist", dict(n=164, m=32, L=16, d1=1, d2=8)),
+               ("test_tail", "mnist", dict(n=28, m=32, L=16, d1=1, d2=8)),
+               ("cgen", "mnist", dict(n=8_100, m=32, L=16, d1=1, d2=8)),
+               ("sprites_step", "sprites",
+                dict(n=500, m=72, L=64, d1=8, d2=16)),
+               ("sprites_test_batch", "sprites",
+                dict(n=360, m=72, L=64, d1=8, d2=16))]
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -123,6 +144,30 @@ CAPTURE_STEP = 40      # the mid-run step rechecked on the CPU (phase 7)
 RECHECK_FACTOR = 10.0
 SUM_FLOOR = math.sqrt(256 * 28 * 28) * 2.0 ** -24
 FP32_ULP = 2.0 ** -23
+# SPRITES training run (phase 8): the JAX CLI's defaults on phase 4's
+# corpus; depth cut to 2 pretraining epochs, 1 epoch and one eval pass
+SPRITES_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
+                "--synthetic", "--synthetic_chars", str(SERVE_CHARS),
+                "--opt_regime", "joint-1", "--eval_every", "1",
+                "--nr_epochs_repr_nn", "2", "--device", "cuda", "--seed", "0"]
+SPRITES_STEPS = 100        # 50,000 frames / batch 500
+SPRITES_PRETRAIN_STEPS = 20  # 2 epochs x 50,000 / 5,000
+SPRITES_CAPTURE = 60       # the mid-run step checked in phase 9
+SPRITES_FPC = 50           # train frames per character
+# Phase 9(a), B1 on the step's own stacks: Sigma's relative ridge bounds
+# its condition near 1e5 (1e3 in phase 3's synthetic stacks), where a
+# fixed tolerance means nothing.  Gauss-Jordan without pivoting and the
+# twin's Cholesky are both backward-stable at ~cond * eps on a PD matrix,
+# so the kernel is held to 10x the fp32 twin's own gap to float64 (as
+# phase 7's multiple): the inverse normalized by each matrix's max
+# |entry|, the logdet absolute.  Each gap is floored at m * 2^-24 of its
+# scale (1, max |logdet|): one ulp per pivot, so a twin that happens to
+# land within round-off of float64 cannot set a limit below that.
+B1_REAL_FACTOR = 10.0
+# Phase 9(b): as phase 7, with the floor of a gradient at the round-off
+# of the SPRITES step's longest sum (the decoder's output bias:
+# 500 x 64 x 64 x 3 terms).
+SPRITES_SUM_FLOOR = math.sqrt(500 * 64 * 64 * 3) * 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -300,19 +345,21 @@ def phase_kernels(device) -> list:
 
 
 def phase_train_stats(device) -> None:
-    """B2 against its twin at the MNIST training shapes (K built by the
-    mnist-family kernel from random angles and object vectors)."""
+    """B2 against its twin at the training shapes (K built by the
+    mnist- or sprites-family kernel from random features), with the
+    regime its launch plan picks."""
     import torch
     from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
     from svgpvae_tpu_torch.ops import gp_stats as gps
 
     rng = np.random.RandomState(1)
-    for tag, shape in TRAIN_STATS:
+    for tag, family, shape in TRAIN_STATS:
         f1, f2, ip1, ip2, prec, py = (
             torch.from_numpy(a).to(device)
-            for a in stats_inputs(rng, family="mnist", **shape))
-        knm = fks.fused_kernel_matrix(f1, f2, ip1, ip2, 1.0, 1.0,
-                                      "mnist").contiguous()
+            for a in stats_inputs(rng, family=family, **shape))
+        amp, ls = (1.0, 1.0) if family == "mnist" else (None, None)
+        knm = fks.fused_kernel_matrix(f1, f2, ip1, ip2, amp, ls,
+                                      family).contiguous()
         got = gps.gp_sufficient_stats(knm, prec, py)
         torch.cuda.synchronize()
         errs = output_errs(got, gps.gp_sufficient_stats_reference(
@@ -324,7 +371,10 @@ def phase_train_stats(device) -> None:
                                                   knm, knm))
         dev_ms = graph_ms(lambda: gps.gp_sufficient_stats(knm, prec, py))
         b_ms, b_by = stats_bound(**shape)
-        log(f"gp_sufficient_stats {tag} {shape}: " + "; ".join(
+        plan = gps.launch_plan(shape["n"], shape["m"], shape["L"], device)
+        log(f"gp_sufficient_stats {tag} {shape}, plan {list(plan)} "
+            f"({'one launch' if plan[0] == 0 else f'{plan[0]} chunks + reduce'}"
+            f"): " + "; ".join(
             f"{o} max_abs_err {e:.3e} (max|twin| {sc:.3e})"
             for o, (e, sc) in zip(OUTPUTS, errs))
             + f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms of device "
@@ -413,7 +463,7 @@ def check_finite(**tensors) -> None:
 
 def phase_serve() -> tuple:
     """The serve twice (B3 path, then the --K_SE B2 path); returns both
-    runs' results and the launch counts of the whole phase."""
+    runs' results, the launch counts of the whole phase and the corpus."""
     from svgpvae_tpu_torch import data
     from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import serve
@@ -457,7 +507,7 @@ def phase_serve() -> tuple:
         results[name] = res
     launches = ops.launch_counts()
     log(f"serve main-path launches: {launches}")
-    return results, launches
+    return results, launches, splits
 
 
 def phase_cpu_check(name, res) -> None:
@@ -608,6 +658,15 @@ def phase_train_cpu_check(res) -> None:
     r64, loss_terms = cpu_step(torch.float64, reverse=False)
     log(f"cpu step {cap['step']} (fp32 twice, f64): "
         f"{time.perf_counter() - t0:.2f} s")
+    hold_to_cpu_gap(f"step {cap['step']}", got, r32, r32_rev, r64,
+                    loss_terms, SUM_FLOOR)
+
+
+def hold_to_cpu_gap(tag, got, r32, r32_rev, r64, loss_terms,
+                    sum_floor) -> None:
+    """The card's loss, GECO state and gradients (`got`) against the CPU
+    fp32 twin, each within RECHECK_FACTOR x the larger of the CPU's two
+    fp32-vs-f64 gaps, floored (see RECHECK_FACTOR)."""
     rows = []
     for k, g in got.items():
         g = g.detach().cpu().double()
@@ -616,21 +675,243 @@ def phase_train_cpu_check(res) -> None:
         gap = max(float((r32[k] - r64[k]).abs().max()),
                   float((r32_rev[k] - r64[k]).abs().max()))
         floor = (FP32_ULP if k in ("loss", "C_ma", "lagrange_mult")
-                 else SUM_FLOOR) * scale
+                 else sum_floor) * scale
         limit = RECHECK_FACTOR * max(gap, floor)
         rows.append((k, err, limit))
-        log(f"step {cap['step']} {k}: card vs cpu fp32 {err:.3e}, cpu fp32 "
+        log(f"{tag} {k}: card vs cpu fp32 {err:.3e}, cpu fp32 "
             f"vs f64 {gap:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
             + (f"; card {float(g):.9g}, cpu fp32 {float(r32[k]):.9g}, "
                f"cpu f64 {float(r64[k]):.12g}" if g.numel() == 1 else ""))
     bad = [k for k, err, limit in rows if not err <= limit]
     if bad:
-        raise AssertionError(f"step {cap['step']}: the card disagrees with "
-                             f"the CPU twins on {bad}")
-    log(f"step {cap['step']}: {len(got) - 3} gradients and the loss/GECO "
-        f"within {RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap (floored); "
-        f"worst "
+        raise AssertionError(f"{tag}: the card disagrees with the CPU twins "
+                             f"on {bad}")
+    log(f"{tag}: {len(got) - 3} gradients and the loss/GECO within "
+        f"{RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap (floored); worst "
         f"err/limit {max(err / limit for _, err, limit in rows):.3f}")
+
+
+def phase_sprites_train(splits) -> tuple:
+    """The SPRITES training run on the card (phase 8); returns its result
+    and the launch counts of the whole run."""
+    import torch
+    from svgpvae_tpu_torch import ops, train
+    from svgpvae_tpu_torch.cli import sprites
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = sprites.main(SPRITES_ARGV, splits=splits,
+                       capture_step=SPRITES_CAPTURE)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    st = res["state"]
+    gp, vae = st.params["gp"], st.params["vae"]
+    m, d = gp.inducing_points.shape
+    dims = (len(splits["train"]["frames"]), m, vae.L, gp.L_action,
+            d - gp.L_action)
+    if dims != (50 * SERVE_CHARS, 72, 64, 8, 16):
+        raise AssertionError(f"trained N, m, L, L_action, L_character = "
+                             f"{dims}")
+    if (len(res["step_seconds"]) != SPRITES_STEPS
+            or res["pretrain"]["steps"] != SPRITES_PRETRAIN_STEPS):
+        raise AssertionError(f"{res['pretrain']['steps']} pretraining and "
+                             f"{len(res['step_seconds'])} main steps")
+    for i, mt in enumerate(res["metrics"]):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {mt}")
+    for ep in res["pretrain"]["epochs"]:
+        if not all(np.isfinite(v) for v in ep.values()):
+            raise AssertionError(f"non-finite pretraining epoch {ep}")
+    ev = res["evals"][-1]
+    if not all(np.isfinite(ev[k]) for k in ("test_mse", "cgen_mse")):
+        raise AssertionError(f"non-finite eval pass {ev}")
+    check_finite(**train.named_tensors(st.params))
+    for i, sl in enumerate(res["step_launches"]):
+        if (sl["chol_inverse"], sl["gp_sufficient_stats"],
+                sl["fused_kernel_stats"]) != (2, 1, 0):
+            raise AssertionError(f"step {i} launched {sl}: chol_inverse "
+                                 "must launch twice and gp_sufficient_stats "
+                                 "once")
+    in_eval = {k: sum(stage[k] for stage in ev["launches"].values())
+               for k in launches}
+    if ev["launches"]["fit"]["fused_kernel_stats"] != 1 or \
+            in_eval["fused_kernel_stats"] != 1:
+        raise AssertionError(f"the eval pass launched {ev['launches']}: "
+                             "fused_kernel_stats must launch once, in the "
+                             "fit")
+    sec = np.asarray(res["step_seconds"])
+    in_steps = {k: sum(sl[k] for sl in res["step_launches"])
+                for k in launches}
+    log(f"sprites train: {SPRITES_PRETRAIN_STEPS} pretraining steps in "
+        f"{res['pretrain']['seconds']:.3f} s (test_action acc "
+        f"{res['pretrain']['epochs'][0]['test_action_acc']:.4f} after the "
+        f"first epoch); {SPRITES_STEPS} steps: first {1e3 * sec[0]:.2f} "
+        f"ms, then p50 {1e3 * np.percentile(sec[1:], 50):.3f} ms, p90 "
+        f"{1e3 * np.percentile(sec[1:], 90):.3f} ms; eval "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in ev["seconds"].items())
+        + f"; test MSE {ev['test_mse']:.6f}, cgen MSE {ev['cgen_mse']:.6f};"
+        f" max_memory_allocated {peak / 2**20:.1f} MiB; launches per step "
+        f"{res['step_launches'][0]}, inside the steps {in_steps}, in the "
+        f"eval pass {in_eval}, in the whole run {launches}")
+    return res, launches
+
+
+def _sprites_step_params(cap, card_gp, device, dtype):
+    """The captured step's parameters as the port's modules and GP."""
+    from svgpvae_tpu_torch import gp as gpm
+    from svgpvae_tpu_torch.nn import SpritesReprNet, SpritesVAE
+
+    snap = {k: v.detach().to(device, dtype) for k, v in cap["params"].items()}
+
+    def part(name):
+        return {k.split("/", 1)[1]: v for k, v in snap.items()
+                if k.startswith(name + "/")}
+
+    vae = SpritesVAE(L=snap["vae/enc_out.bias"].shape[0] // 2)
+    vae.load_state_dict(part("vae"))
+    repr_net = SpritesReprNet(L=snap["repr/convs.0.bias"].shape[0])
+    repr_net.load_state_dict(part("repr"))
+    gp = gpm.SpritesSVGP(config=card_gp.config, L_action=card_gp.L_action,
+                         use_se_kernel=card_gp.use_se_kernel, **part("gp"))
+    return {"vae": vae.to(device, dtype), "repr": repr_net.to(device, dtype),
+            "gp": gp}
+
+
+def sprites_step_stacks(res) -> list:
+    """The captured step's two B1 input stacks, recomputed on the card
+    from its inputs (printing its loss beside the captured one)."""
+    import torch
+    from svgpvae_tpu_torch import models
+    from svgpvae_tpu_torch.cli import sprites
+    from svgpvae_tpu_torch.gp import fused
+
+    cap = res["captured"]
+    device = cap["batch"][0].device
+    args = sprites.build_parser().parse_args(SPRITES_ARGV)
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="sprites", device=device)
+    params = _sprites_step_params(cap, res["state"].params["gp"], device,
+                                  torch.float32)
+    stacks, kernel = [], fused.chol_inverse
+
+    def recording(M):
+        stacks.append(M.detach().clone())
+        return kernel(M)
+
+    fused.chol_inverse = recording
+    try:
+        with torch.no_grad():
+            loss, _ = sprites.make_loss_fn(args, sprites.make_forward(
+                args, lambda kind, shape: cap["eps"]))(
+                params, cap["batch"], cap["geco"], cap["step"])
+    finally:
+        fused.chol_inverse = kernel
+    log(f"sprites step {cap['step']} recomputed on the card: loss "
+        f"{float(loss):.9g}, as captured {float(cap['loss']):.9g}")
+    if [tuple(M.shape) for M in stacks] != [(65, 72, 72), (64, 72, 72)]:
+        raise AssertionError(f"B1 inputs {[tuple(M.shape) for M in stacks]}")
+    return stacks
+
+
+def phase_sprites_b1(res) -> None:
+    """Phase 9(a): the captured step's two B1 input stacks through the
+    kernel against a float64 inversion of the same fp32 stacks."""
+    import torch
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+
+    cap = res["captured"]
+    stacks = sprites_step_stacks(res)
+    for tag, M in zip(("[K_mm; Sigma]", "A_hat + jitter"), stacks):
+        inv, ld = ci.chol_inverse_kernel(M)
+        torch.cuda.synchronize()
+        inv_t, ld_t = ci.chol_inverse_reference(M.cpu())
+        inv64, ld64 = ci.chol_inverse_reference(M.cpu().double())
+
+        def gaps(i, l):
+            i = i.cpu().double()
+            rel = ((i - inv64).abs().amax(dim=(1, 2))
+                   / inv64.abs().amax(dim=(1, 2))).max()
+            return float(rel), float((l.cpu().double() - ld64).abs().max())
+
+        floor = M.shape[-1] * 2.0 ** -24
+        rows = []
+        for what, got, twin, scale in zip(
+                ("inverse (normalized)", "logdet"), gaps(inv, ld),
+                gaps(inv_t, ld_t), (1.0, float(ld64.abs().max()))):
+            limit = B1_REAL_FACTOR * max(twin, floor * scale)
+            rows.append((what, got, limit))
+            log(f"chol_inverse on step {cap['step']}'s {tag} "
+                f"{tuple(M.shape)}: {what} kernel vs f64 {got:.3e}, fp32 "
+                f"twin vs f64 {twin:.3e}, limit {limit:.3e}")
+        bad = [w for w, got, limit in rows
+               if not (np.isfinite(got) and got <= limit)]
+        if bad:
+            raise AssertionError(f"chol_inverse on step {cap['step']}'s "
+                                 f"{tag}: {bad} past the limit")
+
+
+def phase_sprites_cpu_check(res) -> None:
+    """Phase 9(b): the captured SPRITES step redone on the CPU with the
+    twins, in fp32 with the batch in its order and with its characters
+    reversed (whole characters, so every segment mean is the same), and
+    in f64."""
+    import torch
+    from svgpvae_tpu_torch import models, train
+    from svgpvae_tpu_torch.cli import sprites
+
+    cap = res["captured"]
+    args = sprites.build_parser().parse_args(SPRITES_ARGV)
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="sprites", device=torch.device("cuda"))
+    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
+           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
+
+    def cpu_step(dtype, reverse):
+        def cpu(t):
+            return t.detach().to("cpu", dtype)
+
+        def cpu_b(t):  # a batch-axis tensor, its characters in reverse
+            t = cpu(t)
+            if not reverse:
+                return t
+            chars = t.view(-1, SPRITES_FPC, *t.shape[1:]).flip(0)
+            return chars.reshape(t.shape)
+        params = _sprites_step_params(cap, res["state"].params["gp"],
+                                      torch.device("cpu"), dtype)
+        trainable = train.trainable_tensors(
+            params, sprites.trainable_predicate(args))
+        batch = tuple(cpu_b(x) for x in cap["batch"])
+        eps = cpu_b(cap["eps"])
+        forward, outs = sprites.make_forward(
+            args, lambda kind, shape: eps), []
+
+        def recording(*a):
+            outs.append(forward(*a))
+            return outs[-1]
+
+        loss, (geco, _) = sprites.make_loss_fn(args, recording)(
+            params, batch, train.GECOState(
+                C_ma=cpu(cap["geco"].C_ma),
+                lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        out = {"loss": loss.detach(), "C_ma": geco.C_ma,
+               "lagrange_mult": geco.lagrange_mult,
+               **dict(zip(trainable, grads))}
+        terms = float(abs(outs[-1].inside_elbo.detach())
+                      + abs(outs[-1].ce_term.detach()) + abs(loss.detach()))
+        return {k: v.detach().double() for k, v in out.items()}, terms
+
+    t0 = time.perf_counter()
+    r32, _ = cpu_step(torch.float32, reverse=False)
+    r32_rev, _ = cpu_step(torch.float32, reverse=True)
+    r64, loss_terms = cpu_step(torch.float64, reverse=False)
+    log(f"cpu sprites step {cap['step']} (fp32 twice, f64): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if set(r32) != set(got):
+        raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
+    hold_to_cpu_gap(f"sprites step {cap['step']}", got, r32, r32_rev, r64,
+                    loss_terms, SPRITES_SUM_FLOOR)
 
 
 def main() -> int:
@@ -653,15 +934,26 @@ def main() -> int:
     log(f"build (nvcc at first use, then load): "
         f"{time.perf_counter() - t0:.2f} s")
 
-    records = phase_kernels(device)
-    phase_train_stats(device)
-    b1 = phase_chol_inverse(device)
-    phase_occupancy(device)
-    results, serve_launches = phase_serve()
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase {phase}: {time.perf_counter() - t:.1f} s]")
+        return out
+
+    records = timed(3, phase_kernels, device)
+    timed(3, phase_train_stats, device)
+    b1 = timed(3, phase_chol_inverse, device)
+    timed(3, phase_occupancy, device)
+    results, serve_launches, corpus = timed(4, phase_serve)
     for name, res in results.items():
-        phase_cpu_check(name, res)
-    train_res, train_launches = phase_train()
-    phase_train_cpu_check(train_res)
+        timed(5, phase_cpu_check, name, res)
+    train_res, train_launches = timed(6, phase_train)
+    timed(7, phase_train_cpu_check, train_res)
+    sprites_res, sprites_launches = timed(8, phase_sprites_train, corpus)
+    timed("9a", phase_sprites_b1, sprites_res)
+    timed("9b", phase_sprites_cpu_check, sprites_res)
+    paths = {"serve": serve_launches, "mnist_train": train_launches,
+             "sprites_train": sprites_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"
@@ -672,7 +964,8 @@ def main() -> int:
         r = at_slice[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serve_launches[name] + train_launches[name],
+            launches=sum(p[name] for p in paths.values()),
+            launches_by_path={k: p[name] for k, p in paths.items()},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],

@@ -227,7 +227,7 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
     return vae.to(device), gp.to(device)
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -238,20 +238,22 @@ def _chunks(images: torch.Tensor, aux: torch.Tensor, bs: int):
         yield images[lo:lo + bs], aux[lo:lo + bs]
 
 
-def default_eps_fn(seed: int, device: torch.device) -> Callable:
+def default_eps_fn(seed: int, device: torch.device,
+                   eval_seed: int = EVAL_SEED) -> Callable:
     """eps_fn(kind, shape): "train" draws continue one generator seeded by
-    `seed`; every "eval" draw comes from a generator seeded with 7."""
+    `seed`; every "eval" draw comes from a generator seeded with
+    `eval_seed` (the JAX CLIs use one fixed eval key per batch)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def eps_fn(kind: str, shape) -> torch.Tensor:
         g = gen if kind == "train" else \
-            torch.Generator(device=device).manual_seed(EVAL_SEED)
+            torch.Generator(device=device).manual_seed(eval_seed)
         return torch.randn(shape, generator=g, device=device)
 
     return eps_fn
 
 
-class _Noise:
+class Noise:
     """eps_fn that also keeps its last "train" draw."""
 
     def __init__(self, eps_fn: Callable):
@@ -360,7 +362,7 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
         geco=train.GECOState.init(device=device),
         lr_fn=train.cosine_decay_lr(args.lr, args.lr_decay,
                                     nr_epochs * steps_per_epoch))
-    noise = _Noise(eps_fn)
+    noise = Noise(eps_fn)
     forward = make_forward(args, noise)
     loss_fn = make_loss_fn(args, forward)
 
@@ -408,7 +410,7 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             before = ops.launch_counts()
             t0 = time.perf_counter()
             m = train.train_step(state, batch, loss_fn)
-            _sync(device)
+            sync(device)
             step_seconds.append(time.perf_counter() - t0)
             after = ops.launch_counts()
             step_launches.append({k: after[k] - before[k] for k in after})
@@ -432,10 +434,10 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             ev = {"epoch": epoch,
                   "eval_mse": recon_sum(eval_im, eval_aux) / N_eval,
                   "test_mse": recon_sum(test_im, test_aux) / N_test}
-            _sync(device)
+            sync(device)
             t1 = time.perf_counter()
             ev["cgen_mse"] = cgen_sum() / N_test
-            _sync(device)
+            sync(device)
             ev["seconds"] = {"eval_test": t1 - t0,
                              "cgen": time.perf_counter() - t1}
             evals.append(ev)

@@ -105,6 +105,7 @@ def build_model(args, device: torch.device):
     return vae.to(device).eval(), repr_net.to(device).eval(), gp.to(device)
 
 
+@torch.no_grad()
 def encode_train(vae, repr_net, frames: np.ndarray, action_ids: np.ndarray,
                  device: torch.device):
     """(means, variances, aux) over the whole train split, in chunks."""

@@ -1,0 +1,686 @@
+"""SPRITES SVGPVAE training with the PyTorch port.
+
+    python -m svgpvae_tpu_torch.cli.sprites --elbo SVGPVAE_Hensman --GECO \
+        --clip_qs --synthetic --synthetic_chars 1000 --opt_regime joint-1 \
+        --eval_every 1 --nr_epochs_repr_nn 2 [--device cuda]
+
+The flow of svgpvae_tpu/cli/sprites.py::run_experiment for
+`SVGPVAE_Hensman` (with or without --GECO):
+
+  * the corpus: npz shards under --sprites_data_path, generated there with
+    --synthetic (the stale-corpus guard refuses a corpus of another
+    scale), or in memory (`main(splits=...)`); the train and test splits
+    are uploaded to the device once;
+  * the GP initialisation: N(0, 1.5^2) draws from RandomState(--seed), or
+    the PCA + KDE initializers with --PCA;
+  * the repr-net pretraining: SpritesReprNet + ClassificationHead over the
+    train characters, cross-entropy, Adam at --lr_repr_nn, full batches of
+    --batch_size_repr_nn; every 10 epochs the loss and accuracy on the
+    test_action split;
+  * per epoch, every full batch of --batch_size frames (whole characters,
+    50 frames each) and the tail through one training step each: conv
+    encoder and the variance clip; the aux data from the repr net (the
+    segment mean over each character's frames, under autograd); the
+    SpritesSVGP kernel matrices; the GP block; the posterior-variance clip,
+    the cross-entropy, the reparameterised sample, the conv decoder; GECO
+    and Adam over the trainable vae, repr and gp tensors (--ip_joint,
+    --GPLVM_joint, --GP_joint with --K_SE, --repr_nn_pretrain yes_fixed
+    freezes the repr net), with the optional cosine lr (--lr_decay) and
+    value clip (--clip_grad at --clip_grad_thres);
+  * every --eval_every epochs: the test_character reconstruction MSE (72
+    frames per character), the encodings and aux data of the whole train
+    split, the full-train-set GP fit (B3 `fused_kernel_stats` on a CUDA
+    device) and the conditional-generation (cgen) MSE of the unseen
+    characters from their first --N_context frames;
+  * --basin_retry: restart the main loop from a host copy of the
+    post-pretraining parameters when cgen has not descended.
+
+With --gp_block_impl fused_rejitter_pallas (the 'auto' choice on a CUDA
+device) a step runs the B2 `gp_sufficient_stats` kernel (einsum backward)
+once and the B1 `chol_inverse` kernel twice: on [K_mm; Sigma_1..L] and on
+A_hat + jitter, whose logdet the rejittered KL takes.  `auto` is
+`reference` on the CPU; a `*_pallas` impl there runs B1's plain twin.
+
+The device is --device (cuda by default; the run refuses to start
+without one).  TF32 is off for matmuls and cuDNN.  Weights come from a
+torch initialisation seeded by --seed, or from --params (an .npz of flat
+JAX parameters, with the pretraining head if it is to be reused).  The
+noise of step t is drawn from a torch.Generator seeded by --seed (or
+--main_seed); every eval batch draws its noise from a generator seeded
+with 11 (the JAX CLI's eval key is one fixed key too).
+
+Not ported yet, refused with an error: the other --elbo values,
+--resume_dir, --save, --save_model_weights, --test_set_metrics, --bf16,
+--bf16_hybrid, --data_parallel, --profile_dir, --reshuffle,
+--titsias_reference_ce, and a raw-npy corpus (its preprocessing).
+--s2d64 and --fused_upsample are TPU rewrites that the port does not
+carry.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import shutil
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from svgpvae_tpu_torch import data, models, ops, train
+from svgpvae_tpu_torch import gp as gpm
+from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
+from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
+from svgpvae_tpu_torch.utils.convert import sprites_train_params_from_jax
+
+N_ACTIONS = data.N_ACTIONS
+FRAMES_PER_CHAR = 50      # train frames per character
+EVAL_SEED = 11            # the JAX CLI's eval key, jax.random.PRNGKey(11)
+PRETRAIN_EVAL_EVERY = 10  # epochs between the test_action passes
+BASIN_STREAM = 7000       # the retry streams' offset (JAX: fold_in 7000 + n)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's arguments (same names and defaults), plus
+    --device and --params."""
+    p = argparse.ArgumentParser(
+        description="SPRITES SVGPVAE training (PyTorch port)")
+    p.add_argument("--expid", type=str, default="debug_SPRITES")
+    p.add_argument("--base_dir", type=str, default=os.getcwd())
+    p.add_argument("--elbo", type=str, default="VAE",
+                   choices=["VAE", "SVGPVAE_Hensman", "SVGPVAE_Titsias"])
+    p.add_argument("--sprites_data_path", type=str, default="SPRITES_data/")
+    p.add_argument("--batch_size", type=int, default=500)
+    p.add_argument("--nr_epochs", type=int, default=50)
+    p.add_argument("--beta", type=float, default=0.001)
+    p.add_argument("--m", type=int, default=1,
+                   help="character vectors per action for inducing points")
+    p.add_argument("--save", action="store_true")
+    p.add_argument("--ip_joint", action="store_true")
+    p.add_argument("--GPLVM_joint", action="store_true")
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lr_decay", type=float, default=None,
+                   help="cosine-decay the lr to lr*LR_DECAY over the run")
+    p.add_argument("--save_model_weights", action="store_true")
+    p.add_argument("--show_pics", action="store_true", help="unused")
+    p.add_argument("--beta_schedule_switch", type=int, default=100,
+                   help="unused")
+    p.add_argument("--opt_regime", type=str, default=["joint-50"], nargs="+")
+    p.add_argument("--L", type=int, default=64)
+    p.add_argument("--L_action", type=int, default=8)
+    p.add_argument("--L_character", type=int, default=16)
+    p.add_argument("--clip_qs", action="store_true")
+    p.add_argument("--ram", type=float, default=1.0, help="unused")
+    p.add_argument("--GECO", action="store_true")
+    p.add_argument("--alpha", type=float, default=0.99)
+    p.add_argument("--kappa_squared", type=float, default=0.0075)
+    p.add_argument("--geco_lambda_max", type=float, default=1e5,
+                   help="cap on the GECO lagrange multiplier (float32 safety)")
+    p.add_argument("--jitter", type=float, default=0.01)
+    p.add_argument("--PCA", action="store_true")
+    p.add_argument("--N_context", type=int, default=36)
+    p.add_argument("--test_set_metrics", action="store_true")
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--clip_grad", action="store_true")
+    p.add_argument("--repr_nn_pretrain", type=str, default="yes_joint",
+                   choices=["no", "yes_fixed", "yes_joint"])
+    p.add_argument("--lr_repr_nn", type=float, default=0.01)
+    p.add_argument("--nr_epochs_repr_nn", type=int, default=400)
+    p.add_argument("--batch_size_repr_nn", type=int, default=5000)
+    p.add_argument("--object_kernel_normalize", action="store_true")
+    p.add_argument("--K_SE", action="store_true")
+    p.add_argument("--GP_joint", action="store_true")
+    p.add_argument("--clip_grad_thres", type=float, default=1e6)
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate a synthetic stand-in corpus if needed")
+    p.add_argument("--synthetic_chars", type=int, default=12)
+    p.add_argument("--allow_stale_corpus", action="store_true",
+                   help="reuse an existing corpus whose N_train does not "
+                        "match --synthetic_chars")
+    p.add_argument("--corpus_seed", type=int, default=0,
+                   help="seed of the synthetic corpus draw (kept apart from "
+                        "--seed)")
+    p.add_argument("--eval_every", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--main_seed", type=int, default=-1,
+                   help="if >= 0, seed ONLY the main loop's noise stream "
+                        "with it (inits and pretraining stay on --seed)")
+    p.add_argument("--basin_retry", type=int, default=0,
+                   help="restart the main loop from the post-pretraining "
+                        "parameters, on a new noise stream, up to N times "
+                        "when cgen has not descended by --basin_detect_rel "
+                        "after --basin_detect_evals evals; 0 disables")
+    p.add_argument("--basin_detect_evals", type=int, default=4)
+    p.add_argument("--basin_detect_rel", type=float, default=0.03)
+    p.add_argument("--resume_dir", type=str, default=None)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16_hybrid", action="store_true")
+    p.add_argument("--s2d64", action="store_true", default=None)
+    p.add_argument("--no_s2d64", dest="s2d64", action="store_false")
+    p.add_argument("--fused_upsample", action="store_true")
+    p.add_argument("--gp_block_impl", type=str, default="auto",
+                   choices=["auto", *models.svgpvae.GP_BLOCK_IMPLS],
+                   help="GP block of the training forward (see cli/mnist.py)"
+                        "; auto = fused_rejitter_pallas on CUDA, reference "
+                        "on the CPU; the identity-KL impls are never auto "
+                        "here (PARITY.md #10)")
+    p.add_argument("--titsias_reference_ce", action="store_true")
+    p.add_argument("--entropy_ce", action="store_true",
+                   help="use the exact sampling-distribution entropy CE "
+                        "term")
+    p.add_argument("--reshuffle", action="store_true")
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--params", type=str, default=None,
+                   help=".npz of flat JAX SPRITES SVGPVAE parameters (vae, "
+                        "repr, gp and optionally the pretraining head) to "
+                        "start from")
+    return p
+
+
+NOT_PORTED = {  # flag -> is it set?
+    "--resume_dir": lambda a: a.resume_dir is not None,
+    "--save": lambda a: a.save,
+    "--save_model_weights": lambda a: a.save_model_weights,
+    "--test_set_metrics": lambda a: a.test_set_metrics,
+    "--bf16": lambda a: a.bf16,
+    "--bf16_hybrid": lambda a: a.bf16_hybrid,
+    "--data_parallel": lambda a: a.data_parallel != 0,
+    "--profile_dir": lambda a: a.profile_dir is not None,
+    "--reshuffle": lambda a: a.reshuffle,
+    "--titsias_reference_ce": lambda a: a.titsias_reference_ce,
+}
+TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
+    "--s2d64": lambda a: bool(a.s2d64),
+    "--fused_upsample": lambda a: a.fused_upsample,
+}
+
+
+def refuse_unported(args) -> None:
+    if args.elbo != "SVGPVAE_Hensman":
+        raise SystemExit(f"--elbo {args.elbo}: not ported yet (the port "
+                         "trains SVGPVAE_Hensman)")
+    for flag, is_set in NOT_PORTED.items():
+        if is_set(args):
+            raise SystemExit(f"{flag}: not ported yet")
+    for flag, is_set in TPU_ONLY.items():
+        if is_set(args):
+            raise SystemExit(f"{flag}: a TPU rewrite, not ported")
+    if any(not s.startswith("joint-") for s in args.opt_regime):
+        raise SystemExit("--opt_regime: SPRITES trains jointly only (joint-N)"
+                         ", as the reference experiment")
+    if args.object_kernel_normalize and args.K_SE:
+        raise SystemExit("--object_kernel_normalize and --K_SE: at most one "
+                         "GP kernel flag at once")
+    if args.batch_size % FRAMES_PER_CHAR:
+        raise SystemExit(f"--batch_size must be a multiple of "
+                         f"{FRAMES_PER_CHAR} (whole characters)")
+
+
+def _count_corpus_rows(train_dir: str) -> Optional[int]:
+    """Train rows over the shards, or None if a shard is unreadable (a
+    partly written corpus)."""
+    n = 0
+    for shard in sorted(glob.glob(os.path.join(train_dir, "*.npz"))):
+        try:
+            with np.load(shard) as z:
+                n += len(z["aux_data"])
+        except (OSError, ValueError, KeyError) as e:
+            print(f"corpus shard {shard} unreadable ({e}); treating the "
+                  "corpus as invalid")
+            return None
+    return n
+
+
+def ensure_dataset(args) -> None:
+    """Make sure --sprites_data_path holds shards: as they are, or (with
+    --synthetic) generated there.  An existing corpus of another scale
+    than --synthetic_chars is refused unless --allow_stale_corpus; an
+    unreadable one is deleted and regenerated."""
+    path = args.sprites_data_path
+    train_dir = os.path.join(path, "train")
+    if os.path.isdir(train_dir):
+        if not args.synthetic:
+            return
+        n_train = _count_corpus_rows(train_dir)
+        expect = args.synthetic_chars * FRAMES_PER_CHAR
+        if n_train == expect:
+            return
+        if n_train is None:
+            print(f"existing corpus at {path} is unreadable; deleting and "
+                  "regenerating")
+            shutil.rmtree(path)
+        elif args.allow_stale_corpus:
+            print(f"WARNING: existing corpus at {path} has N_train="
+                  f"{n_train}, but --synthetic_chars {args.synthetic_chars} "
+                  f"implies {expect}; reusing it (--allow_stale_corpus)")
+            return
+        else:
+            raise SystemExit(
+                f"existing corpus at {path} has N_train={n_train}, but "
+                f"--synthetic_chars {args.synthetic_chars} implies {expect};"
+                " delete the directory to regenerate, or pass "
+                "--allow_stale_corpus to reuse it anyway")
+    if data.has_raw_sprites_npys(path):
+        raise SystemExit(f"raw sprites npy corpus at {path}: its "
+                         "preprocessing is not ported yet (write shards with "
+                         "the JAX package's data.save_sprites_shards)")
+    if not args.synthetic:
+        raise SystemExit(f"no SPRITES shards at {path}: provide shards "
+                         "(data.save_sprites_shards) or pass --synthetic")
+    print(f"generating synthetic SPRITES corpus ({args.synthetic_chars} "
+          "train characters)")
+    splits = data.generate_synthetic_sprites(
+        n_train_chars=args.synthetic_chars,
+        n_test_chars=max(2, args.synthetic_chars // 4),
+        n_frames_train=FRAMES_PER_CHAR, seed=args.corpus_seed)
+    data.save_sprites_shards(splits, path)
+
+
+def trainable_predicate(args) -> Callable[[str], bool]:
+    """name ("vae/...", "repr/...", "gp/<field>") -> trainable?  As the
+    JAX CLI's mask: the repr net is frozen under --repr_nn_pretrain
+    yes_fixed, the inducing points follow --ip_joint, the GPLVM action
+    table --GPLVM_joint, the four kernel scalars --GP_joint with --K_SE."""
+    gp_flags = {"inducing_points": args.ip_joint,
+                "gplvm_action": args.GPLVM_joint}
+    gp_flags.update({k: args.GP_joint and args.K_SE for k in (
+        "l_action", "sigma_action", "l_character", "sigma_character")})
+
+    def predicate(name: str) -> bool:
+        part, _, leaf = name.partition("/")
+        if part == "repr":
+            return args.repr_nn_pretrain != "yes_fixed"
+        if part == "gp":
+            return gp_flags[leaf]
+        return True
+
+    return predicate
+
+
+def build_model(args, splits: dict, N_train: int, device: torch.device):
+    """{"vae", "repr", "gp"} and the pretraining head on `device`: the GP
+    initialised as the JAX CLI does, the nets from a torch init seeded
+    by --seed; or everything (the head if present) from --params."""
+    n_chars = N_train // FRAMES_PER_CHAR
+    torch.manual_seed(args.seed)
+    vae = SpritesVAE(L=args.L)
+    repr_net = SpritesReprNet(L=args.L_character)
+    head = ClassificationHead(args.L_character, n_chars)
+    if args.PCA:
+        gplvm_init, ip_init = data.sprites_pca_init(
+            splits["train"], m=args.m, L_action=args.L_action,
+            L_character=args.L_character)
+    else:
+        rng = np.random.RandomState(args.seed)
+        gplvm_init = rng.normal(0, 1.5, (N_ACTIONS, args.L_action))
+        ip_init = rng.normal(0, 1.5, (N_ACTIONS * args.m,
+                                      args.L_action + args.L_character))
+    cfg = gpm.SVGPConfig(jitter=args.jitter, N_train=N_train,
+                         K_obj_normalize=args.object_kernel_normalize)
+    gp = gpm.init_sprites_svgp(ip_init, gplvm_init, L_action=args.L_action,
+                               use_se_kernel=args.K_SE, config=cfg)
+    params = {"vae": vae, "repr": repr_net, "gp": gp}
+    if args.params:
+        with np.load(args.params) as z:
+            port = sprites_train_params_from_jax(
+                dict(z), cfg, args.L_action, use_se_kernel=args.K_SE)
+        head = port.pop("head", head)
+        params = port
+    f32 = dict(device=device, dtype=torch.float32)
+    return {k: v.to(**f32) for k, v in params.items()}, head.to(**f32)
+
+
+def make_forward(args, eps_fn: Callable) -> Callable:
+    """forward(params, batch, geco, alpha, kind, frames_per_char): the
+    training forward pass with this run's options and `eps_fn(kind,
+    (b, L))` noise."""
+    kappa = float(np.sqrt(args.kappa_squared))
+
+    def forward(params, batch, geco, alpha, kind, frames_per_char):
+        return models.forward_pass_svgpvae(
+            params["vae"], params["gp"], batch,
+            eps_fn(kind, (batch[0].shape[0], args.L)), beta=args.beta,
+            C_ma=geco.C_ma, lagrange_mult=geco.lagrange_mult, alpha=alpha,
+            kappa=kappa, clip_qs=args.clip_qs, geco=args.GECO,
+            lagrange_max=args.geco_lambda_max,
+            gp_block_impl=args.gp_block_impl, entropy_ce=args.entropy_ce,
+            repr_net=params["repr"], frames_per_char=frames_per_char)
+
+    return forward
+
+
+def make_loss_fn(args, forward: Callable) -> Callable:
+    """loss_fn(params, batch, geco, step) -> (loss, (geco, metrics)) for
+    train.train_step: GECO minimizes the objective, plain Hensman
+    maximizes the ELBO."""
+
+    def loss_fn(params, batch, geco, step):
+        out = forward(params, batch, geco,
+                      train.geco_effective_alpha(step, args.alpha), "train",
+                      FRAMES_PER_CHAR)
+        new_geco = train.GECOState(C_ma=out.C_ma,
+                                   lagrange_mult=out.lagrange_mult)
+        loss = out.elbo if args.GECO else -out.elbo
+        metrics = {"elbo": out.elbo.detach(),
+                   "recon": out.recon_loss.detach(), "C_ma": out.C_ma,
+                   "lagrange": out.lagrange_mult}
+        return loss, (new_geco, metrics)
+
+    return loss_fn
+
+
+def pretrain_loss(params, batch, geco, step):
+    """Repr net + head cross-entropy over the character ids, and the
+    accuracy."""
+    frames, char_ids = batch
+    logits = params["head"](params["repr"](frames))
+    labels = char_ids.long()
+    loss = F.cross_entropy(logits, labels)
+    acc = torch.mean((torch.argmax(logits, 1) == labels).float())
+    return loss, (geco, {"acc": acc})
+
+
+def main(argv=None, splits: Optional[dict] = None,
+         eps_fn: Optional[Callable] = None,
+         capture_step: Optional[int] = None) -> dict:
+    """Train; returns a dict (see `run_svgpvae`).
+
+    `splits` ({"train", "test_action", "test_character"}, as
+    data.generate_synthetic_sprites returns) skips the corpus on disk.
+    `eps_fn(kind, shape)` ("train" or "eval") replaces the default noise
+    (tests inject the JAX draws; a --basin_retry restart keeps drawing
+    from it).  `capture_step` keeps a copy of that main step's inputs,
+    parameters before it, noise and gradients."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
+    if splits is None:
+        ensure_dataset(args)
+        splits = data.load_sprites(args.sprites_data_path)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step)
+
+
+def _stream_seed(args, attempt: int) -> int:
+    """Seed of the main loop's noise stream: --main_seed (if >= 0) or
+    --seed, and a derived one for each --basin_retry restart."""
+    base = args.main_seed if args.main_seed >= 0 else args.seed
+    if attempt == 0:
+        return base
+    return int(np.random.SeedSequence([base, BASIN_STREAM + attempt])
+               .generate_state(1)[0])
+
+
+def pretrain(args, params: dict, head, train_frames, train_chars,
+             ta_frames, ta_chars) -> dict:
+    """The repr-net pretraining; updates params["repr"] in place.  Returns
+    its seconds, steps and per-epoch metrics (with the test_action loss
+    and accuracy every PRETRAIN_EVAL_EVERY epochs)."""
+    N = len(train_frames)
+    bs = min(args.batch_size_repr_nn, N)
+    pre = {"repr": params["repr"], "head": head}
+    state = train.TrainState(
+        params=pre, geco=None, optimizer=train.make_optimizer(
+            train.trainable_tensors(pre, lambda name: True),
+            args.lr_repr_nn))
+
+    @torch.no_grad()
+    def eval_test_action():
+        n = len(ta_frames)
+        c = min(bs, n)
+        bounds = [(lo, lo + c) for lo in range(0, (n // c) * c, c)]
+        if n % c:
+            bounds.append((n - n % c, n))
+        loss = hits = 0.0
+        for lo, hi in bounds:
+            logits = head(params["repr"](ta_frames[lo:hi]))
+            labels = ta_chars[lo:hi].long()
+            loss += float(F.cross_entropy(logits, labels, reduction="sum"))
+            hits += float(torch.sum(torch.argmax(logits, 1) == labels))
+        return loss / n, hits / n
+
+    t0 = time.perf_counter()
+    print(f"pretraining representation net ({args.nr_epochs_repr_nn} "
+          f"epochs, batch {bs})")
+    epochs = []
+    for epoch in range(args.nr_epochs_repr_nn):
+        ms = [train.train_step(state, (train_frames[lo:lo + bs],
+                                       train_chars[lo:lo + bs]),
+                               pretrain_loss)
+              for lo in range(0, (N // bs) * bs, bs)]
+        ep = {"epoch": epoch,
+              "loss": float(np.mean([float(m["loss"]) for m in ms])),
+              "acc": float(np.mean([float(m["acc"]) for m in ms]))}
+        if epoch % PRETRAIN_EVAL_EVERY == 0:
+            ep["test_action_loss"], ep["test_action_acc"] = \
+                eval_test_action()
+            print(f"  pretrain epoch {epoch}: loss {ep['loss']:.4f} acc "
+                  f"{ep['acc']:.3f} | test_action loss "
+                  f"{ep['test_action_loss']:.4f} acc "
+                  f"{ep['test_action_acc']:.3f}")
+        epochs.append(ep)
+    seconds = time.perf_counter() - t0
+    print(f"pretraining done in {seconds:.1f}s")
+    return {"seconds": seconds, "steps": state.step, "epochs": epochs}
+
+
+def run_svgpvae(args, splits: dict, device: torch.device,
+                eps_fn: Optional[Callable],
+                capture_step: Optional[int]) -> dict:
+    """Returns {"state", "pretrain", "step_seconds" (host clock after
+    synchronize, per main step), "metrics" (per step), "step_launches"
+    (kernel launches inside each step), "evals" (per eval pass: MSEs, the
+    seconds and launches of its stages), "captured", "cgen_mse",
+    "best_cgen_mse", "basin_attempts"}."""
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="sprites", device=device)
+    print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
+    train_d, tc_d = splits["train"], splits["test_character"]
+    N_train, N_test = len(train_d["frames"]), len(tc_d["frames"])
+    batch_size = min(args.batch_size, N_train)
+    # test_character batches: a multiple of 72 frames that divides N_test
+    # (the reference uses 576)
+    batch_tc = min(576, N_test - (N_test % N_ACTIONS) or N_ACTIONS)
+    while N_test % batch_tc:
+        batch_tc -= N_ACTIONS
+
+    params, head = build_model(args, splits, N_train, device)
+
+    def to_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    # each split is uploaded once; batches are views
+    train_frames = to_dev(train_d["frames"])
+    train_action = to_dev(train_d["aux_data"][:, 1])
+    tc_frames = to_dev(tc_d["frames"])
+    tc_action = to_dev(tc_d["aux_data"][:, 1])
+
+    pre = None
+    if "yes" in args.repr_nn_pretrain:
+        ta_d = splits["test_action"]
+        pre = pretrain(args, params, head, train_frames,
+                       to_dev(train_d["aux_data"][:, 0]),
+                       to_dev(ta_d["frames"]), to_dev(ta_d["aux_data"][:, 0]))
+
+    trainable = train.trainable_tensors(params, trainable_predicate(args))
+    print(f"trainable parameters: "
+          f"{sum(t.numel() for t in trainable.values())}")
+    nr_epochs = train.parse_opt_regime(list(args.opt_regime))[0]
+    steps_per_epoch = -(-N_train // batch_size)
+
+    def fresh_state():
+        return train.TrainState(
+            params=params,
+            optimizer=train.make_optimizer(trainable, args.lr),
+            geco=train.GECOState.init(device=device),
+            lr_fn=train.cosine_decay_lr(args.lr, args.lr_decay,
+                                        nr_epochs * steps_per_epoch),
+            clip_grad_value=args.clip_grad_thres if args.clip_grad else None)
+
+    def stream(attempt):
+        return eps_fn or default_eps_fn(_stream_seed(args, attempt), device,
+                                        eval_seed=EVAL_SEED)
+
+    state = fresh_state()
+    noise = Noise(stream(0))
+    forward = make_forward(args, noise)
+    loss_fn = make_loss_fn(args, forward)
+    # --basin_retry restarts from the post-pretraining parameters
+    host_copy = ({k: v.detach().to("cpu", copy=True)
+                  for k, v in train.named_tensors(params).items()}
+                 if args.basin_retry else None)
+    bounds = [(lo, min(lo + batch_size, N_train))
+              for lo in range(0, N_train, batch_size)]
+
+    @torch.no_grad()
+    def eval_pass(epoch):
+        ev, secs, launches = {"epoch": epoch}, {}, {}
+
+        def stage(name, t0, before):
+            sync(device)
+            secs[name] = time.perf_counter() - t0
+            after = ops.launch_counts()
+            launches[name] = {k: after[k] - before[k] for k in after}
+            return time.perf_counter(), after
+
+        t, lc = time.perf_counter(), ops.launch_counts()
+        tc_batches = [(tc_frames[lo:lo + batch_tc], tc_action[lo:lo + batch_tc])
+                      for lo in range(0, N_test, batch_tc)]
+        recon = sum(float(forward(params, b, state.geco, args.alpha, "eval",
+                                  N_ACTIONS).recon_loss)
+                    for b in tc_batches)
+        ev["test_mse"] = recon / N_test
+        t, lc = stage("recon", t, lc)
+        enc = []
+        for lo, hi in bounds:
+            im = train_frames[lo:hi]
+            mu, var = models.batching_encode_svgpvae(params["vae"], im,
+                                                     clip_qs=args.clip_qs)
+            enc.append((mu, var, models.sprites_aux_data(
+                params["repr"], im, train_action[lo:hi], FRAMES_PER_CHAR)))
+        means, variances, aux = (torch.cat(x) for x in zip(*enc))
+        t, lc = stage("encode", t, lc)
+        terms = models.precompute_gp_params(params["gp"], means, variances,
+                                            aux)
+        t, lc = stage("fit", t, lc)
+        n_tgt = batch_tc // N_ACTIONS * (N_ACTIONS - args.N_context)
+        cgen = sum(float(models.predict_cgen_sprites(
+            params["vae"], params["gp"], params["repr"], im, aid, *terms,
+            n_context=args.N_context, n_actions_total=N_ACTIONS,
+            eps=noise("eval", (n_tgt, args.L)))[2])
+            for im, aid in tc_batches)
+        ev["cgen_mse"] = cgen / (N_test * (1 - args.N_context / N_ACTIONS))
+        stage("cgen", t, lc)
+        ev["seconds"], ev["launches"] = secs, launches
+        return ev
+
+    step_seconds, step_metrics, step_launches, evals = [], [], [], []
+    captured, cgen_history, attempt, epoch = None, [], 0, 0
+    t_start = time.perf_counter()
+    while epoch < nr_epochs:
+        t_epoch = time.perf_counter()
+        elbos, losses = [], []
+        for lo, hi in bounds:
+            batch = (train_frames[lo:hi], train_action[lo:hi])
+            snap = (_snapshot(state, batch) if len(step_seconds) ==
+                    capture_step else None)
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            m = train.train_step(state, batch, loss_fn)
+            sync(device)
+            step_seconds.append(time.perf_counter() - t0)
+            after = ops.launch_counts()
+            step_launches.append({k: after[k] - before[k] for k in after})
+            if snap is not None:
+                captured = _finish_capture(snap, state, trainable, m,
+                                           noise.last)
+            m = {k: float(v) for k, v in m.items()}
+            step_metrics.append(m)
+            elbos.append(m["elbo"])
+            losses.append(m["recon"])
+        if not np.all(np.isfinite(elbos)):
+            raise FloatingPointError(
+                f"non-finite ELBO in epoch {epoch} (step {state.step})")
+        print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, train "
+              f"MSE {np.sum(losses) / N_train:.5f}, "
+              f"{time.perf_counter() - t_epoch:.2f}s")
+
+        plateau = False
+        if (epoch + 1) % args.eval_every == 0:
+            ev = eval_pass(epoch)
+            evals.append(ev)
+            cgen_history.append(ev["cgen_mse"])
+            print(f"  test recon MSE: {ev['test_mse']:.5f}")
+            print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+            print("  eval seconds: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ev["seconds"].items()))
+            plateau = (attempt < args.basin_retry
+                       and len(cgen_history) == args.basin_detect_evals
+                       and min(cgen_history) > (1 - args.basin_detect_rel)
+                       * cgen_history[0])
+        epoch += 1
+        if plateau:
+            attempt += 1
+            print(f"basin detector: cgen has not descended "
+                  f"{args.basin_detect_rel:.0%} from its first eval "
+                  f"({cgen_history[0]:.5f} -> best {min(cgen_history):.5f}) "
+                  f"after {len(cgen_history)} evals; restarting the main "
+                  f"loop (attempt {attempt}/{args.basin_retry}) on a new "
+                  "noise stream")
+            with torch.no_grad():
+                for k, v in train.named_tensors(params).items():
+                    v.copy_(host_copy[k])
+            state = fresh_state()
+            noise.eps_fn = stream(attempt)
+            cgen_history, epoch = [], 0
+
+    elapsed = time.perf_counter() - t_start
+    if step_seconds:
+        timed = step_seconds[1:] or step_seconds
+        print(f"total: {len(step_seconds)} steps, {elapsed:.1f}s; step time "
+              f"first {1e3 * step_seconds[0]:.2f} ms, p50 "
+              f"{1e3 * float(np.percentile(timed, 50)):.2f} ms, p90 "
+              f"{1e3 * float(np.percentile(timed, 90)):.2f} ms")
+    result = {"state": state, "pretrain": pre, "step_seconds": step_seconds,
+              "metrics": step_metrics, "step_launches": step_launches,
+              "evals": evals, "captured": captured, "basin_attempts": attempt,
+              "cgen_mse": evals[-1]["cgen_mse"] if evals else None}
+    if evals:
+        best = min(evals, key=lambda e: e["cgen_mse"])
+        print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
+              f"{best['epoch']}")
+        result["best_cgen_mse"] = best["cgen_mse"]
+    return result
+
+
+def _snapshot(state, batch) -> dict:
+    """Copies of what a step starts from."""
+    return {"step": state.step, "batch": batch,
+            "params": {k: v.detach().clone() for k, v in
+                       train.named_tensors(state.params).items()},
+            "geco": train.GECOState(C_ma=state.geco.C_ma.clone(),
+                                    lagrange_mult=state.geco.lagrange_mult
+                                    .clone())}
+
+
+def _finish_capture(snap, state, trainable, metrics, eps) -> dict:
+    snap["eps"] = eps.clone()
+    snap["grads"] = {k: t.grad.detach().clone()
+                     for k, t in trainable.items()}
+    snap["loss"] = metrics["loss"]
+    snap["geco_after"] = train.GECOState(
+        C_ma=state.geco.C_ma.clone(),
+        lagrange_mult=state.geco.lagrange_mult.clone())
+    return snap
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,24 @@
-"""SPRITES corpus: synthetic stand-in and sharded .npz IO (numpy only).
+"""SPRITES corpus: synthetic stand-in, sharded .npz IO, the batcher and
+the PCA initializers (numpy and scipy only).
 
 A copy of the numpy data code of svgpvae_tpu/data/sprites.py, kept here
 because importing anything from `svgpvae_tpu` loads jax.
 `generate_synthetic_sprites` draws the same numbers in the same order as
 the JAX package's generator, so a seed gives a bit-identical corpus.
+`sprites_pca_init` takes its PCA from `data.mnist.pca_embeddings` (numpy
+SVD) where the JAX package calls sklearn's.
 """
 
 from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+from scipy import stats
+
+from svgpvae_tpu_torch.data.mnist import pca_embeddings
 
 N_ACTIONS = 72          # 9 actions x 8 frames
 FRAMES_PER_ACTION = 8
@@ -109,3 +115,52 @@ def load_sprites(sprites_path: str) -> Dict[str, dict]:
         out[split] = {"frames": np.concatenate(frames),
                       "aux_data": np.concatenate(aux)}
     return out
+
+
+def has_raw_sprites_npys(path: str) -> bool:
+    """True when the published raw corpus layout is present at `path`."""
+    return (Path(path) / "walk_front_frames_train.npy").exists()
+
+
+def sprites_batch_iterator(data: dict, batch_size: int
+                           ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Dataset-order batches of (frames, aux_data); the last may be
+    short."""
+    n = len(data["frames"])
+    for lo in range(0, n, batch_size):
+        yield (data["frames"][lo:lo + batch_size],
+               data["aux_data"][lo:lo + batch_size])
+
+
+def sprites_pca_init(train_dict: dict, m: int = 15, L_action: int = 6,
+                     L_character: int = 16, seed: int = 42,
+                     n_action: int = N_ACTIONS
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """PCA initializers (reference: sprites_PCA_init).
+
+    GPLVM action table: PCA(L_action) of the per-action-frame mean images
+    -> (n_action, L_action).  Inducing points: each action vector tiled m
+    times beside m draws from a gaussian KDE of each axis of the global
+    PCA(L_character) embedding -> (n_action * m, L_action + L_character).
+    """
+    frames = train_dict["frames"]
+    aux = train_dict["aux_data"]
+    global_mean = frames.mean(axis=0).reshape(-1)
+
+    def action_mean(a):
+        sel = frames[aux[:, 1] == a]
+        # an action missing from a small train split takes the mean frame
+        return sel.mean(axis=0).reshape(-1) if len(sel) else global_mean
+
+    mean_frames = np.stack([action_mean(a) for a in range(n_action)])
+    gplvm_action = pca_embeddings(mean_frames, L_action)
+    global_emb = pca_embeddings(frames.reshape(len(frames), -1), L_character)
+
+    points = []
+    for i in range(n_action):
+        cols = [stats.gaussian_kde(global_emb[:, ax]).resample(
+            m, seed=seed).reshape(-1) for ax in range(L_character)]
+        char_vecs = np.array(cols).T  # (m, L_character)
+        points.append(np.hstack([np.tile(gplvm_action[i], (m, 1)),
+                                 char_vecs]))
+    return gplvm_action, np.concatenate(points)

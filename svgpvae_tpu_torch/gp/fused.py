@@ -107,6 +107,13 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
 
     if kl_impl == "rejitter" and inverse_impl == "pallas":
         A_hat = Kmm[None] @ (Sigma_inv @ Kmm.expand(L, m, m))
+        # A_hat is symmetric, but the fp32 products leave its two
+        # triangles apart by ~1e-4 relative (the explicit Sigma^-1 is not
+        # symmetric), and with cond(A_hat + jitter) ~1e5 the logdet of
+        # the full matrix (Gauss-Jordan: the kernel) and of its lower
+        # triangle (Cholesky: the twin) then differ by up to ~0.3.  B1
+        # takes a symmetric PD matrix: average the triangles.
+        A_hat = 0.5 * (A_hat + A_hat.transpose(-1, -2))
         _, logdet_A = chol_inverse(linalg.add_jitter(A_hat, cfg.jitter))
         tr_KiA = torch.sum(Kmm_inv[None] * A_hat, dim=(-2, -1))
         quad_mu = torch.einsum("lm,mp,lp->l", mu_hat, Kmm_inv, mu_hat)

@@ -45,6 +45,13 @@ class SVGPConfig:
     N_train: int = 0
 
 
+def _named_tensors(obj) -> Dict[str, Tensor]:
+    """{field: tensor} of a parameter dataclass (fields set to None, like
+    an absent GPLVM table, are left out)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), Tensor)}
+
+
 def _to(obj, *args, **kwargs):
     """A copy of a parameter dataclass with Tensor.to(*args, **kwargs)
     applied to every tensor field (device and/or dtype)."""
@@ -97,12 +104,7 @@ class MnistSVGP:
             k_obj = kernels.cosine_normalize_diag(k_obj, xo, yo)
         return k_view * k_obj
 
-    def named_tensors(self) -> Dict[str, Tensor]:
-        """{field: tensor} of the parameters (the table only if present)."""
-        return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), Tensor)}
-
+    named_tensors = _named_tensors
     to = _to
 
 
@@ -162,6 +164,7 @@ class SpritesSVGP:
                 k_c = kernels.cosine_normalize_diag(k_c, xc, yc)
         return k_a * k_c
 
+    named_tensors = _named_tensors
     to = _to
 
 

@@ -1,8 +1,9 @@
-"""SVGPVAE passes (port of svgpvae_tpu/models/svgpvae.py): the
-rotated-MNIST training forward (Hensman bound, optionally GECO) and its
+"""SVGPVAE passes (port of svgpvae_tpu/models/svgpvae.py): the training
+forward (Hensman bound, optionally GECO) of rotated MNIST and of SPRITES
+(aux data from the repr net, under autograd), the rotated-MNIST
 conditional generation, and the SPRITES test-time passes (encode,
-character auxiliary data, full-train-set precompute, conditional
-generation for unseen characters, all under no_grad).
+full-train-set precompute, conditional generation for unseen characters,
+under no_grad).
 """
 
 from __future__ import annotations
@@ -38,6 +39,16 @@ GP_BLOCK_AUTO_TABLE = {
     ("mnist", "hensman", "other"): (
         "reference", "two-pass path, the parity anchor (as the JAX CPU "
         "cell)"),
+    # SPRITES: never an identity-KL impl (fused / fused_pallas).  The
+    # product-of-linear kernel is rank-deficient at m = 72, where the
+    # closed-form KL departs from the two-pass rejittered KL (PARITY.md
+    # #10); the rejittered block takes logdet A_hat from a second B1 call.
+    ("sprites", "hensman", "cuda"): (
+        "fused_rejitter_pallas", "two B1 launches per step, (65, 72, 72) "
+        "and (64, 72, 72) for A_hat; null-space-safe KL; the slice's kernel "
+        "path"),
+    ("sprites", "hensman", "other"): (
+        "reference", "two-pass parity anchor (as the JAX CPU cell)"),
 }
 
 
@@ -79,12 +90,17 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
                          lagrange_mult, alpha, kappa, clip_qs: bool = True,
                          geco: bool = False, lagrange_max: float = 1e5,
                          gp_block_impl: str = "reference",
-                         entropy_ce: bool = False) -> SVGPVAEOutputs:
-    """Rotated-MNIST training forward: encoder -> GP posterior + Hensman
-    inside-ELBO for all channels -> cross-entropy term -> reparameterized
-    sample with the given `eps` (b, L) -> decoder -> objective.
+                         entropy_ce: bool = False, repr_net=None,
+                         frames_per_char: int = 0) -> SVGPVAEOutputs:
+    """Training forward: encoder -> GP posterior + Hensman inside-ELBO for
+    all channels -> cross-entropy term -> reparameterized sample with the
+    given `eps` (b, L) -> decoder -> objective.
 
-    batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)).
+    batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)) for rotated
+    MNIST, or (frames (b, 64, 64, 3), action ids (b,)) for SPRITES, where
+    `repr_net` builds the rest of the aux data (sprites_aux_data, under
+    autograd) from `frames_per_char` consecutive frames per character,
+    and p_v is clipped to PVAR_CLIP (MNIST: floored at MNIST_PVAR_FLOOR).
 
     GECO:
       recon = sum_b( mean_px_sq_err - kappa^2 )
@@ -105,6 +121,9 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     L = qnet_mu.shape[1]
     if clip_qs:
         qnet_var = torch.clamp(qnet_var, *QVAR_CLIP)
+    if repr_net is not None:
+        aux_data = sprites_aux_data(repr_net, images, aux_data,
+                                    frames_per_char)
 
     if gp_block_impl == "reference":
         p_m, p_v, mu_hat, A_hat = gpm.posterior_params(
@@ -124,8 +143,10 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     n_total = gp_params.config.N_train or b
     inside_elbo = inside_elbo_recon - (b / n_total) * inside_elbo_kl
 
-    # f32 guard: Kxx - nystrom + sig_quad can dip slightly negative
-    p_v = torch.clamp(p_v, min=MNIST_PVAR_FLOOR)
+    if repr_net is not None:  # numerical-stability clip (reference :891-892)
+        p_v = torch.clamp(p_v, *PVAR_CLIP)
+    else:  # f32 guard: Kxx - nystrom + sig_quad can dip slightly negative
+        p_v = torch.clamp(p_v, min=MNIST_PVAR_FLOOR)
 
     if entropy_ce:
         # exact entropy of the sampling distribution N(p_m, p_v)
@@ -176,12 +197,12 @@ def predict_cgen_mnist(vae, gp_params, test_batch, train_means: Tensor,
     return recon, torch.sum((images_test - recon) ** 2) / K
 
 
-@torch.no_grad()
 def sprites_aux_data(repr_net, images: Tensor, action_ids: Tensor,
                      frames_per_char: int) -> Tensor:
     """SPRITES auxiliary data: repr net -> per-character mean -> broadcast
     back to the frames -> prepend the action-id column.  The batch holds
-    `frames_per_char` consecutive frames per character."""
+    `frames_per_char` consecutive frames per character.  Differentiable
+    (the training forward); test-time callers run it under no_grad."""
     emb = repr_net(images)  # (b, L_char)
     b, d = emb.shape
     char_mean = emb.view(b // frames_per_char, frames_per_char, d).mean(dim=1)

@@ -1,4 +1,5 @@
 from svgpvae_tpu_torch.nn.nets import (  # noqa: F401
+    ClassificationHead,
     MnistVAE,
     SpritesReprNet,
     SpritesVAE,

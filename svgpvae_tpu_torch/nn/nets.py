@@ -108,6 +108,18 @@ class SpritesReprNet(nn.Module):
         return h.mean(dim=(2, 3))
 
 
+class ClassificationHead(nn.Module):
+    """Linear classifier stacked on the repr net for its pretraining:
+    (b, in_features) embeddings -> (b, num_classes) logits."""
+
+    def __init__(self, in_features: int, num_classes: int = 1000):
+        super().__init__()
+        self.dense = nn.Linear(in_features, num_classes)
+
+    def forward(self, embeddings: Tensor) -> Tensor:
+        return self.dense(embeddings)
+
+
 MNIST_FILTERS = 8  # the reference's conv width
 
 

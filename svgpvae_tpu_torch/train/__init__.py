@@ -3,6 +3,7 @@ from svgpvae_tpu_torch.train.state import GECOState, TrainState  # noqa: F401
 from svgpvae_tpu_torch.train.trainer import (  # noqa: F401
     cosine_decay_lr,
     make_optimizer,
+    named_tensors,
     parse_opt_regime,
     train_step,
     trainable_tensors,

@@ -2,6 +2,8 @@
 svgpvae_tpu/train/trainer.py, single device, eager).
 
   * `parse_opt_regime`: 'VAE-100 GP-100 joint-50' -> per-epoch regime list;
+  * `named_tensors`: the parameters of every part ("vae", "repr", "head",
+    "gp") by name;
   * `trainable_tensors` + `make_optimizer`: the JAX trainability mask
     becomes requires_grad and the optimizer's parameter group: a frozen
     leaf gets no gradient and no update (optax.set_to_zero);
@@ -31,16 +33,25 @@ def parse_opt_regime(specs: List[str]) -> Tuple[int, List[str]]:
     return len(schedule), schedule
 
 
+def named_tensors(params: dict) -> Dict[str, torch.Tensor]:
+    """Every parameter tensor of params ({"vae": module, "gp": parameter
+    dataclass}, plus "repr" and, for pretraining, "head" modules on
+    SPRITES) by name "<part>/<parameter name>", e.g. "vae/enc_out.weight",
+    "gp/inducing_points"."""
+    named = {}
+    for part, p in params.items():
+        items = (p.named_parameters() if isinstance(p, torch.nn.Module)
+                 else p.named_tensors().items())
+        named.update({f"{part}/{k}": v for k, v in items})
+    return named
+
+
 def trainable_tensors(params: dict, predicate: Callable[[str], bool]
                       ) -> Dict[str, torch.Tensor]:
-    """Set requires_grad on every tensor of params {"vae": module, "gp":
-    dataclass} by predicate(name) and return the trainable ones by name
-    ("vae/<state-dict key>", "gp/<field>")."""
-    named = {f"vae/{k}": v for k, v in params["vae"].named_parameters()}
-    named.update({f"gp/{k}": v
-                  for k, v in params["gp"].named_tensors().items()})
+    """Set requires_grad on every tensor of `params` (see named_tensors)
+    by predicate(name) and return the trainable ones by name."""
     out = {}
-    for name, t in named.items():
+    for name, t in named_tensors(params).items():
         keep = bool(predicate(name))
         t.requires_grad_(keep)
         if keep:

@@ -11,6 +11,12 @@ and returns {"vae": SpritesVAE state dict, "repr": SpritesReprNet state
 dict, "gp": {field: tensor}} for `load_state_dict` and
 `gp.svgp.init_sprites_svgp`.
 
+`sprites_train_params_from_jax` takes the flat parameters of a SPRITES
+training run (the same layout, plus the repr-net pretraining head under
+head/params/Dense_0/...) and returns the port's modules and SpritesSVGP:
+{"vae": SpritesVAE, "repr": SpritesReprNet, "gp": SpritesSVGP, "head":
+ClassificationHead (when present)}.
+
 `mnist_params_from_jax` does the same for a rotated-MNIST SVGPVAE
 ({"vae": flax MnistVAE params, "gp": MnistSVGP}, flattened alike:
 vae/params/encoder/Conv_0/kernel, ..., gp/inducing_points, ...) and
@@ -25,13 +31,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from svgpvae_tpu_torch.gp.svgp import SpritesSVGP, SVGPConfig
+from svgpvae_tpu_torch.nn.nets import (ClassificationHead, SpritesReprNet,
+                                       SpritesVAE)
+
 GP_FIELDS = ("inducing_points", "gplvm_action", "l_action", "sigma_action",
              "l_character", "sigma_character")
 MNIST_GP_FIELDS = ("inducing_points", "length_scale", "amplitude")
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    """float64 arrays stay float64 (gradients held at float64 in the
+    tests); everything else becomes float32."""
+    a = np.asarray(a)
+    dtype = np.float64 if a.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
 
 def _conv(kernel: np.ndarray) -> torch.Tensor:
@@ -100,6 +114,32 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
         "repr": sprites_repr_state(_module(flat, "repr/params")),
         "gp": {k: _t(flat[f"gp/{k}"]) for k in GP_FIELDS},
     }
+
+
+def sprites_train_params_from_jax(flat: Dict[str, np.ndarray],
+                                  config: SVGPConfig, L_action: int,
+                                  use_se_kernel: bool = False) -> dict:
+    """Flat JAX SPRITES training parameters -> the port's modules and GP
+    (see the module doc)."""
+    port = params_from_jax(flat)
+    vae = SpritesVAE(L=port["vae"]["enc_out.bias"].shape[0] // 2)
+    vae.load_state_dict(port["vae"])
+    repr_net = SpritesReprNet(L=port["repr"]["convs.0.bias"].shape[0])
+    repr_net.load_state_dict(port["repr"])
+    gp = SpritesSVGP(config=config, L_action=L_action,
+                     use_se_kernel=use_se_kernel, **port["gp"])
+    if gp.gplvm_action.shape[1] != L_action:
+        raise ValueError(f"L_action {L_action} does not match the GPLVM "
+                         f"table {tuple(gp.gplvm_action.shape)}")
+    out = {"vae": vae, "repr": repr_net, "gp": gp}
+    dense = _module(flat, "head/params").get("Dense_0")
+    if dense is not None:
+        kernel = dense["kernel"]  # (in, classes)
+        head = ClassificationHead(*kernel.shape)
+        head.load_state_dict({"dense.weight": _t(kernel.T),
+                              "dense.bias": _t(dense["bias"])})
+        out["head"] = head
+    return out
 
 
 def mnist_vae_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from svgpvae_tpu_torch import gp as tgp, linalg as tlinalg
 from svgpvae_tpu_torch.ops import chol_inverse as ci
 from svgpvae_tpu_torch.ops import fused_kernel_stats as fks
 from svgpvae_tpu_torch.ops import gp_stats as gps
@@ -72,7 +73,8 @@ GP_STATS_CASES = [(1, 1, 1), (130, 17, 3), (5000, 72, 64), (777, 129, 9),
                   (256, 32, 16), (164, 32, 16), (8100, 32, 16),
                   (SMALL_CHUNK_ROWS, 32, 16), (SMALL_CHUNK_ROWS + 1, 32, 16),
                   (300, 33, 5), (4000, 33, 5), (100, SMALL_MAX_M, 3),
-                  (100, SMALL_MAX_M + 1, 3)]
+                  (100, SMALL_MAX_M + 1, 3),
+                  (500, 72, 64), (360, 72, 64)]  # SPRITES step, test batch
 
 
 @pytest.mark.parametrize("n,m,L", GP_STATS_CASES)
@@ -156,10 +158,13 @@ def test_fused_normalize_clamps_zero_rows(cuda):
 @pytest.mark.parametrize("n,m,L,single_launch", [(256, 32, 16, True),
                                                   (164, 32, 16, True),
                                                   (8100, 32, 16, False),
+                                                  (500, 72, 64, False),
+                                                  (360, 72, 64, False),
                                                   (50_000, 72, 64, False)])
 def test_gp_stats_plan_regimes(cuda, n, m, L, single_launch):
-    """The training step's shapes take one launch and no workspace; the
-    cgen and fit shapes two passes, with every block resident in one
+    """The MNIST training step's shapes take one launch and no workspace;
+    the cgen and fit shapes and the SPRITES step and test batch (m = 72)
+    two passes, with every block resident in one
     wave, and the fit's partial-sum kernel at >= 2 blocks per SM.  None
     of them spills.  B3 runs the same plan after its K-build kernel; at
     the fit its partial-sum kernel keeps 4 blocks (12 warps) per SM."""
@@ -305,15 +310,18 @@ def test_chol_inverse_autograd_matches_twin_autograd(cuda):
     assert float((got - want).abs().max()) <= 2e-4 * scale
 
 
-def test_gp_stats_backward_matches_twin(cuda):
+@pytest.mark.parametrize("n,m,L", [(256, 32, 16),   # MNIST step
+                                   (500, 72, 64),   # SPRITES step
+                                   (360, 72, 64)])  # SPRITES test batch
+def test_gp_stats_backward_matches_twin(cuda, n, m, L):
     rng = np.random.RandomState(8)
     args = [torch.tensor(a, dtype=torch.float32, device=cuda,
                          requires_grad=True)
-            for a in (rng.randn(256, 32), rng.rand(256, 16) + 0.5,
-                      rng.randn(256, 16))]
-    d_sigma = torch.tensor(rng.randn(16, 32, 32), dtype=torch.float32,
+            for a in (rng.randn(n, m), rng.rand(n, L) + 0.5,
+                      rng.randn(n, L))]
+    d_sigma = torch.tensor(rng.randn(L, m, m), dtype=torch.float32,
                            device=cuda)
-    d_r = torch.tensor(rng.randn(16, 32), dtype=torch.float32, device=cuda)
+    d_r = torch.tensor(rng.randn(L, m), dtype=torch.float32, device=cuda)
 
     def grads(fn):
         sigma, r = fn(*args)
@@ -325,3 +333,67 @@ def test_gp_stats_backward_matches_twin(cuda):
     assert gps.gp_sufficient_stats.launches == before + 1
     for g, w in zip(got, grads(gps.gp_sufficient_stats_reference)):
         assert float((g - w).abs().max()) <= KERNEL_RTOL * float(w.abs().max())
+
+
+def _sprites_step_stacks(device):
+    """The two B1 inputs of one SPRITES step, built as gp_block_hensman
+    builds them (b = 500 frames of 10 characters, N_train = 50,000, L = 64,
+    72 inducing points of L_action 8 + L_character 16, jitter 0.01):
+    [K_mm; Sigma_1..64] (65, 72, 72) with the relative Sigma ridge, and
+    A_hat + jitter (64, 72, 72) with A_hat = K_mm Sigma^-1 K_mm from the
+    fp32 twin's inverse, its triangles averaged."""
+    rng = np.random.RandomState(7)
+    cfg = tgp.SVGPConfig(jitter=0.01, N_train=50_000)
+    gp = tgp.init_sprites_svgp(rng.normal(0, 1.5, (72, 24)),
+                               rng.normal(0, 1.5, (72, 8)), L_action=8,
+                               config=cfg).to(device)
+    aux = np.hstack([rng.randint(0, 72, (500, 1)),
+                     np.repeat(rng.rand(10, 16) * 0.5, 50, axis=0)])
+    var = np.clip(np.exp(rng.normal(0, 2, (500, 64))), 1e-3, 10.0)
+    prec, y = (torch.tensor(a, dtype=torch.float32, device=device)
+               for a in (1.0 / var, rng.normal(0, 1, (500, 64))))
+    z = gp.inducing_points
+    Kmm = gp.kmat(z, z)
+    Knm = gp.kmat(torch.tensor(aux, dtype=torch.float32, device=device), z,
+                  x_inducing=False)
+    contrib, _ = gps.gp_sufficient_stats_reference(Knm, prec, prec * y)
+    Sigma = Kmm[None] + (50_000 / 500) * contrib
+    M = torch.cat([tlinalg.add_jitter(Kmm, cfg.jitter)[None],
+                   tlinalg.add_jitter(Sigma, tgp.svgp.sigma_jitter(Sigma,
+                                                                   cfg))])
+    inv, _ = ci.chol_inverse_reference(M)
+    A_hat = Kmm[None] @ (inv[1:] @ Kmm.expand(64, 72, 72))
+    A_hat = 0.5 * (A_hat + A_hat.transpose(-1, -2))
+    return {"sigma": M, "a_hat": tlinalg.add_jitter(A_hat, cfg.jitter)}
+
+
+# B1 on real stacks: Sigma's ridge bounds its condition near 1e5, past
+# the 1e3 of the synthetic cases, so a fixed tolerance does not apply.
+# Gauss-Jordan and Cholesky are both backward-stable at ~cond * eps: the
+# kernel is held to 10x the fp32 twin's own gap to float64 (its inverse
+# normalized by each matrix's max |entry|, its logdet absolute), floored
+# at m * 2^-24 of the scale.
+B1_REAL_FACTOR = 10.0
+
+
+@pytest.mark.parametrize("stack", ["sigma", "a_hat"])
+def test_chol_inverse_kernel_on_sprites_stacks(cuda, stack):
+    M = _sprites_step_stacks(cuda)[stack]
+    assert M.shape == ((65, 72, 72) if stack == "sigma" else (64, 72, 72))
+    inv, ld = ci.chol_inverse_kernel(M)
+    inv_t, ld_t = ci.chol_inverse_reference(M)
+    a = M.cpu().double().numpy()
+    inv64, ld64 = np.linalg.inv(a), np.linalg.slogdet(a)[1]
+
+    def gaps(i, l):
+        i = i.cpu().double().numpy()
+        rel = np.abs(i - inv64).max(axis=(1, 2)) / np.abs(inv64).max(
+            axis=(1, 2))
+        return rel.max(), np.abs(l.cpu().double().numpy() - ld64).max()
+
+    floor = M.shape[-1] * 2.0 ** -24
+    for got, twin, scale in zip(gaps(inv, ld), gaps(inv_t, ld_t),
+                                (1.0, np.abs(ld64).max())):
+        assert np.isfinite(got)
+        assert got <= B1_REAL_FACTOR * max(twin, floor * scale), \
+            (stack, got, twin)

@@ -321,7 +321,8 @@ def test_main_capture_and_frozen_leaves(tiny_splits):
 def test_dispatch_table():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tmodels.GP_BLOCK_AUTO_TABLE.keys() == {
-        ("mnist", "hensman", "cuda"), ("mnist", "hensman", "other")}
+        ("mnist", "hensman", "cuda"), ("mnist", "hensman", "other"),
+        ("sprites", "hensman", "cuda"), ("sprites", "hensman", "other")}
     assert tmodels.resolve_gp_block_impl("auto", device=cuda) == \
         "fused_pallas"
     assert tmodels.resolve_gp_block_impl("auto", device=cpu) == "reference"
@@ -330,7 +331,7 @@ def test_dispatch_table():
         ("mnist", "hensman", "other")][0] == "reference"
     for impl in tmodels.svgpvae.GP_BLOCK_IMPLS:
         assert tmodels.resolve_gp_block_impl(impl, device=cuda) == impl
-    for bad in (dict(impl="auto", workload="sprites"),
+    for bad in (dict(impl="auto", workload="ball"),
                 dict(impl="auto", titsias=True)):
         with pytest.raises(NotImplementedError):
             tmodels.resolve_gp_block_impl(**bad)

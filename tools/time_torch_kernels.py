@@ -4,10 +4,12 @@
         [--repeats 3] [--kernels K1,K2] [--sweep] [--profile]
 
 For each (kernel, shape) of the main paths -- B2 gp_sufficient_stats at the
-training step (256 and 164 rows), cgen (8,100) and fit (50,000) shapes, B3
-fused_kernel_stats at the fit shape (sprites, and beside it with
-normalize, in the mnist family with d = 1 + 8, and at L = 16), B1
-chol_inverse at (17, 32, 32) and (65, 72, 72) -- it prints one JSON line:
+MNIST training step (256 and 164 rows), cgen (8,100) and fit (50,000)
+shapes and at the SPRITES training step (500, 72, 64) and test batch
+(360, 72, 64), B3 fused_kernel_stats at the fit shape (sprites, and beside
+it with normalize, in the mnist family with d = 1 + 8, and at L = 16), B1
+chol_inverse at (17, 32, 32), (65, 72, 72) and (64, 72, 72) -- it prints
+one JSON line:
 the time per call (CUDA events over back-to-back calls, the wrapper's
 host dispatch included) and the device time per call (one CUDA-graph
 replay of 50 captured calls), each measured --repeats times, and the
@@ -49,13 +51,16 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 STATS_SHAPES = [("train_step", 256, 32, 16), ("train_tail", 164, 32, 16),
-                ("cgen", 8_100, 32, 16), ("fit", 50_000, 72, 64)]
+                ("cgen", 8_100, 32, 16), ("fit", 50_000, 72, 64),
+                ("sprites_step", 500, 72, 64),
+                ("sprites_test_batch", 360, 72, 64)]
 # B3: (tag, n, m, L, family, normalize, d1, d2); the serve's fit first
 FUSED_SHAPES = [("fit", 50_000, 72, 64, "sprites", False, 8, 16),
                 ("fit_normalize", 50_000, 72, 64, "sprites", True, 8, 16),
                 ("fit_mnist", 50_000, 72, 64, "mnist", False, 1, 8),
                 ("fit_L16", 50_000, 72, 16, "sprites", False, 8, 16)]
-CHOL_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3)]
+CHOL_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
+               ("sprites_A_hat", 64, 72, 1e3)]
 SWEEP_N = [256, 384, 512, 1024, 2048, 4096, 8100]
 CHOL_SWEEP = [(1, 32), (17, 32), (264, 32), (17, 16), (17, 2)]
 
