@@ -11,8 +11,10 @@ Phases, each of which raises (nonzero exit) on failure:
      B2/B3 at the SPRITES serving shape (n = 50,000, m = 72, L = 64) and at
      a ragged small shape, B2 also at the MNIST training shapes (256 and
      164 rows in a step, 28 in the last test batch, 8,100 in the cgen
-     pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32), (65, 72, 72)
-     and a ragged (5, 37, 37); max errors and the times of kernel (per
+     pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32) (warp
+     form), (65, 72, 72), (64, 72, 72) and a ragged (5, 37, 37) (blocked
+     form), and (17, 256, 256), (65, 288, 288) and (65, 512, 512) (panel
+     form); max errors and the times of kernel (per
      call, and device time in a CUDA-graph replay), twin and (B2) one
      library call; then one line with each kernel variant's registers
      and local memory per thread and resident blocks per SM at those
@@ -54,14 +56,24 @@ Phases, each of which raises (nonzero exit) on failure:
   9. SPRITES step 60 checked on the CPU: (a) its two B1 input stacks,
      recomputed on the card from the captured inputs, through the kernel
      against a float64 inversion of the same fp32 stacks, within a stated
-     multiple of the fp32 twin's own gap to float64; (b) the whole step
+     multiple of the larger fp32 witness's own gap to float64 (the
+     Cholesky twin, plain unblocked Gauss-Jordan); (b) the whole step
      redone on the CPU with the twins (fp32 in the batch's order, fp32
-     with its characters reversed, f64), as phase 7.
+     with its characters reversed, f64), as phase 7;
+ 10. the large-m runs, B1 in its panel form (checked): SPRITES --m 4
+     --L_character 36 (m = 288) on phase 4's corpus at phase 8's other
+     widths, 1 pretraining epoch and 1 epoch (B1 twice and B2 once per
+     step, B3 in the eval fit), with phase 9(a)'s check on its step 60;
+     rotated MNIST --nr_inducing_points 16 --jitter 1e-3 (m = 256) at
+     phase 6's widths, 1 epoch (B1 once per step).  Why those two flags:
+     see SPRITES_M4_ARGV.  Launch counters are zeroed just before each
+     run and read just after.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6 and 8, and the max error and times measured
-in phase 3 at the shape named in the entry, with the bound computed from
-that shape); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
+the main paths of phases 4, 6, 8 and 10, and the max error and times
+measured in phase 3 at the shape named in the entry, with the bound
+computed from that shape; B1's entry lists every phase-3 shape under
+"forms"); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
 device; exits nonzero without one.  TF32 is off for matmuls and cuDNN
 throughout.  Each phase prints its seconds.
 """
@@ -105,9 +117,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # backward-stable at ~cond * eps; the inverse within 5e-4 of its own max
 # |entry| and logdet within rtol 1e-5 (1e-4 at m = 72), the tolerances
 # tests/test_fused_gp.py holds the TPU kernel to.  Inputs: PD stacks of
-# condition 1e4 (1e3 at m = 72).
+# condition 1e4 (1e3 at m >= 72).
 B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
-             ("sprites_A_hat", 64, 72, 1e3), ("ragged", 5, 37, 1e4)]
+             ("sprites_A_hat", 64, 72, 1e3), ("ragged", 5, 37, 1e4),
+             ("mnist_m256", 17, 256, 1e3),      # --nr_inducing_points 16
+             ("sprites_m288", 65, 288, 1e3),    # --m 4
+             ("sprites_A_hat_m288", 64, 288, 1e3),
+             ("scaling_m512", 65, 512, 1e3)]    # the GP-dimension cell
 B1_INV_TOL = 5e-4
 # B2 at the training shapes: MNIST's minibatch, tail, last test batch and
 # cgen pass (the mnist-family K), SPRITES's minibatch and test batch
@@ -156,14 +172,46 @@ SPRITES_CAPTURE = 60       # the mid-run step checked in phase 9
 SPRITES_FPC = 50           # train frames per character
 # Phase 9(a), B1 on the step's own stacks: Sigma's relative ridge bounds
 # its condition near 1e5 (1e3 in phase 3's synthetic stacks), where a
-# fixed tolerance means nothing.  Gauss-Jordan without pivoting and the
-# twin's Cholesky are both backward-stable at ~cond * eps on a PD matrix,
-# so the kernel is held to 10x the fp32 twin's own gap to float64 (as
-# phase 7's multiple): the inverse normalized by each matrix's max
-# |entry|, the logdet absolute.  Each gap is floored at m * 2^-24 of its
-# scale (1, max |logdet|): one ulp per pivot, so a twin that happens to
-# land within round-off of float64 cannot set a limit below that.
+# fixed tolerance means nothing.  Gauss-Jordan without pivoting and
+# Cholesky are both backward-stable at ~cond * eps on a PD matrix, but
+# their forward errors on one stack differ by more than round-off, so two
+# fp32 witnesses run beside the kernel: the Cholesky twin and plain,
+# unblocked Gauss-Jordan (the kernel's method one pivot at a time).  The
+# kernel is held to 10x the larger witness's gap to float64 (as phase 7's
+# multiple): the inverse normalized by each matrix's max |entry|, the
+# logdet absolute.  Each gap is floored at m * 2^-24 of its scale (1,
+# max |logdet|): one ulp per pivot, so a witness that happens to land
+# within round-off of float64 cannot set a limit below that.
 B1_REAL_FACTOR = 10.0
+# Phase 10: the large-m runs, each through B1's panel form.  SPRITES
+# --m 4 (m = 72 x 4 = 288) at phase 8's widths on phase 4's corpus, depth
+# cut to 1 pretraining epoch (10 steps) and 1 epoch (100 steps) with one
+# eval pass; rotated MNIST --nr_inducing_points 16 (m = 16 x 16 = 256)
+# at phase 6's widths, 1 epoch (32 steps) and one eval pass.  Neither
+# configuration trains in fp32 at the drivers' defaults, in either
+# package (ROADMAP.md section C): at L_character 16, SPRITES's K_mm has
+# rank <= 8 x 16 = 128 < 288, and on the same weights and noise the JAX
+# CLI's ELBO diverges as the port's does (tools/compare_sprites_m4_cpu.py);
+# MNIST's jitter 1e-6 leaves K_mm + jitter (rank <= 16 x 8 = 128 < 256)
+# indefinite in fp32 from the first step.  So each run changes one flag,
+# the least that makes K_mm usable at its m, and keeps every other width
+# and the path --m 4 / --nr_inducing_points 16 take (B1's panel form on
+# the stacks training builds, B2 and B3 at that m): --L_character 36,
+# the smallest at which 8 x L_character reaches 288 (K_mm of full rank),
+# and --jitter 1e-3.
+SPRITES_M4_L_CHARACTER = 36
+SPRITES_M4_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
+                   "--synthetic", "--synthetic_chars", str(SERVE_CHARS),
+                   "--opt_regime", "joint-1", "--eval_every", "1",
+                   "--nr_epochs_repr_nn", "1", "--m", "4", "--L_character",
+                   str(SPRITES_M4_L_CHARACTER), "--device", "cuda",
+                   "--seed", "0"]
+MNIST_M256_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
+                   "--PCA", "--ip_joint", "--GP_joint", "--ov_joint",
+                   "--dataset", "36", "--synthetic_digits", "--opt_regime",
+                   "joint-1", "--eval_every", "1", "--nr_inducing_points",
+                   "16", "--jitter", "1e-3", "--device", "cuda", "--seed",
+                   "0"]
 # Phase 9(b): as phase 7, with the floor of a gradient at the round-off
 # of the SPRITES step's longest sum (the decoder's output bias:
 # 500 x 64 x 64 x 3 terms).
@@ -403,9 +451,9 @@ def phase_occupancy(device) -> None:
           "size 1 (no thread-block clusters) (50000, 72, 64)")
     rows[b3] = gps.kernel_info(50_000, 72, 64, device, SLICE["d1"],
                                SLICE["d2"])
-    for tag, B, m in (("one warp per matrix", 17, 32),
-                      ("shared-memory block", 65, 72)):
-        rows[f"chol_inverse {tag} {(B, m, m)}"] = ci.kernel_info(B, m, device)
+    for B, m in ((17, 32), (5, 37), (65, 72), (17, 256), (65, 288)):
+        info = ci.kernel_info(B, m, device)
+        rows[f"chol_inverse {info['form']} form {(B, m, m)}"] = info
     log("kernel variants (registers and local bytes per thread, resident "
         "blocks per SM): " + json.dumps(rows))
 
@@ -418,16 +466,18 @@ def pd_stack(rng, B, m, cond):
     return out.astype(np.float32)
 
 
-def phase_chol_inverse(device) -> dict:
-    """B1 against its Cholesky twin on the card; returns the record of
-    the training shape (17, 32, 32)."""
+def phase_chol_inverse(device) -> list:
+    """B1 against its Cholesky twin on the card, at every shape of
+    B1_SHAPES; returns one record per shape, the training shape
+    (17, 32, 32) first."""
     import torch
     from svgpvae_tpu_torch.ops import chol_inverse as ci
 
     rng = np.random.RandomState(2)
-    records = {}
+    records = []
     for tag, B, m, cond in B1_SHAPES:
         M = torch.from_numpy(pd_stack(rng, B, m, cond)).to(device)
+        form = ci.kernel_info(B, m, device)["form"]
         inv, ld = ci.chol_inverse_kernel(M)
         torch.cuda.synchronize()
         inv_t, ld_t = ci.chol_inverse_reference(M)
@@ -440,19 +490,19 @@ def phase_chol_inverse(device) -> dict:
         plain_ms = cuda_ms(lambda: ci.chol_inverse_reference(M), reps=50)
         dev_ms = graph_ms(lambda: ci.chol_inverse_kernel(M))
         b_ms, b_by = chol_inverse_bound(B, m)
-        log(f"chol_inverse {tag} (B, m) = ({B}, {m}), cond {cond:.0e}: "
-            f"inverse max_abs_err {inv_err:.3e} (max|twin| {scale:.3e}, "
-            f"limit {B1_INV_TOL * scale:.3e}); logdet max rel err "
-            f"{ld_rel:.3e} (limit {ld_rtol:.0e}); kernel {ms:.4f} ms per "
+        log(f"chol_inverse {tag} (B, m) = ({B}, {m}), {form} form, cond "
+            f"{cond:.0e}: inverse max_abs_err {inv_err:.3e} (max|twin| "
+            f"{scale:.3e}, limit {B1_INV_TOL * scale:.3e}); logdet max rel "
+            f"err {ld_rel:.3e} (limit {ld_rtol:.0e}); kernel {ms:.4f} ms per "
             f"call ({dev_ms:.4f} ms of device time in a graph replay), "
             f"twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         if not (inv_err <= B1_INV_TOL * scale and ld_rel <= ld_rtol):
             raise AssertionError(f"chol_inverse {tag}: kernel disagrees "
                                  "with its twin")
-        records[tag] = dict(max_abs_err=inv_err, ms=ms, plain_ms=plain_ms,
-                            graph_ms=dev_ms, bound=(b_ms, b_by),
-                            dims=dict(B=B, m=m))
-    return records["train"]
+        records.append(dict(shape=tag, form=form, dims=dict(B=B, m=m),
+                            max_abs_err=inv_err, ms=ms, plain_ms=plain_ms,
+                            graph_ms=dev_ms, bound=(b_ms, b_by)))
+    return records
 
 
 def check_finite(**tensors) -> None:
@@ -550,13 +600,9 @@ def phase_cpu_check(name, res) -> None:
                                  "with the CPU twins")
 
 
-def phase_train() -> tuple:
-    """The north-star training run on the card; returns its result and the
-    launch counts of the whole run."""
-    import torch
-    from svgpvae_tpu_torch import data, ops
-    from svgpvae_tpu_torch.cli import mnist
-
+def mnist_splits() -> dict:
+    """The rotated 36-digit set of phases 6 and 10, in memory."""
+    from svgpvae_tpu_torch import data
     t0 = time.perf_counter()
     base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
     splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
@@ -564,9 +610,21 @@ def phase_train() -> tuple:
         f"{len(splits['eval']['images'])} eval, "
         f"{len(splits['test']['images'])} test frames, generated in "
         f"{time.perf_counter() - t0:.1f} s")
+    return splits
+
+
+def phase_train(splits, argv=TRAIN_ARGV, m=32, steps=TRAIN_STEPS,
+                capture=CAPTURE_STEP, tag="train") -> tuple:
+    """An MNIST training run on the card (the north-star run of phase 6,
+    or phase 10's at m = 256); returns its result and the launch counts of
+    the whole run."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import mnist
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    res = mnist.main(TRAIN_ARGV, splits=splits, capture_step=CAPTURE_STEP)
+    res = mnist.main(argv, splits=splits, capture_step=capture)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -574,12 +632,12 @@ def phase_train() -> tuple:
     gp = st.params["gp"]
     dims = (len(splits["train"]["images"]), gp.inducing_points.shape[0],
             gp.object_vectors.shape[0], st.params["vae"].L)
-    if dims != (8_100, 32, 800, 16) or len(res["step_seconds"]) != TRAIN_STEPS:
+    if dims != (8_100, m, 800, 16) or len(res["step_seconds"]) != steps:
         raise AssertionError(f"trained N, m, n_objects, L = {dims} over "
                              f"{len(res['step_seconds'])} steps")
-    for i, m in enumerate(res["metrics"]):
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"step {i}: non-finite metrics {m}")
+    for i, mt in enumerate(res["metrics"]):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {mt}")
     ev = res["evals"][-1]
     if not all(np.isfinite(ev[k]) for k in ("eval_mse", "test_mse",
                                             "cgen_mse")):
@@ -593,7 +651,7 @@ def phase_train() -> tuple:
     sec = np.asarray(res["step_seconds"])
     in_steps = {k: sum(sl[k] for sl in res["step_launches"])
                 for k in launches}
-    log(f"train: {TRAIN_STEPS} steps; first step {1e3 * sec[0]:.2f} ms, "
+    log(f"{tag}: {steps} steps; first step {1e3 * sec[0]:.2f} ms, "
         f"then p50 {1e3 * np.percentile(sec[1:], 50):.3f} ms, p90 "
         f"{1e3 * np.percentile(sec[1:], 90):.3f} ms; eval MSE "
         f"{ev['eval_mse']:.6f}, test MSE {ev['test_mse']:.6f}, cgen MSE "
@@ -691,30 +749,32 @@ def hold_to_cpu_gap(tag, got, r32, r32_rev, r64, loss_terms,
         f"err/limit {max(err / limit for _, err, limit in rows):.3f}")
 
 
-def phase_sprites_train(splits) -> tuple:
-    """The SPRITES training run on the card (phase 8); returns its result
-    and the launch counts of the whole run."""
+def phase_sprites_train(splits, argv=SPRITES_ARGV, m=72, l_character=16,
+                        pretrain_steps=SPRITES_PRETRAIN_STEPS,
+                        capture=SPRITES_CAPTURE,
+                        tag="sprites train") -> tuple:
+    """A SPRITES training run on the card (phase 8, or phase 10's at
+    m = 288); returns its result and the launch counts of the whole run."""
     import torch
     from svgpvae_tpu_torch import ops, train
     from svgpvae_tpu_torch.cli import sprites
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    res = sprites.main(SPRITES_ARGV, splits=splits,
-                       capture_step=SPRITES_CAPTURE)
+    res = sprites.main(argv, splits=splits, capture_step=capture)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     st = res["state"]
     gp, vae = st.params["gp"], st.params["vae"]
-    m, d = gp.inducing_points.shape
-    dims = (len(splits["train"]["frames"]), m, vae.L, gp.L_action,
+    m_run, d = gp.inducing_points.shape
+    dims = (len(splits["train"]["frames"]), m_run, vae.L, gp.L_action,
             d - gp.L_action)
-    if dims != (50 * SERVE_CHARS, 72, 64, 8, 16):
+    if dims != (50 * SERVE_CHARS, m, 64, 8, l_character):
         raise AssertionError(f"trained N, m, L, L_action, L_character = "
                              f"{dims}")
     if (len(res["step_seconds"]) != SPRITES_STEPS
-            or res["pretrain"]["steps"] != SPRITES_PRETRAIN_STEPS):
+            or res["pretrain"]["steps"] != pretrain_steps):
         raise AssertionError(f"{res['pretrain']['steps']} pretraining and "
                              f"{len(res['step_seconds'])} main steps")
     for i, mt in enumerate(res["metrics"]):
@@ -743,7 +803,7 @@ def phase_sprites_train(splits) -> tuple:
     sec = np.asarray(res["step_seconds"])
     in_steps = {k: sum(sl[k] for sl in res["step_launches"])
                 for k in launches}
-    log(f"sprites train: {SPRITES_PRETRAIN_STEPS} pretraining steps in "
+    log(f"{tag}: {pretrain_steps} pretraining steps in "
         f"{res['pretrain']['seconds']:.3f} s (test_action acc "
         f"{res['pretrain']['epochs'][0]['test_action_acc']:.4f} after the "
         f"first epoch); {SPRITES_STEPS} steps: first {1e3 * sec[0]:.2f} "
@@ -778,7 +838,7 @@ def _sprites_step_params(cap, card_gp, device, dtype):
             "gp": gp}
 
 
-def sprites_step_stacks(res) -> list:
+def sprites_step_stacks(res, argv=SPRITES_ARGV, m=72) -> list:
     """The captured step's two B1 input stacks, recomputed on the card
     from its inputs (printing its loss beside the captured one)."""
     import torch
@@ -788,7 +848,7 @@ def sprites_step_stacks(res) -> list:
 
     cap = res["captured"]
     device = cap["batch"][0].device
-    args = sprites.build_parser().parse_args(SPRITES_ARGV)
+    args = sprites.build_parser().parse_args(argv)
     args.gp_block_impl = models.resolve_gp_block_impl(
         args.gp_block_impl, workload="sprites", device=device)
     params = _sprites_step_params(cap, res["state"].params["gp"], device,
@@ -809,23 +869,27 @@ def sprites_step_stacks(res) -> list:
         fused.chol_inverse = kernel
     log(f"sprites step {cap['step']} recomputed on the card: loss "
         f"{float(loss):.9g}, as captured {float(cap['loss']):.9g}")
-    if [tuple(M.shape) for M in stacks] != [(65, 72, 72), (64, 72, 72)]:
+    if [tuple(M.shape) for M in stacks] != [(65, m, m), (64, m, m)]:
         raise AssertionError(f"B1 inputs {[tuple(M.shape) for M in stacks]}")
     return stacks
 
 
-def phase_sprites_b1(res) -> None:
+def phase_sprites_b1(res, argv=SPRITES_ARGV, m=72) -> None:
     """Phase 9(a): the captured step's two B1 input stacks through the
-    kernel against a float64 inversion of the same fp32 stacks."""
+    kernel against a float64 inversion of the same fp32 stacks, within
+    B1_REAL_FACTOR of the larger of the two fp32 witnesses' gaps to
+    float64: the Cholesky twin and plain, unblocked Gauss-Jordan."""
     import torch
     from svgpvae_tpu_torch.ops import chol_inverse as ci
 
     cap = res["captured"]
-    stacks = sprites_step_stacks(res)
+    stacks = sprites_step_stacks(res, argv, m)
     for tag, M in zip(("[K_mm; Sigma]", "A_hat + jitter"), stacks):
+        form = ci.kernel_info(*M.shape[:2], M.device)["form"]
         inv, ld = ci.chol_inverse_kernel(M)
         torch.cuda.synchronize()
-        inv_t, ld_t = ci.chol_inverse_reference(M.cpu())
+        witnesses = {"Cholesky twin": ci.chol_inverse_reference(M.cpu()),
+                     "plain Gauss-Jordan": ci.gauss_jordan_reference(M)}
         inv64, ld64 = ci.chol_inverse_reference(M.cpu().double())
 
         def gaps(i, l):
@@ -835,17 +899,20 @@ def phase_sprites_b1(res) -> None:
             return float(rel), float((l.cpu().double() - ld64).abs().max())
 
         floor = M.shape[-1] * 2.0 ** -24
-        rows = []
-        for what, got, twin, scale in zip(
+        wit = {name: gaps(*w) for name, w in witnesses.items()}
+        bad = []
+        for q, (what, got, scale) in enumerate(zip(
                 ("inverse (normalized)", "logdet"), gaps(inv, ld),
-                gaps(inv_t, ld_t), (1.0, float(ld64.abs().max()))):
-            limit = B1_REAL_FACTOR * max(twin, floor * scale)
-            rows.append((what, got, limit))
-            log(f"chol_inverse on step {cap['step']}'s {tag} "
-                f"{tuple(M.shape)}: {what} kernel vs f64 {got:.3e}, fp32 "
-                f"twin vs f64 {twin:.3e}, limit {limit:.3e}")
-        bad = [w for w, got, limit in rows
-               if not (np.isfinite(got) and got <= limit)]
+                (1.0, float(ld64.abs().max())))):
+            limit = B1_REAL_FACTOR * max(floor * scale,
+                                         *(g[q] for g in wit.values()))
+            log(f"chol_inverse ({form} form) on step {cap['step']}'s {tag} "
+                f"{tuple(M.shape)}: {what} kernel vs f64 {got:.3e}, "
+                + ", ".join(f"{name} vs f64 {g[q]:.3e}"
+                            for name, g in wit.items())
+                + f", limit {limit:.3e}")
+            if not (np.isfinite(got) and got <= limit):
+                bad.append(what)
         if bad:
             raise AssertionError(f"chol_inverse on step {cap['step']}'s "
                                  f"{tag}: {bad} past the limit")
@@ -914,6 +981,27 @@ def phase_sprites_cpu_check(res) -> None:
                     loss_terms, SPRITES_SUM_FLOOR)
 
 
+def phase_large_m(corpus, mnist_data, device) -> dict:
+    """Phase 10: the SPRITES --m 4 and MNIST --nr_inducing_points 16 runs,
+    whose B1 stacks take the panel form (checked), with phase 9(a)'s check
+    on the SPRITES run's step 60; returns each run's launch counts."""
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+    for B, m in ((65, 288), (64, 288), (17, 256)):
+        form = ci.kernel_info(B, m, device)["form"]
+        if form != "panel":
+            raise AssertionError(f"B1 at {(B, m, m)} takes the {form} form")
+    sprites_res, sprites_launches = phase_sprites_train(
+        corpus, SPRITES_M4_ARGV, 288, SPRITES_M4_L_CHARACTER,
+        SPRITES_PRETRAIN_STEPS // 2, SPRITES_CAPTURE,
+        "sprites --m 4 --L_character 36 (m = 288, B1 panel form)")
+    phase_sprites_b1(sprites_res, SPRITES_M4_ARGV, 288)
+    _, mnist_launches = phase_train(
+        mnist_data, MNIST_M256_ARGV, 256, TRAIN_STEPS // 2, None,
+        "mnist --nr_inducing_points 16 (m = 256, B1 panel form)")
+    return {"sprites_m288_train": sprites_launches,
+            "mnist_m256_train": mnist_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -947,18 +1035,26 @@ def main() -> int:
     results, serve_launches, corpus = timed(4, phase_serve)
     for name, res in results.items():
         timed(5, phase_cpu_check, name, res)
-    train_res, train_launches = timed(6, phase_train)
+    mnist_data = mnist_splits()
+    train_res, train_launches = timed(6, phase_train, mnist_data)
     timed(7, phase_train_cpu_check, train_res)
     sprites_res, sprites_launches = timed(8, phase_sprites_train, corpus)
     timed("9a", phase_sprites_b1, sprites_res)
     timed("9b", phase_sprites_cpu_check, sprites_res)
+    large_m = timed(10, phase_large_m, corpus, mnist_data, device)
     paths = {"serve": serve_launches, "mnist_train": train_launches,
-             "sprites_train": sprites_launches}
+             "sprites_train": sprites_launches, **large_m}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"
                 and not r["normalize"]}
-    at_slice["chol_inverse"] = dict(b1, library_ms=None)
+    # B1's entry: the training shape (warp form), with every shape of
+    # phase 3 under "forms"
+    at_slice["chol_inverse"] = dict(b1[0], library_ms=None, forms=[
+        dict(form=r["form"], shape=r["dims"], ms=r["ms"],
+             graph_ms=r["graph_ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound"][0], bound_by=r["bound"][1],
+             max_abs_err=r["max_abs_err"]) for r in b1])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = at_slice[name]
@@ -969,7 +1065,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            shape=r["dims"], graph_ms=r["graph_ms"]))
+            shape=r["dims"], graph_ms=r["graph_ms"],
+            **({"forms": r["forms"]} if "forms" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

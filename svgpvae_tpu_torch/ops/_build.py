@@ -42,9 +42,9 @@ _SIGNATURES = {
     "svgp_fused_kernel_stats": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _PI, _P], _I),
-    "svgp_chol_inverse_max_m": ([_I, _PI], _I),
-    "svgp_chol_inverse_info": ([_I, _I, _PI], _I),
-    "svgp_chol_inverse": ([_P, _P, _P, _I, _I, _P], _I),
+    "svgp_chol_inverse_plan": ([_I, _PI], _I),
+    "svgp_chol_inverse_info": ([_I, _I, _PI, _PI], _I),
+    "svgp_chol_inverse": ([_P, _P, _P, _P, _I, _I, _PI, _P], _I),
 }
 
 

@@ -61,6 +61,25 @@ def test_twin_matches_jax_ref_and_pallas(B, m, cond):
         np.testing.assert_allclose(ld, ld_j, rtol=rtol_ld)
 
 
+@pytest.mark.parametrize("B,m,cond", [(17, 32, 1e4), (5, 72, 1e3),
+                                      (3, 37, 1e4)])
+def test_gauss_jordan_witness_matches_jax_pallas(B, m, cond):
+    """The plain Gauss-Jordan witness (the kernel's method one pivot at a
+    time) against the JAX Pallas kernel's Gauss-Jordan, at the twin's
+    tolerances; a pivot <= 0 gives a NaN logdet, as in JAX."""
+    M = _pd_stack(np.random.RandomState(B + m), B, m, cond)
+    inv, ld = (x.numpy() for x in
+               ci.gauss_jordan_reference(torch.from_numpy(M)))
+    inv_j, ld_j = (np.asarray(x) for x in
+                   chol_inverse_pallas(jnp.asarray(M), interpret=True))
+    scale = np.abs(inv_j).max()
+    np.testing.assert_allclose(inv / scale, inv_j / scale, atol=5e-4)
+    np.testing.assert_allclose(ld, ld_j, rtol=1e-4 if m >= 72 else 1e-5)
+    M[1, 2, 2] = -1.0
+    _, ld = ci.gauss_jordan_reference(torch.from_numpy(M))
+    assert np.isfinite(float(ld[0])) and np.isnan(float(ld[1]))
+
+
 def test_twin_gives_nan_off_pd_like_jax():
     M = np.tile(np.eye(3, dtype=np.float32), (2, 1, 1))
     M[1, 1, 1] = -1.0

@@ -12,18 +12,20 @@ max abs error <= 1e-4 of max|twin| (as chip_smoke.py: the random-walk
 estimate sqrt(n)*eps is ~1e-5 of the scale at these n).
 
 B1 (chol_inverse), Gauss-Jordan against the Cholesky twin and float64, on
-PD stacks of condition up to 1e4 (m <= 37) and 1e3 (m = 72): the inverse
+PD stacks of condition up to 1e4 (m <= 37) and 1e3 (m >= 64): the inverse
 within 5e-4 of its own max |entry|, logdet within rtol 1e-5 (1e-4 at
-m = 72) -- the tolerances tests/test_fused_gp.py holds the TPU kernel to,
+m >= 72) -- the tolerances tests/test_fused_gp.py holds the TPU kernel to,
 since both methods are backward-stable at ~cond * eps.
 
 The kernels have forms that the library picks by shape: B2 one launch
 (m <= 64, n <= 256), small-m chunks plus a reduce, or the partial-sum
 kernel plus a reduce (m > 64); B3 a K-build kernel (compiled-in or
 run-time feature widths) and then B2's form for the shape; B1 one warp
-per matrix (m <= 32) or one shared-memory block per matrix.  The cases
-cover both sides of each boundary, and every form is checked to give the
-same bits from run to run.
+per matrix (m <= 32), one block per matrix in registers (m <= 80) or
+two kernels per panel of 32 pivots on the matrix in device memory (above
+it, no limit).  The cases cover both sides
+of each boundary, and every form is checked to give the same bits from
+run to run and to replay from a CUDA graph.
 """
 
 import numpy as np
@@ -188,6 +190,7 @@ def _deterministic_case(case, cuda):
     rng = np.random.RandomState(5)
     if case[0] == "chol_inverse":
         _, B, m = case
+        m = _b1_m(m, cuda)
         M = torch.from_numpy(_pd_stack(rng, B, m, 1e3).astype(np.float32))
         M = M.to(cuda)
         return lambda: ci.chol_inverse_kernel(M)
@@ -206,7 +209,10 @@ def _deterministic_case(case, cuda):
     ("gp_sufficient_stats", 8100, 32, 16),     # two passes
     ("gp_sufficient_stats", 50_000, 72, 64),   # two passes, many chunks
     ("chol_inverse", 17, 32),                  # one warp per matrix
-    ("chol_inverse", 65, 72),                  # shared-memory block
+    ("chol_inverse", 65, 72),                  # blocked, in registers
+    ("chol_inverse", 5, "limit"),              # blocked, largest tile
+    ("chol_inverse", 65, 288),                 # panel form
+    ("chol_inverse", 3, "limit+1"),            # panel form, ragged panel
 ])
 def test_kernels_are_deterministic(cuda, case):
     run = _deterministic_case(case, cuda)
@@ -235,21 +241,43 @@ def _pd_stack(rng, B, m, cond):
     return out
 
 
-# m <= 32 runs one warp per matrix (padded in registers), m > 32 one
-# shared-memory block per matrix.  The condition of the small stacks is
-# lower: logdet's fp32 error is ~cond * eps absolute, and |logdet| grows
-# with m (~9 at m = 2 and cond 1e4, where rtol 1e-5 would not hold).
+# m <= 32 runs one warp per matrix (padded in registers); above, up to
+# m = 80, one block per matrix held in registers; above that the panel
+# form.  "limit" and "limit+1" stand for the blocked form's limit and one
+# past it (asked of the library inside the test).  The condition
+# of the small stacks is lower: logdet's fp32 error is ~cond * eps
+# absolute, and |logdet| grows with m (~9 at m = 2 and cond 1e4, where
+# rtol 1e-5 would not hold).  B * m^3 is capped to keep the file fast.
 B1_COND = {1: 1.0, 2: 1e2, 17: 1e3, 31: 1e4, 32: 1e4, 33: 1e4}
+B1_LARGE_M = [64, 100, 129, 160, 200, "limit", "limit+1", 256, 288, 512]
+B1_MAX_WORK = 3e9  # B * m^3
 B1_CASES = [(17, 32, 1e4), (65, 72, 1e3), (5, 37, 1e4), (5, 15, 1e4),
             (3, 1, 1.0), (2, 130, 1e2)] + [
     (B, m, cond) for m, cond in B1_COND.items()
-    for B in (1, 17, 33) if (B, m) != (17, 32)]
+    for B in (1, 17, 33) if (B, m) != (17, 32)] + [
+    (B, m, 1e3) for m in B1_LARGE_M for B in (1, 17, 65)
+    if isinstance(m, str) or B * m ** 3 <= B1_MAX_WORK]
+
+
+def _b1_m(m, device) -> int:
+    """An m of the cases: a number, or the blocked form's limit
+    ("limit") or one past it ("limit+1")."""
+    if isinstance(m, int):
+        return m
+    return ci.max_blocked_m(device) + (m == "limit+1")
+
+
+def _b1_form(m, device) -> str:
+    return ("warp" if m <= 32 else
+            "blocked" if m <= ci.max_blocked_m(device) else "panel")
 
 
 @pytest.mark.parametrize("B,m,cond", B1_CASES)
 def test_chol_inverse_kernel_matches_twin_and_f64(cuda, B, m, cond):
+    m = _b1_m(m, cuda)
     a = _pd_stack(np.random.RandomState(B + m), B, m, cond)
     M = torch.from_numpy(a.astype(np.float32)).to(cuda)
+    assert ci.kernel_info(B, m, cuda)["form"] == _b1_form(m, cuda)
     before = ci.chol_inverse_kernel.launches
     inv, ld = ci.chol_inverse_kernel(M)
     torch.cuda.synchronize()
@@ -267,19 +295,19 @@ def test_chol_inverse_kernel_matches_twin_and_f64(cuda, B, m, cond):
                                    rtol=rtol_ld, atol=1e-6)
 
 
-@pytest.mark.parametrize("m", [4, 32, 40])  # warp, warp, shared memory
+@pytest.mark.parametrize("m", [4, 32, 40, 100, "limit", "limit+1", 300])
 def test_chol_inverse_kernel_gives_nan_logdet_off_pd(cuda, m):
+    """Every form: a pivot <= 0 makes that matrix's logdet NaN, and the
+    other matrix's logdet stays exact."""
+    m = _b1_m(m, cuda)
     M = torch.eye(m, device=cuda).repeat(2, 1, 1)
     M[1, 2, 2] = -1.0
     _, ld = ci.chol_inverse_kernel(M)
     assert float(ld[0]) == 0.0 and bool(torch.isnan(ld[1]))
-    assert ci.kernel_info(2, m, cuda)["warp_per_matrix"] == (m <= 32)
+    assert ci.kernel_info(2, m, cuda)["form"] == _b1_form(m, cuda)
 
 
 def test_chol_inverse_kernel_refuses_what_it_cannot_take(cuda):
-    with pytest.raises(ValueError, match="does not fit"):
-        too_big = ci.max_m(cuda) + 1
-        ci.chol_inverse_kernel(torch.eye(too_big, device=cuda)[None])
     with pytest.raises(TypeError):
         ci.chol_inverse_kernel(torch.eye(4, device=cuda, dtype=torch.float64)
                                [None])
@@ -287,16 +315,59 @@ def test_chol_inverse_kernel_refuses_what_it_cannot_take(cuda):
         ci.chol_inverse_kernel(torch.eye(4, device=cuda).expand(3, 4, 4))
 
 
-def test_chol_inverse_autograd_matches_twin_autograd(cuda):
-    """Through M = B B^T + I (dL/dB is unique there)."""
+def test_chol_inverse_kernel_takes_m_past_the_on_chip_limit(cuda):
+    """m = the blocked form's limit + 1 runs the panel form (two CUDA launches
+    per panel of 32 pivots, one counted launch) and matches the twin."""
+    m = ci.max_blocked_m(cuda) + 1
+    info = ci.kernel_info(4, m, cuda)
+    assert info["form"] == "panel" and info["nb"] == 32
+    assert info["launches"] == 2 * -(-m // 32)
+    assert ci.kernel_info(4, m - 1, cuda)["form"] == "blocked"
+    M = torch.from_numpy(_pd_stack(np.random.RandomState(m), 4, m, 1e3)
+                         .astype(np.float32)).to(cuda)
+    before = ci.chol_inverse_kernel.launches
+    inv, ld = ci.chol_inverse_kernel(M)
+    assert ci.chol_inverse_kernel.launches == before + 1
+    inv_t, ld_t = ci.chol_inverse_reference(M)
+    scale = float(inv_t.abs().max())
+    assert float((inv - inv_t).abs().max()) <= 5e-4 * scale
+    torch.testing.assert_close(ld, ld_t, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,m", [(17, 32), (65, 72), (65, 288)])
+def test_chol_inverse_kernel_replays_from_a_cuda_graph(cuda, B, m):
+    """One call of each form captured into a CUDA graph replays to the
+    bits of an eager call (the panel form's workspace comes from the
+    graph's pool, and no launch sets a function attribute)."""
+    M = torch.from_numpy(_pd_stack(np.random.RandomState(m), B, m, 1e3)
+                         .astype(np.float32)).to(cuda)
+    want = ci.chol_inverse_kernel(M)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ci.chol_inverse_kernel(M)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ci.chol_inverse_kernel(M)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,m", [(17, 32), (65, 288)])
+def test_chol_inverse_autograd_matches_twin_autograd(cuda, B, m):
+    """Through M = B B^T + I (dL/dB is unique there); (65, 288) runs the
+    panel form."""
     rng = np.random.RandomState(4)
-    Bm = torch.tensor(rng.randn(17, 32, 32), dtype=torch.float32,
-                      device=cuda, requires_grad=True)
-    gi = torch.tensor(rng.randn(17, 32, 32), dtype=torch.float32, device=cuda)
-    gl = torch.tensor(rng.randn(17), dtype=torch.float32, device=cuda)
+    Bm = torch.tensor(rng.randn(B, m, m) / np.sqrt(m / 32),
+                      dtype=torch.float32, device=cuda, requires_grad=True)
+    gi = torch.tensor(rng.randn(B, m, m), dtype=torch.float32, device=cuda)
+    gl = torch.tensor(rng.randn(B), dtype=torch.float32, device=cuda)
 
     def grad(fn):
-        M = Bm @ Bm.transpose(1, 2) + torch.eye(32, device=cuda)
+        M = Bm @ Bm.transpose(1, 2) + torch.eye(m, device=cuda)
         inv, ld = fn(M)
         (g,) = torch.autograd.grad(torch.sum(inv * gi) + torch.sum(ld * gl),
                                    Bm)
@@ -335,16 +406,17 @@ def test_gp_stats_backward_matches_twin(cuda, n, m, L):
         assert float((g - w).abs().max()) <= KERNEL_RTOL * float(w.abs().max())
 
 
-def _sprites_step_stacks(device):
+def _sprites_step_stacks(device, m=72):
     """The two B1 inputs of one SPRITES step, built as gp_block_hensman
     builds them (b = 500 frames of 10 characters, N_train = 50,000, L = 64,
-    72 inducing points of L_action 8 + L_character 16, jitter 0.01):
-    [K_mm; Sigma_1..64] (65, 72, 72) with the relative Sigma ridge, and
-    A_hat + jitter (64, 72, 72) with A_hat = K_mm Sigma^-1 K_mm from the
-    fp32 twin's inverse, its triangles averaged."""
+    m inducing points of L_action 8 + L_character 16, jitter 0.01):
+    [K_mm; Sigma_1..64] (65, m, m) with the relative Sigma ridge, and
+    A_hat + jitter (64, m, m) with A_hat = K_mm Sigma^-1 K_mm from the
+    fp32 twin's inverse, its triangles averaged.  m = 288 is --m 4: K_mm
+    has rank <= 128 there, PD only through the jitter."""
     rng = np.random.RandomState(7)
     cfg = tgp.SVGPConfig(jitter=0.01, N_train=50_000)
-    gp = tgp.init_sprites_svgp(rng.normal(0, 1.5, (72, 24)),
+    gp = tgp.init_sprites_svgp(rng.normal(0, 1.5, (m, 24)),
                                rng.normal(0, 1.5, (72, 8)), L_action=8,
                                config=cfg).to(device)
     aux = np.hstack([rng.randint(0, 72, (500, 1)),
@@ -362,9 +434,36 @@ def _sprites_step_stacks(device):
                    tlinalg.add_jitter(Sigma, tgp.svgp.sigma_jitter(Sigma,
                                                                    cfg))])
     inv, _ = ci.chol_inverse_reference(M)
-    A_hat = Kmm[None] @ (inv[1:] @ Kmm.expand(64, 72, 72))
+    A_hat = Kmm[None] @ (inv[1:] @ Kmm.expand(64, m, m))
     A_hat = 0.5 * (A_hat + A_hat.transpose(-1, -2))
     return {"sigma": M, "a_hat": tlinalg.add_jitter(A_hat, cfg.jitter)}
+
+
+def _mnist_step_stack(device, m, jitter):
+    """The B1 input of one MNIST step, as gp_block_hensman builds it
+    (b = 256, N_train = 8,100, L = 16, M = 8 object dimensions, m
+    inducing points on 16 angles): [K_mm; Sigma_1..16] (17, m, m).  At
+    m = 256 (--nr_inducing_points 16) K_mm has rank <= 16 x 8 = 128 and
+    a condition ~1e6 at jitter 1e-3."""
+    rng = np.random.RandomState(11)
+    angles = np.repeat(np.linspace(0, 2 * np.pi, 16, endpoint=False),
+                       m // 16)[:m, None]
+    ip = np.hstack([np.arange(m)[:, None], angles, rng.randn(m, 8)])
+    aux = np.hstack([rng.randint(0, 800, (256, 1)),
+                     rng.rand(256, 1) * 2 * np.pi, rng.randn(256, 8)])
+    cfg = tgp.SVGPConfig(jitter=jitter, N_train=8_100)
+    gp = tgp.init_mnist_svgp(ip, None, config=cfg).to(device)
+    var = np.clip(np.exp(rng.normal(0, 2, (256, 16))), 1e-3, 10.0)
+    prec = torch.tensor(1.0 / var, dtype=torch.float32, device=device)
+    z = gp.inducing_points
+    Kmm = gp.kmat(z, z)
+    Knm = gp.kmat(torch.tensor(aux, dtype=torch.float32, device=device), z,
+                  x_inducing=False)
+    contrib, _ = gps.gp_sufficient_stats_reference(Knm, prec, prec)
+    Sigma = Kmm[None] + (8_100 / 256) * contrib
+    return torch.cat([tlinalg.add_jitter(Kmm, jitter)[None],
+                      tlinalg.add_jitter(Sigma, tgp.svgp.sigma_jitter(
+                          Sigma, cfg))])
 
 
 # B1 on real stacks: Sigma's ridge bounds its condition near 1e5, past
@@ -376,10 +475,23 @@ def _sprites_step_stacks(device):
 B1_REAL_FACTOR = 10.0
 
 
+@pytest.mark.parametrize("m", [72, 288])  # blocked form, panel form
 @pytest.mark.parametrize("stack", ["sigma", "a_hat"])
-def test_chol_inverse_kernel_on_sprites_stacks(cuda, stack):
-    M = _sprites_step_stacks(cuda)[stack]
-    assert M.shape == ((65, 72, 72) if stack == "sigma" else (64, 72, 72))
+def test_chol_inverse_kernel_on_sprites_stacks(cuda, stack, m):
+    M = _sprites_step_stacks(cuda, m)[stack]
+    assert M.shape == ((65, m, m) if stack == "sigma" else (64, m, m))
+    _hold_to_twin_gap(M)
+
+
+@pytest.mark.parametrize("m", [32, 256])  # warp form, panel form
+def test_chol_inverse_kernel_on_mnist_stacks(cuda, m):
+    """MNIST's stack at --jitter 1e-3, where the panel form once formed U
+    as the explicit A_KK^-1 times the row panel and lost positive pivots
+    (NaN logdets) on this condition."""
+    _hold_to_twin_gap(_mnist_step_stack(cuda, m, 1e-3))
+
+
+def _hold_to_twin_gap(M):
     inv, ld = ci.chol_inverse_kernel(M)
     inv_t, ld_t = ci.chol_inverse_reference(M)
     a = M.cpu().double().numpy()
@@ -396,4 +508,4 @@ def test_chol_inverse_kernel_on_sprites_stacks(cuda, stack):
                                 (1.0, np.abs(ld64).max())):
         assert np.isfinite(got)
         assert got <= B1_REAL_FACTOR * max(twin, floor * scale), \
-            (stack, got, twin)
+            (tuple(M.shape), got, twin)

@@ -8,8 +8,10 @@ MNIST training step (256 and 164 rows), cgen (8,100) and fit (50,000)
 shapes and at the SPRITES training step (500, 72, 64) and test batch
 (360, 72, 64), B3 fused_kernel_stats at the fit shape (sprites, and beside
 it with normalize, in the mnist family with d = 1 + 8, and at L = 16), B1
-chol_inverse at (17, 32, 32), (65, 72, 72) and (64, 72, 72) -- it prints
-one JSON line:
+chol_inverse at (17, 32, 32), (65, 72, 72) and (64, 72, 72), and at the
+large-m shapes (17, 256, 256), (65, 288, 288), (64, 288, 288) and
+(65, 512, 512), which an older tree may refuse (its row says so) -- it
+prints one JSON line:
 the time per call (CUDA events over back-to-back calls, the wrapper's
 host dispatch included) and the device time per call (one CUDA-graph
 replay of 50 captured calls), each measured --repeats times, and the
@@ -26,13 +28,14 @@ in one session on one card: run the script on each, in turns.
 m = 32, L = 16 over n, in one launch and in 2, 4 and 8 n chunks plus the
 reduce, each forced through the C entry point's plan argument.
 
---profile traces 10 calls of B2 at (256, 32, 16) and of B3 at the fit
-shape with torch.profiler and prints the CUDA kernels and memory
-operations each call launched, with their device time per call.
+--profile traces 10 calls of B2 at (256, 32, 16), of B3 at the fit
+shape and of B1 at (65, 72, 72) and the panel form's shapes with
+torch.profiler and prints the CUDA kernels and memory operations each
+call launched, with their device time per call.
 
---chol_sweep adds B1's device time at several (B, m) and the device time
-of a one-element add_ in the same kind of graph replay (the floor of one
-launch).
+--chol_sweep adds B1's device time at several (B, m), among them both
+sides of the blocked form's limit, and the device time of a one-element add_ in
+the same kind of graph replay (the floor of one launch).
 
 The card's name and power limit come first.  TF32 is off.
 """
@@ -60,9 +63,16 @@ FUSED_SHAPES = [("fit", 50_000, 72, 64, "sprites", False, 8, 16),
                 ("fit_mnist", 50_000, 72, 64, "mnist", False, 1, 8),
                 ("fit_L16", 50_000, 72, 16, "sprites", False, 8, 16)]
 CHOL_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
-               ("sprites_A_hat", 64, 72, 1e3)]
+               ("sprites_A_hat", 64, 72, 1e3),
+               ("mnist_m256", 17, 256, 1e3),       # --nr_inducing_points 16
+               ("sprites_m288", 65, 288, 1e3),     # --m 4
+               ("sprites_m288_A_hat", 64, 288, 1e3),
+               ("scaling_m512", 65, 512, 1e3)]     # the scaling cell
 SWEEP_N = [256, 384, 512, 1024, 2048, 4096, 8100]
-CHOL_SWEEP = [(1, 32), (17, 32), (264, 32), (17, 16), (17, 2)]
+# B1 over B and m: the warp form, both sides of the blocked form's limit
+# (m = 80), and the panel form up to m = 239
+CHOL_SWEEP = [(1, 32), (17, 32), (264, 32), (17, 16), (17, 2), (65, 64),
+              (65, 80), (65, 81), (65, 128), (65, 160), (65, 200), (65, 239)]
 
 
 def load_chip_smoke():
@@ -145,15 +155,26 @@ def sweep(cs, device, repeats) -> None:
 
 
 def profile_kernels(cs, device) -> None:
-    """torch.profiler over 10 calls of B2 at (256, 32, 16) and of B3 at the
-    fit shape: the CUDA kernels and memory operations each call launched,
-    with their device time per call."""
+    """torch.profiler over 10 calls of B2 at (256, 32, 16), of B3 at the
+    fit shape and of B1 at (65, 72, 72) (blocked form), (17, 256, 256),
+    (65, 288, 288) and (65, 512, 512) (panel form): the CUDA kernels and
+    memory operations each call launched, with their device time per
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
     rng = np.random.RandomState(4)
-    for fused, (n, m, L) in ((False, (256, 32, 16)), (True, (50_000, 72, 64))):
-        name = "fused_kernel_stats" if fused else "gp_sufficient_stats"
-        fn = stats_case(cs, rng, device, n, m, L, fused=fused)
+    cases = [("gp_sufficient_stats", (256, 32, 16)),
+             ("fused_kernel_stats", (50_000, 72, 64))] + [
+        ("chol_inverse", (B, m)) for B, m in ((65, 72), (17, 256),
+                                              (65, 288), (65, 512))]
+    for name, dims in cases:
+        if name == "chol_inverse":
+            M = torch.from_numpy(cs.pd_stack(rng, *dims, 1e3)).to(device)
+            fn = lambda: ci.chol_inverse_kernel(M)
+        else:
+            fn = stats_case(cs, rng, device, *dims,
+                            fused=name == "fused_kernel_stats")
         fn()
         torch.cuda.synchronize()
         calls = 10
@@ -168,7 +189,7 @@ def profile_kernels(cs, device) -> None:
                     and not e.is_user_annotation):
                 count, us = ops.get(e.name, (0, 0.0))
                 ops[e.name] = (count + 1, us + e.device_time)
-        print(json.dumps({"profile": f"{name} {(n, m, L)}", "calls": calls,
+        print(json.dumps({"profile": f"{name} {dims}", "calls": calls,
                           "device_ops_per_call": {
                               k: dict(launches=c / calls, us=t / calls)
                               for k, (c, t) in ops.items()}}), flush=True)
@@ -226,12 +247,20 @@ def main() -> int:
                               bound_ms=b_ms, bound_by=b_by)), flush=True)
     for tag, B, m, cond in CHOL_SHAPES if "chol_inverse" in kernels else []:
         M = torch.from_numpy(cs.pd_stack(rng, B, m, cond)).to(device)
+        b_ms, b_by = cs.chol_inverse_bound(B, m)
+        row = dict(tree=tree, kernel="chol_inverse", shape=tag,
+                   dims=[B, m, m], bound_ms=b_ms, bound_by=b_by)
+        try:
+            ci.chol_inverse_kernel(M)
+        except ValueError as e:  # an older tree's size limit
+            print(json.dumps(dict(row, refused=str(e))), flush=True)
+            continue
         per_call, dev = measure(cs, lambda: ci.chol_inverse_kernel(M),
                                 opts.repeats)
-        b_ms, b_by = cs.chol_inverse_bound(B, m)
-        print(json.dumps(dict(tree=tree, kernel="chol_inverse", shape=tag,
-                              dims=[B, m, m], ms=per_call, graph_ms=dev,
-                              bound_ms=b_ms, bound_by=b_by)), flush=True)
+        form = (ci.kernel_info(B, m, device).get("form")
+                if hasattr(ci, "launch_plan") else None)
+        print(json.dumps(dict(row, form=form, ms=per_call, graph_ms=dev)),
+              flush=True)
     if opts.chol_sweep:
         one = torch.zeros(1, device=device)
         print(json.dumps(dict(tree=tree, floor_graph_ms=[
