@@ -11,12 +11,16 @@ Phases, each of which raises (nonzero exit) on failure:
      B2/B3 at the SPRITES serving shape (n = 50,000, m = 72, L = 64) and at
      a ragged small shape, B2 also at the MNIST training shapes (256 and
      164 rows in a step, 28 in the last test batch, 8,100 in the cgen
-     pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32) (warp
-     form), (65, 72, 72), (64, 72, 72) and a ragged (5, 37, 37) (blocked
-     form), and (17, 256, 256), (65, 288, 288) and (65, 512, 512) (panel
-     form); max errors and the times of kernel (per
+     pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32) and the
+     Titsias step's (33, 32, 32) (warp form), (65, 72, 72), (64, 72, 72),
+     a ragged (5, 37, 37) and the SPRITES Titsias stack (129, 72, 72)
+     (blocked form), and (17, 256, 256), (65, 288, 288) and
+     (65, 512, 512) (panel form); max errors and the times of kernel (per
      call, and device time in a CUDA-graph replay), twin and (B2) one
-     library call; then one line with each kernel variant's registers
+     library call; B1 on a Titsias stack [K_mm; Sigma; Sigma1] in one call
+     against the same matrices in two calls, bit for bit (the JAX package
+     makes two calls for the TPU's VMEM; the port one); then one line
+     with each kernel variant's registers
      and local memory per thread and resident blocks per SM at those
      shapes (B3: its K-build kernel too; it runs no thread-block
      clusters);
@@ -67,10 +71,23 @@ Phases, each of which raises (nonzero exit) on failure:
      rotated MNIST --nr_inducing_points 16 --jitter 1e-3 (m = 256) at
      phase 6's widths, 1 epoch (B1 once per step).  Why those two flags:
      see SPRITES_M4_ARGV.  Launch counters are zeroed just before each
-     run and read just after.
+     run and read just after;
+ 11. the rotated-MNIST Titsias run: phase 6's configuration with
+     --elbo SVGPVAE_Titsias and without --GECO (the plain objective, the
+     exact-entropy CE), 64 steps and one eval pass; every step must launch
+     B1 exactly once (the (33, 32, 32) stack [K_mm; Sigma; Sigma1]) and
+     B2 exactly twice (at the encoder noise and at noise + jitter); then
+     phase 7's CPU recheck of its step 40;
+ 12. the SPRITES Titsias run at the record configuration's flags
+     (--ip_joint --GPLVM_joint --PCA --object_kernel_normalize
+     --clip_grad, no --GECO) and phase 8's widths and depth: the `fused`
+     cell, so every step launches B2 exactly twice and B1 never, and the
+     eval pass's fit the normalize variant of B3 once; then phase 9(b)'s
+     CPU recheck of its step 60.  Launch counters are zeroed just before
+     each run and read just after.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8 and 10, and the max error and times
+the main paths of phases 4, 6, 8, 10, 11 and 12, and the max error and times
 measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms"); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
@@ -120,6 +137,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # condition 1e4 (1e3 at m >= 72).
 B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
              ("sprites_A_hat", 64, 72, 1e3), ("ragged", 5, 37, 1e4),
+             ("mnist_titsias", 33, 32, 1e4),    # [K_mm; Sigma; Sigma1]
+             ("sprites_titsias", 129, 72, 1e3),  # --gp_block_impl
+                                                 # fused_pallas
              ("mnist_m256", 17, 256, 1e3),      # --nr_inducing_points 16
              ("sprites_m288", 65, 288, 1e3),    # --m 4
              ("sprites_A_hat_m288", 64, 288, 1e3),
@@ -144,6 +164,10 @@ TRAIN_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
               "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
               "--synthetic_digits", "--opt_regime", "joint-2",
               "--eval_every", "2", "--device", "cuda", "--seed", "0"]
+# Phase 11: the same run on the Titsias bound, without GECO (as
+# tools/debug_titsias.py runs it)
+TITSIAS_ARGV = ["--elbo", "SVGPVAE_Titsias"] + [
+    a for a in TRAIN_ARGV[2:] if a != "--GECO"]
 TRAIN_STEPS = 64       # 2 epochs x (31 full batches + the tail of 164)
 CAPTURE_STEP = 40      # the mid-run step rechecked on the CPU (phase 7)
 # Card (kernels, cuDNN, cuBLAS) vs CPU (twins) on one step, both fp32:
@@ -166,6 +190,12 @@ SPRITES_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
                 "--synthetic", "--synthetic_chars", str(SERVE_CHARS),
                 "--opt_regime", "joint-1", "--eval_every", "1",
                 "--nr_epochs_repr_nn", "2", "--device", "cuda", "--seed", "0"]
+# Phase 12: phase 8's run at the SPRITES record configuration's flags
+# (tools/tpu_round5.py::sprites_titsias_job, less the TPU-only --s2d64)
+SPRITES_TITSIAS_ARGV = ["--elbo", "SVGPVAE_Titsias"] + [
+    a for a in SPRITES_ARGV[2:] if a != "--GECO"] + [
+    "--ip_joint", "--GPLVM_joint", "--PCA", "--object_kernel_normalize",
+    "--clip_grad"]
 SPRITES_STEPS = 100        # 50,000 frames / batch 500
 SPRITES_PRETRAIN_STEPS = 20  # 2 epochs x 50,000 / 5,000
 SPRITES_CAPTURE = 60       # the mid-run step checked in phase 9
@@ -451,7 +481,8 @@ def phase_occupancy(device) -> None:
           "size 1 (no thread-block clusters) (50000, 72, 64)")
     rows[b3] = gps.kernel_info(50_000, 72, 64, device, SLICE["d1"],
                                SLICE["d2"])
-    for B, m in ((17, 32), (5, 37), (65, 72), (17, 256), (65, 288)):
+    for B, m in ((17, 32), (33, 32), (5, 37), (65, 72), (129, 72),
+                 (17, 256), (65, 288)):
         info = ci.kernel_info(B, m, device)
         rows[f"chol_inverse {info['form']} form {(B, m, m)}"] = info
     log("kernel variants (registers and local bytes per thread, resident "
@@ -503,6 +534,36 @@ def phase_chol_inverse(device) -> list:
                             max_abs_err=inv_err, ms=ms, plain_ms=plain_ms,
                             graph_ms=dev_ms, bound=(b_ms, b_by)))
     return records
+
+
+def phase_b1_one_call(device) -> None:
+    """B1 on a Titsias stack [K_mm; Sigma_1..L; Sigma1_1..L] in one call
+    (the port's gp_block_titsias) against [K_mm; Sigma_1..L] and
+    [Sigma1_1..L] in two calls (the JAX package's split, which exists for
+    the TPU's VMEM): every form treats each matrix of a stack alone, so
+    the inverses and logdets must be the same bits."""
+    import torch
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+
+    rng = np.random.RandomState(3)
+    for L, m, cond in ((16, 32, 1e4), (64, 72, 1e3)):
+        M = torch.from_numpy(pd_stack(rng, 2 * L + 1, m, cond)).to(device)
+        one = ci.chol_inverse_kernel(M)
+        two = [torch.cat(x) for x in zip(ci.chol_inverse_kernel(M[:L + 1]),
+                                         ci.chol_inverse_kernel(M[L + 1:]))]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(one, two)]
+        ms_one = cuda_ms(lambda: ci.chol_inverse_kernel(M), reps=50)
+        ms_two = cuda_ms(lambda: (ci.chol_inverse_kernel(M[:L + 1]),
+                                  ci.chol_inverse_kernel(M[L + 1:])),
+                         reps=50)
+        log(f"chol_inverse {(2 * L + 1, m, m)} in one call vs "
+            f"{(L + 1, m, m)} + {(L, m, m)} in two: inverse identical "
+            f"{same[0]}, logdet identical {same[1]}; one call {ms_one:.4f} "
+            f"ms, two calls {ms_two:.4f} ms")
+        if not all(same):
+            raise AssertionError(f"chol_inverse at m = {m}: one call and "
+                                 "two calls disagree")
 
 
 def check_finite(**tensors) -> None:
@@ -614,10 +675,11 @@ def mnist_splits() -> dict:
 
 
 def phase_train(splits, argv=TRAIN_ARGV, m=32, steps=TRAIN_STEPS,
-                capture=CAPTURE_STEP, tag="train") -> tuple:
+                capture=CAPTURE_STEP, tag="train", b2_per_step=None) -> tuple:
     """An MNIST training run on the card (the north-star run of phase 6,
-    or phase 10's at m = 256); returns its result and the launch counts of
-    the whole run."""
+    phase 10's at m = 256, or phase 11's Titsias run); returns its result
+    and the launch counts of the whole run.  Every step must launch B1
+    once, and B2 `b2_per_step` times (None: at least once)."""
     import torch
     from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import mnist
@@ -644,10 +706,14 @@ def phase_train(splits, argv=TRAIN_ARGV, m=32, steps=TRAIN_STEPS,
         raise AssertionError(f"non-finite eval pass {ev}")
     check_finite(**{f"gp/{k}": v for k, v in gp.named_tensors().items()})
     for i, sl in enumerate(res["step_launches"]):
-        if sl["chol_inverse"] != 1 or sl["gp_sufficient_stats"] < 1:
-            raise AssertionError(f"step {i} launched {sl}: chol_inverse "
-                                 "must launch once, gp_sufficient_stats at "
-                                 "least once")
+        b2 = sl["gp_sufficient_stats"]
+        if sl["chol_inverse"] != 1 or not (
+                b2 >= 1 if b2_per_step is None else b2 == b2_per_step):
+            raise AssertionError(
+                f"step {i} launched {sl}: chol_inverse must launch once, "
+                "gp_sufficient_stats " + ("at least once" if b2_per_step
+                                          is None else f"{b2_per_step} "
+                                          "times"))
     sec = np.asarray(res["step_seconds"])
     in_steps = {k: sum(sl[k] for sl in res["step_launches"])
                 for k in launches}
@@ -662,10 +728,24 @@ def phase_train(splits, argv=TRAIN_ARGV, m=32, steps=TRAIN_STEPS,
     return res, launches
 
 
-def phase_train_cpu_check(res) -> None:
-    """Redo the captured step on the CPU with the twins: in fp32 with the
-    batch in its order and reversed (the step's sums are order-invariant,
-    so the two differ by fp32 round-off alone), and in f64."""
+def loss_magnitudes(out, loss, args) -> float:
+    """The magnitudes a step's loss is the difference of, the scale of its
+    fp32 round-off: under GECO the loss is -kl_term + lambda * recon / b
+    with kl_term = inside-ELBO - CE term (|inside-ELBO| + |CE term| +
+    |loss|); the plain objective's is recon - (beta / L) * kl_term
+    (|recon| + beta / L * (|inside-ELBO| + |CE term|) + |loss|)."""
+    inside, ce, recon, loss = (abs(float(t.detach())) for t in (
+        out.inside_elbo, out.ce_term, out.recon_loss, loss))
+    if args.GECO:
+        return inside + ce + loss
+    return recon + args.beta / args.L * (inside + ce) + loss
+
+
+def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
+    """Redo the captured step of the run made with `argv` on the CPU with
+    the twins: in fp32 with the batch in its order and reversed (the
+    step's sums are order-invariant, so the two differ by fp32 round-off
+    alone), and in f64."""
     import torch
     from svgpvae_tpu_torch import gp as gpm, models, train
     from svgpvae_tpu_torch.cli import mnist
@@ -673,9 +753,10 @@ def phase_train_cpu_check(res) -> None:
 
     cap = res["captured"]
     card_gp = res["state"].params["gp"]
-    args = mnist.build_parser().parse_args(TRAIN_ARGV)
+    args = mnist.build_parser().parse_args(argv)
     args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, device=torch.device("cuda"))
+        args.gp_block_impl, titsias=args.elbo == "SVGPVAE_Titsias",
+        device=torch.device("cuda"))
     got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
            "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
 
@@ -706,8 +787,7 @@ def phase_train_cpu_check(res) -> None:
         out = {"loss": loss.detach(), "C_ma": geco.C_ma,
                "lagrange_mult": geco.lagrange_mult,
                **dict(zip(trainable, grads))}
-        terms = float(abs(outs[-1].inside_elbo.detach())
-                      + abs(outs[-1].ce_term.detach()) + abs(loss.detach()))
+        terms = loss_magnitudes(outs[-1], loss, args)
         return {k: v.detach().double() for k, v in out.items()}, terms
 
     t0 = time.perf_counter()
@@ -744,17 +824,22 @@ def hold_to_cpu_gap(tag, got, r32, r32_rev, r64, loss_terms,
     if bad:
         raise AssertionError(f"{tag}: the card disagrees with the CPU twins "
                              f"on {bad}")
+    # a limit of 0 is the GECO state of the plain objective: 0 and 1,
+    # passed through untouched (and held to equality above)
     log(f"{tag}: {len(got) - 3} gradients and the loss/GECO within "
         f"{RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap (floored); worst "
-        f"err/limit {max(err / limit for _, err, limit in rows):.3f}")
+        f"err/limit {max(err / limit for _, err, limit in rows if limit):.3f}")
 
 
 def phase_sprites_train(splits, argv=SPRITES_ARGV, m=72, l_character=16,
                         pretrain_steps=SPRITES_PRETRAIN_STEPS,
                         capture=SPRITES_CAPTURE,
-                        tag="sprites train") -> tuple:
-    """A SPRITES training run on the card (phase 8, or phase 10's at
-    m = 288); returns its result and the launch counts of the whole run."""
+                        tag="sprites train", per_step=(2, 1)) -> tuple:
+    """A SPRITES training run on the card (phase 8, phase 10's at m = 288,
+    or phase 12's Titsias run); returns its result and the launch counts
+    of the whole run.  Every step must launch B1 and B2 `per_step` times
+    and B3 never; the eval pass's fit B3 once (its normalize variant
+    under --object_kernel_normalize)."""
     import torch
     from svgpvae_tpu_torch import ops, train
     from svgpvae_tpu_torch.cli import sprites
@@ -789,10 +874,13 @@ def phase_sprites_train(splits, argv=SPRITES_ARGV, m=72, l_character=16,
     check_finite(**train.named_tensors(st.params))
     for i, sl in enumerate(res["step_launches"]):
         if (sl["chol_inverse"], sl["gp_sufficient_stats"],
-                sl["fused_kernel_stats"]) != (2, 1, 0):
+                sl["fused_kernel_stats"]) != (*per_step, 0):
             raise AssertionError(f"step {i} launched {sl}: chol_inverse "
-                                 "must launch twice and gp_sufficient_stats "
-                                 "once")
+                                 f"must launch {per_step[0]} times and "
+                                 f"gp_sufficient_stats {per_step[1]}")
+    normalize = "--object_kernel_normalize" in argv
+    if gp.config.K_obj_normalize != normalize:
+        raise AssertionError(f"K_obj_normalize {gp.config.K_obj_normalize}")
     in_eval = {k: sum(stage[k] for stage in ev["launches"].values())
                for k in launches}
     if ev["launches"]["fit"]["fused_kernel_stats"] != 1 or \
@@ -803,7 +891,8 @@ def phase_sprites_train(splits, argv=SPRITES_ARGV, m=72, l_character=16,
     sec = np.asarray(res["step_seconds"])
     in_steps = {k: sum(sl[k] for sl in res["step_launches"])
                 for k in launches}
-    log(f"{tag}: {pretrain_steps} pretraining steps in "
+    log(f"{tag}: B3 normalize {normalize}; {pretrain_steps} pretraining "
+        f"steps in "
         f"{res['pretrain']['seconds']:.3f} s (test_action acc "
         f"{res['pretrain']['epochs'][0]['test_action_acc']:.4f} after the "
         f"first epoch); {SPRITES_STEPS} steps: first {1e3 * sec[0]:.2f} "
@@ -918,19 +1007,21 @@ def phase_sprites_b1(res, argv=SPRITES_ARGV, m=72) -> None:
                                  f"{tag}: {bad} past the limit")
 
 
-def phase_sprites_cpu_check(res) -> None:
-    """Phase 9(b): the captured SPRITES step redone on the CPU with the
-    twins, in fp32 with the batch in its order and with its characters
-    reversed (whole characters, so every segment mean is the same), and
-    in f64."""
+def phase_sprites_cpu_check(res, argv=SPRITES_ARGV) -> None:
+    """Phase 9(b): the captured step of the SPRITES run made with `argv`
+    redone on the CPU with the twins, in fp32 with the batch in its order
+    and with its characters reversed (whole characters, so every segment
+    mean is the same), and in f64.  Under --clip_grad the CPU's gradients
+    take the card's value clip."""
     import torch
-    from svgpvae_tpu_torch import models, train
+    from svgpvae_tpu_torch import linalg, models, train
     from svgpvae_tpu_torch.cli import sprites
 
     cap = res["captured"]
-    args = sprites.build_parser().parse_args(SPRITES_ARGV)
+    args = sprites.build_parser().parse_args(argv)
     args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="sprites", device=torch.device("cuda"))
+        args.gp_block_impl, workload="sprites",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=torch.device("cuda"))
     got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
            "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
 
@@ -962,11 +1053,12 @@ def phase_sprites_cpu_check(res) -> None:
                 C_ma=cpu(cap["geco"].C_ma),
                 lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
         grads = torch.autograd.grad(loss, list(trainable.values()))
+        if args.clip_grad:
+            linalg.tree_value_clip(grads, args.clip_grad_thres)
         out = {"loss": loss.detach(), "C_ma": geco.C_ma,
                "lagrange_mult": geco.lagrange_mult,
                **dict(zip(trainable, grads))}
-        terms = float(abs(outs[-1].inside_elbo.detach())
-                      + abs(outs[-1].ce_term.detach()) + abs(loss.detach()))
+        terms = loss_magnitudes(outs[-1], loss, args)
         return {k: v.detach().double() for k, v in out.items()}, terms
 
     t0 = time.perf_counter()
@@ -1031,6 +1123,7 @@ def main() -> int:
     records = timed(3, phase_kernels, device)
     timed(3, phase_train_stats, device)
     b1 = timed(3, phase_chol_inverse, device)
+    timed(3, phase_b1_one_call, device)
     timed(3, phase_occupancy, device)
     results, serve_launches, corpus = timed(4, phase_serve)
     for name, res in results.items():
@@ -1042,8 +1135,19 @@ def main() -> int:
     timed("9a", phase_sprites_b1, sprites_res)
     timed("9b", phase_sprites_cpu_check, sprites_res)
     large_m = timed(10, phase_large_m, corpus, mnist_data, device)
+    titsias_res, titsias_launches = timed(
+        11, phase_train, mnist_data, TITSIAS_ARGV, 32, TRAIN_STEPS,
+        CAPTURE_STEP, "mnist titsias train", 2)
+    timed(11, phase_train_cpu_check, titsias_res, TITSIAS_ARGV)
+    sp_titsias_res, sp_titsias_launches = timed(
+        12, phase_sprites_train, corpus, SPRITES_TITSIAS_ARGV, 72, 16,
+        SPRITES_PRETRAIN_STEPS, SPRITES_CAPTURE,
+        "sprites titsias train (record flags)", (0, 2))
+    timed(12, phase_sprites_cpu_check, sp_titsias_res, SPRITES_TITSIAS_ARGV)
     paths = {"serve": serve_launches, "mnist_train": train_launches,
-             "sprites_train": sprites_launches, **large_m}
+             "sprites_train": sprites_launches, **large_m,
+             "mnist_titsias_train": titsias_launches,
+             "sprites_titsias_train": sp_titsias_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

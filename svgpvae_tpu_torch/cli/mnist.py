@@ -5,8 +5,9 @@
         --synthetic_digits --opt_regime joint-2 --eval_every 2 [--device cuda]
 
 The flow of svgpvae_tpu/cli/mnist.py::run_svgpvae for `SVGPVAE_Hensman`
-(with or without --GECO): the dataset (pickles under --mnist_data_path,
-generated there from the seven-segment stand-in glyphs with
+and `SVGPVAE_Titsias` (with or without --GECO): the dataset (pickles
+under --mnist_data_path, generated there from the seven-segment stand-in
+glyphs with
 --synthetic_digits when absent), the GP initialisation (KDE inducing
 points, PCA object vectors), then per epoch every full batch and the tail
 batch through one training step each, and every --eval_every epochs the
@@ -19,7 +20,12 @@ forward, einsum backward); the (L+1, m, m) stack [K_mm; Sigma_1..L]; with
 --gp_block_impl fused_pallas (the 'auto' choice on a CUDA device) its
 inverse and logdets from the B1 `chol_inverse` kernel (two-matmul
 backward); the Hensman terms, the cross-entropy, the reparameterised
-sample, the conv decoder; GECO and Adam.  `--gp_block_impl` takes the JAX
+sample, the conv decoder; GECO and Adam.  With SVGPVAE_Titsias the
+block is gp.fused.gp_block_titsias: B2 twice (at the encoder noise and at
+noise + jitter), and with fused_pallas (the 'auto' choice on a CUDA
+device, as for Hensman) one B1 launch on the (33, 32, 32) stack
+[K_mm; Sigma_1..16; Sigma1_1..16]; the CE term is the exact entropy
+unless --titsias_reference_ce.  `--gp_block_impl` takes the JAX
 driver's values, so one argv drives both; a `*_pallas` value means the
 hand-written CUDA kernel B1 on a CUDA device and its plain twin on the
 CPU.  'auto' resolves through models.GP_BLOCK_AUTO_TABLE.
@@ -121,9 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused_pallas (inverse + logdet from chol_inverse: "
                         "the CUDA kernel B1 on a CUDA device, its twin on "
                         "the CPU), the rejittered-KL variants, or auto "
-                        "(fused_pallas on CUDA, reference on the CPU)")
+                        "(fused_pallas on CUDA; on the CPU reference for "
+                        "Hensman, fused for Titsias)")
     p.add_argument("--titsias_reference_ce", action="store_true",
-                   help="Titsias only (not ported)")
+                   help="Titsias only: the reference's encoder "
+                        "cross-entropy CE term in place of the exact "
+                        "entropy (PARITY.md #13)")
     p.add_argument("--entropy_ce", action="store_true",
                    help="use the exact sampling-distribution entropy CE "
                         "term")
@@ -156,14 +165,14 @@ NOT_PORTED = {  # flag -> is it set?
     "--profile_dir": lambda a: a.profile_dir is not None,
     "--eval_bundle": lambda a: a.eval_bundle,
     "--reshuffle": lambda a: a.reshuffle,
-    "--titsias_reference_ce": lambda a: a.titsias_reference_ce,
 }
+PORTED_ELBOS = ("SVGPVAE_Hensman", "SVGPVAE_Titsias")
 
 
 def refuse_unported(args) -> None:
-    if args.elbo != "SVGPVAE_Hensman":
+    if args.elbo not in PORTED_ELBOS:
         raise SystemExit(f"--elbo {args.elbo}: not ported yet (the port "
-                         "trains SVGPVAE_Hensman)")
+                         f"trains {' and '.join(PORTED_ELBOS)})")
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
@@ -213,7 +222,8 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
         ov_init = (splits["pca_ov_init"] if args.PCA else
                    np.random.RandomState(args.seed).normal(
                        0, 1.5, n_obj * args.M).reshape(n_obj, args.M))
-    cfg = gpm.SVGPConfig(jitter=args.jitter, N_train=N_train,
+    cfg = gpm.SVGPConfig(titsias=args.elbo == "SVGPVAE_Titsias",
+                         jitter=args.jitter, N_train=N_train,
                          K_obj_normalize=args.object_kernel_normalize)
     gp = gpm.init_mnist_svgp(ip_init, ov_init, config=cfg)
     if args.params:
@@ -278,14 +288,15 @@ def make_forward(args, eps_fn: Callable) -> Callable:
             C_ma=geco.C_ma, lagrange_mult=geco.lagrange_mult, alpha=alpha,
             kappa=kappa, clip_qs=args.clip_qs, geco=args.GECO,
             lagrange_max=args.geco_lambda_max,
-            gp_block_impl=args.gp_block_impl, entropy_ce=args.entropy_ce)
+            gp_block_impl=args.gp_block_impl, entropy_ce=args.entropy_ce,
+            titsias_reference_ce=args.titsias_reference_ce)
 
     return forward
 
 
 def make_loss_fn(args, forward: Callable) -> Callable:
     """loss_fn(params, batch, geco, step) -> (loss, (geco, metrics)) for
-    train.train_step: GECO minimizes the objective, plain Hensman
+    train.train_step: GECO minimizes the objective, the plain objective
     maximizes the ELBO."""
 
     def loss_fn(params, batch, geco, step):
@@ -337,7 +348,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     "step_launches" (kernel launches inside each step), "captured",
     "cgen_mse", "best_cgen_mse"}."""
     args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="mnist", device=device)
+        args.gp_block_impl, workload="mnist",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
     print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
     train_d, eval_d, test_d = splits["train"], splits["eval"], splits["test"]
     # as the JAX driver: N_train stays n_digits * 4050 under --N_t

@@ -5,7 +5,7 @@
         --eval_every 1 --nr_epochs_repr_nn 2 [--device cuda]
 
 The flow of svgpvae_tpu/cli/sprites.py::run_experiment for
-`SVGPVAE_Hensman` (with or without --GECO):
+`SVGPVAE_Hensman` and `SVGPVAE_Titsias` (with or without --GECO):
 
   * the corpus: npz shards under --sprites_data_path, generated there with
     --synthetic (the stale-corpus guard refuses a corpus of another
@@ -40,6 +40,12 @@ device) a step runs the B2 `gp_sufficient_stats` kernel (einsum backward)
 once and the B1 `chol_inverse` kernel twice: on [K_mm; Sigma_1..L] and on
 A_hat + jitter, whose logdet the rejittered KL takes.  `auto` is
 `reference` on the CPU; a `*_pallas` impl there runs B1's plain twin.
+With SVGPVAE_Titsias, `auto` is `fused` on every device: the
+determinant-lemma block (gp.fused.gp_block_titsias) with Cholesky
+solves, B2 twice per step (at the encoder noise and at noise + jitter)
+and no B1 (an explicit --gp_block_impl fused_pallas runs one B1 launch
+on [K_mm; Sigma_1..L; Sigma1_1..L]); the CE term is the exact entropy
+unless --titsias_reference_ce.
 
 The device is --device (cuda by default; the run refuses to start
 without one).  TF32 is off for matmuls and cuDNN.  Weights come from a
@@ -51,8 +57,8 @@ with 11 (the JAX CLI's eval key is one fixed key too).
 
 Not ported yet, refused with an error: the other --elbo values,
 --resume_dir, --save, --save_model_weights, --test_set_metrics, --bf16,
---bf16_hybrid, --data_parallel, --profile_dir, --reshuffle,
---titsias_reference_ce, and a raw-npy corpus (its preprocessing).
+--bf16_hybrid, --data_parallel, --profile_dir, --reshuffle, and a
+raw-npy corpus (its preprocessing).
 --s2d64 and --fused_upsample are TPU rewrites that the port does not
 carry.
 """
@@ -165,9 +171,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", *models.svgpvae.GP_BLOCK_IMPLS],
                    help="GP block of the training forward (see cli/mnist.py)"
                         "; auto = fused_rejitter_pallas on CUDA, reference "
-                        "on the CPU; the identity-KL impls are never auto "
-                        "here (PARITY.md #10)")
-    p.add_argument("--titsias_reference_ce", action="store_true")
+                        "on the CPU for Hensman (the identity-KL impls are "
+                        "never auto here, PARITY.md #10), fused on every "
+                        "device for Titsias")
+    p.add_argument("--titsias_reference_ce", action="store_true",
+                   help="Titsias only: the reference's encoder "
+                        "cross-entropy CE term in place of the exact "
+                        "entropy (PARITY.md #13)")
     p.add_argument("--entropy_ce", action="store_true",
                    help="use the exact sampling-distribution entropy CE "
                         "term")
@@ -191,8 +201,8 @@ NOT_PORTED = {  # flag -> is it set?
     "--data_parallel": lambda a: a.data_parallel != 0,
     "--profile_dir": lambda a: a.profile_dir is not None,
     "--reshuffle": lambda a: a.reshuffle,
-    "--titsias_reference_ce": lambda a: a.titsias_reference_ce,
 }
+PORTED_ELBOS = ("SVGPVAE_Hensman", "SVGPVAE_Titsias")
 TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
     "--s2d64": lambda a: bool(a.s2d64),
     "--fused_upsample": lambda a: a.fused_upsample,
@@ -200,9 +210,9 @@ TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
 
 
 def refuse_unported(args) -> None:
-    if args.elbo != "SVGPVAE_Hensman":
+    if args.elbo not in PORTED_ELBOS:
         raise SystemExit(f"--elbo {args.elbo}: not ported yet (the port "
-                         "trains SVGPVAE_Hensman)")
+                         f"trains {' and '.join(PORTED_ELBOS)})")
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
@@ -313,13 +323,14 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
     if args.PCA:
         gplvm_init, ip_init = data.sprites_pca_init(
             splits["train"], m=args.m, L_action=args.L_action,
-            L_character=args.L_character)
+            L_character=args.L_character, device=device)
     else:
         rng = np.random.RandomState(args.seed)
         gplvm_init = rng.normal(0, 1.5, (N_ACTIONS, args.L_action))
         ip_init = rng.normal(0, 1.5, (N_ACTIONS * args.m,
                                       args.L_action + args.L_character))
-    cfg = gpm.SVGPConfig(jitter=args.jitter, N_train=N_train,
+    cfg = gpm.SVGPConfig(titsias=args.elbo == "SVGPVAE_Titsias",
+                         jitter=args.jitter, N_train=N_train,
                          K_obj_normalize=args.object_kernel_normalize)
     gp = gpm.init_sprites_svgp(ip_init, gplvm_init, L_action=args.L_action,
                                use_se_kernel=args.K_SE, config=cfg)
@@ -348,6 +359,7 @@ def make_forward(args, eps_fn: Callable) -> Callable:
             kappa=kappa, clip_qs=args.clip_qs, geco=args.GECO,
             lagrange_max=args.geco_lambda_max,
             gp_block_impl=args.gp_block_impl, entropy_ce=args.entropy_ce,
+            titsias_reference_ce=args.titsias_reference_ce,
             repr_net=params["repr"], frames_per_char=frames_per_char)
 
     return forward
@@ -355,7 +367,7 @@ def make_forward(args, eps_fn: Callable) -> Callable:
 
 def make_loss_fn(args, forward: Callable) -> Callable:
     """loss_fn(params, batch, geco, step) -> (loss, (geco, metrics)) for
-    train.train_step: GECO minimizes the objective, plain Hensman
+    train.train_step: GECO minimizes the objective, the plain objective
     maximizes the ELBO."""
 
     def loss_fn(params, batch, geco, step):
@@ -481,7 +493,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     seconds and launches of its stages), "captured", "cgen_mse",
     "best_cgen_mse", "basin_attempts"}."""
     args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="sprites", device=device)
+        args.gp_block_impl, workload="sprites",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
     print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
     train_d, tc_d = splits["train"], splits["test_character"]
     N_train, N_test = len(train_d["frames"]), len(tc_d["frames"])

@@ -3,6 +3,7 @@ from svgpvae_tpu_torch.data.mnist import (  # noqa: F401
     generate_rotated_mnist,
     load_rotated_mnist,
     pca_embeddings,
+    pca_embeddings_gram,
     synthetic_digit_base_images,
 )
 from svgpvae_tpu_torch.data.sprites import (  # noqa: F401

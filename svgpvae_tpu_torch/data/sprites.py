@@ -6,7 +6,8 @@ because importing anything from `svgpvae_tpu` loads jax.
 `generate_synthetic_sprites` draws the same numbers in the same order as
 the JAX package's generator, so a seed gives a bit-identical corpus.
 `sprites_pca_init` takes its PCA from `data.mnist.pca_embeddings` (numpy
-SVD) where the JAX package calls sklearn's.
+SVD, or a float64 Gram eigendecomposition on a CUDA device) where the JAX
+package calls sklearn's.
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def sprites_batch_iterator(data: dict, batch_size: int
 
 def sprites_pca_init(train_dict: dict, m: int = 15, L_action: int = 6,
                      L_character: int = 16, seed: int = 42,
-                     n_action: int = N_ACTIONS
+                     n_action: int = N_ACTIONS, device=None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """PCA initializers (reference: sprites_PCA_init).
 
@@ -142,6 +143,7 @@ def sprites_pca_init(train_dict: dict, m: int = 15, L_action: int = 6,
     -> (n_action, L_action).  Inducing points: each action vector tiled m
     times beside m draws from a gaussian KDE of each axis of the global
     PCA(L_character) embedding -> (n_action * m, L_action + L_character).
+    A CUDA `device` takes the PCAs there (`pca_embeddings`).
     """
     frames = train_dict["frames"]
     aux = train_dict["aux_data"]
@@ -153,8 +155,9 @@ def sprites_pca_init(train_dict: dict, m: int = 15, L_action: int = 6,
         return sel.mean(axis=0).reshape(-1) if len(sel) else global_mean
 
     mean_frames = np.stack([action_mean(a) for a in range(n_action)])
-    gplvm_action = pca_embeddings(mean_frames, L_action)
-    global_emb = pca_embeddings(frames.reshape(len(frames), -1), L_character)
+    gplvm_action = pca_embeddings(mean_frames, L_action, device)
+    global_emb = pca_embeddings(frames.reshape(len(frames), -1), L_character,
+                                device)
 
     points = []
     for i in range(n_action):

@@ -1,4 +1,7 @@
-from svgpvae_tpu_torch.gp.fused import gp_block_hensman  # noqa: F401
+from svgpvae_tpu_torch.gp.fused import (  # noqa: F401
+    gp_block_hensman,
+    gp_block_titsias,
+)
 from svgpvae_tpu_torch.gp.svgp import (  # noqa: F401
     MnistSVGP,
     SVGPConfig,
@@ -10,5 +13,6 @@ from svgpvae_tpu_torch.gp.svgp import (  # noqa: F401
     posterior_params,
     precompute_test_posterior_terms,
     posterior_from_precomputed,
+    titsias_terms,
     variational_loss,
 )

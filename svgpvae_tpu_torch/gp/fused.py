@@ -1,5 +1,5 @@
-"""Fused GP block for the SVGPVAE training step (port of the Hensman part
-of svgpvae_tpu/gp/fused.py).
+"""Fused GP blocks for the SVGPVAE training step (port of the Hensman and
+Titsias blocks of svgpvae_tpu/gp/fused.py).
 
 In the training forward the posterior is evaluated AT the minibatch
 points, so the two passes of the reference structure (`posterior_params`
@@ -21,6 +21,10 @@ drivers) takes explicit inverses and logdets of that stack from
 CUDA tensor, its plain Cholesky twin on a CPU tensor.  `"chol"` factorizes
 with torch.linalg.cholesky and solves.  The jitter policy is that of the
 two-pass path.
+
+`gp_block_titsias` evaluates the collapsed Titsias bound through the
+matrix determinant lemma and Woodbury on one more (L, m, m) stack, so the
+dense (L, b, b) covariance of the two-pass bound never exists.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from torch import Tensor
 
 from svgpvae_tpu_torch import linalg
-from svgpvae_tpu_torch.gp.svgp import sigma_jitter
+from svgpvae_tpu_torch.gp.svgp import relative_ridge, sigma_jitter
 from svgpvae_tpu_torch.ops.chol_inverse import chol_inverse
 from svgpvae_tpu_torch.ops.gp_stats import gp_stats
 
@@ -127,3 +131,94 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
         kl_terms = 0.5 * (tr_SiK + quad - m - logdet_K + logdet_S)
 
     return p_m, p_v, sum_terms, kl_terms, mu_hat
+
+
+@linalg.precise
+def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
+                     inverse_impl: str = "chol"):
+    """Posterior params + Titsias inside-ELBO terms in one pass.
+
+    With D'_l = diag(noise_l + jitter) (the dense path's jittered
+    covariance) and Q = Knm Kmm_j^{-1} Kmn, Kmm_j = Kmm + jitter I:
+
+        logdet(Q + D'_l) = sum_i log noise'_il + logdet Sigma1_l
+                           - logdet Kmm_j
+        y^T (Q + D'_l)^{-1} y = y^T D'^{-1} y - r'^T Sigma1_l^{-1} r'
+            Sigma1_l = Kmm_j + Kmn D'^{-1} Knm,  r'_l = Kmn D'^{-1} y
+
+    Sigma1 has no N/b scale (the bound is over the batch alone), and its
+    ridge is the relative one only: Kmm_j already carries the absolute
+    jitter.  The trace term takes the unjittered precision and the
+    Nystrom residual floored at 0 (PARITY.md #11); p_v the unfloored one.
+
+    The (2L+1, m, m) stack [Kmm_j; Sigma_1..L; Sigma1_1..L] is factorized
+    (inverse_impl "chol") or inverted by ONE chol_inverse call ("pallas":
+    B1 on a CUDA tensor, its twin on a CPU tensor).  The JAX package
+    splits the "pallas" stack in two for the TPU's VMEM; B1 treats every
+    matrix of a stack alone, so one call gives the same results.
+
+    aux (b, D); y/noise (b, L).  Returns (p_m (b, L), p_v (b, L),
+    l2_terms (L,), kl_terms == zeros (L,), mu_hat (L, m)).
+    """
+    if inverse_impl not in INVERSE_IMPLS:
+        raise ValueError(f"inverse_impl {inverse_impl!r}")
+    cfg = gp.config
+    b, L = y.shape
+    scale = (cfg.N_train / b) if cfg.N_train else 1.0
+
+    z = gp.inducing_points
+    m = z.shape[0]
+    Kmm = gp.kmat(z, z)                                   # (m, m)
+    Knm = gp.kmat(aux, z, x_inducing=False)               # (b, m)
+    Knn_diag = gp.kdiag(aux, aux, x_inducing=False,
+                        y_inducing=False)                 # (b,)
+
+    precision = linalg.reciprocal_no_nan(noise)           # (b, L)
+    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
+    # the bound's statistics at the jittered noise
+    noise_b = noise + cfg.jitter
+    prec_b = linalg.reciprocal_no_nan(noise_b)            # (b, L)
+    contrib_b, r_b = gp_stats(Knm, prec_b, prec_b * y)
+    Kmm_j = linalg.add_jitter(Kmm, cfg.jitter)
+    Sigma1 = Kmm_j[None] + contrib_b                      # (L, m, m)
+    M = torch.cat([Kmm_j[None],
+                   linalg.add_jitter(Sigma, sigma_jitter(Sigma, cfg)),
+                   linalg.add_jitter(Sigma1, relative_ridge(Sigma1))])
+
+    if inverse_impl == "pallas":
+        Minv, logdets = chol_inverse(M)
+        Kmm_inv, Sigma_inv, Sigma1_inv = Minv[0], Minv[1:L + 1], Minv[L + 1:]
+        logdet_K, logdet_S1 = logdets[0], logdets[L + 1:]
+        sir = torch.einsum("lmp,lp->lm", Sigma_inv, r)              # (L, m)
+        W = Kmm_inv @ Knm.T                                         # (m, b)
+        SigInv_Kmn = torch.einsum("lmp,bp->lmb", Sigma_inv, Knm)    # (L, m, b)
+        s1ir = torch.einsum("lmp,lp->lm", Sigma1_inv, r_b)          # (L, m)
+    else:
+        chol = linalg.safe_cholesky(M, 0.0)  # NaN, not an error, if not PD
+        Kmm_chol, Sigma_chol, Sigma1_chol = chol[0], chol[1:L + 1], \
+            chol[L + 1:]
+        logdet_K = linalg.logdet_from_chol(Kmm_chol)
+        logdet_S1 = linalg.logdet_from_chol(Sigma1_chol)
+        sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]
+        W = linalg.cho_solve(Kmm_chol, Knm.T)
+        SigInv_Kmn = linalg.cho_solve(Sigma_chol, Knm.T.expand(L, m, b))
+        s1ir = linalg.cho_solve(Sigma1_chol, r_b[..., None])[..., 0]
+
+    # posterior at the batch points (as in the Hensman block)
+    p_m = scale * torch.einsum("bm,lm->bl", Knm, sir)       # (b, L)
+    nystrom = torch.sum(Knm * W.T, dim=-1)                  # (b,) == diag(Q)
+    sig_quad = torch.einsum("bm,lmb->bl", Knm, SigInv_Kmn)  # (b, L)
+    k_tilde = Knn_diag - nystrom                            # (b,)
+    p_v = k_tilde[:, None] + sig_quad                       # (b, L)
+
+    logdet = (torch.sum(torch.log(noise_b), dim=0)
+              + logdet_S1 - logdet_K)                       # (L,)
+    quad = (torch.sum(prec_b * y * y, dim=0)
+            - torch.sum(r_b * s1ir, dim=-1))                # (L,)
+    trace = torch.sum(precision * torch.clamp(k_tilde, min=0.0)[:, None],
+                      dim=0)                                # (L,)
+    l2_terms = -0.5 * (b * linalg.LOG_2PI + logdet + quad + trace)
+
+    mu_hat = scale * torch.einsum("mp,lp->lm", Kmm, sir)    # (L, m)
+    return p_m, p_v, l2_terms, torch.zeros_like(l2_terms), mu_hat

@@ -1,6 +1,6 @@
 """Sparse variational GP core (port of svgpvae_tpu/gp/svgp.py: the MNIST
-and SPRITES GP families, the two-pass batch-level Hensman math, and the
-SPRITES test-time pipeline).
+and SPRITES GP families, the two-pass batch-level Hensman and Titsias
+math, and the SPRITES test-time pipeline).
 
 Parameters are small dataclasses of tensors; all L latent channels are
 processed at once with batched Cholesky factorizations.  The batch-level
@@ -37,9 +37,11 @@ SIGMA_REL_JITTER = 1e-5
 
 @dataclasses.dataclass(frozen=True)
 class SVGPConfig:
-    """Static GP configuration.  N_train > 0 enables the minibatch bias
+    """Static GP configuration.  `titsias` selects the collapsed Titsias
+    bound over the Hensman one; N_train > 0 enables the minibatch bias
     correction (N/b) of the batch-level SVGP."""
 
+    titsias: bool = False
     jitter: float = 1e-6
     K_obj_normalize: bool = False
     N_train: int = 0
@@ -197,12 +199,17 @@ def init_sprites_svgp(initial_inducing_points, initial_gplvm_action,
         L_action=L_action, use_se_kernel=use_se_kernel)
 
 
+def relative_ridge(stack: Tensor):
+    """SIGMA_REL_JITTER x the max diagonal over ALL matrices of the stack
+    (as the JAX package: the f32 assembly's round-off scales with
+    lambda_max)."""
+    return SIGMA_REL_JITTER * torch.max(torch.diagonal(stack, dim1=-2,
+                                                       dim2=-1))
+
+
 def sigma_jitter(Sigma: Tensor, cfg: SVGPConfig):
-    """Absolute + relative ridge of the Sigma_l factorization; the relative
-    part scales with the max diagonal over ALL channels (as the JAX
-    package: the f32 assembly's round-off scales with lambda_max)."""
-    diag_scale = torch.max(torch.diagonal(Sigma, dim1=-2, dim2=-1))
-    return cfg.jitter + SIGMA_REL_JITTER * diag_scale
+    """Absolute + relative ridge of the Sigma_l factorization."""
+    return cfg.jitter + relative_ridge(Sigma)
 
 
 def _sigma_cholesky(Sigma: Tensor, cfg: SVGPConfig) -> Tensor:
@@ -294,11 +301,42 @@ def hensman_terms(gp, Kmm_chol: Tensor, Knm: Tensor, Knn_diag: Tensor,
     return sum_terms, kl_terms
 
 
+@linalg.precise
+def titsias_terms(gp, Kmm_chol: Tensor, Knm: Tensor, Knn_diag: Tensor,
+                  y: Tensor, noise: Tensor):
+    """Titsias collapsed-bound inside-ELBO for all channels, through the
+    dense (L, b, b) covariance Q + diag(noise_l) (Q = Knm Kmm^-1 Kmn, the
+    Nystrom gram shared across channels): (l2_terms (L,), zero KL (L,)).
+
+    The Nystrom residual of the trace term is floored at its bound 0: in
+    fp32 a near-singular Kmm makes diag(Q) overshoot Knn_diag, and with
+    the encoder variances at their clip floor a negative trace rewards
+    driving the kernel singular (PARITY.md #11)."""
+    cfg = gp.config
+    b = y.shape[0]
+    W = linalg.cho_solve(Kmm_chol, Knm.T)                          # (m, b)
+    Q = Knm @ W                                                    # (b, b)
+    precision = linalg.reciprocal_no_nan(noise)                    # (b, L)
+
+    cov = Q[None] + torch.diag_embed(noise.T)                      # (L, b, b)
+    cov_chol = linalg.safe_cholesky(cov, cfg.jitter)
+    logdet = linalg.logdet_from_chol(cov_chol)                     # (L,)
+    alpha = linalg.cho_solve(cov_chol, y.T[..., None])[..., 0]     # (L, b)
+    quad = torch.sum(y.T * alpha, dim=-1)                          # (L,)
+    residual = torch.clamp(Knn_diag - torch.diagonal(Q), min=0.0)  # (b,)
+    trace = torch.sum(precision * residual[:, None], dim=0)        # (L,)
+
+    l2 = -0.5 * (b * linalg.LOG_2PI + logdet + quad + trace)
+    return l2, torch.zeros_like(l2)
+
+
 def variational_loss(gp, aux: Tensor, y: Tensor, noise: Tensor,
                      mu_hat: Tensor, A_hat: Tensor):
     """Per-channel inside-ELBO terms (sum_terms (L,), kl_terms (L,)) of the
-    Hensman bound (the Titsias bound is not ported yet)."""
+    Titsias bound when config.titsias, else of the Hensman bound."""
     _, Kmm_chol, Knm, Knn_diag = kernel_matrices(gp, aux)
+    if gp.config.titsias:
+        return titsias_terms(gp, Kmm_chol, Knm, Knn_diag, y, noise)
     return hensman_terms(gp, Kmm_chol, Knm, Knn_diag, y, noise, mu_hat, A_hat)
 
 

@@ -1,6 +1,6 @@
 """SVGPVAE passes (port of svgpvae_tpu/models/svgpvae.py): the training
-forward (Hensman bound, optionally GECO) of rotated MNIST and of SPRITES
-(aux data from the repr net, under autograd), the rotated-MNIST
+forward (Hensman or Titsias bound, optionally GECO) of rotated MNIST and
+of SPRITES (aux data from the repr net, under autograd), the rotated-MNIST
 conditional generation, and the SPRITES test-time passes (encode,
 full-train-set precompute, conditional generation for unseen characters,
 under no_grad).
@@ -49,6 +49,27 @@ GP_BLOCK_AUTO_TABLE = {
         "path"),
     ("sprites", "hensman", "other"): (
         "reference", "two-pass parity anchor (as the JAX CPU cell)"),
+    # Titsias: the determinant-lemma block everywhere (gp_block_titsias),
+    # never the dense two-pass bound, whose fp32 covariance goes
+    # indefinite once training drives K_mm's spectrum hard (PARITY.md
+    # #11/#12).
+    ("mnist", "titsias", "cuda"): (
+        "fused_pallas", "mirrors JAX (mnist, titsias, tpu); one (33, 32, 32) "
+        "B1 launch per step; tests/test_torch_titsias.py::"
+        "test_fused_block_matches_jax[pallas-mnist]"),
+    ("mnist", "titsias", "other"): (
+        "fused", "mirrors JAX (mnist, titsias, other); tests/"
+        "test_torch_titsias.py::test_fused_block_matches_jax[chol-mnist]"),
+    # SPRITES: the Cholesky Woodbury block, as JAX: on the rank-deficient
+    # product-linear K_mm (m = 72) the explicit-inverse block corrupted
+    # p_m in JAX (svgpvae_tpu/models/svgpvae.py:68-74).  An explicit
+    # --gp_block_impl fused_pallas is still honoured.
+    ("sprites", "titsias", "cuda"): (
+        "fused", "mirrors JAX (sprites, titsias, tpu); tests/"
+        "test_torch_titsias.py::test_fused_block_matches_jax[chol-sprites]"),
+    ("sprites", "titsias", "other"): (
+        "fused", "mirrors JAX (sprites, titsias, other); tests/"
+        "test_torch_titsias.py::test_forward_pass_matches_jax"),
 }
 
 
@@ -91,10 +112,20 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
                          geco: bool = False, lagrange_max: float = 1e5,
                          gp_block_impl: str = "reference",
                          entropy_ce: bool = False, repr_net=None,
-                         frames_per_char: int = 0) -> SVGPVAEOutputs:
-    """Training forward: encoder -> GP posterior + Hensman inside-ELBO for
-    all channels -> cross-entropy term -> reparameterized sample with the
-    given `eps` (b, L) -> decoder -> objective.
+                         frames_per_char: int = 0,
+                         titsias_reference_ce: bool = False
+                         ) -> SVGPVAEOutputs:
+    """Training forward: encoder -> GP posterior + inside-ELBO (Hensman,
+    or Titsias when gp_params.config.titsias) for all channels ->
+    cross-entropy term -> reparameterized sample with the given `eps`
+    (b, L) -> decoder -> objective.
+
+    The Titsias inside-ELBO is the collapsed bound itself (no q(u) KL, no
+    b/N scale), and its CE term is the exact entropy of N(p_m, p_v) unless
+    `titsias_reference_ce` restores the reference's cross-entropy against
+    the encoder Gaussian, which rewards their divergence where the
+    Titsias bound has no data-fit term to cancel it (PARITY.md #13).
+    `entropy_ce` takes the entropy for either bound.
 
     batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)) for rotated
     MNIST, or (frames (b, 64, 64, 3), action ids (b,)) for SPRITES, where
@@ -125,30 +156,36 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
         aux_data = sprites_aux_data(repr_net, images, aux_data,
                                     frames_per_char)
 
+    titsias = gp_params.config.titsias
+    inverse_impl = "pallas" if gp_block_impl.endswith("_pallas") else "chol"
     if gp_block_impl == "reference":
         p_m, p_v, mu_hat, A_hat = gpm.posterior_params(
             gp_params, aux_data, aux_data, qnet_mu, qnet_var)
         sum_terms, kl_terms = gpm.variational_loss(
             gp_params, aux_data, qnet_mu, qnet_var, mu_hat, A_hat)
+    elif titsias:  # the rejitter distinction does not arise: no q(u) KL
+        p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_titsias(
+            gp_params, aux_data, qnet_mu, qnet_var, inverse_impl=inverse_impl)
     else:
         p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_hensman(
-            gp_params, aux_data, qnet_mu, qnet_var,
-            inverse_impl="pallas" if gp_block_impl.endswith("_pallas")
-            else "chol",
+            gp_params, aux_data, qnet_mu, qnet_var, inverse_impl=inverse_impl,
             kl_impl="rejitter" if "rejitter" in gp_block_impl
             else "identity")
 
     inside_elbo_recon = torch.sum(sum_terms)
     inside_elbo_kl = torch.sum(kl_terms)
-    n_total = gp_params.config.N_train or b
-    inside_elbo = inside_elbo_recon - (b / n_total) * inside_elbo_kl
+    if titsias:
+        inside_elbo = inside_elbo_recon - inside_elbo_kl
+    else:
+        n_total = gp_params.config.N_train or b
+        inside_elbo = inside_elbo_recon - (b / n_total) * inside_elbo_kl
 
     if repr_net is not None:  # numerical-stability clip (reference :891-892)
         p_v = torch.clamp(p_v, *PVAR_CLIP)
     else:  # f32 guard: Kxx - nystrom + sig_quad can dip slightly negative
         p_v = torch.clamp(p_v, min=MNIST_PVAR_FLOOR)
 
-    if entropy_ce:
+    if entropy_ce or (titsias and not titsias_reference_ce):
         # exact entropy of the sampling distribution N(p_m, p_v)
         ce_term = torch.sum(-0.5 * (1.0 + linalg.LOG_2PI + torch.log(p_v)))
     else:

@@ -406,6 +406,50 @@ def test_gp_stats_backward_matches_twin(cuda, n, m, L):
         assert float((g - w).abs().max()) <= KERNEL_RTOL * float(w.abs().max())
 
 
+@pytest.mark.parametrize("impl", ["chol", "pallas"])
+def test_titsias_block_on_the_card_matches_the_cpu(cuda, impl):
+    """gp_block_titsias at the MNIST step's shape (b = 256, L = 16,
+    m = 32; "pallas": one B1 launch on the (33, 32, 32) stack; both: two
+    B2 launches): every output, and the gradients of a weighted sum of
+    them with respect to y and the noise, against the CPU twins in fp32,
+    within 10x the CPU's own fp32-vs-float64 gap (floored at 1e-6 of each
+    quantity's scale), as chip_smoke.py's rechecks."""
+    rng = np.random.RandomState(9)
+    b, L, M, m, n_obj = 256, 16, 8, 32, 400
+    ip = np.hstack([np.arange(m)[:, None], rng.rand(m, 1) * 2 * np.pi,
+                    rng.randn(m, M)])
+    table = rng.randn(n_obj, M)
+    aux = np.hstack([rng.randint(0, n_obj, (b, 1)).astype(float),
+                     rng.rand(b, 1) * 2 * np.pi, rng.randn(b, M)])
+    y, noise = rng.randn(b, L), np.clip(np.exp(rng.randn(b, L)), 1e-3, 10.)
+    weights = [rng.randn(*s) for s in ((b, L), (b, L), (L,), (L,), (L, m))]
+    cfg = tgp.SVGPConfig(titsias=True, jitter=1e-6, N_train=8_100)
+
+    def run(device, dtype):
+        gp = tgp.init_mnist_svgp(ip, table, config=cfg,
+                                 dtype=dtype).to(device)
+
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
+        y_t, n_t = t(y).requires_grad_(), t(noise).requires_grad_()
+        outs = tgp.gp_block_titsias(gp, t(aux), y_t, n_t,
+                                    inverse_impl=impl)
+        loss = sum(torch.sum(o * t(w)) for o, w in zip(outs, weights))
+        grads = torch.autograd.grad(loss, (y_t, n_t))
+        return [x.detach().cpu().double() for x in (*outs, *grads)]
+
+    b1, b2 = ci.chol_inverse_kernel.launches, gps.gp_sufficient_stats.launches
+    got = run(cuda, torch.float32)
+    assert ci.chol_inverse_kernel.launches == b1 + (impl == "pallas")
+    assert gps.gp_sufficient_stats.launches == b2 + 2
+    cpu = torch.device("cpu")
+    for g, w32, w64 in zip(got, run(cpu, torch.float32),
+                           run(cpu, torch.float64)):
+        scale = float(w64.abs().max())
+        gap = float((w32 - w64).abs().max())
+        assert float((g - w32).abs().max()) <= 10 * max(gap, 1e-6 * scale)
+
+
 def _sprites_step_stacks(device, m=72):
     """The two B1 inputs of one SPRITES step, built as gp_block_hensman
     builds them (b = 500 frames of 10 characters, N_train = 50,000, L = 64,

@@ -71,6 +71,18 @@ def test_numpy_pca_matches_sklearn_on_the_north_star_glyphs():
                                atol=PCA_ATOL)
 
 
+@pytest.mark.parametrize("shape", [(300, 40), (30, 400)])
+def test_gram_pca_matches_the_svd_pca(shape):
+    """The float64 Gram eigendecomposition that a CUDA device takes
+    (covariance when rows >= columns, else the row Gram), run here on the
+    CPU, against the numpy SVD: the same embeddings, signs included."""
+    rng = np.random.RandomState(3)
+    X = rng.rand(*shape) @ np.diag(np.linspace(3.0, 0.5, shape[1]))
+    np.testing.assert_allclose(
+        tdata.pca_embeddings_gram(X, 6, "cpu"),
+        tdata.pca_embeddings(X, 6), rtol=0, atol=1e-9)
+
+
 @pytest.mark.parametrize("use_pca,n", [(True, 2), (False, 2), (True, 0.5)])
 def test_inducing_point_init_is_bit_identical(datasets, use_pca, n):
     _, _, want, _ = datasets

@@ -321,20 +321,25 @@ def test_main_capture_and_frozen_leaves(tiny_splits):
 def test_dispatch_table():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tmodels.GP_BLOCK_AUTO_TABLE.keys() == {
-        ("mnist", "hensman", "cuda"), ("mnist", "hensman", "other"),
-        ("sprites", "hensman", "cuda"), ("sprites", "hensman", "other")}
+        (w, bound, backend) for w in ("mnist", "sprites")
+        for bound in ("hensman", "titsias") for backend in ("cuda", "other")}
     assert tmodels.resolve_gp_block_impl("auto", device=cuda) == \
         "fused_pallas"
     assert tmodels.resolve_gp_block_impl("auto", device=cpu) == "reference"
-    # the CPU cell is the JAX package's "other" cell
-    assert jmodels.svgpvae.GP_BLOCK_AUTO_TABLE[
-        ("mnist", "hensman", "other")][0] == "reference"
+    # every "other" cell is the JAX package's, every "cuda" cell its "tpu"
+    # cell
+    j_table = jmodels.svgpvae.GP_BLOCK_AUTO_TABLE
+    for (w, bound, backend), (impl, _) in tmodels.GP_BLOCK_AUTO_TABLE.items():
+        assert j_table[(w, bound, "tpu" if backend == "cuda"
+                        else "other")][0] == impl, (w, bound, backend)
+    assert tmodels.resolve_gp_block_impl("auto", titsias=True,
+                                         device=cuda) == "fused_pallas"
+    assert tmodels.resolve_gp_block_impl("auto", titsias=True,
+                                         device=cpu) == "fused"
     for impl in tmodels.svgpvae.GP_BLOCK_IMPLS:
         assert tmodels.resolve_gp_block_impl(impl, device=cuda) == impl
-    for bad in (dict(impl="auto", workload="ball"),
-                dict(impl="auto", titsias=True)):
-        with pytest.raises(NotImplementedError):
-            tmodels.resolve_gp_block_impl(**bad)
+    with pytest.raises(NotImplementedError):
+        tmodels.resolve_gp_block_impl("auto", workload="ball")
     with pytest.raises(ValueError):
         tmodels.resolve_gp_block_impl("triton")
 
@@ -364,7 +369,7 @@ def test_value_clip_clips_gradients_before_adam():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "SVGPVAE_Titsias"], ["--bias_analysis"], ["--save"],
+    ["--elbo", "GPVAE_Casale"], ["--bias_analysis"], ["--save"],
     ["--epoch_chunk", "2"], ["--bf16"], ["--x64"], ["--data_parallel", "2"],
     ["--reshuffle"], ["--opt_regime", "VAE-1", "joint-1"]])
 def test_unported_flags_are_refused(flag, tiny_splits):

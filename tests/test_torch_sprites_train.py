@@ -527,12 +527,18 @@ def test_dispatch_cells():
     assert resolve("auto", workload="sprites", device=cpu) == "reference"
     assert jmodels.svgpvae.GP_BLOCK_AUTO_TABLE[
         ("sprites", "hensman", "other")][0] == "reference"
-    # PARITY.md #10: no SPRITES cell resolves to an identity-KL block
-    for (workload, _, _), (impl, _) in tmodels.GP_BLOCK_AUTO_TABLE.items():
-        if workload == "sprites":
+    # PARITY.md #10: no SPRITES Hensman cell resolves to an identity-KL
+    # block
+    for (workload, bound, _), (impl, _) in \
+            tmodels.GP_BLOCK_AUTO_TABLE.items():
+        if workload == "sprites" and bound == "hensman":
             assert impl not in ("fused", "fused_pallas")
-    with pytest.raises(NotImplementedError):
-        resolve("auto", workload="sprites", titsias=True, device=cuda)
+    # Titsias: the Cholesky Woodbury block on every device, as JAX
+    for device, backend in ((cuda, "tpu"), (cpu, "other")):
+        assert resolve("auto", workload="sprites", titsias=True,
+                       device=device) == "fused" == \
+            jmodels.svgpvae.GP_BLOCK_AUTO_TABLE[
+                ("sprites", "titsias", backend)][0]
 
 
 def _jax_trainable(args):
@@ -575,10 +581,10 @@ def test_trainable_mask_matches_jax(flax_nets, pretrain):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "VAE"], ["--elbo", "SVGPVAE_Titsias"], ["--resume_dir", "x"],
+    ["--elbo", "VAE"], ["--resume_dir", "x"],
     ["--save"], ["--save_model_weights"], ["--test_set_metrics"],
     ["--bf16"], ["--bf16_hybrid"], ["--data_parallel", "2"],
-    ["--profile_dir", "x"], ["--reshuffle"], ["--titsias_reference_ce"],
+    ["--profile_dir", "x"], ["--reshuffle"],
     ["--s2d64"], ["--fused_upsample"]])
 def test_unported_flags_are_refused(flag, corpus):
     with pytest.raises(SystemExit, match="not ported"):

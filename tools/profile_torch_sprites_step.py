@@ -1,13 +1,17 @@
 """Profile the PyTorch port's SPRITES training step on a CUDA card.
 
     PYTHONPATH=. python3 tools/profile_torch_sprites_step.py [--steps 20]
-        [--chars 1000]
+        [--chars 1000] [--config hensman|hensman_record|titsias_record]
+        [--gp_block_impl IMPL]
 
 The step of `svgpvae_tpu_torch.cli.sprites` at the JAX CLI's defaults
 (Hensman + GECO, batch 500 = 10 characters x 50 frames, L = 64,
 L_action = 8, L_character = 16, 72 inducing points, the vae and repr
-tensors trainable; --gp_block_impl auto = fused_rejitter_pallas on CUDA)
-on the synthetic corpus of --chars characters, built from the CLI's
+tensors trainable; --gp_block_impl auto = fused_rejitter_pallas on CUDA),
+or with the record configuration's flags (--ip_joint --GPLVM_joint
+--PCA --object_kernel_normalize --clip_grad) on Hensman + GECO or on
+Titsias without GECO (auto = fused), on the synthetic corpus of --chars
+characters, built from the CLI's
 own pieces (no pretraining: it does not change the step's work).  After
 WARMUP steps it times --steps steps on the host clock (each ended by
 torch.cuda.synchronize), then runs --steps more under torch.profiler and
@@ -44,6 +48,11 @@ from svgpvae_tpu_torch.cli import mnist, sprites
 
 ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--device",
         "cuda", "--seed", "0"]
+RECORD_FLAGS = ["--ip_joint", "--GPLVM_joint", "--PCA",
+                "--object_kernel_normalize", "--clip_grad"]
+CONFIGS = {"hensman": ARGV, "hensman_record": ARGV + RECORD_FLAGS,
+           "titsias_record": ["--elbo", "SVGPVAE_Titsias"] + [
+               a for a in ARGV[2:] if a != "--GECO"] + RECORD_FLAGS}
 WARMUP = 10
 OWN = ("gauss_jordan", "stats_", "build_k_kernel")  # the port's kernels
 
@@ -52,6 +61,8 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--chars", type=int, default=1000)
+    p.add_argument("--config", choices=list(CONFIGS), default="hensman")
+    p.add_argument("--gp_block_impl", default="auto")
     opts = p.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -60,9 +71,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    args = sprites.build_parser().parse_args(ARGV)
+    args = sprites.build_parser().parse_args(
+        CONFIGS[opts.config] + ["--gp_block_impl", opts.gp_block_impl])
     args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="sprites", device=device)
+        args.gp_block_impl, workload="sprites",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
     splits = data.generate_synthetic_sprites(
         n_train_chars=opts.chars, n_test_chars=max(2, opts.chars // 4),
         n_frames_train=sprites.FRAMES_PER_CHAR, seed=args.corpus_seed)
@@ -73,7 +86,9 @@ def main() -> None:
     state = train.TrainState(params=params,
                              optimizer=train.make_optimizer(trainable,
                                                             args.lr),
-                             geco=train.GECOState.init(device=device))
+                             geco=train.GECOState.init(device=device),
+                             clip_grad_value=args.clip_grad_thres
+                             if args.clip_grad else None)
     loss_fn = sprites.make_loss_fn(args, sprites.make_forward(
         args, mnist.default_eps_fn(args.seed, device)))
     frames = torch.as_tensor(splits["train"]["frames"], device=device)
@@ -107,7 +122,8 @@ def main() -> None:
                and not e.is_user_annotation]
     busy = busy_ms(kernels) / n
     p50 = float(np.median(plain))
-    print(f"{n} steps (batch {bs}, L {args.L}, m 72, gp_block_impl "
+    print(f"{opts.config}: {n} steps (batch {bs}, L {args.L}, m 72, "
+          f"gp_block_impl "
           f"{args.gp_block_impl}, N_train {n_train}): host step p50 "
           f"{p50:.3f} ms (min {min(plain):.3f}, max {max(plain):.3f}), "
           f"under the profiler p50 {float(np.median(profiled)):.3f} ms; "
@@ -128,7 +144,8 @@ def main() -> None:
     # the kernels' autograd backwards (einsums and matmuls, no kernel of
     # the port's): device time of everything each launched
     for ev in prof.key_averages():
-        if ev.key in ("_CholInverseBackward", "_GPStatsBackward"):
+        if ev.key in ("_CholInverseBackward", "_GPStatsBackward",
+                      "LinalgCholeskyExBackward0", "CholeskySolveBackward0"):
             print(f"  {ev.device_time_total / 1e3 / n:8.4f} ms/step  "
                   f"{ev.count / n:5.1f} calls/step  {ev.key} (device time "
                   "of its kernels)")
