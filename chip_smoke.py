@@ -15,15 +15,16 @@ Phases, each of which raises (nonzero exit) on failure:
      Titsias step's (33, 32, 32) (warp form), (65, 72, 72), (64, 72, 72),
      a ragged (5, 37, 37) and the SPRITES Titsias stack (129, 72, 72)
      (blocked form), and (17, 256, 256), (65, 288, 288) and
-     (65, 512, 512) (panel form); max errors and the times of kernel (per
-     call, and device time in a CUDA-graph replay), twin and (B2) one
-     library call; B1 on a Titsias stack [K_mm; Sigma; Sigma1] in one call
-     against the same matrices in two calls, bit for bit (the JAX package
-     makes two calls for the TPU's VMEM; the port one); then one line
-     with each kernel variant's registers
-     and local memory per thread and resident blocks per SM at those
-     shapes (B3: its K-build kernel too; it runs no thread-block
-     clusters);
+     (65, 512, 512) (panel form), B3 also at the MNIST serve fit
+     (n = 8,100, m = 32, L = 16, the mnist family, with and without
+     normalize); max errors and the times of kernel (per call, and device
+     time in a CUDA-graph replay at the serve fits' shapes), twin and
+     (B2) one library call, and each bound; B1 on a Titsias stack [K_mm;
+     Sigma; Sigma1] in one call against the same matrices in two calls, bit
+     for bit (the JAX package makes two calls for the TPU's VMEM; the port
+     one); then one line with each kernel variant's registers and local
+     memory per thread and resident blocks per SM at those shapes (B3: its
+     K-build kernel too; it runs no thread-block clusters);
   4. the serve, through svgpvae_tpu_torch.cli.serve.main: the
      1000-character synthetic corpus in memory (N = 50,000 train frames),
      seed-0 weights, 8 requests -- once with the default linear x linear
@@ -84,13 +85,29 @@ Phases, each of which raises (nonzero exit) on failure:
      cell, so every step launches B2 exactly twice and B1 never, and the
      eval pass's fit the normalize variant of B3 once; then phase 9(b)'s
      CPU recheck of its step 60.  Launch counters are zeroed just before
-     each run and read just after.
+     each run and read just after;
+ 13. checkpoints and serving from a trained run (phase 8's run also
+     writes its run dir, with --save --save_model_weights, into a
+     temporary directory): (a) phase 6's run for one epoch with --save
+     --save_model_weights; the same run restored from its checkpoint for
+     0 epochs must equal the saved state bit for bit (parameters, Adam
+     moments, GECO state, step, noise generator); then --resume_dir for
+     one epoch more (B1 once and B2 at least once per step), its cgen MSE
+     printed beside phase 6's; (b) cli.serve.main --run_dir on that run:
+     B3's mnist family exactly once inside serving.fit, the fit and the
+     64 demo queries' p_m/p_v redone on the CPU as phase 5 does (held to
+     the larger of CPU_RTOL and RUN_FIT_NOISE_FACTOR x the CPU's own
+     fp32-vs-f64 gap), --out and --queries round-tripped; (c) the same
+     serve on phase 8's run dir (B3 sprites family once in the fit) and its
+     phase-5 recheck. Launch counters are zeroed just before the training
+     runs and before the serves, and read just after.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10, 11 and 12, and the max error and times
-measured in phase 3 at the shape named in the entry, with the bound
+the main paths of phases 4, 6, 8, 10, 11, 12 and 13, and the max error and
+times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
-"forms"); the last line is {"ok": true, "device": {...}}.  Needs a CUDA
+"forms", B3's its other timed shapes under "variants"); the last line is
+{"ok": true, "device": {...}}.  Needs a CUDA
 device; exits nonzero without one.  TF32 is off for matmuls and cuDNN
 throughout.  Each phase prints its seconds.
 """
@@ -101,12 +118,14 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 SLICE = dict(n=50_000, m=72, L=64, d1=8, d2=16)   # SPRITES fit shape
 RAGGED = dict(n=1_003, m=37, L=5, d1=3, d2=7)
+MNIST_FIT = dict(n=8_100, m=32, L=16, d1=1, d2=8)  # MNIST serve fit shape
 # Kernel vs twin: both fp32, summing n terms in different orders.  Each
 # output is held to its own scale: Sigma (positive terms) grows ~n, r
 # (random-sign py) only ~sqrt(n), so a limit scaled by Sigma would hide a
@@ -242,6 +261,23 @@ MNIST_M256_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
                    "joint-1", "--eval_every", "1", "--nr_inducing_points",
                    "16", "--jitter", "1e-3", "--device", "cuda", "--seed",
                    "0"]
+# Phase 13: the north-star MNIST run of phase 6, one epoch saved (an eval
+# pass each epoch, so each writes a checkpoint), restored and resumed for
+# one more; then the serves from its run dir and from phase 8's
+SAVE_ARGV = ["--save", "--save_model_weights"]
+# Phase 13's rechecks of the serves from a run hold the card to the larger
+# of CPU_RTOL of max|.| and this multiple of the CPU's own fp32-vs-f64 gap
+# (phase 7's RECHECK_FACTOR).  CPU_RTOL was set from the SPRITES fit's
+# fp32 noise (~3e-6 of max|p_m|); the MNIST fit of a trained run is worse
+# conditioned (Sigma's relative ridge allows cond ~1e5), and its fp32
+# noise measured 1.1e-4 of max|p_m| on the CPU, above CPU_RTOL itself,
+# with the card 9.6e-5 from the CPU fp32 twin (NVIDIA H100 80GB HBM3, 700
+# W): a limit of CPU_RTOL there would pass or fail by chance.  For the
+# SPRITES fit the multiple stays below CPU_RTOL.
+RUN_FIT_NOISE_FACTOR = RECHECK_FACTOR
+MNIST_SAVE_ARGV = [{"joint-2": "joint-1", "2": "1"}.get(a, a)
+                   for a in TRAIN_ARGV]
+MNIST_EPOCH_STEPS = TRAIN_STEPS // 2
 # Phase 9(b): as phase 7, with the floor of a gradient at the round-off
 # of the SPRITES step's longest sum (the decoder's output bias:
 # 500 x 64 x 64 x 3 terms).
@@ -367,8 +403,10 @@ def phase_kernels(device) -> list:
              ("fused_kernel_stats", "mnist", False),
              ("fused_kernel_stats", "mnist", True),
              ("gp_sufficient_stats", "sprites", False)]
-    for shape_name, shape in (("slice", SLICE), ("ragged", RAGGED)):
-        for name, family, normalize in cases:
+    for shape_name, shape, shape_cases in (
+            ("slice", SLICE, cases), ("ragged", RAGGED, cases),
+            ("mnist_fit", MNIST_FIT, [c for c in cases if c[1] == "mnist"])):
+        for name, family, normalize in shape_cases:
             arrs = stats_inputs(rng, family=family, **shape)
             f1, f2, ip1, ip2, prec, py = (torch.from_numpy(a).to(device)
                                           for a in arrs)
@@ -393,14 +431,19 @@ def phase_kernels(device) -> list:
             err = max(e for e, _ in errs)
             ms = cuda_ms(run)
             plain_ms = cuda_ms(twin)
-            in_line = (shape_name == "slice" and family == "sprites"
-                       and not normalize)  # the entries of the kernels line
+            # the kernels line's shapes: the serve fits' (the sprites
+            # family with and without normalize, the mnist family at the
+            # MNIST fit)
+            in_line = ((shape_name == "slice" and family == "sprites")
+                       or shape_name == "mnist_fit")
             dev_ms = graph_ms(run, reps=20) if in_line else None
             library_ms = None
             if name == "gp_sufficient_stats":
                 library_ms = cuda_ms(lambda: torch.einsum(
                     "nl,nm,np->lmp", prec, knm, knm))
             tag = f"{name}[{family},normalize={normalize}] {shape_name} {shape}"
+            b_ms, b_by = stats_bound(fused=name == "fused_kernel_stats",
+                                     **shape)
             log(f"{tag}: " + "; ".join(
                 f"{o} max_abs_err {e:.3e} (max|twin| {scale:.3e}, limit "
                 f"{KERNEL_RTOL * scale:.3e})"
@@ -410,15 +453,15 @@ def phase_kernels(device) -> list:
                    else f" ({dev_ms:.4f} ms of device time in a graph replay)")
                 + f", twin {plain_ms:.4f} ms"
                 + ("" if library_ms is None
-                   else f", library einsum {library_ms:.4f} ms"))
+                   else f", library einsum {library_ms:.4f} ms")
+                + f", bound {b_ms:.6f} ms ({b_by})")
             if not ok:
                 raise AssertionError(f"{tag}: kernel disagrees with its twin")
             records.append(dict(
                 name=name, family=family, normalize=normalize,
                 shape=shape_name, dims=shape, max_abs_err=err, ms=ms,
                 graph_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound=stats_bound(fused=name == "fused_kernel_stats",
-                                  **shape)))
+                bound=(b_ms, b_by)))
     return records
 
 
@@ -621,10 +664,12 @@ def phase_serve() -> tuple:
     return results, launches, splits
 
 
-def phase_cpu_check(name, res) -> None:
+def phase_cpu_check(name, res, noise_factor=None) -> None:
     """Redo one serve's fit and its first request's p_m/p_v on the CPU
     with the plain twins (fp32), and in float64 as the yardstick of fp32
-    noise."""
+    noise.  The card is held to CPU_RTOL of max|.|, or with
+    `noise_factor` to the larger of that and noise_factor x the CPU's own
+    fp32-vs-f64 gap (phase 13: see RUN_FIT_NOISE_FACTOR)."""
     import torch
     from svgpvae_tpu_torch import gp as gpm
     from svgpvae_tpu_torch.models import PVAR_CLIP
@@ -653,10 +698,11 @@ def phase_cpu_check(name, res) -> None:
         noise = float((ref[torch.float32][k]
                        - ref[torch.float64][k]).abs().max())
         err64 = float((got[k] - ref[torch.float64][k]).abs().max())
+        limit = max(CPU_RTOL * scale, (noise_factor or 0.0) * noise)
         log(f"[{name}] {k}: card vs cpu fp32 twin {err:.3e}, card vs cpu f64 "
             f"{err64:.3e}, cpu fp32 vs f64 {noise:.3e} (max|{k}| "
-            f"{scale:.3e}, limit {CPU_RTOL * scale:.3e})")
-        if not err <= CPU_RTOL * scale:
+            f"{scale:.3e}, limit {limit:.3e})")
+        if not err <= limit:
             raise AssertionError(f"[{name}] {k}: the card's fit disagrees "
                                  "with the CPU twins")
 
@@ -1073,6 +1119,149 @@ def phase_sprites_cpu_check(res, argv=SPRITES_ARGV) -> None:
                     loss_terms, SPRITES_SUM_FLOOR)
 
 
+def state_mismatches(a, b) -> list:
+    """The leaves in which two TrainStates differ, bit for bit: every
+    parameter, the Adam moments and step counts, the GECO state, the
+    step."""
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [k for k in ("step", "trainable") if sa[k] != sb[k]]
+    bad += [f"params/{k}" for k, v in sa["params"].items()
+            if not torch.equal(v, sb["params"][k])]
+    bad += [f"geco/{k}" for k, v in sa["geco"].items()
+            if not torch.equal(v, sb["geco"][k])]
+    oa, ob = sa["optimizer"]["state"], sb["optimizer"]["state"]
+    if oa.keys() != ob.keys() or not oa:
+        bad.append("optimizer/state")
+    bad += [f"optimizer/{i}/{k}" for i in oa for k in ("step", "exp_avg",
+                                                       "exp_avg_sq")
+            if i in ob and not torch.equal(oa[i][k].cpu(), ob[i][k].cpu())]
+    return bad
+
+
+def check_mnist_epoch(res, tag) -> None:
+    """One epoch of the north-star run: finite, 32 steps, B1 once and B2
+    at least once in each, one finite eval pass."""
+    if len(res["step_seconds"]) != MNIST_EPOCH_STEPS:
+        raise AssertionError(f"{tag}: {len(res['step_seconds'])} steps")
+    for i, (mt, sl) in enumerate(zip(res["metrics"], res["step_launches"])):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {mt}")
+        if sl["chol_inverse"] != 1 or sl["gp_sufficient_stats"] < 1:
+            raise AssertionError(f"{tag} step {i} launched {sl}: "
+                                 "chol_inverse must launch once, "
+                                 "gp_sufficient_stats at least once")
+    ev = res["evals"][-1]
+    if not all(np.isfinite(ev[k]) for k in ("eval_mse", "test_mse",
+                                            "cgen_mse")):
+        raise AssertionError(f"{tag}: non-finite eval pass {ev}")
+
+
+def phase_mnist_save_resume(splits, base_dir, phase6) -> tuple:
+    """Phase 13(a): phase 6's run for one epoch with --save
+    --save_model_weights; a fresh run restored from its checkpoint (0
+    epochs) must equal the saved state bit for bit, the noise generator
+    included; then --resume_dir for one epoch more.  Returns the run dir
+    and the launch counts of the two training runs."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import mnist
+
+    ops.reset_launch_counts()
+    first = mnist.main(MNIST_SAVE_ARGV + SAVE_ARGV + ["--base_dir",
+                                                      base_dir],
+                       splits=splits)
+    run_dir = first["run_dir"]
+    check_mnist_epoch(first, "mnist --save")
+    restored = mnist.main(
+        [{"joint-1": "joint-0"}.get(a, a) for a in MNIST_SAVE_ARGV]
+        + ["--resume_dir", run_dir], splits=splits)
+    bad = state_mismatches(restored["state"], first["state"])
+    same_noise = torch.equal(restored["noise"].generator.get_state(),
+                             first["noise"].generator.get_state())
+    log(f"mnist restored from {run_dir}ckpt at step "
+        f"{restored['state'].step}: differs from the saved state in "
+        f"{len(bad)} leaves {bad[:5]}; noise generator state identical "
+        f"{same_noise}")
+    if bad or not same_noise or restored["state"].step != MNIST_EPOCH_STEPS:
+        raise AssertionError("the restored state differs from the saved one")
+    rest = mnist.main(MNIST_SAVE_ARGV + ["--resume_dir", run_dir,
+                                         "--save_model_weights"],
+                      splits=splits)
+    launches = ops.launch_counts()
+    check_mnist_epoch(rest, "mnist --resume_dir")
+    if rest["state"].step != 2 * MNIST_EPOCH_STEPS:
+        raise AssertionError(f"resumed run ended at step "
+                             f"{rest['state'].step}")
+    sec = np.asarray(first["step_seconds"][1:] + rest["step_seconds"][1:])
+    cgen = rest["evals"][-1]["cgen_mse"]
+    cgen6 = phase6["evals"][-1]["cgen_mse"]
+    log(f"mnist saved + resumed: 2 x {MNIST_EPOCH_STEPS} steps, p50 "
+        f"{1e3 * np.percentile(sec, 50):.3f} ms, p90 "
+        f"{1e3 * np.percentile(sec, 90):.3f} ms; cgen MSE after the saved "
+        f"epoch {first['evals'][-1]['cgen_mse']:.6f}, after the resumed "
+        f"one {cgen:.9f} (phase 6's uninterrupted 2 epochs: {cgen6:.9f}, "
+        f"equal {cgen == cgen6}; a rerun on the card need not be bitwise, "
+        f"cuDNN's backward is not deterministic); launches {launches}")
+    return run_dir, launches
+
+
+def phase_serve_run(run_dir, splits, out_dir, family) -> tuple:
+    """Phase 13(b)/(c): cli.serve.main --run_dir on a trained run: B3 (the
+    run's GP family) launches exactly once inside serving.fit and nothing
+    else does; --out holds what was served; --queries with the served
+    rows serves them again.  Returns the first serve's result and the
+    launch counts of both serves."""
+    import os
+    import torch
+    from svgpvae_tpu_torch import gp as gpm
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import serve
+
+    gp_type = {"mnist": gpm.MnistSVGP, "sprites": gpm.SpritesSVGP}[family]
+    out, out_q = (os.path.join(out_dir, f"{family}_{n}.npz")
+                  for n in ("demo", "queries"))
+    queries = os.path.join(out_dir, f"{family}_queries.npy")
+    ops.reset_launch_counts()
+    res = serve.main(["--run_dir", run_dir, "--device", "cuda", "--out",
+                      out], splits=splits)
+    served = res["state"]["served"][0]
+    np.save(queries, served["aux_query"].cpu().numpy())
+    again = serve.main(["--run_dir", run_dir, "--device", "cuda", "--out",
+                        out_q, "--queries", queries], splits=splits)
+    launches = ops.launch_counts()
+    want = {"chol_inverse": 0, "fused_kernel_stats": 1,
+            "gp_sufficient_stats": 0}
+    for r in (res, again):
+        if r["fit_launches"] != want:
+            raise AssertionError(f"serve {family} run: the fit launched "
+                                 f"{r['fit_launches']}, not B3 once")
+    pred = res["state"]["predictor"]
+    if not isinstance(pred.gp_params, gp_type):
+        raise AssertionError(f"served a {type(pred.gp_params).__name__}")
+    check_finite(**{f"served {k}": v for k, v in served.items()},
+                 mean_terms=pred.mean_terms, sigma_inv=pred.sigma_inv)
+    with np.load(out) as z:
+        if sorted(z) != sorted(served) or not all(
+                np.array_equal(z[k], served[k].cpu().numpy()) for k in z):
+            raise AssertionError("--out does not hold what was served")
+    other = again["state"]["served"][0]
+    gaps = {k: float((other[k] - served[k]).abs().max()) for k in
+            ("aux_query", "p_m", "p_v")}
+    scale = {k: float(served[k].abs().max()) for k in gaps}
+    if not all(gaps[k] <= CPU_RTOL * scale[k] for k in gaps):
+        raise AssertionError(f"--queries served {gaps} away (max|.| {scale})")
+    sec = res["seconds"]
+    log(f"serve {family} run (step {res['step']}): encode "
+        f"{sec['encode']:.3f} s, fit {sec['fit']:.4f} s, predict "
+        f"{res['n_queries']} queries {1e3 * sec['predict']:.2f} ms, cgen MSE "
+        f"{res['cgen_mse']:.6f}; fit launches {res['fit_launches']}; "
+        f"--queries re-serve max gaps {gaps} (bitwise "
+        f"{all(torch.equal(other[k], served[k]) for k in gaps)}); "
+        f"launches in both serves {launches}")
+    return res, launches
+
+
 def phase_large_m(corpus, mnist_data, device) -> dict:
     """Phase 10: the SPRITES --m 4 and MNIST --nr_inducing_points 16 runs,
     whose B1 stacks take the panel form (checked), with phase 9(a)'s check
@@ -1131,7 +1320,10 @@ def main() -> int:
     mnist_data = mnist_splits()
     train_res, train_launches = timed(6, phase_train, mnist_data)
     timed(7, phase_train_cpu_check, train_res)
-    sprites_res, sprites_launches = timed(8, phase_sprites_train, corpus)
+    runs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+    sprites_res, sprites_launches = timed(
+        8, phase_sprites_train, corpus,
+        SPRITES_ARGV + SAVE_ARGV + ["--base_dir", runs.name])
     timed("9a", phase_sprites_b1, sprites_res)
     timed("9b", phase_sprites_cpu_check, sprites_res)
     large_m = timed(10, phase_large_m, corpus, mnist_data, device)
@@ -1144,14 +1336,40 @@ def main() -> int:
         SPRITES_PRETRAIN_STEPS, SPRITES_CAPTURE,
         "sprites titsias train (record flags)", (0, 2))
     timed(12, phase_sprites_cpu_check, sp_titsias_res, SPRITES_TITSIAS_ARGV)
+    mnist_run, resume_launches = timed("13a", phase_mnist_save_resume,
+                                       mnist_data, runs.name, train_res)
+    mnist_served, mnist_serve_launches = timed(
+        "13b", phase_serve_run, mnist_run, mnist_data, runs.name, "mnist")
+    timed("13b", phase_cpu_check, "mnist run", mnist_served,
+          RUN_FIT_NOISE_FACTOR)
+    sprites_served, sprites_serve_launches = timed(
+        "13c", phase_serve_run, sprites_res["run_dir"], corpus, runs.name,
+        "sprites")
+    timed("13c", phase_cpu_check, "sprites run", sprites_served,
+          RUN_FIT_NOISE_FACTOR)
+    runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
              "mnist_titsias_train": titsias_launches,
-             "sprites_titsias_train": sp_titsias_launches}
+             "sprites_titsias_train": sp_titsias_launches,
+             "mnist_resume_train": resume_launches,
+             "mnist_serve_run": mnist_serve_launches,
+             "sprites_serve_run": sprites_serve_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"
                 and not r["normalize"]}
+    # B3's entry: the SPRITES fit, with its other timed shapes (the
+    # normalize variant, the mnist family at the MNIST fit) under "variants"
+    at_slice["fused_kernel_stats"] = dict(
+        at_slice["fused_kernel_stats"], variants=[
+            dict(family=r["family"], normalize=r["normalize"],
+                 shape=r["dims"], ms=r["ms"], graph_ms=r["graph_ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                 bound_by=r["bound"][1], max_abs_err=r["max_abs_err"])
+            for r in records if r["name"] == "fused_kernel_stats"
+            and r["graph_ms"] is not None
+            and r is not at_slice["fused_kernel_stats"]])
     # B1's entry: the training shape (warp form), with every shape of
     # phase 3 under "forms"
     at_slice["chol_inverse"] = dict(b1[0], library_ms=None, forms=[
@@ -1170,7 +1388,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             shape=r["dims"], graph_ms=r["graph_ms"],
-            **({"forms": r["forms"]} if "forms" in r else {})))
+            **{k: r[k] for k in ("forms", "variants") if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

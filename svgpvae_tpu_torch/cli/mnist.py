@@ -31,17 +31,32 @@ hand-written CUDA kernel B1 on a CUDA device and its plain twin on the
 CPU.  'auto' resolves through models.GP_BLOCK_AUTO_TABLE.
 
 The device is --device (cuda by default; the run refuses to start
-without one).  TF32 is off for matmuls and cuDNN.  Weights come from a
-torch initialisation seeded by --seed, or from --params (an .npz of flat
+without one).  TF32 is off for matmuls and cuDNN.  Weights come from
+flax's initialisation (nn.nets.init_like_flax_) drawn from a
+torch.Generator seeded by --seed, or from --params (an .npz of flat
 JAX parameters, tools/export_jax_params.py's format).  The noise of step
 t is drawn from a torch.Generator seeded by --seed; the eval passes draw
 theirs from a generator seeded with 7 for each batch (the JAX driver's
 eval key is also one fixed key per batch).
 
+Run outputs, as the JAX driver writes them: --save makes the run dir
+<base_dir>/<expid>/<N>_<elbo>_<beta>__on__<stamp>/ (utils.rundir) with
+args.json, and every eval pass appends to res/ELBO_results.csv and
+res/GP_params.csv (the JAX columns, on the eval split's first batch),
+writes res/gp_params_<step>.npz and a line of pics/test_metrics.txt;
+--save_model_weights adds a checkpoint (utils.checkpoint: the whole
+TrainState and the training noise generator) under ckpt/ at every eval;
+at the end the last eval's cgen images go to cgen_images.p and, with
+--save_latents, posterior samples of the train split's latents to
+latents_train.p.  --resume_dir <run dir> restores its latest checkpoint
+and runs --opt_regime's epochs from the restored step, writing into that
+run dir.  The JAX driver's pictures (pics/*.png) are not written: the
+port does without matplotlib, and --show_pics is refused.
+
 Not ported yet, refused with an error: the other --elbo values, VAE
-phases in --opt_regime, --bias_analysis, --epoch_chunk, --resume_dir,
---save (and what only it enables), --bf16, --x64, --data_parallel,
---profile_dir, --eval_bundle and --reshuffle.
+phases in --opt_regime, --bias_analysis, --epoch_chunk, --show_pics,
+--test_set_metrics, --bf16, --x64, --data_parallel, --profile_dir,
+--eval_bundle and --reshuffle.
 """
 
 from __future__ import annotations
@@ -55,7 +70,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import data, models, ops, train
+from svgpvae_tpu_torch import data, models, ops, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.nn import MnistVAE
 from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
@@ -153,10 +168,6 @@ def build_parser() -> argparse.ArgumentParser:
 NOT_PORTED = {  # flag -> is it set?
     "--bias_analysis": lambda a: a.bias_analysis,
     "--epoch_chunk": lambda a: a.epoch_chunk > 1,
-    "--resume_dir": lambda a: a.resume_dir is not None,
-    "--save": lambda a: a.save,
-    "--save_model_weights": lambda a: a.save_model_weights,
-    "--save_latents": lambda a: a.save_latents,
     "--show_pics": lambda a: a.show_pics,
     "--test_set_metrics": lambda a: a.test_set_metrics,
     "--bf16": lambda a: a.bf16,
@@ -210,9 +221,10 @@ def load_splits(args) -> dict:
 
 def build_model(args, splits: dict, N_train: int, device: torch.device):
     """(MnistVAE, MnistSVGP) on `device`: the GP initialised as the JAX
-    driver does; the VAE from --params or a torch init seeded by --seed."""
-    torch.manual_seed(args.seed)
-    vae = MnistVAE(L=args.L)
+    driver does; the VAE from --params or flax's init from a generator
+    seeded by --seed."""
+    vae = MnistVAE(L=args.L,
+                   generator=torch.Generator().manual_seed(args.seed))
     ip_init = data.generate_init_inducing_points(
         splits["train"], n=args.nr_inducing_points, use_pca=args.PCA,
         M=args.M, seed=args.seed)
@@ -235,6 +247,62 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
                              "object-vector table")
         gp = gpm.MnistSVGP(config=cfg, **port["gp"])
     return vae.to(device), gp.to(device)
+
+
+def trainable_predicate(args) -> Callable[[str], bool]:
+    """name ("vae/...", "gp/<field>") -> trainable?  As the JAX driver's
+    mask: the inducing points follow --ip_joint, the kernel scalars
+    --GP_joint, the GPLVM table --ov_joint; the VAE always trains."""
+    flags = {"inducing_points": args.ip_joint, "length_scale": args.GP_joint,
+             "amplitude": args.GP_joint, "object_vectors": args.ov_joint}
+
+    def predicate(name: str) -> bool:
+        part, _, leaf = name.partition("/")
+        return flags[leaf] if part == "gp" else True
+
+    return predicate
+
+
+def open_run_dir(args) -> Optional[str]:
+    """The run's output directory: --resume_dir as it is, or with --save a
+    new one (utils.make_checkpoint_folder) holding args.json; else None."""
+    if args.resume_dir:
+        print(f"resuming into: {args.resume_dir}")
+        return args.resume_dir
+    if not args.save:
+        return None
+    run_dir = utils.make_checkpoint_folder(args.base_dir, args.expid,
+                                           f"{args.elbo}_{args.beta}")
+    utils.dump_args(run_dir, args)
+    print(f"checkpoint dir: {run_dir}")
+    return run_dir
+
+
+def checkpoint_state(state, noise: "Noise", **extra) -> dict:
+    """What a checkpoint holds: the TrainState's state_dict, the training
+    noise generator's state (None for an injected eps_fn without one) and
+    the driver's `extra` entries."""
+    gen = noise.generator
+    return {"train_state": state.state_dict(),
+            "noise": None if gen is None else gen.get_state(), **extra}
+
+
+def resume(args, state, noise: "Noise") -> Optional[dict]:
+    """Restore the latest checkpoint under --resume_dir/ckpt into `state`
+    and the noise stream; returns it (None when there is none)."""
+    ckpt_dir = os.path.join(args.resume_dir, "ckpt")
+    if utils.latest_step(ckpt_dir) is None:
+        print(f"no checkpoint under {ckpt_dir}; starting afresh")
+        return None
+    ckpt = utils.restore_checkpoint(ckpt_dir)
+    state.load_state_dict(ckpt["train_state"])
+    if ckpt["noise"] is not None:
+        if noise.generator is None:
+            raise ValueError("the checkpoint holds a noise stream and this "
+                             "run's eps_fn has no generator to restore")
+        noise.generator.set_state(ckpt["noise"])
+    print(f"resumed from {ckpt_dir} at step {state.step}")
+    return ckpt
 
 
 def sync(device: torch.device) -> None:
@@ -260,6 +328,7 @@ def default_eps_fn(seed: int, device: torch.device,
             torch.Generator(device=device).manual_seed(eval_seed)
         return torch.randn(shape, generator=g, device=device)
 
+    eps_fn.generator = gen  # the "train" stream, which checkpoints keep
     return eps_fn
 
 
@@ -268,6 +337,12 @@ class Noise:
 
     def __init__(self, eps_fn: Callable):
         self.eps_fn, self.last = eps_fn, None
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        """The "train" stream's generator (default_eps_fn's), or None for
+        an injected eps_fn without one."""
+        return getattr(self.eps_fn, "generator", None)
 
     def __call__(self, kind: str, shape) -> torch.Tensor:
         eps = self.eps_fn(kind, shape)
@@ -357,14 +432,11 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                else len(args.dataset) * 4050)
     N_eval, N_test = len(eval_d["images"]), len(test_d["images"])
 
+    run_dir = open_run_dir(args)
     vae, gp = build_model(args, splits, N_train, device)
     params = {"vae": vae, "gp": gp}
-    flags = {"inducing_points": args.ip_joint, "length_scale": args.GP_joint,
-             "amplitude": args.GP_joint, "object_vectors": args.ov_joint}
-    trainable = train.trainable_tensors(
-        params, lambda name: flags.get(name.split("/", 1)[1], True)
-        if name.startswith("gp/") else True)
-    print(f"trainable parameters: "
+    trainable = train.trainable_tensors(params, trainable_predicate(args))
+    print(f"parameters: {utils.count_params(params)}, trainable: "
           f"{sum(t.numel() for t in trainable.values())}")
     nr_epochs, regime = train.parse_opt_regime(list(args.opt_regime))
     # the lr-decay horizon counts N_train steps, as the JAX driver does
@@ -375,8 +447,18 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
         lr_fn=train.cosine_decay_lr(args.lr, args.lr_decay,
                                     nr_epochs * steps_per_epoch))
     noise = Noise(eps_fn)
+    if args.resume_dir:
+        resume(args, state, noise)
     forward = make_forward(args, noise)
     loss_fn = make_loss_fn(args, forward)
+    savers = {}
+    if args.save and run_dir:
+        savers["elbo"] = utils.ResultSaver(
+            os.path.join(run_dir, "res", "ELBO_results.csv"), ELBO_COLUMNS,
+            flush_every=1)
+        savers["gp"] = utils.ResultSaver(
+            os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
+            flush_every=1)
 
     def to_dev(split):
         return (torch.as_tensor(split["images"], dtype=torch.float32,
@@ -397,21 +479,27 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                    for batch in _chunks(images, aux, args.batch_size))
 
     @torch.no_grad()
-    def cgen_sum():
+    def encode_train():
         enc = [models.batching_encode_svgpvae(vae, im, clip_qs=args.clip_qs)
                for im, _ in _chunks(train_im, train_aux, args.batch_size)]
-        means = torch.cat([e[0] for e in enc])
-        variances = torch.cat([e[1] for e in enc])
-        total = 0.0
+        return (torch.cat([e[0] for e in enc]),
+                torch.cat([e[1] for e in enc]))
+
+    @torch.no_grad()
+    def cgen_sum():
+        """(summed cgen loss over the test split, its images)"""
+        means, variances = encode_train()
+        total, images = 0.0, []
         for batch in _chunks(test_im, test_aux, args.batch_size):
-            _, loss = models.predict_cgen_mnist(
+            recon, loss = models.predict_cgen_mnist(
                 vae, gp, batch, means, variances, train_aux,
                 noise("eval", (batch[0].shape[0], args.L)))
             total += float(loss)
-        return total
+            images.append(recon)
+        return total, torch.cat(images)
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
-    captured = None
+    captured = cgen_images = None
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         t_epoch = time.perf_counter()
@@ -448,7 +536,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   "test_mse": recon_sum(test_im, test_aux) / N_test}
             sync(device)
             t1 = time.perf_counter()
-            ev["cgen_mse"] = cgen_sum() / N_test
+            cgen_total, cgen_images = cgen_sum()
+            ev["cgen_mse"] = cgen_total / N_test
             sync(device)
             ev["seconds"] = {"eval_test": t1 - t0,
                              "cgen": time.perf_counter() - t1}
@@ -456,6 +545,19 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             print(f"  eval MSE: {ev['eval_mse']:.5f}")
             print(f"  test MSE: {ev['test_mse']:.5f}")
             print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+            if run_dir:
+                with open(os.path.join(run_dir, "pics", "test_metrics.txt"),
+                          "a") as f:
+                    f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
+                            f"{round(ev['cgen_mse'], 4)}\n")
+            if savers:
+                write_eval_rows(args, savers, run_dir, state, forward,
+                                (eval_im[:args.batch_size],
+                                 eval_aux[:args.batch_size]))
+            if run_dir and args.save_model_weights:
+                utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
+                                      checkpoint_state(state, noise),
+                                      state.step)
 
     elapsed = time.perf_counter() - t_start
     if step_seconds:
@@ -467,13 +569,59 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     result = {"state": state, "step_seconds": step_seconds,
               "metrics": step_metrics, "evals": evals,
               "step_launches": step_launches, "captured": captured,
-              "cgen_mse": evals[-1]["cgen_mse"] if evals else None}
+              "cgen_mse": evals[-1]["cgen_mse"] if evals else None,
+              "run_dir": run_dir, "noise": noise}
     if evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
               f"{best['epoch']}")
         result["best_cgen_mse"] = best["cgen_mse"]
+    if run_dir and cgen_images is not None:
+        with open(os.path.join(run_dir, "cgen_images.p"), "wb") as f:
+            pickle.dump(cgen_images.cpu().numpy(), f)
+    if run_dir and args.save_latents:
+        with torch.no_grad():
+            p_m, p_v, _, _ = gpm.posterior_params(gp, train_aux, train_aux,
+                                                  *encode_train())
+        p_m, p_v = p_m.cpu().numpy(), p_v.cpu().numpy()
+        z = p_m + np.sqrt(np.maximum(p_v, 0)) * \
+            np.random.RandomState(0).randn(*p_m.shape)
+        with open(os.path.join(run_dir, "latents_train.p"), "wb") as f:
+            pickle.dump(z, f)
     return result
+
+
+ELBO_COLUMNS = ["step", "ELBO", "recon_loss", "KL_term", "min_qm", "max_qm",
+                "min_qv", "max_qv", "inside_elbo", "ce_term", "min_pm",
+                "max_pm", "min_pv", "max_pv", "C_ma", "lagrange_mult"]
+GP_COLUMNS = ["step", "length_scale", "amplitude", "ip_norm", "ov_norm"]
+
+
+@torch.no_grad()
+def write_eval_rows(args, savers: dict, run_dir: str, state, forward,
+                    batch) -> None:
+    """The JAX driver's per-eval metric rows (the forward pass on `batch`
+    with the eval noise) and res/gp_params_<step>.npz."""
+    out = forward(state.params, batch, state.geco, args.alpha, "eval")
+    savers["elbo"]([
+        state.step, float(out.elbo), float(out.recon_loss),
+        float(out.kl_term), float(out.qnet_mu.min()),
+        float(out.qnet_mu.max()), float(out.qnet_var.min()),
+        float(out.qnet_var.max()), float(out.inside_elbo),
+        float(out.ce_term), float(out.p_m.min()), float(out.p_m.max()),
+        float(out.p_v.min()), float(out.p_v.max()),
+        float(state.geco.C_ma), float(state.geco.lagrange_mult)])
+    gp = state.params["gp"]
+    ov = gp.object_vectors
+    savers["gp"]([state.step, float(gp.length_scale), float(gp.amplitude),
+                  float(torch.linalg.norm(gp.inducing_points)),
+                  0.0 if ov is None else float(torch.linalg.norm(ov))])
+    np.savez(os.path.join(run_dir, "res", f"gp_params_{state.step}.npz"),
+             length_scale=gp.length_scale.detach().cpu().numpy(),
+             amplitude=gp.amplitude.detach().cpu().numpy(),
+             inducing_points=gp.inducing_points.detach().cpu().numpy(),
+             object_vectors=np.zeros(0) if ov is None
+             else ov.detach().cpu().numpy())
 
 
 def _snapshot(state, batch) -> dict:

@@ -1,31 +1,50 @@
-"""Serve SPRITES conditional generation with the PyTorch port.
+"""Serve conditional generation with the PyTorch port: from a trained run
+(rotated MNIST or SPRITES), or SPRITES from given or seeded weights.
 
+    # a run of cli.mnist or cli.sprites trained with --save
+    # --save_model_weights
+    python -m svgpvae_tpu_torch.cli.serve --run_dir <run dir> \
+        [--out preds.npz] [--queries aux.npy] [--limit 64] [--mean] \
+        [--device cuda]
+
+    # the SPRITES corpus, weights from --params or --seed
     python -m svgpvae_tpu_torch.cli.serve --synthetic --synthetic_chars 1000 \
         --device cuda [--params params.npz] [--n_requests 8] [--mean]
 
-Flow (as svgpvae_tpu/cli/serve.py for SPRITES): encode every train frame
-and build the character auxiliary data -> `serving.fit` folds the
-full-train-set GP conditioning into posterior terms (CUDA kernels on a
-CUDA device) -> one request per unseen character: its first `--N_context`
-frames in, the remaining actions out.  Prints the cgen MSE.
+From a run (as svgpvae_tpu/cli/serve.py): `load_predictor(run_dir)` reads
+args.json, rebuilds the run's models and trainable set, restores the
+latest checkpoint's parameters, loads the data the run used (its pickles
+or shards, or the synthetic data regenerated from args.json's flags),
+encodes the train split in chunks and runs `serving.fit`, which folds the
+full-train-set GP conditioning into posterior terms (B3
+`fused_kernel_stats` on a CUDA device, either family).  The queries are
+the rows of --queries, or the demo: MNIST's test split (held-out angles,
+the first --limit rows), SPRITES's first unseen character (its first
+N_context frames in, the remaining actions out).  Writes the images,
+p_m, p_v and aux queries to --out and prints the demo's cgen MSE.
+--data_parallel (a fit sharded over devices) is not ported yet.
 
-Weights come from `--params` (an .npz of the JAX parameters written by
-tools/export_jax_params.py) or, without it, from a torch initialisation
-seeded by `--seed`; the GP parameters are then drawn from
-RandomState(seed) exactly as the JAX serve entry point draws them.
-TF32 is switched off for matmuls and cuDNN: the GP math and the encodings
-it conditions on need IEEE fp32.
+Without --run_dir (SPRITES only): encode every train frame and build the
+character auxiliary data -> `serving.fit` -> one request per unseen
+character. Prints the cgen MSE. Weights come from `--params` (an .npz of
+the JAX parameters written by tools/export_jax_params.py) or, without it,
+from flax's initialisation drawn from a torch.Generator seeded by `--seed`;
+the GP parameters are then drawn from RandomState(seed) exactly as the JAX
+serve entry point draws them. TF32 is switched off for matmuls and cuDNN:
+the GP math and the encodings it conditions on need IEEE fp32.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import data, models, ops, serving
+from svgpvae_tpu_torch import data, models, ops, serving, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.nn import SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils.convert import params_from_jax
@@ -33,6 +52,7 @@ from svgpvae_tpu_torch.utils.convert import params_from_jax
 N_ACTIONS = data.N_ACTIONS
 FRAMES_PER_CHAR = 50   # train frames per character
 ENCODE_CHUNK = 500     # frames per encoder call (a multiple of 50)
+MNIST_ENCODE_CHUNK = 512
 CORPUS_SEED = 0        # default --corpus_seed of svgpvae_tpu/cli/sprites.py
 
 
@@ -62,6 +82,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mean", action="store_true",
                    help="decode the posterior mean instead of sampling")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--run_dir", type=str, default=None,
+                   help="run directory with ckpt/ and args.json (train with "
+                        "--save --save_model_weights): serve that run")
+    p.add_argument("--out", type=str, default="preds.npz",
+                   help="--run_dir: output npz of images, p_m, p_v, "
+                        "aux_query")
+    p.add_argument("--limit", type=int, default=64,
+                   help="--run_dir: serve at most this many test-split "
+                        "queries (the MNIST demo)")
+    p.add_argument("--queries", type=str, default=None,
+                   help="--run_dir: .npy of (x, D) auxiliary-data query rows;"
+                        " default: the demo queries")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="not ported yet")
     return p
 
 
@@ -79,9 +113,9 @@ def sprites_query_aux(repr_net, context_frames: torch.Tensor,
 
 def build_model(args, device: torch.device):
     """(vae, repr_net, gp) on `device`, from --params or from --seed."""
-    torch.manual_seed(args.seed)
-    vae = SpritesVAE(L=args.L)
-    repr_net = SpritesReprNet(L=args.L_character)
+    gen = torch.Generator().manual_seed(args.seed)
+    vae = SpritesVAE(L=args.L, generator=gen)
+    repr_net = SpritesReprNet(L=args.L_character, generator=gen)
     cfg = gpm.SVGPConfig(jitter=args.jitter,
                          K_obj_normalize=args.object_kernel_normalize)
     if args.params:
@@ -107,13 +141,13 @@ def build_model(args, device: torch.device):
 
 @torch.no_grad()
 def encode_train(vae, repr_net, frames: np.ndarray, action_ids: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, clip_qs: bool = True):
     """(means, variances, aux) over the whole train split, in chunks."""
     means, variances, aux = [], [], []
     for lo in range(0, len(frames), ENCODE_CHUNK):
         im = torch.from_numpy(frames[lo:lo + ENCODE_CHUNK]).to(device)
         ids = torch.from_numpy(action_ids[lo:lo + ENCODE_CHUNK]).to(device)
-        mu, var = models.batching_encode_svgpvae(vae, im)
+        mu, var = models.batching_encode_svgpvae(vae, im, clip_qs=clip_qs)
         means.append(mu)
         variances.append(var)
         aux.append(models.sprites_aux_data(repr_net, im, ids,
@@ -126,6 +160,189 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed_fit(gp, means, variances, aux, device) -> tuple:
+    """(predictor, seconds, kernel launches inside `serving.fit`)."""
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    predictor = serving.fit(gp, means, variances, aux)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    return predictor, seconds, {k: v - before[k]
+                                for k, v in ops.launch_counts().items()}
+
+
+def _load_args(run_dir: str) -> argparse.Namespace:
+    """The run's flags (args.json); refuses a run of another --elbo."""
+    with open(os.path.join(run_dir, "args.json")) as f:
+        args = argparse.Namespace(**json.load(f))
+    if "SVGPVAE" not in args.elbo:
+        raise SystemExit(f"serving takes the SVGPVAE runs, not --elbo "
+                         f"{args.elbo}")
+    return args
+
+
+def _restore(run_dir: str, params: dict, predicate, args, device) -> int:
+    """Rebuild the run's TrainState (its trainable set, Adam) around
+    `params` and restore the latest checkpoint into it; returns its step."""
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    if utils.latest_step(ckpt_dir) is None:
+        raise SystemExit(f"no checkpoint under {ckpt_dir}; train with "
+                         "--save --save_model_weights first")
+    state = train.TrainState(
+        params=params, geco=train.GECOState.init(device=device),
+        optimizer=train.make_optimizer(
+            train.trainable_tensors(params, predicate), args.lr))
+    state.load_state_dict(utils.restore_checkpoint(ckpt_dir)["train_state"])
+    for t in train.named_tensors(params).values():
+        t.requires_grad_(False)
+    print(f"restored {ckpt_dir} at step {state.step}")
+    return state.step
+
+
+def _rebuild_args(args) -> argparse.Namespace:
+    """The run's flags for rebuilding its models: no --params (the
+    checkpoint holds the weights) and no --PCA, which only sets initial
+    values the checkpoint overwrites (on SPRITES it would decompose the
+    whole train split)."""
+    return argparse.Namespace(**dict(vars(args), params=None, PCA=False))
+
+
+def load_mnist_predictor(run_dir: str, device: torch.device,
+                         splits: dict = None) -> dict:
+    """Rebuild and restore a cli.mnist SVGPVAE run and fit the predictor
+    on its train split.  `splits` (as data.generate_rotated_mnist returns)
+    skips loading or regenerating the data.  Returns {"predictor", "vae",
+    "test", "args", "step", "means", "variances", "aux", "seconds",
+    "fit_launches"}."""
+    from svgpvae_tpu_torch.cli import mnist as mnist_cli
+
+    args = _load_args(run_dir)
+    if splits is None:
+        splits = mnist_cli.load_splits(args)
+    train_d = splits["train"]
+    N_train = (len(train_d["images"]) if args.N_t is None
+               else len(str(args.dataset)) * 4050)
+    vae, gp = mnist_cli.build_model(_rebuild_args(args), splits, N_train,
+                                    device)
+    step = _restore(run_dir, {"vae": vae, "gp": gp},
+                    mnist_cli.trainable_predicate(args), args, device)
+
+    t0 = time.perf_counter()
+    images = torch.as_tensor(train_d["images"], dtype=torch.float32,
+                             device=device)
+    aux = torch.as_tensor(train_d["aux_data"], dtype=torch.float32,
+                          device=device)
+    enc = [models.batching_encode_svgpvae(
+        vae, images[lo:lo + MNIST_ENCODE_CHUNK], clip_qs=args.clip_qs)
+        for lo in range(0, len(images), MNIST_ENCODE_CHUNK)]
+    means = torch.cat([e[0] for e in enc])
+    variances = torch.cat([e[1] for e in enc])
+    _sync(device)
+    t_encode = time.perf_counter() - t0
+    predictor, t_fit, launches = _timed_fit(gp, means, variances, aux,
+                                            device)
+    return {"predictor": predictor, "vae": vae.eval(), "test": splits["test"],
+            "args": args, "step": step, "means": means,
+            "variances": variances, "aux": aux,
+            "seconds": {"encode": t_encode, "fit": t_fit},
+            "fit_launches": launches}
+
+
+def load_sprites_predictor(run_dir: str, device: torch.device,
+                           splits: dict = None) -> dict:
+    """Rebuild and restore a cli.sprites SVGPVAE run and fit the predictor
+    on its train split.  `splits` (as data.generate_synthetic_sprites
+    returns) skips the corpus on disk.  Returns {"predictor", "vae",
+    "repr_net", "test_character", "args", "step", "means", "variances",
+    "aux", "seconds", "fit_launches"}."""
+    from svgpvae_tpu_torch.cli import sprites as sprites_cli
+
+    args = _load_args(run_dir)
+    if splits is None:
+        sprites_cli.ensure_dataset(args)
+        splits = data.load_sprites(args.sprites_data_path)
+    train_d = splits["train"]
+    params, _ = sprites_cli.build_model(_rebuild_args(args), splits,
+                                        len(train_d["frames"]), device)
+    step = _restore(run_dir, params, sprites_cli.trainable_predicate(args),
+                    args, device)
+    vae, repr_net = params["vae"].eval(), params["repr"].eval()
+
+    t0 = time.perf_counter()
+    means, variances, aux = encode_train(
+        vae, repr_net, train_d["frames"],
+        np.ascontiguousarray(train_d["aux_data"][:, 1]), device,
+        clip_qs=args.clip_qs)
+    _sync(device)
+    t_encode = time.perf_counter() - t0
+    predictor, t_fit, launches = _timed_fit(params["gp"], means, variances,
+                                            aux, device)
+    return {"predictor": predictor, "vae": vae, "repr_net": repr_net,
+            "test_character": splits["test_character"], "args": args,
+            "step": step, "means": means, "variances": variances, "aux": aux,
+            "seconds": {"encode": t_encode, "fit": t_fit},
+            "fit_launches": launches}
+
+
+def load_predictor(run_dir: str, device: torch.device,
+                   splits: dict = None) -> dict:
+    """Dispatch on the run's args.json (the SPRITES or the MNIST driver's
+    flags)."""
+    if hasattr(_load_args(run_dir), "sprites_data_path"):
+        return load_sprites_predictor(run_dir, device, splits)
+    return load_mnist_predictor(run_dir, device, splits)
+
+
+def serve_run(args, device: torch.device, splits: dict = None) -> dict:
+    """--run_dir: load the run's predictor, serve the queries, write
+    --out.  Returns the metrics, and under "state" the encodings, aux
+    data, predictor and the served (aux_query, images, p_m, p_v)."""
+    loaded = load_predictor(args.run_dir, device, splits)
+    predict = serving.make_predict_fn(loaded["predictor"], loaded["vae"],
+                                      sample=not args.mean)
+    truth = None
+    if args.queries:
+        aux_q = torch.as_tensor(np.load(args.queries), dtype=torch.float32,
+                                device=device)
+    elif "test" in loaded:  # MNIST demo: held-out-angle rows
+        test = loaded["test"]
+        aux_q = torch.as_tensor(test["aux_data"][:args.limit],
+                                dtype=torch.float32, device=device)
+        truth = torch.as_tensor(test["images"][:args.limit],
+                                dtype=torch.float32, device=device)
+    else:  # SPRITES demo: the first unseen character
+        tc = loaded["test_character"]
+        frames = torch.from_numpy(tc["frames"][:N_ACTIONS]).to(device)
+        n_ctx = loaded["args"].N_context
+        aux_q = sprites_query_aux(loaded["repr_net"], frames[:n_ctx],
+                                  tc["aux_data"][n_ctx:N_ACTIONS, 1])
+        truth = frames[n_ctx:]
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    images, p_m, p_v = predict(aux_q, generator)
+    _sync(device)
+    t_predict = time.perf_counter() - t0
+    out = {"images": images, "p_m": p_m, "p_v": p_v, "aux_query": aux_q}
+    np.savez(args.out, **{k: v.cpu().numpy() for k, v in out.items()})
+    sec = dict(loaded["seconds"], predict=t_predict)
+    print(f"encode {len(loaded['means'])} rows: {sec['encode']:.3f} s; fit: "
+          f"{sec['fit']:.3f} s; predict {len(aux_q)} queries: "
+          f"{1e3 * t_predict:.2f} ms")
+    result = {"n_queries": len(aux_q), "seconds": sec,
+              "fit_launches": loaded["fit_launches"], "step": loaded["step"],
+              "state": {k: loaded[k] for k in ("means", "variances", "aux",
+                                               "predictor")}}
+    result["state"]["served"] = [out]
+    if truth is not None:
+        K = truth.shape[1] * truth.shape[2]
+        result["cgen_mse"] = float(torch.sum((truth - images) ** 2)) / (
+            K * len(truth))
+        print(f"cgen MSE over {len(truth)} queries: "
+              f"{result['cgen_mse']:.5f}")
+    print(f"served {len(aux_q)} queries -> {args.out}")
+    return result
+
+
 def load_splits(args) -> dict:
     if args.synthetic:
         return data.generate_synthetic_sprites(
@@ -136,17 +353,22 @@ def load_splits(args) -> dict:
 
 
 def main(argv=None, splits: dict = None) -> dict:
-    """Run the serve; `splits` (as data.generate_synthetic_sprites returns)
-    skips loading the corpus.  Returns the metrics and, under "state", the
-    encodings, aux data, predictor and the served (aux_query, p_m, p_v),
-    and under "fit_launches" the kernel launches made inside `serving.fit`."""
+    """Run the serve; `splits` (the run's data with --run_dir, else as
+    data.generate_synthetic_sprites returns) skips loading the data.
+    Returns the metrics and, under "state", the encodings, aux data,
+    predictor and the served (aux_query, images, p_m, p_v), and under
+    "fit_launches" the kernel launches made inside `serving.fit`."""
     args = build_parser().parse_args(argv)
+    if args.data_parallel:
+        raise SystemExit("--data_parallel: not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
+    if args.run_dir:
+        return serve_run(args, device, splits)
 
     if splits is None:
         splits = load_splits(args)
@@ -164,12 +386,8 @@ def main(argv=None, splits: dict = None) -> dict:
     _sync(device)
     t_encode = time.perf_counter() - t0
 
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    predictor = serving.fit(gp, means, variances, aux)
-    _sync(device)
-    t_fit = time.perf_counter() - t0
-    fit_launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    predictor, t_fit, fit_launches = _timed_fit(gp, means, variances, aux,
+                                                device)
 
     predict = serving.make_predict_fn(predictor, vae, sample=not args.mean)
     generator = torch.Generator(device=device).manual_seed(args.seed)

@@ -48,17 +48,32 @@ on [K_mm; Sigma_1..L; Sigma1_1..L]); the CE term is the exact entropy
 unless --titsias_reference_ce.
 
 The device is --device (cuda by default; the run refuses to start
-without one).  TF32 is off for matmuls and cuDNN.  Weights come from a
-torch initialisation seeded by --seed, or from --params (an .npz of flat
+without one).  TF32 is off for matmuls and cuDNN.  Weights come from
+flax's initialisation (nn.nets.init_like_flax_) drawn from a
+torch.Generator seeded by --seed, or from --params (an .npz of flat
 JAX parameters, with the pretraining head if it is to be reused).  The
 noise of step t is drawn from a torch.Generator seeded by --seed (or
 --main_seed); every eval batch draws its noise from a generator seeded
 with 11 (the JAX CLI's eval key is one fixed key too).
 
+Run outputs, as the JAX CLI writes them (see cli/mnist.py): --save makes
+the run dir with args.json; every epoch appends a row to
+res/ELBO_results.csv and res/GP_params.csv (the JAX columns, on the first
+train batch with the eval noise); every eval pass writes
+res/gp_params_<step>.npz and a line of pics/test_metrics.txt, and at its
+best cgen so far the last test batch's cgen images and their targets
+(cgen_images.p, cgen_images_target.p); --save_model_weights writes a
+checkpoint (the TrainState, the noise generator, the pretraining head)
+at every eval and at the end.  --resume_dir <run dir> skips the
+pretraining, restores the latest checkpoint and runs --opt_regime's
+epochs from the restored step, writing into that run dir; it is refused
+with --basin_retry, whose restarts need the post-pretraining parameters.
+The pictures (pics/*.png) are not written: the port does without
+matplotlib.
+
 Not ported yet, refused with an error: the other --elbo values,
---resume_dir, --save, --save_model_weights, --test_set_metrics, --bf16,
---bf16_hybrid, --data_parallel, --profile_dir, --reshuffle, and a
-raw-npy corpus (its preprocessing).
+--test_set_metrics, --bf16, --bf16_hybrid, --data_parallel,
+--profile_dir, --reshuffle, and a raw-npy corpus (its preprocessing).
 --s2d64 and --fused_upsample are TPU rewrites that the port does not
 carry.
 """
@@ -68,6 +83,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import pickle
 import shutil
 import time
 from typing import Callable, Optional
@@ -76,9 +92,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from svgpvae_tpu_torch import data, models, ops, train
+from svgpvae_tpu_torch import data, models, ops, train, utils
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
+from svgpvae_tpu_torch.cli.mnist import (Noise, checkpoint_state,
+                                         default_eps_fn, open_run_dir,
+                                         resume, sync)
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils.convert import sprites_train_params_from_jax
 
@@ -192,9 +210,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = {  # flag -> is it set?
-    "--resume_dir": lambda a: a.resume_dir is not None,
-    "--save": lambda a: a.save,
-    "--save_model_weights": lambda a: a.save_model_weights,
     "--test_set_metrics": lambda a: a.test_set_metrics,
     "--bf16": lambda a: a.bf16,
     "--bf16_hybrid": lambda a: a.bf16_hybrid,
@@ -228,6 +243,10 @@ def refuse_unported(args) -> None:
     if args.batch_size % FRAMES_PER_CHAR:
         raise SystemExit(f"--batch_size must be a multiple of "
                          f"{FRAMES_PER_CHAR} (whole characters)")
+    if args.basin_retry and args.resume_dir:
+        raise SystemExit("--basin_retry restarts from the post-pretraining "
+                         "parameters and cannot be combined with "
+                         "--resume_dir")
 
 
 def _count_corpus_rows(train_dir: str) -> Optional[int]:
@@ -313,13 +332,14 @@ def trainable_predicate(args) -> Callable[[str], bool]:
 
 def build_model(args, splits: dict, N_train: int, device: torch.device):
     """{"vae", "repr", "gp"} and the pretraining head on `device`: the GP
-    initialised as the JAX CLI does, the nets from a torch init seeded
-    by --seed; or everything (the head if present) from --params."""
+    initialised as the JAX CLI does, the nets from flax's init drawn
+    from one generator seeded by --seed; or everything (the head if
+    present) from --params."""
     n_chars = N_train // FRAMES_PER_CHAR
-    torch.manual_seed(args.seed)
-    vae = SpritesVAE(L=args.L)
-    repr_net = SpritesReprNet(L=args.L_character)
-    head = ClassificationHead(args.L_character, n_chars)
+    gen = torch.Generator().manual_seed(args.seed)
+    vae = SpritesVAE(L=args.L, generator=gen)
+    repr_net = SpritesReprNet(L=args.L_character, generator=gen)
+    head = ClassificationHead(args.L_character, n_chars, generator=gen)
     if args.PCA:
         gplvm_init, ip_init = data.sprites_pca_init(
             splits["train"], m=args.m, L_action=args.L_action,
@@ -398,7 +418,8 @@ def pretrain_loss(params, batch, geco, step):
 
 def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
-         capture_step: Optional[int] = None) -> dict:
+         capture_step: Optional[int] = None,
+         on_eval: Optional[Callable[[dict], None]] = None) -> dict:
     """Train; returns a dict (see `run_svgpvae`).
 
     `splits` ({"train", "test_action", "test_character"}, as
@@ -406,7 +427,8 @@ def main(argv=None, splits: Optional[dict] = None,
     `eps_fn(kind, shape)` ("train" or "eval") replaces the default noise
     (tests inject the JAX draws; a --basin_retry restart keeps drawing
     from it).  `capture_step` keeps a copy of that main step's inputs,
-    parameters before it, noise and gradients."""
+    parameters before it, noise and gradients.  `on_eval(ev)` is called
+    after each eval pass (and its checkpoint) with its record."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     device = torch.device(args.device)
@@ -418,7 +440,7 @@ def main(argv=None, splits: Optional[dict] = None,
     if splits is None:
         ensure_dataset(args)
         splits = data.load_sprites(args.sprites_data_path)
-    return run_svgpvae(args, splits, device, eps_fn, capture_step)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step, on_eval)
 
 
 def _stream_seed(args, attempt: int) -> int:
@@ -485,8 +507,8 @@ def pretrain(args, params: dict, head, train_frames, train_chars,
 
 
 def run_svgpvae(args, splits: dict, device: torch.device,
-                eps_fn: Optional[Callable],
-                capture_step: Optional[int]) -> dict:
+                eps_fn: Optional[Callable], capture_step: Optional[int],
+                on_eval: Optional[Callable[[dict], None]] = None) -> dict:
     """Returns {"state", "pretrain", "step_seconds" (host clock after
     synchronize, per main step), "metrics" (per step), "step_launches"
     (kernel launches inside each step), "evals" (per eval pass: MSEs, the
@@ -505,6 +527,7 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     while N_test % batch_tc:
         batch_tc -= N_ACTIONS
 
+    run_dir = open_run_dir(args)
     params, head = build_model(args, splits, N_train, device)
 
     def to_dev(a):
@@ -517,14 +540,14 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     tc_action = to_dev(tc_d["aux_data"][:, 1])
 
     pre = None
-    if "yes" in args.repr_nn_pretrain:
+    if "yes" in args.repr_nn_pretrain and not args.resume_dir:
         ta_d = splits["test_action"]
         pre = pretrain(args, params, head, train_frames,
                        to_dev(train_d["aux_data"][:, 0]),
                        to_dev(ta_d["frames"]), to_dev(ta_d["aux_data"][:, 0]))
 
     trainable = train.trainable_tensors(params, trainable_predicate(args))
-    print(f"trainable parameters: "
+    print(f"parameters: {utils.count_params(params)}, trainable: "
           f"{sum(t.numel() for t in trainable.values())}")
     nr_epochs = train.parse_opt_regime(list(args.opt_regime))[0]
     steps_per_epoch = -(-N_train // batch_size)
@@ -544,8 +567,26 @@ def run_svgpvae(args, splits: dict, device: torch.device,
 
     state = fresh_state()
     noise = Noise(stream(0))
+    if args.resume_dir:
+        ckpt = resume(args, state, noise)
+        if ckpt is not None:
+            head.load_state_dict(ckpt["head"])
     forward = make_forward(args, noise)
     loss_fn = make_loss_fn(args, forward)
+    savers = {}
+    if run_dir:
+        savers["elbo"] = utils.ResultSaver(
+            os.path.join(run_dir, "res", "ELBO_results.csv"), ELBO_COLUMNS,
+            flush_every=1)
+        savers["gp"] = utils.ResultSaver(
+            os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
+            flush_every=1)
+
+    def save_checkpoint():
+        utils.save_checkpoint(
+            os.path.join(run_dir, "ckpt"),
+            checkpoint_state(state, noise, head=head.state_dict()),
+            state.step)
     # --basin_retry restarts from the post-pretraining parameters
     host_copy = ({k: v.detach().to("cpu", copy=True)
                   for k, v in train.named_tensors(params).items()}
@@ -585,15 +626,17 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                                             aux)
         t, lc = stage("fit", t, lc)
         n_tgt = batch_tc // N_ACTIONS * (N_ACTIONS - args.N_context)
-        cgen = sum(float(models.predict_cgen_sprites(
-            params["vae"], params["gp"], params["repr"], im, aid, *terms,
-            n_context=args.N_context, n_actions_total=N_ACTIONS,
-            eps=noise("eval", (n_tgt, args.L)))[2])
-            for im, aid in tc_batches)
+        cgen = 0.0
+        for im, aid in tc_batches:
+            pics, tgts, loss = models.predict_cgen_sprites(
+                params["vae"], params["gp"], params["repr"], im, aid, *terms,
+                n_context=args.N_context, n_actions_total=N_ACTIONS,
+                eps=noise("eval", (n_tgt, args.L)))
+            cgen += float(loss)
         ev["cgen_mse"] = cgen / (N_test * (1 - args.N_context / N_ACTIONS))
         stage("cgen", t, lc)
         ev["seconds"], ev["launches"] = secs, launches
-        return ev
+        return ev, (pics, tgts)  # the last test batch's cgen images
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, cgen_history, attempt, epoch = None, [], 0, 0
@@ -625,10 +668,21 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, train "
               f"MSE {np.sum(losses) / N_train:.5f}, "
               f"{time.perf_counter() - t_epoch:.2f}s")
+        if savers:
+            write_epoch_rows(args, savers, state, forward,
+                             (train_frames[:batch_size],
+                              train_action[:batch_size]))
 
         plateau = False
         if (epoch + 1) % args.eval_every == 0:
-            ev = eval_pass(epoch)
+            if run_dir:
+                gp = params["gp"]
+                np.savez(os.path.join(run_dir, "res",
+                                      f"gp_params_{state.step}.npz"),
+                         gplvm_action=gp.gplvm_action.detach().cpu().numpy(),
+                         inducing_points=gp.inducing_points.detach().cpu()
+                         .numpy())
+            ev, (pics, tgts) = eval_pass(epoch)
             evals.append(ev)
             cgen_history.append(ev["cgen_mse"])
             print(f"  test recon MSE: {ev['test_mse']:.5f}")
@@ -639,6 +693,13 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                        and len(cgen_history) == args.basin_detect_evals
                        and min(cgen_history) > (1 - args.basin_detect_rel)
                        * cgen_history[0])
+            if run_dir:
+                write_eval_outputs(run_dir, epoch, ev, pics, tgts,
+                                   ev["cgen_mse"] <= min(cgen_history))
+            if run_dir and args.save_model_weights:
+                save_checkpoint()
+            if on_eval is not None:
+                on_eval(ev)
         epoch += 1
         if plateau:
             attempt += 1
@@ -662,16 +723,61 @@ def run_svgpvae(args, splits: dict, device: torch.device,
               f"first {1e3 * step_seconds[0]:.2f} ms, p50 "
               f"{1e3 * float(np.percentile(timed, 50)):.2f} ms, p90 "
               f"{1e3 * float(np.percentile(timed, 90)):.2f} ms")
+    if run_dir and args.save_model_weights:
+        save_checkpoint()
     result = {"state": state, "pretrain": pre, "step_seconds": step_seconds,
               "metrics": step_metrics, "step_launches": step_launches,
               "evals": evals, "captured": captured, "basin_attempts": attempt,
-              "cgen_mse": evals[-1]["cgen_mse"] if evals else None}
+              "cgen_mse": evals[-1]["cgen_mse"] if evals else None,
+              "run_dir": run_dir, "noise": noise}
     if evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
               f"{best['epoch']}")
         result["best_cgen_mse"] = best["cgen_mse"]
     return result
+
+
+ELBO_COLUMNS = ["step", "ELBO", "recon_loss", "KL_term", "min_qm", "max_qm",
+                "min_qv", "max_qv", "inside_elbo", "inside_elbo_recon",
+                "inside_elbo_kl", "ce_term", "min_pm", "max_pm", "min_pv",
+                "max_pv", "C_ma", "lagrange_mult"]
+GP_COLUMNS = ["step", "gplvm_norm", "ip_norm", "l_action", "sigma_action",
+              "l_character", "sigma_character"]
+
+
+@torch.no_grad()
+def write_epoch_rows(args, savers: dict, state, forward, batch) -> None:
+    """The JAX CLI's per-epoch metric rows: the forward pass on `batch`
+    (whole train characters) with the eval noise, and the GP's norms and
+    kernel scalars."""
+    out = forward(state.params, batch, state.geco, args.alpha, "eval",
+                  FRAMES_PER_CHAR)
+    savers["elbo"]([state.step] + [float(x) for x in (
+        out.elbo, out.recon_loss, out.kl_term, out.qnet_mu.min(),
+        out.qnet_mu.max(), out.qnet_var.min(), out.qnet_var.max(),
+        out.inside_elbo, out.inside_elbo_recon, out.inside_elbo_kl,
+        out.ce_term, out.p_m.min(), out.p_m.max(), out.p_v.min(),
+        out.p_v.max(), state.geco.C_ma, state.geco.lagrange_mult)])
+    gp = state.params["gp"]
+    savers["gp"]([state.step] + [float(x) for x in (
+        torch.linalg.norm(gp.gplvm_action),
+        torch.linalg.norm(gp.inducing_points), gp.l_action, gp.sigma_action,
+        gp.l_character, gp.sigma_character)])
+
+
+def write_eval_outputs(run_dir: str, epoch: int, ev: dict, pics, tgts,
+                       best: bool) -> None:
+    """pics/test_metrics.txt's line, and at the best cgen so far the last
+    test batch's cgen images and targets."""
+    if best:
+        for name, x in (("cgen_images.p", pics),
+                        ("cgen_images_target.p", tgts)):
+            with open(os.path.join(run_dir, name), "wb") as f:
+                pickle.dump(x.cpu().numpy(), f)
+    with open(os.path.join(run_dir, "pics", "test_metrics.txt"), "a") as f:
+        f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
+                f"{round(ev['cgen_mse'], 4)}\n")
 
 
 def _snapshot(state, batch) -> dict:

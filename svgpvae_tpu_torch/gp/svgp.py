@@ -1,14 +1,15 @@
 """Sparse variational GP core (port of svgpvae_tpu/gp/svgp.py: the MNIST
 and SPRITES GP families, the two-pass batch-level Hensman and Titsias
-math, and the SPRITES test-time pipeline).
+math, and the test-time pipeline of both families).
 
 Parameters are small dataclasses of tensors; all L latent channels are
 processed at once with batched Cholesky factorizations.  The batch-level
 sufficient statistics go through `ops.gp_stats.gp_stats` (B2 CUDA forward,
 einsum backward); the full-train-set conditioning
 (`precompute_test_posterior_terms`) runs B3 `fused_kernel_stats` for the
-SPRITES linear x linear kernel and B2 for the SE kernel.  CPU tensors take
-the kernels' plain twins.
+MNIST periodic x linear kernel and the SPRITES linear x linear kernel,
+and B2 for the SPRITES SE kernel.  CPU tensors take the kernels' plain
+twins.
 
 Shapes: b = minibatch, m = #inducing points, L = #latent channels,
 x = #query points, N = full-train size.
@@ -340,13 +341,21 @@ def variational_loss(gp, aux: Tensor, y: Tensor, noise: Tensor,
     return hensman_terms(gp, Kmm_chol, Knm, Knn_diag, y, noise, mu_hat, A_hat)
 
 
-def _fused_precompute_stats(gp: SpritesSVGP, aux_train: Tensor,
-                            precision: Tensor, py: Tensor):
-    """(Sigma contribution, r) over the full train set.  Linear x linear
-    kernels go to the fused kernel B3 (K built in-kernel); the SE kernel
-    builds K_nm here and goes to B2.  No size threshold: on CUDA the
-    kernels always run."""
+def _fused_precompute_stats(gp, aux_train: Tensor, precision: Tensor,
+                            py: Tensor):
+    """(Sigma contribution, r) over the full train set.  The MNIST kernel
+    (its object features from the GPLVM table when the run has one) and
+    SPRITES's linear x linear kernel go to the fused kernel B3 (K built
+    in-kernel); the SE kernel builds K_nm here and goes to B2.  No size
+    threshold: on CUDA the kernels always run."""
     z = gp.inducing_points
+    if isinstance(gp, MnistSVGP):
+        view, obj = gp._features(aux_train, inducing=False)
+        return fused_kernel_stats(
+            view.contiguous(), obj.contiguous(), z[:, 1:2].contiguous(),
+            z[:, 2:].contiguous(), precision, py, amp=gp.amplitude,
+            length_scale=gp.length_scale, family="mnist",
+            normalize=gp.config.K_obj_normalize)
     if gp.use_se_kernel:
         Knm = gp.kmat(aux_train, z, x_inducing=False)  # (N, m)
         return gp_sufficient_stats(Knm.contiguous(), precision, py)
@@ -359,9 +368,10 @@ def _fused_precompute_stats(gp: SpritesSVGP, aux_train: Tensor,
 
 
 @linalg.precise
-def precompute_test_posterior_terms(gp: SpritesSVGP, means: Tensor,
-                                    variances: Tensor, aux_train: Tensor):
-    """Full-train-set posterior precomputation.
+def precompute_test_posterior_terms(gp, means: Tensor, variances: Tensor,
+                                    aux_train: Tensor):
+    """Full-train-set posterior precomputation for an MnistSVGP or a
+    SpritesSVGP.
 
     means/variances: (N, L) encoder outputs over the ENTIRE train set.
     Returns (mean_terms (L, m), Sigma_inv (L, m, m), Kmm_inv (m, m)).
@@ -385,7 +395,7 @@ def precompute_test_posterior_terms(gp: SpritesSVGP, means: Tensor,
 
 
 @linalg.precise
-def posterior_from_precomputed(gp: SpritesSVGP, aux_target: Tensor,
+def posterior_from_precomputed(gp, aux_target: Tensor,
                                mean_terms: Tensor, Sigma_inv: Tensor,
                                Kmm_inv: Tensor):
     """Fast GP predictive posterior from the precomputed terms.

@@ -7,11 +7,16 @@ Public methods take and return NHWC images, (b, 64, 64, 3) or
 XLA's SAME padding is reproduced exactly: a 3x3 stride-2 conv on an even
 size (64 -> 32 -> 16 -> 8 here) pads (0, 1), not (1, 1), so those convs
 pad explicitly and use padding=0.  At stride 1 SAME is (1, 1).
+
+Every constructor initialises as flax does (`init_like_flax_`): conv and
+linear weights from lecun-normal, biases zero, drawn from the optional
+`generator` (the global RNG without one).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +24,33 @@ from torch import Tensor, nn
 
 SAFE_EXP_CAP = 15.0
 FILTERS = 16  # the reference's conv width
+# std of the unit normal truncated to [-2, 2] (flax variance_scaling's
+# "truncated_normal" divides by it, so the weights' variance is 1/fan_in)
+TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax_(module: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
+    """flax's default initialisation, in place: every Conv2d and Linear
+    weight from lecun_normal (variance_scaling(1, "fan_in",
+    "truncated_normal"): a unit normal truncated at +-2, times
+    sqrt(1 / fan_in) / TRUNC_STD; fan_in = in_channels * k_h * k_w or
+    in_features), every bias zero.  The draws are float64 on the CPU from
+    `generator`, layer by layer in definition order."""
+    lo = 0.5 * math.erfc(math.sqrt(2.0))  # Phi(-2)
+    for layer in module.modules():
+        if not isinstance(layer, (nn.Conv2d, nn.Linear)):
+            continue
+        w = layer.weight
+        std = math.sqrt(1.0 / w.shape[1:].numel()) / TRUNC_STD
+        u = torch.rand(w.shape, generator=generator, dtype=torch.float64)
+        x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo))
+                                          - 1.0)
+        w.copy_(std * x.clamp(-2.0, 2.0))
+        if layer.bias is not None:
+            layer.bias.zero_()
+    return module
 
 
 def safe_exp(x: Tensor) -> Tensor:
@@ -32,11 +64,22 @@ def upsample2x(x: Tensor) -> Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def conv2d(*args, **kwargs) -> nn.Conv2d:
+    """nn.Conv2d without torch's own initialisation (which would draw from
+    the global RNG); `init_like_flax_` fills it."""
+    return nn.utils.skip_init(nn.Conv2d, *args, **kwargs)
+
+
+def linear(*args, **kwargs) -> nn.Linear:
+    """nn.Linear without torch's own initialisation, as `conv2d`."""
+    return nn.utils.skip_init(nn.Linear, *args, **kwargs)
+
+
 def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
     """3x3 conv; SAME padding is built in at stride 1, and applied by the
     caller (`same_pad_stride2`) at stride 2."""
-    return nn.Conv2d(in_ch, out_ch, 3, stride=stride,
-                     padding=1 if stride == 1 else 0)
+    return conv2d(in_ch, out_ch, 3, stride=stride,
+                  padding=1 if stride == 1 else 0)
 
 
 def same_pad_stride2(x: Tensor) -> Tensor:
@@ -53,17 +96,19 @@ class SpritesVAE(nn.Module):
     utils.convert.params_from_jax permutes flax's (H, W, C) order to it.
     """
 
-    def __init__(self, L: int = 64):
+    def __init__(self, L: int = 64,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.L = L
         f = FILTERS
         self.enc_convs = nn.ModuleList(
             conv3x3(3 if i == 0 else f, f, stride=s)
             for i, s in enumerate((1, 2, 1, 2, 1, 2)))
-        self.enc_out = nn.Linear(64 * f, 2 * L)
-        self.dec_in = nn.Linear(L, 64 * f)
+        self.enc_out = linear(64 * f, 2 * L)
+        self.dec_in = linear(L, 64 * f)
         self.dec_convs = nn.ModuleList(conv3x3(f, f) for _ in range(6))
         self.dec_out = conv3x3(f, 3)
+        init_like_flax_(self, generator)
 
     def encode(self, images: Tensor) -> Tuple[Tensor, Tensor]:
         """NHWC images (b, 64, 64, 3) -> (mean (b, L), var (b, L))."""
@@ -94,11 +139,13 @@ class SpritesReprNet(nn.Module):
     pool -> (b, L) per frame.  (SAME padding of a 2x2 stride-2 conv on an
     even size is zero.)"""
 
-    def __init__(self, L: int = 16):
+    def __init__(self, L: int = 16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.L = L
         self.convs = nn.ModuleList(
-            nn.Conv2d(3 if i == 0 else L, L, 2, stride=2) for i in range(3))
+            conv2d(3 if i == 0 else L, L, 2, stride=2) for i in range(3))
+        init_like_flax_(self, generator)
 
     def forward(self, images: Tensor) -> Tensor:
         """NHWC images (b, 64, 64, 3) -> (b, L)."""
@@ -112,9 +159,11 @@ class ClassificationHead(nn.Module):
     """Linear classifier stacked on the repr net for its pretraining:
     (b, in_features) embeddings -> (b, num_classes) logits."""
 
-    def __init__(self, in_features: int, num_classes: int = 1000):
+    def __init__(self, in_features: int, num_classes: int = 1000,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.dense = nn.Linear(in_features, num_classes)
+        self.dense = linear(in_features, num_classes)
+        init_like_flax_(self, generator)
 
     def forward(self, embeddings: Tensor) -> Tensor:
         return self.dense(embeddings)
@@ -134,17 +183,19 @@ class MnistVAE(nn.Module):
     utils.convert.mnist_vae_state permutes flax's (H, W, C) order to it.
     """
 
-    def __init__(self, L: int = 16):
+    def __init__(self, L: int = 16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.L = L
         f = MNIST_FILTERS
         self.enc_convs = nn.ModuleList(
-            nn.Conv2d(1 if i == 0 else f, f, 3, stride=2) for i in range(3))
-        self.enc_out = nn.Linear(4 * f, 2 * L)
-        self.dec_in = nn.Linear(L, 16 * f)
+            conv2d(1 if i == 0 else f, f, 3, stride=2) for i in range(3))
+        self.enc_out = linear(4 * f, 2 * L)
+        self.dec_in = linear(L, 16 * f)
         self.dec_convs = nn.ModuleList([
-            nn.Conv2d(f, f, 3, padding=1), nn.Conv2d(f, f, 3),
-            nn.Conv2d(f, 1, 3, padding=1)])
+            conv2d(f, f, 3, padding=1), conv2d(f, f, 3),
+            conv2d(f, 1, 3, padding=1)])
+        init_like_flax_(self, generator)
 
     def encode(self, images: Tensor) -> Tuple[Tensor, Tensor]:
         """NHWC images (b, 28, 28, 1) -> (mean (b, L), var (b, L))."""

@@ -1,5 +1,6 @@
 """Serving: precompute-once conditional-generation predictors
-(port of svgpvae_tpu/serving.py, single device).
+(port of svgpvae_tpu/serving.py, single device), for the rotated-MNIST
+and SPRITES GP families.
 
   * `fit` — one pass over the encoded train set: fold the O(N) GP
     conditioning into (L, m) / (L, m, m) posterior terms (the CUDA
@@ -11,7 +12,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import Tensor
@@ -25,7 +26,7 @@ from svgpvae_tpu_torch.models.svgpvae import PVAR_CLIP
 class CGenPredictor:
     """Frozen predictor state: GP params + precomputed posterior terms."""
 
-    gp_params: gpm.SpritesSVGP
+    gp_params: Union[gpm.MnistSVGP, gpm.SpritesSVGP]
     mean_terms: Tensor  # (L, m)
     sigma_inv: Tensor   # (L, m, m)
     kmm_inv: Tensor     # (m, m)

@@ -5,15 +5,30 @@ moments, GECO state, PRNG key, step) through its jitted step.  Here the
 parameters are modules and tensors updated in place by a torch optimizer,
 and the state object holds references to them plus the GECO state and the
 step counter.  The noise of each step comes from the caller (see
-cli.mnist), not from a key in the state.
+cli.mnist), not from a key in the state.  `state_dict` /
+`load_state_dict` carry everything but the noise through a checkpoint
+(utils.checkpoint); the driver saves its noise generator beside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
+
+
+def named_tensors(params: dict) -> Dict[str, torch.Tensor]:
+    """Every parameter tensor of params ({"vae": module, "gp": parameter
+    dataclass}, plus "repr" and, for pretraining, "head" modules on
+    SPRITES) by name "<part>/<parameter name>", e.g. "vae/enc_out.weight",
+    "gp/inducing_points"."""
+    named = {}
+    for part, p in params.items():
+        items = (p.named_parameters() if isinstance(p, torch.nn.Module)
+                 else p.named_tensors().items())
+        named.update({f"{part}/{k}": v for k, v in items})
+    return named
 
 
 @dataclasses.dataclass
@@ -40,7 +55,55 @@ class TrainState:
 
     params: dict
     optimizer: torch.optim.Optimizer
-    geco: GECOState
+    geco: Optional[GECOState]
     step: int = 0
     lr_fn: Optional[Any] = None
     clip_grad_value: Optional[float] = None
+
+    def trainable_names(self) -> list:
+        return [k for k, t in named_tensors(self.params).items()
+                if t.requires_grad]
+
+    def state_dict(self) -> dict:
+        """Copies of every parameter (by named_tensors name), the names of
+        the trainable ones, the optimizer's state_dict, the GECO state and
+        the step."""
+        return {
+            "params": {k: t.detach().clone()
+                       for k, t in named_tensors(self.params).items()},
+            "trainable": self.trainable_names(),
+            "optimizer": self.optimizer.state_dict(),
+            "geco": None if self.geco is None else {
+                "C_ma": self.geco.C_ma.detach().clone(),
+                "lagrange_mult": self.geco.lagrange_mult.detach().clone()},
+            "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a `state_dict` in place: parameters copied into this
+        state's tensors (on their devices), the optimizer, GECO state and
+        step.  Refuses, naming the leaves, a checkpoint whose parameters or
+        trainable set differ from this state's (the optimizer's moments
+        belong to the trainable tensors, in order)."""
+        named = named_tensors(self.params)
+        for what, have, want in (
+                ("parameters", set(named), set(sd["params"])),
+                ("trainable parameters", set(self.trainable_names()),
+                 set(sd["trainable"]))):
+            if have != want:
+                raise ValueError(
+                    f"checkpoint {what} differ: only in the checkpoint "
+                    f"{sorted(want - have)}, only in this run "
+                    f"{sorted(have - want)}")
+        for k, t in named.items():
+            if sd["params"][k].shape != t.shape:
+                raise ValueError(f"checkpoint parameter {k}: shape "
+                                 f"{tuple(sd['params'][k].shape)}, this run "
+                                 f"{tuple(t.shape)}")
+            t.copy_(sd["params"][k])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if sd["geco"] is not None:
+            device = self.geco.C_ma.device
+            self.geco = GECOState(
+                **{k: v.to(device) for k, v in sd["geco"].items()})
+        self.step = int(sd["step"])

@@ -2,8 +2,8 @@
 svgpvae_tpu/train/trainer.py, single device, eager).
 
   * `parse_opt_regime`: 'VAE-100 GP-100 joint-50' -> per-epoch regime list;
-  * `named_tensors`: the parameters of every part ("vae", "repr", "head",
-    "gp") by name;
+  * `named_tensors` (from train/state.py, where checkpoints use it): the
+    parameters of every part ("vae", "repr", "head", "gp") by name;
   * `trainable_tensors` + `make_optimizer`: the JAX trainability mask
     becomes requires_grad and the optimizer's parameter group: a frozen
     leaf gets no gradient and no update (optax.set_to_zero);
@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from svgpvae_tpu_torch import linalg
-from svgpvae_tpu_torch.train.state import TrainState
+from svgpvae_tpu_torch.train.state import TrainState, named_tensors
 
 
 def parse_opt_regime(specs: List[str]) -> Tuple[int, List[str]]:
@@ -31,19 +31,6 @@ def parse_opt_regime(specs: List[str]) -> Tuple[int, List[str]]:
         regime, _, count = spec.rpartition("-")
         schedule.extend([regime] * int(count))
     return len(schedule), schedule
-
-
-def named_tensors(params: dict) -> Dict[str, torch.Tensor]:
-    """Every parameter tensor of params ({"vae": module, "gp": parameter
-    dataclass}, plus "repr" and, for pretraining, "head" modules on
-    SPRITES) by name "<part>/<parameter name>", e.g. "vae/enc_out.weight",
-    "gp/inducing_points"."""
-    named = {}
-    for part, p in params.items():
-        items = (p.named_parameters() if isinstance(p, torch.nn.Module)
-                 else p.named_tensors().items())
-        named.update({f"{part}/{k}": v for k, v in items})
-    return named
 
 
 def trainable_tensors(params: dict, predicate: Callable[[str], bool]

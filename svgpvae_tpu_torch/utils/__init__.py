@@ -1,1 +1,14 @@
+from svgpvae_tpu_torch.utils.checkpoint import (  # noqa: F401
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from svgpvae_tpu_torch.utils.convert import params_from_jax  # noqa: F401
+from svgpvae_tpu_torch.utils.metrics import (  # noqa: F401
+    ResultSaver,
+    count_params,
+)
+from svgpvae_tpu_torch.utils.rundir import (  # noqa: F401
+    dump_args,
+    make_checkpoint_folder,
+)

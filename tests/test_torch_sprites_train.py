@@ -581,8 +581,7 @@ def test_trainable_mask_matches_jax(flax_nets, pretrain):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "VAE"], ["--resume_dir", "x"],
-    ["--save"], ["--save_model_weights"], ["--test_set_metrics"],
+    ["--elbo", "VAE"], ["--test_set_metrics"],
     ["--bf16"], ["--bf16_hybrid"], ["--data_parallel", "2"],
     ["--profile_dir", "x"], ["--reshuffle"],
     ["--s2d64"], ["--fused_upsample"]])
@@ -594,7 +593,8 @@ def test_unported_flags_are_refused(flag, corpus):
 @pytest.mark.parametrize("flag,match", [
     (["--opt_regime", "VAE-1", "joint-1"], "jointly"),
     (["--batch_size", "120"], "multiple of 50"),
-    (["--K_SE", "--object_kernel_normalize"], "at most one")])
+    (["--K_SE", "--object_kernel_normalize"], "at most one"),
+    (["--basin_retry", "1", "--resume_dir", "x"], "cannot be combined")])
 def test_bad_configurations_are_refused(flag, match, corpus):
     with pytest.raises(SystemExit, match=match):
         tsprites.main(SLICE_ARGV + ["--device", "cpu"] + flag, splits=corpus)
