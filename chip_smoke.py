@@ -12,7 +12,8 @@ Phases, each of which raises (nonzero exit) on failure:
      a ragged small shape, B2 also at the MNIST training shapes (256 and
      164 rows in a step, 28 in the last test batch, 8,100 in the cgen
      pass; m = 32, L = 16), B1 chol_inverse at (17, 32, 32) and the
-     Titsias step's (33, 32, 32) (warp form), (65, 72, 72), (64, 72, 72),
+     Titsias step's (33, 32, 32) and the ball's (72, 15, 15) and
+     (142, 15, 15) (warp form), (65, 72, 72), (64, 72, 72),
      a ragged (5, 37, 37) and the SPRITES Titsias stack (129, 72, 72)
      (blocked form), and (17, 256, 256), (65, 288, 288) and
      (65, 512, 512) (panel form), B3 also at the MNIST serve fit
@@ -101,9 +102,22 @@ Phases, each of which raises (nonzero exit) on failure:
      serve on phase 8's run dir (B3 sprites family once in the fit) and its
      phase-5 recheck. Launch counters are zeroed just before the training
      runs and before the serves, and read just after.
+ 14. the moving ball, through svgpvae_tpu_torch.cli.ball.main at the JAX
+     driver's full width (35 videos of 30 32x32 frames, hidden 500,
+     m = 15, jitter 1e-9): (a) SVGPVAE_Hensman --clip_qs --entropy_ce
+     (the `fused_pallas` cell), 1,000 steps and one eval: B1 exactly once
+     per step and in the eval, on the (72, 15, 15) stack [K_mm;
+     Sigma_1..35] of both channels; (b) SVGPVAE_Titsias --clip_qs, 500
+     steps and one eval, B1 once per step on (142, 15, 15) [K_mm; Sigma;
+     Sigma1]; (c) the driver's default GPVAE_Pearce and the NP, 100 steps
+     each, no kernel.  For (a) and (b): the captured mid-run step's B1
+     stack recomputed on the card and held as phase 9(a) holds SPRITES's,
+     and the whole step redone on the CPU (fp32 in order, fp32 with the
+     videos reversed, f64), as phase 7.  Launch counters are zeroed just
+     before each run and read just after.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10, 11, 12 and 13, and the max error and
+the main paths of phases 4, 6, 8, 10, 11, 12, 13 and 14, and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -157,6 +171,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 B1_SHAPES = [("train", 17, 32, 1e4), ("sprites", 65, 72, 1e3),
              ("sprites_A_hat", 64, 72, 1e3), ("ragged", 5, 37, 1e4),
              ("mnist_titsias", 33, 32, 1e4),    # [K_mm; Sigma; Sigma1]
+             ("ball_hensman", 72, 15, 1e4),     # [K_mm; Sigma_1..35] x 2
+             ("ball_titsias", 142, 15, 1e4),    # [K_mm; Sigma; Sigma1] x 2
              ("sprites_titsias", 129, 72, 1e3),  # --gp_block_impl
                                                  # fused_pallas
              ("mnist_m256", 17, 256, 1e3),      # --nr_inducing_points 16
@@ -282,6 +298,20 @@ MNIST_EPOCH_STEPS = TRAIN_STEPS // 2
 # of the SPRITES step's longest sum (the decoder's output bias:
 # 500 x 64 x 64 x 3 terms).
 SPRITES_SUM_FLOOR = math.sqrt(500 * 64 * 64 * 3) * 2.0 ** -24
+# Phase 14: the moving ball at the JAX driver's widths and defaults
+# (batch 35, --tmax 30, 32x32 frames, hidden 500, --m 15, --jitter 1e-9);
+# depth cut to 1,000 Hensman steps, 500 Titsias and 100 each of Pearce
+# and NP, one eval each.  Phase 7's floor of a gradient is set by the
+# step's longest sum: the loss over 35 x 30 x 32 x 32 pixels.
+BALL_RUNS = {  # tag -> (argv, steps, B1 stack per step or None)
+    "ball_hensman_train": (["--elbo", "SVGPVAE_Hensman", "--clip_qs",
+                            "--entropy_ce"], 1000, (72, 15, 15)),
+    "ball_titsias_train": (["--elbo", "SVGPVAE_Titsias", "--clip_qs"], 500,
+                           (142, 15, 15)),
+    "ball_pearce_train": (["--elbo", "GPVAE_Pearce"], 100, None),
+    "ball_np_train": (["--elbo", "NP"], 100, None),
+}
+BALL_SUM_FLOOR = math.sqrt(35 * 30 * 32 * 32) * 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -524,7 +554,8 @@ def phase_occupancy(device) -> None:
           "size 1 (no thread-block clusters) (50000, 72, 64)")
     rows[b3] = gps.kernel_info(50_000, 72, 64, device, SLICE["d1"],
                                SLICE["d2"])
-    for B, m in ((17, 32), (33, 32), (5, 37), (65, 72), (129, 72),
+    for B, m in ((17, 32), (33, 32), (72, 15), (142, 15), (5, 37), (65, 72),
+                 (129, 72),
                  (17, 256), (65, 288)):
         info = ci.kernel_info(B, m, device)
         rows[f"chol_inverse {info['form']} form {(B, m, m)}"] = info
@@ -1014,12 +1045,20 @@ def phase_sprites_b1(res, argv=SPRITES_ARGV, m=72) -> None:
     kernel against a float64 inversion of the same fp32 stacks, within
     B1_REAL_FACTOR of the larger of the two fp32 witnesses' gaps to
     float64: the Cholesky twin and plain, unblocked Gauss-Jordan."""
+    stacks = sprites_step_stacks(res, argv, m)
+    hold_b1_on_stacks(res["captured"]["step"],
+                      zip(("[K_mm; Sigma]", "A_hat + jitter"), stacks))
+
+
+def hold_b1_on_stacks(step, tagged_stacks) -> None:
+    """B1 on a training step's own input stacks against a float64
+    inversion of the same fp32 stacks, within B1_REAL_FACTOR of the
+    larger of the two fp32 witnesses' gaps to float64: the Cholesky twin
+    and plain, unblocked Gauss-Jordan (see B1_REAL_FACTOR)."""
     import torch
     from svgpvae_tpu_torch.ops import chol_inverse as ci
 
-    cap = res["captured"]
-    stacks = sprites_step_stacks(res, argv, m)
-    for tag, M in zip(("[K_mm; Sigma]", "A_hat + jitter"), stacks):
+    for tag, M in tagged_stacks:
         form = ci.kernel_info(*M.shape[:2], M.device)["form"]
         inv, ld = ci.chol_inverse_kernel(M)
         torch.cuda.synchronize()
@@ -1041,7 +1080,7 @@ def phase_sprites_b1(res, argv=SPRITES_ARGV, m=72) -> None:
                 (1.0, float(ld64.abs().max())))):
             limit = B1_REAL_FACTOR * max(floor * scale,
                                          *(g[q] for g in wit.values()))
-            log(f"chol_inverse ({form} form) on step {cap['step']}'s {tag} "
+            log(f"chol_inverse ({form} form) on step {step}'s {tag} "
                 f"{tuple(M.shape)}: {what} kernel vs f64 {got:.3e}, "
                 + ", ".join(f"{name} vs f64 {g[q]:.3e}"
                             for name, g in wit.items())
@@ -1049,7 +1088,7 @@ def phase_sprites_b1(res, argv=SPRITES_ARGV, m=72) -> None:
             if not (np.isfinite(got) and got <= limit):
                 bad.append(what)
         if bad:
-            raise AssertionError(f"chol_inverse on step {cap['step']}'s "
+            raise AssertionError(f"chol_inverse on step {step}'s "
                                  f"{tag}: {bad} past the limit")
 
 
@@ -1283,6 +1322,184 @@ def phase_large_m(corpus, mnist_data, device) -> dict:
             "mnist_m256_train": mnist_launches}
 
 
+def phase_ball_train(tag, base_dir) -> tuple:
+    """Phase 14: one ball run of BALL_RUNS through cli.ball.main on the
+    card; returns its result and the run's launch counts.  An SVGPVAE
+    step and the eval launch B1 exactly once each (nothing else); a
+    Pearce or NP step launches nothing."""
+    import torch
+    from svgpvae_tpu_torch import ops, train
+    from svgpvae_tpu_torch.cli import ball
+
+    argv, steps, stack = BALL_RUNS[tag]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = ball.main(argv + ["--steps", str(steps), "--eval_every",
+                            str(steps), "--base_dir", base_dir, "--device",
+                            "cuda", "--seed", "0"], capture_step=steps // 2)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = res["state"]
+    enc = st.params["enc"]
+    dims = (res["captured"]["vids"].shape, enc.hidden[0].out_features)
+    if dims != ((35, 30, 32, 32), 500) or len(res["step_seconds"]) != steps:
+        raise AssertionError(f"{tag}: videos and hidden width {dims}, "
+                             f"{len(res['step_seconds'])} steps")
+    if stack is not None and tuple(st.params["gp"].inducing_points.shape) \
+            != (2, 15):
+        raise AssertionError(f"{tag}: inducing points "
+                             f"{tuple(st.params['gp'].inducing_points.shape)}")
+    for i, mt in enumerate(res["metrics"]):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {mt}")
+    check_finite(**train.named_tensors(st.params))
+    b1 = 1 if stack is not None else 0
+    want = {"chol_inverse": b1, "fused_kernel_stats": 0,
+            "gp_sufficient_stats": 0}
+    for i, sl in enumerate(res["step_launches"]):
+        if sl != want:
+            raise AssertionError(f"{tag} step {i} launched {sl}, not {want}")
+    ev = res["evals"][-1]
+    if len(res["evals"]) != 1 or not np.isfinite(ev["mse"]) or \
+            ev["launches"] != want:
+        raise AssertionError(f"{tag}: eval {ev}")
+    if launches["chol_inverse"] != b1 * (steps + 1):
+        raise AssertionError(f"{tag}: the run launched {launches}")
+    log(f"{tag}: {steps} steps; first {1e3 * res['step_seconds'][0]:.2f} "
+        f"ms, then p50 {res['step_p50_ms']:.3f} ms, p90 "
+        f"{res['step_p90_ms']:.3f} ms; eval ({ev['seconds']:.3f} s) "
+        f"trajectory MSE {ev['mse']:.4f}, elbo {ev['elbo']:.3f}; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB; launches per step "
+        f"{res['step_launches'][0]}, in the whole run {launches}")
+    return res, launches
+
+
+def _ball_step_params(cap, card_gp, device, dtype):
+    """The captured ball step's parameters as the port's modules and GP."""
+    from svgpvae_tpu_torch import gp as gpm
+    from svgpvae_tpu_torch.nn import BallDecoder, BallEncoder
+
+    snap = {k: v.detach().to(device, dtype) for k, v in cap["params"].items()}
+
+    def part(name):
+        return {k.split("/", 1)[1]: v for k, v in snap.items()
+                if k.startswith(name + "/")}
+
+    enc, dec = BallEncoder(tmax=cap["vids"].shape[1]), BallDecoder()
+    enc.load_state_dict(part("enc"))
+    dec.load_state_dict(part("dec"))
+    return {"enc": enc.to(device, dtype), "dec": dec.to(device, dtype),
+            "gp": gpm.BallSVGP(config=card_gp.config, **part("gp"))}
+
+
+def _ball_args(tag):
+    import torch
+    from svgpvae_tpu_torch import models
+    from svgpvae_tpu_torch.cli import ball
+    args = ball.build_parser().parse_args(BALL_RUNS[tag][0])
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="ball",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=torch.device("cuda"))
+    return args
+
+
+def phase_ball_b1(tag, res) -> None:
+    """Phase 14: the captured step's B1 input stack, recomputed on the
+    card from its inputs, held as phase 9(a) holds SPRITES's."""
+    import torch
+    from svgpvae_tpu_torch.cli import ball
+    from svgpvae_tpu_torch.gp import fused
+
+    cap = res["captured"]
+    args = _ball_args(tag)
+    params = _ball_step_params(cap, res["state"].params["gp"],
+                               cap["vids"].device, torch.float32)
+    stacks, kernel = [], fused.chol_inverse
+
+    def recording(M):
+        stacks.append(M.detach().clone())
+        return kernel(M)
+
+    fused.chol_inverse = recording
+    try:
+        with torch.no_grad():
+            loss, _ = ball.make_loss_fn(args, ball.make_forward(
+                args, lambda kind, shape: cap["eps"], None, args.modellt))(
+                params, cap["vids"], None, cap["step"])
+    finally:
+        fused.chol_inverse = kernel
+    log(f"{tag} step {cap['step']} recomputed on the card: loss "
+        f"{float(loss):.9g}, as captured {float(cap['loss']):.9g}")
+    want = [BALL_RUNS[tag][2]]
+    if [tuple(M.shape) for M in stacks] != want:
+        raise AssertionError(f"B1 inputs {[tuple(M.shape) for M in stacks]}"
+                             f", not {want}")
+    hold_b1_on_stacks(cap["step"], [(f"{tag} stack", stacks[0])])
+
+
+def phase_ball_cpu_check(tag, res) -> None:
+    """Phase 14: the captured step redone on the CPU with the twins, in
+    fp32 with the videos in their order and reversed (the loss is a mean
+    over videos, order-invariant), and in f64; the card's loss and
+    gradients held as phase 7 holds MNIST's."""
+    import torch
+    from svgpvae_tpu_torch import train
+    from svgpvae_tpu_torch.cli import ball
+
+    cap = res["captured"]
+    args = _ball_args(tag)
+    got = {"loss": cap["loss"], **cap["grads"]}
+
+    def cpu_step(dtype, reverse):
+        def cpu_b(t):  # a batch-axis tensor, in its order or reversed
+            t = t.detach().to("cpu", dtype)
+            return t.flip(0) if reverse else t
+        params = _ball_step_params(cap, res["state"].params["gp"],
+                                   torch.device("cpu"), dtype)
+        trainable = train.trainable_tensors(
+            params, ball.trainable_predicate(args))
+        eps, outs = cpu_b(cap["eps"]), []
+        forward = ball.make_forward(args, lambda kind, shape: eps, None,
+                                    args.modellt)
+
+        def recording(*a):
+            outs.append(forward(*a))
+            return outs[-1]
+
+        loss, _ = ball.make_loss_fn(args, recording)(
+            params, cpu_b(cap["vids"]), None, cap["step"])
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        out = outs[-1]
+        terms = sum(abs(float(t.detach().mean())) for t in (
+            out.recon, out.ce_term, out.inside_elbo, loss))
+        return ({k: v.detach().double() for k, v in
+                 {"loss": loss, **dict(zip(trainable, grads))}.items()},
+                terms)
+
+    t0 = time.perf_counter()
+    r32, _ = cpu_step(torch.float32, reverse=False)
+    r32_rev, _ = cpu_step(torch.float32, reverse=True)
+    r64, loss_terms = cpu_step(torch.float64, reverse=False)
+    log(f"cpu {tag} step {cap['step']} (fp32 twice, f64): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if set(r32) != set(got):
+        raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
+    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, r32_rev, r64,
+                    loss_terms, BALL_SUM_FLOOR)
+
+
+def phase_ball(base_dir) -> dict:
+    """Phase 14: the four ball runs, the B1 check and the CPU recheck of
+    the two SVGPVAE runs; returns each run's launch counts."""
+    launches = {}
+    for tag in BALL_RUNS:
+        res, launches[tag] = phase_ball_train(tag, base_dir)
+        if BALL_RUNS[tag][2] is not None:
+            phase_ball_b1(tag, res)
+            phase_ball_cpu_check(tag, res)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1347,6 +1564,7 @@ def main() -> int:
         "sprites")
     timed("13c", phase_cpu_check, "sprites run", sprites_served,
           RUN_FIT_NOISE_FACTOR)
+    ball_launches = timed(14, phase_ball, runs.name)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -1354,7 +1572,7 @@ def main() -> int:
              "sprites_titsias_train": sp_titsias_launches,
              "mnist_resume_train": resume_launches,
              "mnist_serve_run": mnist_serve_launches,
-             "sprites_serve_run": sprites_serve_launches}
+             "sprites_serve_run": sprites_serve_launches, **ball_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

@@ -13,7 +13,12 @@ Ported so far:
   * rotated-MNIST SVGPVAE training, Hensman bound with GECO (conv VAE,
     the periodic x linear GPLVM kernel, the fused GP block with the CUDA
     inverse/logdet kernel B1 and B2 under autograd, Adam), with its
-    eval, test and conditional-generation passes, cli/mnist.py.
+    eval, test and conditional-generation passes, cli/mnist.py;
+  * SPRITES training, the Titsias bound on both trainers, run dirs,
+    checkpoints and serving from a run, cli/sprites.py and cli/serve.py;
+  * the moving-ball family (the SVGPVAE under both bounds with B1 on the
+    per-video stacks, and the exact-GP Pearce, NP and VAE baselines),
+    cli/ball.py.
 Public functions keep the JAX layouts: images are NHWC and GP shapes
 follow svgpvae_tpu/gp/svgp.py.
 """

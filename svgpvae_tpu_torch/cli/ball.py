@@ -1,0 +1,503 @@
+"""Moving-ball experiment with the PyTorch port.
+
+    python -m svgpvae_tpu_torch.cli.ball --elbo VAE --steps 60 \
+        --eval_every 30 --device cpu                       (setup check)
+    python -m svgpvae_tpu_torch.cli.ball --elbo SVGPVAE_Hensman --clip_qs
+
+The flow of svgpvae_tpu/cli/ball.py::run_experiment for every --elbo
+(GPVAE_Pearce, VAE, NP, SVGPVAE_Hensman, SVGPVAE_Titsias): batches of 35
+videos of --tmax 32x32 frames (a ball of radius 3 on a GP path), fresh
+videos every step from a torch.Generator on the device (`data.ball`), a
+tanh-MLP encoder and decoder (hidden 500), Adam at 1e-3 (optionally
+cosine-decayed, --lr_decay; value clip 1e5 with --clip_grad), and every
+--eval_every steps the ELBO terms and the trajectory MSE (`mse_rotation`
+of the posterior means against the true paths) on the first of the ten
+fixed test batches (seeds 0..9, cached as a pickle in --base_dir).
+
+SVGPVAE ELBOs run the per-video SVGP over times 1..T (m = --m inducing
+points per channel, absolute --jitter): with --gp_block_impl
+fused_pallas (the 'auto' choice on a CUDA device) one B1 `chol_inverse`
+launch per step on the flat stack [K_mm; Sigma_1..35] of both channels,
+(72, 15, 15) at the defaults, and under SVGPVAE_Titsias on [K_mm;
+Sigma; Sigma1], (142, 15, 15).  'auto' is `reference` (Hensman) and
+`fused` (Titsias) on the CPU, as in the JAX table.  Inducing points train
+under --ip_joint and length scales under --GP_joint.  The Pearce, NP and
+VAE ELBOs run exact GPs over times 0..T-1 (a batched Cholesky, no
+kernel of the port), with per-channel length scales trained under
+--GP_joint.
+
+Weights come from flax's initialisation drawn from a torch.Generator
+seeded by --seed (0 when unset), or from --params (an .npz of flat JAX
+parameters, utils.convert.ball_params_from_jax).  The training noise
+(and the NP's context draws) continue one generator seeded by --seed;
+the eval pass draws from generators seeded with 99 (the JAX driver's
+eval key) and 100 (the NP split); the videos from a generator seeded
+with 1234 (or --seed + 1), the JAX driver's data key.  TF32 is off.
+
+Run outputs: --save makes the run dir (args.json), every eval appends to
+res/ELBO_results.csv and, for the SVGPVAE, res/GP_params.csv (the JAX
+columns); every --ckpt_every steps and at the end a checkpoint (the
+TrainState, the noise and video generators) under ckpt/ and the eval
+batch's predictions in preds/preds_<step>.p.  --resume_dir <run dir>
+continues from its latest checkpoint.  Not ported yet, refused:
+--show_pics, --squares_circles, --profile_dir, --data_parallel, and
+--plot_every when a run dir would make it draw (pass a --plot_every
+above --steps with --save).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import pickle
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from svgpvae_tpu_torch import data, gp as gpm, models, ops, train, utils
+from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
+from svgpvae_tpu_torch.nn import BallDecoder, BallEncoder
+from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
+
+BATCH, PX, PY, RADIUS = 35, 32, 32, 3.0
+EVAL_SEED = 99        # the JAX driver's eval key, jax.random.PRNGKey(99)
+EVAL_SPLIT_SEED = 100
+LR = 1e-3
+CLIP_GRAD_VALUE = 1e5
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX driver's arguments (same names and defaults), plus --device
+    and --params."""
+    p = argparse.ArgumentParser(description="Moving ball experiment "
+                                            "(PyTorch port)")
+    p.add_argument("--steps", type=int, default=25000)
+    p.add_argument("--lr_decay", type=float, default=None,
+                   help="cosine-decay the lr to lr*LR_DECAY over --steps")
+    p.add_argument("--beta0", type=float, default=1.0)
+    p.add_argument("--elbo", type=str, default="GPVAE_Pearce",
+                   choices=["GPVAE_Pearce", "VAE", "NP", "SVGPVAE_Hensman",
+                            "SVGPVAE_Titsias"])
+    p.add_argument("--modellt", type=float, default=2.0)
+    p.add_argument("--base_dir", type=str, default=os.getcwd())
+    p.add_argument("--expid", type=str, default="debug")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--tmax", type=int, default=30)
+    p.add_argument("--m", type=int, default=15)
+    p.add_argument("--GP_joint", action="store_true")
+    p.add_argument("--ip_joint", action="store_true")
+    p.add_argument("--clip_qs", action="store_true")
+    p.add_argument("--show_pics", action="store_true")
+    p.add_argument("--save", action="store_true")
+    p.add_argument("--squares_circles", action="store_true")
+    p.add_argument("--ip_min", type=float, default=1.0)
+    p.add_argument("--ip_max", type=float, default=30.0)
+    p.add_argument("--jitter", type=float, default=1e-9)
+    p.add_argument("--gp_block_impl", type=str, default="auto",
+                   choices=["reference", "fused", "fused_pallas", "auto"],
+                   help="SVGPVAE GP block: two-pass reference, fused "
+                        "(Cholesky), fused_pallas (chol_inverse: B1 on a "
+                        "CUDA device, its twin on the CPU), or auto")
+    p.add_argument("--titsias_reference_ce", action="store_true",
+                   help="Titsias: the reference's encoder cross-entropy CE "
+                        "term in place of the exact entropy (PARITY.md #13)")
+    p.add_argument("--entropy_ce", action="store_true",
+                   help="the exact sampling-distribution entropy CE term "
+                        "for any ELBO")
+    p.add_argument("--clip_grad", action="store_true")
+    p.add_argument("--vidlt", type=float, default=2.0)
+    p.add_argument("--GP_init", type=float, default=2.0)
+    p.add_argument("--full_cholesky", action="store_true",
+                   help="encoder emits per-frame full-Cholesky rows; the "
+                        "ELBOs consume their marginal variances")
+    p.add_argument("--eval_every", type=int, default=1000)
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--plot_every", type=int, default=10000)
+    p.add_argument("--ckpt_every", type=int, default=50000)
+    p.add_argument("--resume_dir", type=str, default=None)
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--params", type=str, default=None,
+                   help=".npz of flat JAX ball parameters to start from")
+    return p
+
+
+NOT_PORTED = {  # flag -> is it set?
+    "--show_pics": lambda a: a.show_pics,
+    "--squares_circles": lambda a: a.squares_circles,
+    "--profile_dir": lambda a: a.profile_dir is not None,
+    "--data_parallel": lambda a: a.data_parallel != 0,
+    # the latent pictures, drawn into a run dir every --plot_every steps
+    "--plot_every": lambda a: ((a.save or a.resume_dir is not None)
+                               and a.plot_every <= a.steps),
+}
+
+
+def refuse_unported(args) -> None:
+    for flag, is_set in NOT_PORTED.items():
+        if is_set(args):
+            raise SystemExit(f"{flag}: not ported yet")
+
+
+def load_test_batches(args) -> list:
+    """The ten fixed test batches, from the pickle cache in --base_dir
+    (written on first use, in the JAX driver's format and name)."""
+    cache = os.path.join(args.base_dir,
+                         f"Test_Batches_{args.vidlt}_{args.tmax}.pkl")
+    if os.path.isfile(cache):
+        with open(cache, "rb") as f:
+            return pickle.load(f)
+    batches = data.make_test_batches(10, tmax=args.tmax, px=PX, py=PY,
+                                     lt=args.vidlt, batch=BATCH, r=RADIUS)
+    os.makedirs(args.base_dir, exist_ok=True)
+    with open(cache, "wb") as f:
+        pickle.dump(batches, f)
+    return batches
+
+
+def build_model(args, device: torch.device) -> dict:
+    """{"enc", "dec"[, "gp"]} on `device`: flax's init from a generator
+    seeded by --seed, or --params; the SVGPVAE's BallSVGP (a linspace
+    inducing grid), or Pearce's length scales under --GP_joint."""
+    gen = torch.Generator().manual_seed(0 if args.seed is None
+                                        else args.seed)
+    params = {"enc": BallEncoder(tmax=args.tmax, px=PX, py=PY,
+                                 full_cholesky=args.full_cholesky,
+                                 generator=gen),
+              "dec": BallDecoder(px=PX, py=PY, generator=gen)}
+    if "SVGPVAE" in args.elbo:
+        cfg = gpm.SVGPConfig(titsias=args.elbo == "SVGPVAE_Titsias",
+                             jitter=args.jitter)
+        params["gp"] = gpm.init_ball_svgp(
+            args.m, tmin=args.ip_min if args.ip_joint else 1.0,
+            tmax=args.ip_max if args.ip_joint else float(args.tmax),
+            length_scale_init=args.GP_init if args.GP_joint else args.vidlt,
+            config=cfg)
+    elif args.GP_joint and args.elbo != "VAE":
+        params["gp"] = gpm.PearceLengthScales(
+            length_scale_x=torch.tensor(args.GP_init),
+            length_scale_y=torch.tensor(args.GP_init))
+    if args.params:
+        with np.load(args.params) as z:
+            port = ball_params_from_jax(dict(z))
+        params["enc"].load_state_dict(port["enc"])
+        params["dec"].load_state_dict(port["dec"])
+        if ("gp" in port) != ("gp" in params):
+            raise ValueError("--params and --elbo/--GP_joint disagree on the "
+                             "GP parameters")
+        if "gp" in port:
+            params["gp"] = dataclasses.replace(params["gp"], **port["gp"])
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def trainable_predicate(args) -> Callable[[str], bool]:
+    """As the JAX driver's mask, which only the SVGPVAE ELBOs apply:
+    inducing points under --ip_joint, length scales under --GP_joint; the
+    nets (and Pearce's length scales) always train."""
+    svgpvae = "SVGPVAE" in args.elbo
+
+    def predicate(name: str) -> bool:
+        if svgpvae and "inducing_points" in name:
+            return args.ip_joint
+        if svgpvae and "length_scale" in name:
+            return args.GP_joint
+        return True
+
+    return predicate
+
+
+def open_run_dir(args) -> Optional[str]:
+    if args.resume_dir:
+        print(f"resuming into: {args.resume_dir}")
+        return args.resume_dir
+    if not args.save:
+        return None
+    run_dir = utils.make_checkpoint_folder(args.base_dir, args.expid,
+                                           f"{args.elbo}_{args.beta0}")
+    utils.dump_args(run_dir, args)
+    print(f"checkpoint dir: {run_dir}")
+    return run_dir
+
+
+def default_np_split_fn(noise: Noise, device: torch.device) -> Callable:
+    """np_split_fn(kind, batch, tmax): "train" draws continue the training
+    noise generator, each "eval" draw a generator seeded with
+    EVAL_SPLIT_SEED."""
+    def split_fn(kind, batch, tmax):
+        gen = noise.generator if kind == "train" else torch.Generator(
+            device=device).manual_seed(EVAL_SPLIT_SEED)
+        return models.draw_np_split(batch, tmax, gen, device)
+    return split_fn
+
+
+def make_forward(args, noise: Callable, np_split_fn: Callable,
+                 model_lt: float) -> Callable:
+    """forward(params, vids, kind, beta) -> BallOutputs with this run's
+    options, eps from noise(kind, (b, T, 2)) and, for the NP,
+    np_split_fn(kind, b, T)."""
+    def forward(params, vids, kind, beta):
+        b, t = vids.shape[:2]
+        eps = noise(kind, (b, t, 2))
+        if "SVGPVAE" in args.elbo:
+            return models.ball_svgpvae_elbo(
+                params["enc"], params["dec"], params["gp"], vids, beta, eps,
+                clip_qs=args.clip_qs, gp_block_impl=args.gp_block_impl,
+                titsias_reference_ce=args.titsias_reference_ce,
+                entropy_ce=args.entropy_ce)
+        gp = params.get("gp")
+        ls = model_lt if gp is None else (gp.length_scale_x,
+                                          gp.length_scale_y)
+        split = np_split_fn(kind, b, t) if args.elbo == "NP" else None
+        return models.pearce_elbo(
+            params["enc"], params["dec"], vids, beta, eps, ls,
+            elbo_type=args.elbo, context_length_scale=model_lt,
+            entropy_ce=args.entropy_ce, split=split)
+    return forward
+
+
+def make_loss_fn(args, forward: Callable) -> Callable:
+    """loss_fn(params, vids, geco, step) -> (-mean ELBO, (None, metrics))
+    for train.train_step."""
+    def loss_fn(params, vids, geco, step):
+        out = forward(params, vids, "train", args.beta0)
+        metrics = {"elbo": out.elbo.mean().detach(),
+                   "recon": out.recon.mean().detach(),
+                   "prior_kl": out.prior_kl.mean().detach()}
+        return -out.elbo.mean(), (None, metrics)
+    return loss_fn
+
+
+ELBO_COLUMNS = ["step", "loss", "elbo", "recon", "prior_kl", "min_qv",
+                "max_qv", "min_pv", "max_pv", "inside_elbo", "ce_term",
+                "MSE", "beta", "time"]
+GP_COLUMNS = ["step", "length_scale", "ip_norm", "inducing_points"]
+
+
+def main(argv=None, video_fn: Optional[Callable] = None,
+         eps_fn: Optional[Callable] = None,
+         np_split_fn: Optional[Callable] = None,
+         capture_step: Optional[int] = None) -> dict:
+    """Train; returns {"mse" (the last eval's), "steps_per_sec",
+    "step_p50_ms", "step_p90_ms" (host clock after synchronize, the first
+    step left out), "state", "launches" (the run's kernel launches),
+    "step_seconds", "metrics", "step_launches" (per step), "evals",
+    "captured", "run_dir", "noise", "video_fn"}.
+
+    `video_fn()` -> (35, T, 32, 32) replaces the video generator,
+    `eps_fn(kind, shape)` ("train"/"eval") the noise and
+    `np_split_fn(kind, batch, T)` -> (n_ctx, perm) the NP's draws (tests
+    inject the JAX driver's).  `capture_step` keeps a copy of that step's
+    videos, parameters before it, draws and gradients."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="ball",
+        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
+    model_lt = 0.001 if args.elbo == "VAE" else args.modellt
+    if not (model_lt == args.vidlt or args.GP_joint or args.elbo == "VAE"):
+        raise ValueError("model/data GP length scales must match unless "
+                         "jointly optimized")
+    print(f"elbo {args.elbo}, gp_block_impl {args.gp_block_impl}, device "
+          f"{device}")
+
+    seed = 0 if args.seed is None else args.seed
+    run_dir = open_run_dir(args)
+    test_batches = load_test_batches(args)
+    params = build_model(args, device)
+    trainable = train.trainable_tensors(params, trainable_predicate(args))
+    print(f"parameters: {utils.count_params(params)}, trainable: "
+          f"{sum(t.numel() for t in trainable.values())}")
+    state = train.TrainState(
+        params=params, optimizer=train.make_optimizer(trainable, LR),
+        geco=None, lr_fn=train.cosine_decay_lr(LR, args.lr_decay,
+                                               args.steps),
+        clip_grad_value=CLIP_GRAD_VALUE if args.clip_grad else None)
+    noise = Noise(eps_fn or default_eps_fn(seed, device, EVAL_SEED))
+    np_split_fn = np_split_fn or default_np_split_fn(noise, device)
+    video_fn = video_fn or data.make_video_batch_fn(
+        tmax=args.tmax, px=PX, py=PY, lt=args.vidlt, batch=BATCH, r=RADIUS,
+        device=device, seed=1234 if args.seed is None else args.seed + 1)
+    ckpt_dir = os.path.join(run_dir, "ckpt") if run_dir else None
+    if args.resume_dir:
+        resume(ckpt_dir, state, noise, video_fn)
+    forward = make_forward(args, noise, np_split_fn, model_lt)
+    loss_fn = make_loss_fn(args, forward)
+
+    savers = {}
+    if run_dir:
+        savers["elbo"] = utils.ResultSaver(
+            os.path.join(run_dir, "res", "ELBO_results.csv"), ELBO_COLUMNS,
+            flush_every=1)
+        if "SVGPVAE" in args.elbo:
+            savers["gp"] = utils.ResultSaver(
+                os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
+                flush_every=1)
+    tt0, td0 = test_batches[0]
+    td0 = torch.as_tensor(td0, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def evaluate():
+        out = forward(params, td0, "eval", 1.0)
+        rp, _, mse, rv = utils.mse_rotation(
+            out.p_m.cpu().numpy().astype(np.float64), tt0,
+            out.p_v.cpu().numpy().astype(np.float64))
+        return out, mse, rp, rv
+
+    step_seconds, step_metrics, step_launches, evals = [], [], [], []
+    captured, last_mse = None, float("nan")
+    start = state.step
+    launches0 = ops.launch_counts()
+    t_start = time.perf_counter()
+    while state.step < args.steps:
+        snap = (_snapshot(state) if state.step == capture_step else None)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        vids = video_fn()
+        m = train.train_step(state, vids, loss_fn)
+        sync(device)
+        step_seconds.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        step_launches.append({k: after[k] - before[k] for k in after})
+        if snap is not None:
+            captured = dict(snap, vids=vids.clone(), eps=noise.last.clone(),
+                            loss=m["loss"], grads={
+                                k: t.grad.detach().clone()
+                                for k, t in trainable.items()})
+        step_metrics.append({k: float(v) for k, v in m.items()})
+        g_s = state.step
+
+        if g_s % args.eval_every == 0:
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            out, mse, _, _ = evaluate()
+            elbo = float(out.elbo.mean())
+            if not np.isfinite(elbo):
+                raise FloatingPointError(f"non-finite eval ELBO at step "
+                                         f"{g_s}")
+            sync(device)
+            after = ops.launch_counts()
+            last_mse = mse
+            ev = {"step": g_s, "mse": mse, "elbo": elbo,
+                  "recon": float(out.recon.mean()),
+                  "prior_kl": float(out.prior_kl.mean()),
+                  "inside_elbo": float(out.inside_elbo.mean()),
+                  "ce_term": float(out.ce_term.mean()),
+                  "seconds": time.perf_counter() - t0,
+                  "launches": {k: after[k] - before[k] for k in after}}
+            evals.append(ev)
+            print(f"{g_s}: elbo {elbo:.3f} recon {ev['recon']:.3f} priorKL "
+                  f"{ev['prior_kl']:.3f} MSE {mse:.4f}")
+            if "SVGPVAE" in args.elbo:
+                print(f"   inside-ELBO {ev['inside_elbo']:.3f} CE "
+                      f"{ev['ce_term']:.3f}")
+            if savers:
+                write_eval_rows(savers, state, out, ev, args.beta0)
+
+        if run_dir and g_s % args.ckpt_every == 0:
+            save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
+
+    elapsed = time.perf_counter() - t_start
+    steps_done = state.step - start
+    timed = np.asarray(step_seconds[1:] or step_seconds)
+    p50 = 1e3 * float(np.percentile(timed, 50)) if timed.size else None
+    p90 = 1e3 * float(np.percentile(timed, 90)) if timed.size else None
+    print(f"trained {steps_done} steps in {elapsed:.1f}s "
+          f"({steps_done / max(elapsed, 1e-9):.2f} steps/s); final MSE "
+          f"{last_mse:.4f}" + ("" if p50 is None else
+                               f"; step p50 {p50:.3f} ms, p90 {p90:.3f} ms"))
+    if run_dir:
+        save(run_dir, state, noise, video_fn, evaluate, tt0, td0,
+             preds=False)
+    end = ops.launch_counts()
+    return {"mse": last_mse,
+            "steps_per_sec": steps_done / max(elapsed, 1e-9),
+            "step_p50_ms": p50, "step_p90_ms": p90, "state": state,
+            "launches": {k: end[k] - launches0[k] for k in end},
+            "step_seconds": step_seconds, "metrics": step_metrics,
+            "step_launches": step_launches, "evals": evals,
+            "captured": captured, "run_dir": run_dir, "noise": noise,
+            "video_fn": video_fn}
+
+
+def _generator(fn) -> Optional[torch.Generator]:
+    return getattr(fn, "generator", None)
+
+
+def checkpoint_state(state, noise: Noise, video_fn) -> dict:
+    """The TrainState's state_dict and the noise and video generators'
+    states (None for an injected function without one)."""
+    gens = {k: _generator(f) for k, f in (("noise", noise),
+                                          ("videos", video_fn))}
+    return {"train_state": state.state_dict(),
+            **{k: None if g is None else g.get_state()
+               for k, g in gens.items()}}
+
+
+def resume(ckpt_dir: str, state, noise: Noise, video_fn) -> None:
+    """Restore the latest checkpoint under ckpt_dir into `state` and the
+    generators."""
+    if utils.latest_step(ckpt_dir) is None:
+        print(f"no checkpoint under {ckpt_dir}; starting afresh")
+        return
+    ckpt = utils.restore_checkpoint(ckpt_dir)
+    state.load_state_dict(ckpt["train_state"])
+    for key, fn in (("noise", noise), ("videos", video_fn)):
+        if ckpt[key] is None:
+            continue
+        gen = _generator(fn)
+        if gen is None:
+            raise ValueError(f"the checkpoint holds the {key} stream and "
+                             "this run's function has no generator")
+        gen.set_state(ckpt[key])
+    print(f"resumed from {ckpt_dir} at step {state.step}")
+
+
+def save(run_dir, state, noise, video_fn, evaluate, tt0, td0,
+         preds: bool = True) -> None:
+    """A checkpoint at the current step and (preds) the eval batch's
+    predictions, preds/preds_<step>.p (videos, paths, predicted frames,
+    aligned means and variances)."""
+    utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
+                          checkpoint_state(state, noise, video_fn),
+                          state.step)
+    if preds:
+        out, _, rp, rv = evaluate()
+        with open(os.path.join(run_dir, "preds",
+                               f"preds_{state.step}.p"), "wb") as f:
+            pickle.dump((td0.cpu().numpy(), tt0,
+                         out.pred_vid.cpu().numpy(), rp, rv), f)
+    print(f"model saved: {run_dir}")
+
+
+def write_eval_rows(savers, state, out, ev, beta0) -> None:
+    """The JAX driver's per-eval rows."""
+    savers["elbo"]([
+        ev["step"], -ev["elbo"], ev["elbo"], ev["recon"], ev["prior_kl"],
+        float(out.qnet_var.min()), float(out.qnet_var.max()),
+        float(out.p_v.min()), float(out.p_v.max()), ev["inside_elbo"],
+        ev["ce_term"], ev["mse"], beta0, time.time()])
+    if "gp" in savers:
+        gp = state.params["gp"]
+        savers["gp"]([ev["step"], gp.length_scale.detach().cpu().numpy(),
+                      float(torch.linalg.norm(gp.inducing_points.detach())),
+                      gp.inducing_points.detach().cpu().numpy()])
+
+
+def _snapshot(state) -> dict:
+    """Copies of the parameters a step starts from, by name."""
+    return {"step": state.step,
+            "params": {k: t.detach().clone() for k, t in
+                       train.named_tensors(state.params).items()}}
+
+
+if __name__ == "__main__":
+    main()

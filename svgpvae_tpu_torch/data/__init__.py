@@ -1,3 +1,10 @@
+from svgpvae_tpu_torch.data.ball import (  # noqa: F401
+    VideoBatchFn,
+    make_path_batch,
+    make_test_batches,
+    make_video_batch,
+    make_video_batch_fn,
+)
 from svgpvae_tpu_torch.data.mnist import (  # noqa: F401
     generate_init_inducing_points,
     generate_rotated_mnist,

@@ -1,12 +1,23 @@
+from svgpvae_tpu_torch.gp.exact import (  # noqa: F401
+    GP1DPosterior,
+    PearceLengthScales,
+    gp_regression_1d,
+)
 from svgpvae_tpu_torch.gp.fused import (  # noqa: F401
+    ball_gp_block,
+    ball_gp_block_titsias,
     gp_block_hensman,
     gp_block_titsias,
 )
 from svgpvae_tpu_torch.gp.svgp import (  # noqa: F401
+    BallSVGP,
     MnistSVGP,
     SVGPConfig,
     SpritesSVGP,
+    ball_posterior_params,
+    ball_variational_loss,
     hensman_terms,
+    init_ball_svgp,
     init_mnist_svgp,
     init_sprites_svgp,
     kernel_matrices,

@@ -25,6 +25,12 @@ two-pass path.
 `gp_block_titsias` evaluates the collapsed Titsias bound through the
 matrix determinant lemma and Woodbury on one more (L, m, m) stack, so the
 dense (L, b, b) covariance of the two-pass bound never exists.
+
+`ball_gp_block` and `ball_gp_block_titsias` are the same dedup for the
+moving ball's per-video GPs over time: one (C (V+1), m, m) stack
+[K_mm_c; Sigma_c1..cV] per step (Titsias: (C (2V+1), m, m), with
+Sigma1), absolute jitter only, and the batch-mean posterior covariance
+(the gp_cov diagnostic) through mean_v Sigma_v^-1.
 """
 
 from __future__ import annotations
@@ -222,3 +228,168 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
 
     mu_hat = scale * torch.einsum("mp,lp->lm", Kmm, sir)    # (L, m)
     return p_m, p_v, l2_terms, torch.zeros_like(l2_terms), mu_hat
+
+
+def _ball_assembly(gp, times: Tensor, y: Tensor, noise: Tensor):
+    """Kmm (C, m, m), Knm (C, T, m), Knn (C, T, T), y/noise/precision as
+    (C, V, T), and Sigma (C, V, m, m) / r (C, V, m) of every video."""
+    z = gp.inducing_points
+    Kmm, Knm, Knn = (gp.channel_kmat(z, z), gp.channel_kmat(times, z),
+                     gp.channel_kmat(times, times))
+    yc, nc = y.permute(2, 0, 1), noise.permute(2, 0, 1)
+    prec = linalg.reciprocal_no_nan(nc)
+    Sigma = Kmm[:, None] + torch.einsum("ctm,cvt,ctp->cvmp", Knm, prec, Knm)
+    r = torch.einsum("ctm,cvt->cvm", Knm, prec * yc)
+    return Kmm, Knm, Knn, yc, nc, prec, Sigma, r
+
+
+def _ball_cov_mean(Knn, Knm, W, SigInv_Kmn):
+    """mean_v B_v = Knn - Knm Kmm^-1 Kmn + Knm (mean_v Sigma_v^-1) Kmn,
+    (C, T, T)."""
+    return (Knn - torch.einsum("ctm,cms->cts", Knm, W)
+            + torch.einsum("ctm,cms->cts", Knm, SigInv_Kmn.mean(dim=1)))
+
+
+def _out(p_m, p_v, terms, kl, cov_mean):
+    """(C, V, .) -> the (V, T, C) / (V, C) / (T, T, C) layouts."""
+    return (p_m.permute(1, 2, 0), p_v.permute(1, 2, 0), terms.T, kl.T,
+            cov_mean.permute(1, 2, 0))
+
+
+@linalg.precise
+def ball_gp_block(gp, times: Tensor, y: Tensor, noise: Tensor,
+                  inverse_impl: str = "chol"):
+    """Fused moving-ball GP block: posterior + Hensman inside-ELBO.
+
+    The posterior is evaluated at the video's own time grid, so the loss's
+    mean vector W^T mu_hat == Knm sir == p_m, w^T A_hat w == sig_quad, and
+    the KL closes over Sigma (logdet A_hat = 2 logdet Kmm - logdet Sigma).
+    kl_terms honours config.ball_kl_quirk.
+
+    times (T,); y/noise (V, T, C).  Returns (p_m (V, T, C), p_v (V, T, C),
+    sum_terms (V, C), kl_terms (V, C), gp_cov_mean (T, T, C)).  With
+    inverse_impl="pallas" ONE chol_inverse call takes the flat
+    (C (V+1), m, m) stack (B1 on a CUDA tensor)."""
+    if inverse_impl not in INVERSE_IMPLS:
+        raise ValueError(f"inverse_impl {inverse_impl!r}")
+    cfg = gp.config
+    Kmm, Knm, Knn, yc, nc, prec, Sigma, r = _ball_assembly(gp, times, y,
+                                                           noise)
+    C, V, T = yc.shape
+    m = Kmm.shape[-1]
+    M = torch.cat([linalg.add_jitter(Kmm, cfg.jitter)[:, None],
+                   linalg.add_jitter(Sigma, cfg.jitter)], dim=1)
+    KmnT = Knm.transpose(-1, -2)                          # (C, m, T)
+    if inverse_impl == "pallas":
+        Minv, lds = chol_inverse(M.reshape(C * (V + 1), m, m))
+        Minv, lds = Minv.reshape(C, V + 1, m, m), lds.reshape(C, V + 1)
+        Kmm_inv, Sigma_inv = Minv[:, 0], Minv[:, 1:]
+        logdet_K, logdet_S = lds[:, 0], lds[:, 1:]
+        sir = torch.einsum("cvmp,cvp->cvm", Sigma_inv, r)
+        W = Kmm_inv @ KmnT
+        SigInv_Kmn = torch.einsum("cvmp,ctp->cvmt", Sigma_inv, Knm)
+        E = torch.einsum("cvmp,cpq->cvmq", Sigma_inv, Kmm)  # Sigma^-1 Kmm
+    else:
+        chol = linalg.safe_cholesky(M, 0.0)  # NaN, not an error, if not PD
+        Kmm_chol, Sigma_chol = chol[:, 0], chol[:, 1:]
+        logdet_K = linalg.logdet_from_chol(Kmm_chol)      # (C,)
+        logdet_S = linalg.logdet_from_chol(Sigma_chol)    # (C, V)
+        sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]
+        W = linalg.cho_solve(Kmm_chol, KmnT)
+        SigInv_Kmn = linalg.cho_solve(Sigma_chol,
+                                      KmnT[:, None].expand(C, V, m, T))
+        E = linalg.cho_solve(Sigma_chol, Kmm[:, None].expand(C, V, m, m))
+
+    tr_SiK = torch.diagonal(E, dim1=-2, dim2=-1).sum(dim=-1)  # (C, V)
+    p_m = torch.einsum("ctm,cvm->cvt", Knm, sir)          # (C, V, T)
+    nystrom = torch.einsum("ctm,cmt->ct", Knm, W)         # (C, T)
+    sig_quad = torch.einsum("ctm,cvmt->cvt", Knm, SigInv_Kmn)
+    k_tilde = 1.0 - nystrom  # the unit-amplitude RBF's diagonal is 1
+    p_v = k_tilde[:, None] + sig_quad                     # (C, V, T)
+
+    sum_terms = -0.5 * (
+        torch.einsum("cvt,ct->cv", prec, k_tilde)
+        + torch.sum(prec * sig_quad, dim=-1)
+        + torch.sum(torch.log(nc), dim=-1) + T * linalg.LOG_2PI
+        + torch.sum(prec * (yc - p_m) ** 2, dim=-1))      # (C, V)
+
+    # logdet K - logdet A_hat == logdet S - logdet K in both KL forms
+    ld_gap = logdet_S - logdet_K[:, None]                 # (C, V)
+    if cfg.ball_kl_quirk:
+        # the reference's sum(A * Kmm^-1 A) = tr(Kmm E E)
+        quirk_quad = torch.einsum("cmp,cvpq,cvqm->cv", Kmm, E, E)
+        kl_terms = 0.5 * (ld_gap - m + tr_SiK + quirk_quad)
+    else:
+        quad = torch.einsum("cvm,cmp,cvp->cv", sir, Kmm, sir)
+        kl_terms = 0.5 * (tr_SiK + quad - m + ld_gap)
+    return _out(p_m, p_v, sum_terms, kl_terms,
+                _ball_cov_mean(Knn, Knm, W, SigInv_Kmn))
+
+
+@linalg.precise
+def ball_gp_block_titsias(gp, times: Tensor, y: Tensor, noise: Tensor,
+                          inverse_impl: str = "chol"):
+    """Fused moving-ball Titsias block: posterior + the collapsed bound
+    through the determinant lemma and Woodbury on Sigma1 = Kmm_j + Kmn
+    D'^-1 Knm, D' = diag(noise + jitter) (the dense path's jittered
+    covariance), batched over channels and videos.
+
+    times (T,); y/noise (V, T, C).  Returns (p_m, p_v, l2_terms (V, C),
+    zeros (V, C), gp_cov_mean (T, T, C)).  With inverse_impl="pallas"
+    ONE chol_inverse call takes the flat (C (2V+1), m, m) stack
+    [Kmm_j; Sigma; Sigma1] per channel."""
+    if inverse_impl not in INVERSE_IMPLS:
+        raise ValueError(f"inverse_impl {inverse_impl!r}")
+    cfg = gp.config
+    Kmm, Knm, Knn, yc, nc, prec, Sigma, r = _ball_assembly(gp, times, y,
+                                                           noise)
+    C, V, T = yc.shape
+    m = Kmm.shape[-1]
+    # the bound's statistics at the jittered noise
+    nc_b = nc + cfg.jitter
+    prec_b = linalg.reciprocal_no_nan(nc_b)
+    Kmm_j = linalg.add_jitter(Kmm, cfg.jitter)
+    Sigma1 = Kmm_j[:, None] + torch.einsum("ctm,cvt,ctp->cvmp", Knm, prec_b,
+                                           Knm)
+    r_b = torch.einsum("ctm,cvt->cvm", Knm, prec_b * yc)
+    M = torch.cat([Kmm_j[:, None], linalg.add_jitter(Sigma, cfg.jitter),
+                   Sigma1], dim=1)                        # (C, 2V+1, m, m)
+    KmnT = Knm.transpose(-1, -2)
+    if inverse_impl == "pallas":
+        Minv, lds = chol_inverse(M.reshape(C * (2 * V + 1), m, m))
+        Minv = Minv.reshape(C, 2 * V + 1, m, m)
+        lds = lds.reshape(C, 2 * V + 1)
+        Kmm_inv, Sigma_inv = Minv[:, 0], Minv[:, 1:V + 1]
+        Sigma1_inv = Minv[:, V + 1:]
+        logdet_K, logdet_S1 = lds[:, 0], lds[:, V + 1:]
+        sir = torch.einsum("cvmp,cvp->cvm", Sigma_inv, r)
+        W = Kmm_inv @ KmnT
+        SigInv_Kmn = torch.einsum("cvmp,ctp->cvmt", Sigma_inv, Knm)
+        s1ir = torch.einsum("cvmp,cvp->cvm", Sigma1_inv, r_b)
+    else:
+        chol = linalg.safe_cholesky(M, 0.0)  # NaN, not an error, if not PD
+        Kmm_chol, Sigma_chol = chol[:, 0], chol[:, 1:V + 1]
+        Sigma1_chol = chol[:, V + 1:]
+        logdet_K = linalg.logdet_from_chol(Kmm_chol)      # (C,)
+        logdet_S1 = linalg.logdet_from_chol(Sigma1_chol)  # (C, V)
+        sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]
+        W = linalg.cho_solve(Kmm_chol, KmnT)
+        SigInv_Kmn = linalg.cho_solve(Sigma_chol,
+                                      KmnT[:, None].expand(C, V, m, T))
+        s1ir = linalg.cho_solve(Sigma1_chol, r_b[..., None])[..., 0]
+
+    p_m = torch.einsum("ctm,cvm->cvt", Knm, sir)          # (C, V, T)
+    nystrom = torch.einsum("ctm,cmt->ct", Knm, W)         # (C, T) == diag(Q)
+    sig_quad = torch.einsum("ctm,cvmt->cvt", Knm, SigInv_Kmn)
+    k_tilde = 1.0 - nystrom
+    p_v = k_tilde[:, None] + sig_quad
+
+    logdet = (torch.sum(torch.log(nc_b), dim=-1)
+              + logdet_S1 - logdet_K[:, None])            # (C, V)
+    quad = (torch.sum(prec_b * yc * yc, dim=-1)
+            - torch.sum(r_b * s1ir, dim=-1))              # (C, V)
+    # floored Nystrom residual (PARITY.md #11)
+    trace = torch.einsum("cvt,ct->cv", prec, torch.clamp(k_tilde, min=0.0))
+    l2_terms = -0.5 * (T * linalg.LOG_2PI + logdet + quad + trace)
+    return _out(p_m, p_v, l2_terms, torch.zeros_like(l2_terms),
+                _ball_cov_mean(Knn, Knm, W, SigInv_Kmn))

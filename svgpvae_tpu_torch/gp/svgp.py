@@ -1,6 +1,7 @@
-"""Sparse variational GP core (port of svgpvae_tpu/gp/svgp.py: the MNIST
-and SPRITES GP families, the two-pass batch-level Hensman and Titsias
-math, and the test-time pipeline of both families).
+"""Sparse variational GP core (port of svgpvae_tpu/gp/svgp.py: the MNIST,
+SPRITES and moving-ball GP families, the two-pass batch-level Hensman and
+Titsias math, the two-pass per-video ball math, and the test-time
+pipeline of the MNIST and SPRITES families).
 
 Parameters are small dataclasses of tensors; all L latent channels are
 processed at once with batched Cholesky factorizations.  The batch-level
@@ -46,6 +47,9 @@ class SVGPConfig:
     jitter: float = 1e-6
     K_obj_normalize: bool = False
     N_train: int = 0
+    # the reference ball-SVGP KL quirk: sum(A_hat * K_mm^-1 A_hat) in
+    # place of mu_hat^T K_mm^-1 mu_hat (off: the correct KL)
+    ball_kl_quirk: bool = False
 
 
 def _named_tensors(obj) -> Dict[str, Tensor]:
@@ -169,6 +173,43 @@ class SpritesSVGP:
 
     named_tensors = _named_tensors
     to = _to
+
+
+@dataclasses.dataclass
+class BallSVGP:
+    """Per-latent-channel sparse GP over 1-D time, parameters stacked over
+    the C latent channels (C = 2 for the moving ball): an RBF kernel of
+    unit amplitude per channel."""
+
+    config: SVGPConfig
+    inducing_points: Tensor  # (C, m)
+    length_scale: Tensor     # (C,)
+
+    def channel_kmat(self, x: Tensor, y: Tensor) -> Tensor:
+        """x (C, n) or (n,), y (C, p) or (p,) -> (C, n, p), channel c with
+        length_scale[c]; the ||x||^2 - 2xy + ||y||^2 expansion clamped at
+        0, as kernels.rbf_matrix."""
+        x = x.expand(self.length_scale.shape[0], -1) if x.dim() == 1 else x
+        y = y.expand(self.length_scale.shape[0], -1) if y.dim() == 1 else y
+        d2 = (x * x)[:, :, None] - 2.0 * (x[:, :, None] * y[:, None, :]) \
+            + (y * y)[:, None, :]
+        ls = self.length_scale[:, None, None]
+        return torch.exp(-0.5 * torch.clamp(d2, min=0.0) / (ls * ls))
+
+    named_tensors = _named_tensors
+    to = _to
+
+
+def init_ball_svgp(num_inducing: int, tmin: float, tmax: float,
+                   length_scale_init: float, n_channels: int = 2,
+                   config: SVGPConfig = SVGPConfig(),
+                   dtype=torch.float32) -> BallSVGP:
+    """A linspace inducing grid per channel."""
+    ip = torch.linspace(tmin, tmax, num_inducing, dtype=dtype)
+    return BallSVGP(config=config,
+                    inducing_points=ip[None, :].repeat(n_channels, 1),
+                    length_scale=torch.full((n_channels,), length_scale_init,
+                                            dtype=dtype))
 
 
 def init_mnist_svgp(initial_inducing_points, object_vectors_init=None,
@@ -410,3 +451,103 @@ def posterior_from_precomputed(gp, aux_target: Tensor,
     sig_quad = torch.einsum("xm,lmp,xp->xl", Kbm, Sigma_inv, Kbm)  # (x, L)
     p_v = (Kbb_diag - nystrom)[:, None] + sig_quad
     return p_m, p_v
+
+
+# ---------------------------------------------------------------------------
+# ball variant: per-video GPs over time, full posterior covariance
+# ---------------------------------------------------------------------------
+
+
+def _ball_kernels(gp: BallSVGP, times: Tensor):
+    """(Kmm (C, m, m), Kmm_chol, Knm (C, T, m)); the Cholesky with the
+    absolute jitter only (no relative ridge on the ball path)."""
+    z = gp.inducing_points
+    Kmm = gp.channel_kmat(z, z)
+    return Kmm, linalg.safe_cholesky(Kmm, gp.config.jitter), \
+        gp.channel_kmat(times, z)
+
+
+@linalg.precise
+def ball_posterior_params(gp: BallSVGP, times: Tensor, y: Tensor,
+                          noise: Tensor):
+    """Posterior of the moving-ball SVGP, every channel and video at once.
+
+    times (T,) shared grid; y/noise (V, T, C).  Returns p_m (V, T, C), the
+    full covariance p_cov (V, T, T, C), mu_hat (V, m, C) and A_hat
+    (V, m, m, C).  No minibatch bias correction: each video is a complete
+    dataset."""
+    jitter = gp.config.jitter
+    Kmm, Kmm_chol, Knm = _ball_kernels(gp, times)
+    Knn = gp.channel_kmat(times, times)                    # (C, T, T)
+    KmnT = Knm.transpose(-1, -2)                           # (C, m, T)
+    yc, nc = y.permute(2, 0, 1), noise.permute(2, 0, 1)    # (C, V, T)
+    prec = linalg.reciprocal_no_nan(nc)
+    C, V, T = yc.shape
+    m = Kmm.shape[-1]
+
+    Sigma = Kmm[:, None] + KmnT[:, None] @ (prec[..., None] * Knm[:, None])
+    Sigma_chol = linalg.safe_cholesky(Sigma, jitter)       # (C, V, m, m)
+    r = (KmnT[:, None] @ (prec * yc)[..., None])[..., 0]   # (C, V, m)
+    sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]
+    SigInv_Kmn = linalg.cho_solve(Sigma_chol, KmnT[:, None].expand(
+        C, V, m, T))                                       # (C, V, m, T)
+    KmmInv_Kmn = linalg.cho_solve(Kmm_chol, KmnT)          # (C, m, T)
+    p_m = (Knm[:, None] @ sir[..., None])[..., 0]          # (C, V, T)
+    B = (Knn - Knm @ KmmInv_Kmn)[:, None] + Knm[:, None] @ SigInv_Kmn
+    mu_hat = (Kmm[:, None] @ sir[..., None])[..., 0]       # (C, V, m)
+    A_hat = Kmm[:, None] @ linalg.cho_solve(
+        Sigma_chol, Kmm[:, None].expand(C, V, m, m))
+    return (p_m.permute(1, 2, 0), B.permute(1, 2, 3, 0),
+            mu_hat.permute(1, 2, 0), A_hat.permute(1, 2, 3, 0))
+
+
+@linalg.precise
+def ball_variational_loss(gp: BallSVGP, times: Tensor, y: Tensor,
+                          noise: Tensor, mu_hat: Tensor, A_hat: Tensor):
+    """Inside-ELBO of the ball SVGP per video and channel.
+
+    y/noise (V, T, C); mu_hat (V, m, C); A_hat (V, m, m, C).  Returns
+    (sum_terms (V, C), kl_terms (V, C)); under config.titsias the
+    collapsed bound through the dense (T, T) covariance and a zero KL."""
+    cfg = gp.config
+    Kmm, Kmm_chol, Knm = _ball_kernels(gp, times)
+    m = Kmm.shape[-1]
+    W = linalg.cho_solve(Kmm_chol, Knm.transpose(-1, -2))   # (C, m, T)
+    k_tilde = 1.0 - torch.sum(Knm * W.transpose(-1, -2), dim=-1)  # (C, T)
+    yc, nc = y.permute(2, 0, 1), noise.permute(2, 0, 1)     # (C, V, T)
+    prec = linalg.reciprocal_no_nan(nc)
+    C, V, T = yc.shape
+
+    if cfg.titsias:
+        Q = Knm @ W                                          # (C, T, T)
+        cov_chol = linalg.safe_cholesky(Q[:, None] + torch.diag_embed(nc),
+                                        cfg.jitter)          # (C, V, T, T)
+        logdet = linalg.logdet_from_chol(cov_chol)
+        alpha = linalg.cho_solve(cov_chol, yc[..., None])[..., 0]
+        quad = torch.sum(yc * alpha, dim=-1)
+        # floored Nystrom residual (PARITY.md #11)
+        trace = torch.sum(prec * torch.clamp(k_tilde, min=0.0)[:, None],
+                          dim=-1)
+        l2 = -0.5 * (T * linalg.LOG_2PI + logdet + quad + trace)
+        return l2.T, torch.zeros_like(l2).T
+
+    mu, A = mu_hat.permute(2, 0, 1), A_hat.permute(3, 0, 1, 2)
+    mean_vec = torch.einsum("cmt,cvm->cvt", W, mu)
+    wAw = torch.einsum("cmt,cvmp,cpt->cvt", W, A, W)
+    sum_terms = -0.5 * (
+        torch.sum(prec * k_tilde[:, None], dim=-1)
+        + torch.sum(prec * wAw, dim=-1)
+        + torch.sum(torch.log(nc), dim=-1) + T * linalg.LOG_2PI
+        + torch.sum(prec * (yc - mean_vec) ** 2, dim=-1))    # (C, V)
+    K_chol = Kmm_chol[:, None].expand(C, V, m, m)
+    if cfg.ball_kl_quirk:
+        # the reference's A_hat-quadratic term in place of mu's
+        S_chol = linalg.safe_cholesky(A, cfg.jitter)
+        KiA = linalg.cho_solve(K_chol, A)
+        kl = 0.5 * (linalg.logdet_from_chol(K_chol)
+                    - linalg.logdet_from_chol(S_chol) - m
+                    + torch.diagonal(KiA, dim1=-2, dim2=-1).sum(dim=-1)
+                    + torch.sum(A * KiA, dim=(-2, -1)))
+    else:
+        kl = linalg.mvn_kl_against_prior(mu, A, K_chol, cfg.jitter)
+    return sum_terms.T, kl.T

@@ -1,3 +1,12 @@
+from svgpvae_tpu_torch.models.ball import (  # noqa: F401
+    BALL_PVAR_CLIP,
+    BALL_QVAR_CLIP,
+    BallOutputs,
+    ball_svgpvae_elbo,
+    draw_np_split,
+    full_cholesky_marginal_vars,
+    pearce_elbo,
+)
 from svgpvae_tpu_torch.models.svgpvae import (  # noqa: F401
     GP_BLOCK_AUTO_TABLE,
     PVAR_CLIP,

@@ -70,6 +70,20 @@ GP_BLOCK_AUTO_TABLE = {
     ("sprites", "titsias", "other"): (
         "fused", "mirrors JAX (sprites, titsias, other); tests/"
         "test_torch_titsias.py::test_forward_pass_matches_jax"),
+    # moving ball: the JAX table's cells (svgpvae_tpu/models/svgpvae.py:
+    # 38-41, 64-67); one B1 launch per step on the whole flat stack
+    ("ball", "hensman", "cuda"): (
+        "fused_pallas", "mirrors JAX (ball, hensman, tpu); one (72, 15, 15) "
+        "B1 launch per step, [K_mm; Sigma_1..35] per channel"),
+    ("ball", "hensman", "other"): (
+        "reference", "mirrors JAX (ball, hensman, other): the two-pass "
+        "parity anchor"),
+    ("ball", "titsias", "cuda"): (
+        "fused_pallas", "mirrors JAX (ball, titsias, tpu); one (142, 15, 15) "
+        "B1 launch per step, [K_mm; Sigma; Sigma1] per channel"),
+    ("ball", "titsias", "other"): (
+        "fused", "mirrors JAX (ball, titsias, other): the Woodbury block, "
+        "never the dense fp32 bound"),
 }
 
 

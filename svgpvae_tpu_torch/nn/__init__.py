@@ -1,4 +1,6 @@
 from svgpvae_tpu_torch.nn.nets import (  # noqa: F401
+    BallDecoder,
+    BallEncoder,
     ClassificationHead,
     MnistVAE,
     SpritesReprNet,

@@ -1,6 +1,6 @@
-"""SPRITES and rotated-MNIST networks as torch nn.Modules (port of the
-SPRITES and MNIST parts of svgpvae_tpu/nn/nets.py; SPRITES in the
-reference form only: 16 filters, plain convs).
+"""SPRITES, rotated-MNIST and moving-ball networks as torch nn.Modules
+(port of the SPRITES, MNIST and ball parts of svgpvae_tpu/nn/nets.py;
+SPRITES in the reference form only: 16 filters, plain convs).
 
 Public methods take and return NHWC images, (b, 64, 64, 3) or
 (b, 28, 28, 1), like the flax modules; the modules work in NCHW inside.
@@ -16,7 +16,7 @@ linear weights from lecun-normal, biases zero, drawn from the optional
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -215,3 +215,54 @@ class MnistVAE(nn.Module):
     def forward(self, images: Tensor):
         mean, var = self.encode(images)
         return self.decode(mean), mean, var
+
+
+class BallEncoder(nn.Module):
+    """Flattened frames -> tanh MLP -> per-frame 2-D mean and variance:
+    (b, T, px, py) videos -> (mean (b, T, 2), var (b, T, 2)).  With
+    `full_cholesky` the head is 2 (T + 1) wide and the variances are
+    (b, T, 2T) stacked full-Cholesky rows.  Each frame is flattened in
+    row-major (px, py) order, as the flax module reshapes."""
+
+    def __init__(self, tmax: int = 30, px: int = 32, py: int = 32,
+                 hidden: Sequence[int] = (500,), full_cholesky: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.full_cholesky = full_cholesky
+        self.out_dim = 2 * (tmax + 1) if full_cholesky else 4
+        widths = [px * py, *hidden]
+        self.hidden = nn.ModuleList(linear(a, b)
+                                    for a, b in zip(widths, widths[1:]))
+        self.out = linear(widths[-1], self.out_dim)
+        init_like_flax_(self, generator)
+
+    def forward(self, vids: Tensor) -> Tuple[Tensor, Tensor]:
+        b, t, px, py = vids.shape
+        h = vids.reshape(b * t, px * py)
+        for layer in self.hidden:
+            h = torch.tanh(layer(h))
+        h = self.out(h).reshape(b, t, self.out_dim)
+        return h[:, :, :2], safe_exp(h[:, :, 2:])
+
+
+class BallDecoder(nn.Module):
+    """2-D latents -> tanh MLP -> per-frame Bernoulli logits: (b, T, 2) ->
+    (b, T, px, py)."""
+
+    def __init__(self, px: int = 32, py: int = 32,
+                 hidden: Sequence[int] = (500,),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.px, self.py = px, py
+        widths = [2, *hidden]
+        self.hidden = nn.ModuleList(linear(a, b)
+                                    for a, b in zip(widths, widths[1:]))
+        self.out = linear(widths[-1], px * py)
+        init_like_flax_(self, generator)
+
+    def forward(self, latents: Tensor) -> Tensor:
+        b, t, d = latents.shape
+        h = latents.reshape(b * t, d)
+        for layer in self.hidden:
+            h = torch.tanh(layer(h))
+        return self.out(h).reshape(b, t, self.px, self.py)

@@ -7,6 +7,8 @@ from svgpvae_tpu_torch.utils.convert import params_from_jax  # noqa: F401
 from svgpvae_tpu_torch.utils.metrics import (  # noqa: F401
     ResultSaver,
     count_params,
+    mse_rotation,
+    post_process_full_cholesky,
 )
 from svgpvae_tpu_torch.utils.rundir import (  # noqa: F401
     dump_args,

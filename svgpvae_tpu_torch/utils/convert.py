@@ -17,6 +17,14 @@ head/params/Dense_0/...) and returns the port's modules and SpritesSVGP:
 {"vae": SpritesVAE, "repr": SpritesReprNet, "gp": SpritesSVGP, "head":
 ClassificationHead (when present)}.
 
+`ball_params_from_jax` takes the flat parameters of a moving-ball run
+({"enc": flax BallEncoder params, "dec": BallDecoder params, "gp":
+BallSVGP, or Pearce's {"length_scale_x", "length_scale_y"} under
+--GP_joint}, flattened alike: enc/params/Dense_0/kernel, ...,
+gp/inducing_points) and returns {"enc": BallEncoder state dict, "dec":
+BallDecoder state dict, "gp": {field: tensor}} (no "gp" when the run has
+none).  `params_from_jax` dispatches a ball tree to it.
+
 `mnist_params_from_jax` does the same for a rotated-MNIST SVGPVAE
 ({"vae": flax MnistVAE params, "gp": MnistSVGP}, flattened alike:
 vae/params/encoder/Conv_0/kernel, ..., gp/inducing_points, ...) and
@@ -105,7 +113,10 @@ def sprites_repr_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
-    """Flat JAX SPRITES SVGPVAE parameters -> the port's (see module doc)."""
+    """Flat JAX SPRITES SVGPVAE parameters -> the port's (see module doc);
+    a moving-ball tree (enc/..., dec/...) goes to ball_params_from_jax."""
+    if any(k.startswith("enc/") for k in flat):
+        return ball_params_from_jax(flat)
     missing = [f"gp/{k}" for k in GP_FIELDS if f"gp/{k}" not in flat]
     if missing:
         raise KeyError(f"missing GP parameters: {missing}")
@@ -182,3 +193,34 @@ def mnist_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
     if "gp/object_vectors" in flat:
         gp["object_vectors"] = _t(flat["gp/object_vectors"])
     return {"vae": mnist_vae_state(_module(flat, "vae/params")), "gp": gp}
+
+
+BALL_GP_FIELDS = (("inducing_points", "length_scale"),
+                  ("length_scale_x", "length_scale_y"))
+
+
+def ball_mlp_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:
+    """State dict of nn.nets.BallEncoder / BallDecoder from the flax MLP
+    params ({"Dense_0": ..., ..., "Dense_k": ...}): the first k Dense
+    layers are the hidden ones, the last the head; flax kernels (in, out)
+    become torch weights (out, in)."""
+    n = len(p)
+    state = {}
+    for i in range(n):
+        name = "out" if i == n - 1 else f"hidden.{i}"
+        state[f"{name}.weight"] = _t(p[f"Dense_{i}"]["kernel"].T)
+        state[f"{name}.bias"] = _t(p[f"Dense_{i}"]["bias"])
+    return state
+
+
+def ball_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
+    """Flat JAX moving-ball parameters -> the port's (see the module
+    doc)."""
+    out = {"enc": ball_mlp_state(_module(flat, "enc/params")),
+           "dec": ball_mlp_state(_module(flat, "dec/params"))}
+    gp_keys = {k[3:] for k in flat if k.startswith("gp/")}
+    if gp_keys:
+        if gp_keys not in [set(f) for f in BALL_GP_FIELDS]:
+            raise KeyError(f"unknown ball GP parameters: {sorted(gp_keys)}")
+        out["gp"] = {k: _t(flat[f"gp/{k}"]) for k in sorted(gp_keys)}
+    return out

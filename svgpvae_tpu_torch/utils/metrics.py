@@ -1,6 +1,10 @@
-"""Result persistence (port of the ResultSaver and count_params parts of
-svgpvae_tpu/utils/metrics.py).
+"""Metrics and result persistence (port of svgpvae_tpu/utils/metrics.py,
+less its NaN sentinel).
 
+  * `mse_rotation` -- the moving-ball trajectory metric: affine-align
+    predicted latents to the true 2-D paths by least squares and report
+    the residual MSE; `post_process_full_cholesky` reduces a
+    full-Cholesky head's rows to marginal variances first;
   * `ResultSaver` -- named-column row appender persisted as CSV; recovers
     an existing file whose header matches (a resumed run appends to it),
     else starts a timestamped sibling;
@@ -13,11 +17,49 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from svgpvae_tpu_torch.train.state import named_tensors
+
+
+def mse_rotation(X: np.ndarray, Y: np.ndarray,
+                 VX: Optional[np.ndarray] = None,
+                 full_cholesky: bool = False
+                 ) -> Tuple[np.ndarray, np.ndarray, float, np.ndarray]:
+    """Least-squares affine alignment of latents X onto true paths Y.
+
+    X, Y: (batch, tmax, 2); VX optional per-point diagonal variances, or
+    with `full_cholesky` (batch, tmax, 2 tmax) stacked Cholesky rows.
+    Returns (X_aligned, W (3, 2), MSE, VX_aligned (batch, tmax, 2, 2)).
+    """
+    batch, tmax, _ = X.shape
+    if VX is not None and full_cholesky:
+        VX = post_process_full_cholesky(VX, tmax)
+    Xf = np.concatenate([X.reshape(-1, 2), np.ones((batch * tmax, 1))],
+                        axis=1)
+    Yf = Y.reshape(-1, 2)
+    W, residuals, _, _ = np.linalg.lstsq(Xf, Yf, rcond=None)
+    mse = float(residuals.sum()) if len(residuals) == 2 else float("nan")
+    X_rot = (Xf @ W).reshape(batch, tmax, 2)
+
+    VX_rot = np.zeros((batch, tmax, 2, 2))
+    if VX is not None:
+        A = W[:2, :]  # (2, 2) linear part
+        VX_rot = np.einsum("ij,btj,jk->btik", A.T, VX, A)
+    return X_rot, W, mse, VX_rot
+
+
+def post_process_full_cholesky(arr: np.ndarray, tmax: int) -> np.ndarray:
+    """(batch, tmax, 2 tmax) stacked lower-triangular Cholesky rows ->
+    (batch, tmax, 2) marginal variances."""
+    def tri_var(block):
+        tri = np.tril(block)
+        return np.diagonal(tri @ np.transpose(tri, (0, 2, 1)),
+                           axis1=1, axis2=2)
+    return np.stack([tri_var(arr[:, :, :tmax]), tri_var(arr[:, :, tmax:])],
+                    axis=2)
 
 
 class ResultSaver:

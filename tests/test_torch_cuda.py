@@ -553,3 +553,64 @@ def _hold_to_twin_gap(M):
         assert np.isfinite(got)
         assert got <= B1_REAL_FACTOR * max(twin, floor * scale), \
             (tuple(M.shape), got, twin)
+
+
+def _ball_step_stack(device, titsias):
+    """The B1 input of one ball step, as gp.fused.ball_gp_block(_titsias)
+    builds it at the driver's defaults (35 videos of T = 30 frames, two
+    channels, m = 15 on the 1..30 grid, length scale 2, jitter 1e-9),
+    with encoder variances exp(N(-2, 2^2)) clipped to --clip_qs's range
+    [1e-6, 1e3] (Sigma's condition ~2e5): (72, 15, 15) [K_mm;
+    Sigma_1..35] per channel, or (142, 15, 15) [K_mm; Sigma; Sigma1]
+    under Titsias."""
+    from svgpvae_tpu_torch.gp import fused
+    rng = np.random.RandomState(13)
+    gp = tgp.init_ball_svgp(15, 1.0, 30.0, 2.0, config=tgp.SVGPConfig(
+        titsias=titsias, jitter=1e-9)).to(device)
+    t = torch.arange(1, 31, dtype=torch.float32, device=device)
+    y = torch.tensor(rng.randn(35, 30, 2), dtype=torch.float32,
+                     device=device)
+    var = torch.tensor(np.clip(np.exp(rng.normal(-2, 2, (35, 30, 2))), 1e-6,
+                               1e3), dtype=torch.float32, device=device)
+    stacks, kernel = [], fused.chol_inverse
+
+    def recording(M):
+        stacks.append(M.detach().clone())
+        return kernel(M)
+
+    fused.chol_inverse = recording
+    try:
+        block = tgp.ball_gp_block_titsias if titsias else tgp.ball_gp_block
+        block(gp, t, y, var, inverse_impl="pallas")
+    finally:
+        fused.chol_inverse = kernel
+    return stacks[0]
+
+
+@pytest.mark.parametrize("titsias", [False, True])
+def test_chol_inverse_kernel_on_ball_stacks(cuda, titsias):
+    """The ball's stacks in the warp form: with no relative ridge, Sigma's
+    condition follows the smallest encoder variance (~2e5 here; 2e7 with
+    variances at --clip_qs's floor), so the kernel is held to 10x the
+    larger gap to float64 of two fp32 witnesses (the Cholesky twin, plain
+    Gauss-Jordan), as chip_smoke.py's phases 9(a) and 14."""
+    M = _ball_step_stack(cuda, titsias)
+    assert M.shape == ((142, 15, 15) if titsias else (72, 15, 15))
+    assert ci.kernel_info(*M.shape[:2], cuda)["form"] == "warp"
+    inv, ld = ci.chol_inverse_kernel(M)
+    a = M.cpu().double().numpy()
+    inv64, ld64 = np.linalg.inv(a), np.linalg.slogdet(a)[1]
+
+    def gaps(i, l):
+        i = i.cpu().double().numpy()
+        rel = np.abs(i - inv64).max(axis=(1, 2)) / np.abs(inv64).max(
+            axis=(1, 2))
+        return rel.max(), np.abs(l.cpu().double().numpy() - ld64).max()
+
+    witnesses = [gaps(*ci.chol_inverse_reference(M)),
+                 gaps(*ci.gauss_jordan_reference(M))]
+    floor = M.shape[-1] * 2.0 ** -24
+    for q, (got, scale) in enumerate(zip(gaps(inv, ld),
+                                         (1.0, np.abs(ld64).max()))):
+        limit = B1_REAL_FACTOR * max(floor * scale, *(w[q] for w in witnesses))
+        assert np.isfinite(got) and got <= limit, (q, got, witnesses)

@@ -321,7 +321,7 @@ def test_main_capture_and_frozen_leaves(tiny_splits):
 def test_dispatch_table():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tmodels.GP_BLOCK_AUTO_TABLE.keys() == {
-        (w, bound, backend) for w in ("mnist", "sprites")
+        (w, bound, backend) for w in ("mnist", "sprites", "ball")
         for bound in ("hensman", "titsias") for backend in ("cuda", "other")}
     assert tmodels.resolve_gp_block_impl("auto", device=cuda) == \
         "fused_pallas"
@@ -339,7 +339,7 @@ def test_dispatch_table():
     for impl in tmodels.svgpvae.GP_BLOCK_IMPLS:
         assert tmodels.resolve_gp_block_impl(impl, device=cuda) == impl
     with pytest.raises(NotImplementedError):
-        tmodels.resolve_gp_block_impl("auto", workload="ball")
+        tmodels.resolve_gp_block_impl("auto", workload="casale")
     with pytest.raises(ValueError):
         tmodels.resolve_gp_block_impl("triton")
 
