@@ -115,6 +115,17 @@ Phases, each of which raises (nonzero exit) on failure:
      and the whole step redone on the CPU (fp32 in order, fp32 with the
      videos reversed, f64), as phase 7.  Launch counters are zeroed just
      before each run and read just after.
+ 15. the baselines at the drivers' widths (BASELINE_RUNS): through
+     cli.mnist.main on phase 6's 36-digit set, VAE and CVAE (2 epochs +
+     eval), SVIGP_Hensman (2 epochs + eval) and GPVAE_Casale (--opt_regime
+     VAE-1 GP-1 joint-3, the full-train encode every step, the eval after
+     epoch 5), and through cli.sprites.main --elbo VAE on phase 4's corpus
+     (1 epoch of 100 steps at batch 500 + eval): no kernel of the port
+     may launch (counters zeroed before each run, read after); each
+     run's captured step redone on the CPU as phase 7 (fp32 in order and
+     reversed, f64).  Then phase 6's run with --opt_regime VAE-1 joint-1:
+     the VAE epoch launches nothing, the joint epoch B1 once a step;
+     phase 7's recheck of its step 40.
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
 the main paths of phases 4, 6, 8, 10, 11, 12, 13 and 14, and the max error and
@@ -312,6 +323,41 @@ BALL_RUNS = {  # tag -> (argv, steps, B1 stack per step or None)
     "ball_np_train": (["--elbo", "NP"], 100, None),
 }
 BALL_SUM_FLOOR = math.sqrt(35 * 30 * 32 * 32) * 2.0 ** -24
+# Phase 15: the baselines at the drivers' widths (MNIST: batch 256, L = 16,
+# M = 8, m = 32 on phase 6's 36-digit set; SPRITES: batch 500, L = 64 on
+# phase 8's corpus), depth cut.  tag -> (driver, argv, steps, captured
+# step, the longest sum of a captured step's gradient: its floor in
+# phase 7's recheck).  No step of these runs reaches a port kernel, but
+# the SVGPVAE run's joint epoch (32 steps), which launches B1 once per
+# step.  Casale evaluates every 5 epochs (as the JAX driver), so its
+# regime list ends in joint-3 for one eval; its captured step is a joint
+# step, whose gradient sums over the full-train encode (8,100 images).
+BASELINE_RUNS = {
+    "mnist_vae_train": ("mnist", ["--elbo", "VAE", "--nr_epochs", "2",
+                                  "--eval_every", "2", "--clip_qs"],
+                        TRAIN_STEPS, CAPTURE_STEP, 256 * 28 * 28),
+    "mnist_cvae_train": ("mnist", ["--elbo", "CVAE", "--nr_epochs", "2",
+                                   "--eval_every", "2", "--clip_qs"],
+                         TRAIN_STEPS, CAPTURE_STEP, 256 * 28 * 28),
+    "svigp_train": ("mnist", ["--elbo", "SVIGP_Hensman", "--nr_epochs", "2",
+                              "--eval_every", "2", "--PCA", "--ip_joint",
+                              "--GP_joint", "--ov_joint"],
+                    TRAIN_STEPS, CAPTURE_STEP, 256 * 28 * 28),
+    "casale_train": ("mnist", ["--elbo", "GPVAE_Casale", "--opt_regime",
+                               "VAE-1", "GP-1", "joint-3", "--PCA",
+                               "--ov_joint", "--clip_qs"],
+                     5 * TRAIN_STEPS // 2, 100, 8_100 * 28 * 28),
+    "sprites_vae_train": ("sprites", ["--elbo", "VAE", "--clip_qs",
+                                      "--synthetic", "--synthetic_chars",
+                                      str(SERVE_CHARS), "--nr_epochs", "1",
+                                      "--eval_every", "1"],
+                          SPRITES_STEPS, SPRITES_CAPTURE,
+                          500 * 64 * 64 * 3),
+}
+BASELINE_WIDTHS = {"mnist": (16, 8_100), "sprites": (64, 50_000)}  # L, N
+# Hensman + GECO with a VAE phase: phase 6's run, --opt_regime VAE-1 joint-1
+VAE_PHASE_ARGV = [x for a in TRAIN_ARGV
+                  for x in (["VAE-1", "joint-1"] if a == "joint-2" else [a])]
 
 
 def log(msg: str) -> None:
@@ -1500,6 +1546,240 @@ def phase_ball(base_dir) -> dict:
     return launches
 
 
+def _baseline_argv(tag) -> list:
+    driver, argv, *_ = BASELINE_RUNS[tag]
+    data = (["--dataset", "36", "--synthetic_digits"] if driver == "mnist"
+            else [])
+    return argv + data + ["--device", "cuda", "--seed", "0"]
+
+
+def phase_baseline_train(tag, splits) -> tuple:
+    """Phase 15: one run of BASELINE_RUNS on the card; returns its result
+    and the run's launch counts, which must all be 0.  Finite metrics,
+    parameters and eval pass; the step p50 and the run's seconds."""
+    from svgpvae_tpu_torch import ops, train
+    from svgpvae_tpu_torch.cli import mnist, sprites
+
+    driver, _, steps, capture, _ = BASELINE_RUNS[tag]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = (mnist if driver == "mnist" else sprites).main(
+        _baseline_argv(tag), splits=splits, capture_step=capture)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    params = res["params"] if "params" in res else res["state"].params
+    width = (params["dec"].L if "dec" in params else params["vae"].L,
+             len(splits["train"]["images" if driver == "mnist"
+                                 else "frames"]))
+    if width != BASELINE_WIDTHS[driver] or len(res["step_seconds"]) != steps:
+        raise AssertionError(f"{tag}: L, N_train = {width} over "
+                             f"{len(res['step_seconds'])} steps")
+    for i, mt in enumerate(res["metrics"]):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {mt}")
+    check_finite(**train.named_tensors(params))
+    ev = res["evals"][-1]
+    scores = {k: ev[k] for k in ("eval_mse", "test_mse", "cgen_mse")
+              if ev.get(k) is not None}
+    if not scores or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"{tag}: eval pass {ev}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched {launches}: the baselines "
+                             "reach no kernel of the port")
+    sec = np.asarray(res["step_seconds"])
+    log(f"{tag}: {steps} steps, {seconds:.2f} s in all (eval included); "
+        f"first step {1e3 * sec[0]:.2f} ms, then p50 "
+        f"{1e3 * np.percentile(sec[1:], 50):.3f} ms, p90 "
+        f"{1e3 * np.percentile(sec[1:], 90):.3f} ms; eval after epoch "
+        f"{ev['epoch']}: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in scores.items())
+        + f" ({', '.join(f'{k} {v:.3f} s' for k, v in ev['seconds'].items())}"
+        f"); launches {launches}")
+    return res, launches
+
+
+def _baseline_step_params(tag, cap, card_params, dtype):
+    """The captured step's parameters as the port's modules (and GP) on
+    the CPU."""
+    import dataclasses
+    from svgpvae_tpu_torch.nn import (MnistCVAE, MnistVAE, SVIGPDecoder,
+                                      SpritesVAE)
+
+    snap = {k: v.detach().to("cpu", dtype) for k, v in cap["params"].items()}
+
+    def part(name):
+        return {k.split("/", 1)[1]: v for k, v in snap.items()
+                if k.startswith(name + "/")}
+
+    if "dec" in card_params:
+        net = SVIGPDecoder(L=card_params["dec"].L).to(dtype)
+        net.load_state_dict(part("dec"))
+        params = {"dec": net}
+    else:
+        net = {"mnist_cvae_train": MnistCVAE,
+               "sprites_vae_train": SpritesVAE}.get(tag, MnistVAE)(
+                   L=card_params["vae"].L).to(dtype)
+        net.load_state_dict(part("vae"))
+        params = {"vae": net}
+    if "gp" in card_params:  # the card's static options, the step's tensors
+        params["gp"] = dataclasses.replace(card_params["gp"], **part("gp"))
+    return params
+
+
+def phase_baseline_cpu_check(tag, res, splits) -> None:
+    """Phase 15: the captured step redone on the CPU, in fp32 with the
+    batch in its order and reversed (every baseline's loss sums over the
+    batch's rows; the reversed batch takes its draw reversed with it, the
+    Casale step's full-train draw as it is) and in f64; the card's loss
+    and gradients held as phase 7 holds MNIST's."""
+    import torch
+    from svgpvae_tpu_torch import models, train
+    from svgpvae_tpu_torch.cli import mnist, sprites
+
+    driver, _, _, _, longest_sum = BASELINE_RUNS[tag]
+    cap = res["captured"]
+    card_params = res["params"] if "params" in res else res["state"].params
+    args = (mnist if driver == "mnist" else sprites).build_parser() \
+        .parse_args(_baseline_argv(tag))
+    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
+           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
+    consts = (mnist.casale_constants(mnist.sort_train_data(splits["train"]),
+                                     torch.device("cpu"))
+              if tag == "casale_train" else None)
+
+    def cpu_step(dtype, reverse):
+        def cpu(t):
+            return t.detach().to("cpu", dtype)
+
+        def cpu_b(t):  # a batch-axis tensor, in its order or reversed
+            return cpu(t).flip(0) if reverse else cpu(t)
+        params = _baseline_step_params(tag, cap, card_params, dtype)
+        trainable = {k: t.requires_grad_(True) for k, t in
+                     train.named_tensors(params).items() if k in got}
+        # cli.mnist captures every draw of the step, cli.sprites its one
+        raw = cap.get("draws", [cap["eps"]] if "eps" in cap else [])
+        draws = [cpu(e) for e in raw]
+        if draws and draws[-1].shape[0] == cap["batch"][0].shape[0]:
+            draws[-1] = cpu_b(raw[-1])
+        replay = iter(draws)
+
+        def eps_fn(kind, shape):
+            return next(replay)
+
+        if tag == "casale_train":
+            loss_fn = mnist.make_casale_loss_fn(
+                args, eps_fn, dict(consts, images=consts["images"].to(dtype),
+                                   angles=consts["angles"].to(dtype)),
+                cap["regime"],
+                None if cap["held_Z"] is None else cpu(cap["held_Z"]))
+        elif tag == "svigp_train":
+            loss_fn = mnist.make_svigp_loss_fn()
+        elif driver == "sprites":
+            loss_fn = sprites.make_vae_loss_fn(
+                sprites.make_vae_forward(args, eps_fn))
+        else:
+            loss_fn = mnist.make_vae_loss_fn(mnist.make_vae_forward(
+                args, eps_fn, cvae=tag == "mnist_cvae_train"))
+        outs, name = [], {"casale_train": "forward_pass_casale",
+                          "svigp_train": "forward_pass_deep_svigp"}.get(
+                              tag, "forward_pass_vae")
+        forward = getattr(models, name)
+
+        def recording(*a, **kw):
+            outs.append(forward(*a, **kw))
+            return outs[-1]
+
+        setattr(models, name, recording)
+        try:
+            loss, (geco, _) = loss_fn(
+                params, tuple(cpu_b(x) for x in cap["batch"]),
+                train.GECOState(C_ma=cpu(cap["geco"].C_ma),
+                                lagrange_mult=cpu(cap["geco"].lagrange_mult)),
+                cap["step"])
+        finally:
+            setattr(models, name, forward)
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        out, images = outs[-1], cap["batch"][0]
+        K = images[0].numel()
+        if tag == "casale_train":
+            terms = float(out.recon_loss) + args.beta / args.L * (
+                abs(float(out.gp_prior_term)) + 0.5 * abs(float(out.log_var)))
+        elif tag == "svigp_train":
+            bK, noise = images.numel(), float(params["gp"].noise)
+            terms = (bK * abs(math.log(noise)) + 0.5 * bK * math.log(
+                2 * math.pi) + 0.5 * float(out.recon_loss) * K / noise ** 2
+                + abs(float(out.inside_elbo)))
+        else:
+            terms = (0.5 / 0.01 ** 2 * float(out.recon_loss) * K
+                     + abs(float(out.kl_term)))
+        return ({k: v.detach().double() for k, v in {
+            "loss": loss, "C_ma": geco.C_ma,
+            "lagrange_mult": geco.lagrange_mult,
+            **dict(zip(trainable, grads))}.items()}, terms)
+
+    t0 = time.perf_counter()
+    r32, _ = cpu_step(torch.float32, reverse=False)
+    r32_rev, _ = cpu_step(torch.float32, reverse=True)
+    r64, loss_terms = cpu_step(torch.float64, reverse=False)
+    log(f"cpu {tag} step {cap['step']} (fp32 twice, f64): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if set(r32) != set(got):
+        raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
+    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, r32_rev, r64,
+                    loss_terms, math.sqrt(longest_sum) * 2.0 ** -24)
+
+
+def phase_vae_phase_train(splits) -> tuple:
+    """Phase 15: phase 6's run with --opt_regime VAE-1 joint-1: the VAE
+    epoch's 32 steps launch no kernel, the joint epoch's B1 once and B2 at
+    least once each; finite; phase 7's recheck of its step 40 (joint)."""
+    from svgpvae_tpu_torch import ops, train
+    from svgpvae_tpu_torch.cli import mnist
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mnist.main(VAE_PHASE_ARGV, splits=splits,
+                     capture_step=CAPTURE_STEP)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    half = MNIST_EPOCH_STEPS
+    if len(res["step_seconds"]) != 2 * half:
+        raise AssertionError(f"{len(res['step_seconds'])} steps")
+    for i, (mt, sl) in enumerate(zip(res["metrics"], res["step_launches"])):
+        if not all(np.isfinite(v) for v in mt.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {mt}")
+        want = (0, 0) if i < half else (1, None)
+        if sl["chol_inverse"] != want[0] or (
+                sl["gp_sufficient_stats"] == 0) != (i < half):
+            raise AssertionError(f"step {i} ({res['regimes'][i // half]}) "
+                                 f"launched {sl}")
+    check_finite(**train.named_tensors(res["state"].params))
+    ev = res["evals"][-1]
+    if not all(np.isfinite(ev[k]) for k in ("eval_mse", "test_mse",
+                                            "cgen_mse")):
+        raise AssertionError(f"non-finite eval pass {ev}")
+    sec = np.asarray(res["step_seconds"])
+    log(f"mnist --opt_regime VAE-1 joint-1: {2 * half} steps, {seconds:.2f} "
+        f"s in all; VAE epoch p50 {1e3 * np.percentile(sec[1:half], 50):.3f}"
+        f" ms, joint epoch p50 {1e3 * np.percentile(sec[half:], 50):.3f} ms;"
+        f" eval MSE {ev['eval_mse']:.6f}, cgen MSE {ev['cgen_mse']:.6f}; "
+        f"launches {launches}")
+    phase_train_cpu_check(res, VAE_PHASE_ARGV)
+    return launches
+
+
+def phase_baselines(mnist_data, corpus) -> dict:
+    """Phase 15: the baseline runs, each with its CPU recheck, and the
+    SVGPVAE run with a VAE phase; returns each run's launch counts."""
+    launches = {}
+    for tag, (driver, *_) in BASELINE_RUNS.items():
+        splits = mnist_data if driver == "mnist" else corpus
+        res, launches[tag] = phase_baseline_train(tag, splits)
+        phase_baseline_cpu_check(tag, res, splits)
+    launches["mnist_vae_phase_train"] = phase_vae_phase_train(mnist_data)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1565,6 +1845,7 @@ def main() -> int:
     timed("13c", phase_cpu_check, "sprites run", sprites_served,
           RUN_FIT_NOISE_FACTOR)
     ball_launches = timed(14, phase_ball, runs.name)
+    baseline_launches = timed(15, phase_baselines, mnist_data, corpus)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -1572,7 +1853,8 @@ def main() -> int:
              "sprites_titsias_train": sp_titsias_launches,
              "mnist_resume_train": resume_launches,
              "mnist_serve_run": mnist_serve_launches,
-             "sprites_serve_run": sprites_serve_launches, **ball_launches}
+             "sprites_serve_run": sprites_serve_launches, **ball_launches,
+             **baseline_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

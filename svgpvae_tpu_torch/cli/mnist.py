@@ -1,34 +1,60 @@
-"""Rotated-MNIST SVGPVAE training with the PyTorch port.
+"""Rotated-MNIST training with the PyTorch port: the SVGPVAE (Hensman or
+Titsias bound, with or without GECO) and the baselines (plain VAE, CVAE,
+deep SVIGP, the Casale GPVAE).
 
     python -m svgpvae_tpu_torch.cli.mnist --elbo SVGPVAE_Hensman --GECO \
         --clip_qs --PCA --ip_joint --GP_joint --ov_joint --dataset 36 \
         --synthetic_digits --opt_regime joint-2 --eval_every 2 [--device cuda]
 
-The flow of svgpvae_tpu/cli/mnist.py::run_svgpvae for `SVGPVAE_Hensman`
-and `SVGPVAE_Titsias` (with or without --GECO): the dataset (pickles
-under --mnist_data_path, generated there from the seven-segment stand-in
-glyphs with
---synthetic_digits when absent), the GP initialisation (KDE inducing
-points, PCA object vectors), then per epoch every full batch and the tail
-batch through one training step each, and every --eval_every epochs the
-eval MSE, the test MSE and the conditional-generation (cgen) MSE, whose GP
-posterior conditions on the encodings of the whole train split.
+The three run functions of svgpvae_tpu/cli/mnist.py, dispatched on
+--elbo as there:
 
-Each step: conv encoder and the variance clip; the MnistSVGP kernel
-matrices; the sufficient statistics (B2 `gp_sufficient_stats` kernel
-forward, einsum backward); the (L+1, m, m) stack [K_mm; Sigma_1..L]; with
---gp_block_impl fused_pallas (the 'auto' choice on a CUDA device) its
-inverse and logdets from the B1 `chol_inverse` kernel (two-matmul
-backward); the Hensman terms, the cross-entropy, the reparameterised
-sample, the conv decoder; GECO and Adam.  With SVGPVAE_Titsias the
-block is gp.fused.gp_block_titsias: B2 twice (at the encoder noise and at
-noise + jitter), and with fused_pallas (the 'auto' choice on a CUDA
-device, as for Hensman) one B1 launch on the (33, 32, 32) stack
-[K_mm; Sigma_1..16; Sigma1_1..16]; the CE term is the exact entropy
-unless --titsias_reference_ce.  `--gp_block_impl` takes the JAX
-driver's values, so one argv drives both; a `*_pallas` value means the
-hand-written CUDA kernel B1 on a CUDA device and its plain twin on the
-CPU.  'auto' resolves through models.GP_BLOCK_AUTO_TABLE.
+  * `run_svgpvae` (SVGPVAE_Hensman, SVGPVAE_Titsias, VAE, CVAE): the
+    dataset (pickles under --mnist_data_path, generated there from the
+    seven-segment stand-in glyphs with --synthetic_digits when absent),
+    the GP initialisation (KDE inducing points, PCA object vectors), then
+    per epoch every full batch and the tail batch through one training
+    step each, and every --eval_every epochs the eval MSE, the test MSE
+    and the conditional-generation (cgen) MSE, whose GP posterior
+    conditions on the encodings of the whole train split.  VAE and CVAE
+    train --nr_epochs epochs of the standard-normal-prior ELBO
+    (models.vae; the CVAE's cgen decodes each test object's mean train
+    latent at the test angle, `predict_cvae`; the VAE has none).  An
+    SVGPVAE run's --opt_regime may hold VAE phases ('VAE-10 joint-90'):
+    their epochs train the VAE ELBO alone, and the trainable GP tensors,
+    which that loss does not reach, still take their Adam update from a
+    zero gradient, as under JAX's one masked optax Adam
+    (train.train_step).
+  * `run_svigp` (SVIGP_Hensman): the decoder-only deep SVIGP
+    (gp.svigp, models.svigp): explicit variational parameters, the exact
+    Gaussian likelihood with a trainable noise, aux rows with the global
+    row index first; --nr_epochs epochs, cgen every --eval_every.
+  * `run_casale` (GPVAE_Casale, alias GPVAE_Casale_batch): the train set
+    sorted by (id, angle); every step encodes the WHOLE train split (or,
+    with --casale_taylor_every K, every K-th step, the held sample between
+    refreshes, without gradient), builds V and the factored Taylor terms
+    (gp.casale) and takes the batch's loss (models.casale); --opt_regime's
+    joint / GP / VAE epochs each step their own Adam (own moments and step
+    count: --lr_joint over every tensor, --lr_gp over the GP's, 0.001 over
+    the VAE's; the VAE regime's loss is the plain VAE ELBO); the cgen
+    every 5 epochs, as the JAX driver (which ignores --eval_every there).
+
+Each SVGPVAE step: conv encoder and the variance clip; the MnistSVGP
+kernel matrices; the sufficient statistics (B2 `gp_sufficient_stats`
+kernel forward, einsum backward); the (L+1, m, m) stack [K_mm;
+Sigma_1..L]; with --gp_block_impl fused_pallas (the 'auto' choice on a
+CUDA device) its inverse and logdets from the B1 `chol_inverse` kernel
+(two-matmul backward); the Hensman terms, the cross-entropy, the
+reparameterised sample, the conv decoder; GECO and Adam.  With
+SVGPVAE_Titsias the block is gp.fused.gp_block_titsias: B2 twice (at the
+encoder noise and at noise + jitter), and with fused_pallas (the 'auto'
+choice on a CUDA device, as for Hensman) one B1 launch on the
+(33, 32, 32) stack [K_mm; Sigma_1..16; Sigma1_1..16]; the CE term is the
+exact entropy unless --titsias_reference_ce.  `--gp_block_impl` takes
+the JAX driver's values, so one argv drives both; a `*_pallas` value
+means the hand-written CUDA kernel B1 on a CUDA device and its plain twin
+on the CPU.  'auto' resolves through models.GP_BLOCK_AUTO_TABLE.  The
+baselines reach none of the port's kernels.
 
 The device is --device (cuda by default; the run refuses to start
 without one).  TF32 is off for matmuls and cuDNN.  Weights come from
@@ -41,21 +67,26 @@ eval key is also one fixed key per batch).
 
 Run outputs, as the JAX driver writes them: --save makes the run dir
 <base_dir>/<expid>/<N>_<elbo>_<beta>__on__<stamp>/ (utils.rundir) with
-args.json, and every eval pass appends to res/ELBO_results.csv and
-res/GP_params.csv (the JAX columns, on the eval split's first batch),
-writes res/gp_params_<step>.npz and a line of pics/test_metrics.txt;
+args.json, and every eval pass of run_svgpvae appends to
+res/ELBO_results.csv and res/GP_params.csv (the JAX columns, on the eval
+split's first batch; the VAE columns for VAE and CVAE, and a VAE epoch
+of an SVGPVAE run appends to res/ELBO_VAE_results.csv instead), writes
+res/gp_params_<step>.npz and a line of pics/test_metrics.txt;
 --save_model_weights adds a checkpoint (utils.checkpoint: the whole
-TrainState and the training noise generator) under ckpt/ at every eval;
-at the end the last eval's cgen images go to cgen_images.p and, with
---save_latents, posterior samples of the train split's latents to
-latents_train.p.  --resume_dir <run dir> restores its latest checkpoint
-and runs --opt_regime's epochs from the restored step, writing into that
-run dir.  The JAX driver's pictures (pics/*.png) are not written: the
-port does without matplotlib, and --show_pics is refused.
+TrainState and the training noise generator; Casale: each regime's) under
+ckpt/ at every eval; at the end the last eval's cgen images go to
+cgen_images.p (not for Casale, as in JAX) and, with --save_latents,
+samples of the train split's latents to latents_train.p.  --resume_dir
+<run dir> restores its latest checkpoint and runs the remaining epochs
+from the restored step, writing into that run dir (run_svgpvae only:
+the JAX driver's run_svigp and run_casale never read it, and the port
+refuses it there).  The JAX
+driver's pictures (pics/*.png) are not written: the port does without
+matplotlib, and --show_pics is refused.
 
-Not ported yet, refused with an error: the other --elbo values, VAE
-phases in --opt_regime, --bias_analysis, --epoch_chunk, --show_pics,
---test_set_metrics, --bf16, --x64, --data_parallel, --profile_dir,
+Not ported yet, refused with an error: --bias_analysis, --epoch_chunk,
+--show_pics, --test_set_metrics, --bf16, --x64, --data_parallel (loudly
+for Casale too, where the JAX driver ignores it), --profile_dir,
 --eval_bundle and --reshuffle.
 """
 
@@ -65,30 +96,36 @@ import argparse
 import os
 import pickle
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from svgpvae_tpu_torch import data, models, ops, train, utils
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch.nn import MnistVAE
-from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
+from svgpvae_tpu_torch.nn import MnistCVAE, MnistVAE, SVIGPDecoder
+from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
+                                             cvae_params_from_jax,
+                                             mnist_params_from_jax,
+                                             svigp_params_from_jax)
 
 EVAL_SEED = 7  # the JAX driver's eval key, jax.random.PRNGKey(7)
+CASALE_EVAL_EVERY = 5  # run_casale's fixed eval cadence (epochs)
+CASALE_VAE_LR = 0.001  # the Casale VAE regime's Adam lr
+CASALE_ELBOS = ("GPVAE_Casale", "GPVAE_Casale_batch")
 
 
 def build_parser() -> argparse.ArgumentParser:
     """The JAX driver's arguments (same names and defaults), plus
     --device and --params."""
     p = argparse.ArgumentParser(
-        description="Rotated MNIST SVGPVAE training (PyTorch port)")
+        description="Rotated MNIST training (PyTorch port)")
     p.add_argument("--expid", type=str, default="debug_MNIST")
     p.add_argument("--base_dir", type=str, default=os.getcwd())
     p.add_argument("--elbo", type=str, default="VAE",
                    choices=["VAE", "CVAE", "SVGPVAE_Hensman",
-                            "SVGPVAE_Titsias", "GPVAE_Casale",
-                            "GPVAE_Casale_batch", "SVIGP_Hensman"])
+                            "SVGPVAE_Titsias", *CASALE_ELBOS,
+                            "SVIGP_Hensman"])
     p.add_argument("--mnist_data_path", type=str, default="mnist_data/")
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--nr_epochs", type=int, default=1000)
@@ -101,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ov_joint", action="store_true")
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--lr_decay", type=float, default=None,
-                   help="cosine-decay the lr to lr*LR_DECAY over the run")
+                   help="cosine-decay the lr to lr*LR_DECAY over the run "
+                        "(SVGPVAE/VAE/SVIGP; Casale keeps its fixed lrs)")
     p.add_argument("--save_model_weights", action="store_true")
     p.add_argument("--dataset", type=str, default="3",
                    choices=["3", "36", "13679"])
@@ -124,9 +162,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bias_analysis", action="store_true")
     p.add_argument("--M", type=int, default=8)
     p.add_argument("--lr_gp", type=float, default=0.01,
-                   help="Casale only (not ported)")
+                   help="Casale GP-regime Adam lr")
     p.add_argument("--lr_joint", type=float, default=0.001,
-                   help="Casale only (not ported)")
+                   help="Casale joint-regime Adam lr")
+    p.add_argument("--casale_alpha_softplus", action="store_true",
+                   help="Casale: latent-GP noise = softplus(raw) in place "
+                        "of the straight-through floor clamp")
+    p.add_argument("--casale_alpha_max", type=float, default=0.0,
+                   help="Casale: straight-through ceiling on the latent-GP "
+                        "noise (0 = uncapped)")
+    p.add_argument("--casale_predict_alpha", type=float, default=0.0,
+                   help="Casale: the cgen smoother's latent-GP noise (0 = "
+                        "the trained one)")
+    p.add_argument("--casale_taylor_every", type=int, default=1,
+                   help="Casale: refresh the full-train encode every K "
+                        "steps (held without gradient in between)")
     p.add_argument("--N_t", type=int, default=None)
     p.add_argument("--eval_every", type=int, default=10,
                    help="epochs between eval/test/cgen passes")
@@ -160,7 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--x64", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--params", type=str, default=None,
-                   help=".npz of flat JAX MNIST SVGPVAE parameters "
+                   help=".npz of flat JAX parameters of this --elbo's model "
                         "(tools/export_jax_params.py) to start from")
     return p
 
@@ -177,18 +227,23 @@ NOT_PORTED = {  # flag -> is it set?
     "--eval_bundle": lambda a: a.eval_bundle,
     "--reshuffle": lambda a: a.reshuffle,
 }
-PORTED_ELBOS = ("SVGPVAE_Hensman", "SVGPVAE_Titsias")
 
 
 def refuse_unported(args) -> None:
-    if args.elbo not in PORTED_ELBOS:
-        raise SystemExit(f"--elbo {args.elbo}: not ported yet (the port "
-                         f"trains {' and '.join(PORTED_ELBOS)})")
+    if args.elbo in CASALE_ELBOS and args.data_parallel:
+        raise SystemExit("--data_parallel: not ported yet, and refused for "
+                         f"--elbo {args.elbo}, which the JAX driver runs on "
+                         "one device whatever the flag says")
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
-    if any(r == "VAE" for r in train.parse_opt_regime(args.opt_regime)[1]):
-        raise SystemExit("--opt_regime: VAE phases are not ported yet")
+    if args.resume_dir and (args.elbo in CASALE_ELBOS
+                            or args.elbo == "SVIGP_Hensman"):
+        raise SystemExit(f"--resume_dir: not ported for --elbo {args.elbo} "
+                         "(the JAX driver's run for it never reads the flag)")
+    if args.save_latents and args.elbo == "CVAE":
+        raise SystemExit("--save_latents: not ported for --elbo CVAE (the "
+                         "JAX driver's latents pass encodes without angles)")
 
 
 def load_splits(args) -> dict:
@@ -219,28 +274,46 @@ def load_splits(args) -> dict:
             "pca_ov_init": pca}
 
 
+def object_vectors_init(args, splits: dict) -> Optional[np.ndarray]:
+    """The GPLVM table's start under --ov_joint: the PCA embeddings
+    (--PCA) or N(0, 1.5^2) draws from RandomState(--seed); None without
+    --ov_joint."""
+    if not args.ov_joint:
+        return None
+    if args.PCA:
+        return splits["pca_ov_init"]
+    n_obj = len(splits["pca_ov_init"])
+    return np.random.RandomState(args.seed).normal(
+        0, 1.5, n_obj * args.M).reshape(n_obj, args.M)
+
+
+def _load_params(path: str, convert: Callable) -> dict:
+    with np.load(path) as z:
+        return convert(dict(z))
+
+
 def build_model(args, splits: dict, N_train: int, device: torch.device):
-    """(MnistVAE, MnistSVGP) on `device`: the GP initialised as the JAX
-    driver does; the VAE from --params or flax's init from a generator
-    seeded by --seed."""
-    vae = MnistVAE(L=args.L,
-                   generator=torch.Generator().manual_seed(args.seed))
+    """(MnistVAE or MnistCVAE, MnistSVGP or None) on `device`: the GP (for
+    the SVGPVAE ELBOs) initialised as the JAX driver does; the net from
+    --params or flax's init from a generator seeded by --seed."""
+    net = MnistCVAE if args.elbo == "CVAE" else MnistVAE
+    vae = net(L=args.L, generator=torch.Generator().manual_seed(args.seed))
+    if "SVGPVAE" not in args.elbo:
+        if args.params:
+            vae.load_state_dict(_load_params(
+                args.params, cvae_params_from_jax if args.elbo == "CVAE"
+                else mnist_params_from_jax)["vae"])
+        return vae.to(device), None
     ip_init = data.generate_init_inducing_points(
         splits["train"], n=args.nr_inducing_points, use_pca=args.PCA,
         M=args.M, seed=args.seed)
-    ov_init = None
-    if args.ov_joint:
-        n_obj = len(splits["pca_ov_init"])
-        ov_init = (splits["pca_ov_init"] if args.PCA else
-                   np.random.RandomState(args.seed).normal(
-                       0, 1.5, n_obj * args.M).reshape(n_obj, args.M))
+    ov_init = object_vectors_init(args, splits)
     cfg = gpm.SVGPConfig(titsias=args.elbo == "SVGPVAE_Titsias",
                          jitter=args.jitter, N_train=N_train,
                          K_obj_normalize=args.object_kernel_normalize)
     gp = gpm.init_mnist_svgp(ip_init, ov_init, config=cfg)
     if args.params:
-        with np.load(args.params) as z:
-            port = mnist_params_from_jax(dict(z))
+        port = _load_params(args.params, mnist_params_from_jax)
         vae.load_state_dict(port["vae"])
         if (port["gp"].get("object_vectors") is None) != (ov_init is None):
             raise ValueError("--params and --ov_joint disagree on the GPLVM "
@@ -250,15 +323,16 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
 
 
 def trainable_predicate(args) -> Callable[[str], bool]:
-    """name ("vae/...", "gp/<field>") -> trainable?  As the JAX driver's
-    mask: the inducing points follow --ip_joint, the kernel scalars
-    --GP_joint, the GPLVM table --ov_joint; the VAE always trains."""
+    """name ("vae/...", "dec/...", "gp/<field>") -> trainable?  As the JAX
+    driver's mask: the inducing points follow --ip_joint, the kernel
+    scalars --GP_joint, the GPLVM table --ov_joint; the nets and the deep
+    SVIGP's variational tensors and noise always train."""
     flags = {"inducing_points": args.ip_joint, "length_scale": args.GP_joint,
              "amplitude": args.GP_joint, "object_vectors": args.ov_joint}
 
     def predicate(name: str) -> bool:
         part, _, leaf = name.partition("/")
-        return flags[leaf] if part == "gp" else True
+        return flags.get(leaf, True) if part == "gp" else True
 
     return predicate
 
@@ -318,13 +392,14 @@ def _chunks(images: torch.Tensor, aux: torch.Tensor, bs: int):
 
 def default_eps_fn(seed: int, device: torch.device,
                    eval_seed: int = EVAL_SEED) -> Callable:
-    """eps_fn(kind, shape): "train" draws continue one generator seeded by
-    `seed`; every "eval" draw comes from a generator seeded with
-    `eval_seed` (the JAX CLIs use one fixed eval key per batch)."""
+    """eps_fn(kind, shape): "train" draws (and "train/<regime>" ones)
+    continue one generator seeded by `seed`; every "eval" draw comes from a
+    generator seeded with `eval_seed` (the JAX CLIs use one fixed eval key
+    per batch)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def eps_fn(kind: str, shape) -> torch.Tensor:
-        g = gen if kind == "train" else \
+        g = gen if kind.startswith("train") else \
             torch.Generator(device=device).manual_seed(eval_seed)
         return torch.randn(shape, generator=g, device=device)
 
@@ -333,10 +408,11 @@ def default_eps_fn(seed: int, device: torch.device,
 
 
 class Noise:
-    """eps_fn that also keeps its last "train" draw."""
+    """eps_fn that also keeps its last training draw, and every training
+    draw while `draws` is a list (a captured step's)."""
 
     def __init__(self, eps_fn: Callable):
-        self.eps_fn, self.last = eps_fn, None
+        self.eps_fn, self.last, self.draws = eps_fn, None, None
 
     @property
     def generator(self) -> Optional[torch.Generator]:
@@ -346,14 +422,17 @@ class Noise:
 
     def __call__(self, kind: str, shape) -> torch.Tensor:
         eps = self.eps_fn(kind, shape)
-        if kind == "train":
+        if kind.startswith("train"):
             self.last = eps
+            if self.draws is not None:
+                self.draws.append(eps)
         return eps
 
 
 def make_forward(args, eps_fn: Callable) -> Callable:
-    """forward(params, batch, geco, alpha, kind): the training forward
-    pass with this run's options and `eps_fn(kind, (b, L))` noise."""
+    """forward(params, batch, geco, alpha, kind): the SVGPVAE training
+    forward pass with this run's options and `eps_fn(kind, (b, L))`
+    noise."""
     kappa = float(np.sqrt(args.kappa_squared))
 
     def forward(params, batch, geco, alpha, kind):
@@ -388,16 +467,114 @@ def make_loss_fn(args, forward: Callable) -> Callable:
     return loss_fn
 
 
+def make_vae_forward(args, eps_fn: Callable, cvae: bool = False,
+                     clip_qs: Optional[bool] = None) -> Callable:
+    """forward(params, batch, kind): the plain VAE (or CVAE) forward pass
+    with `eps_fn(kind, (b, L))` noise and --clip_qs (or `clip_qs`)."""
+    clip = args.clip_qs if clip_qs is None else clip_qs
+
+    def forward(params, batch, kind):
+        return models.forward_pass_vae(
+            params["vae"], batch, eps_fn(kind, (batch[0].shape[0], args.L)),
+            clip_qs=clip, cvae=cvae)
+
+    return forward
+
+
+def make_vae_loss_fn(forward: Callable, kind: str = "train") -> Callable:
+    """loss_fn for train.train_step: minus the VAE ELBO; the GECO state
+    passes through."""
+
+    def loss_fn(params, batch, geco, step):
+        out = forward(params, batch, kind)
+        return -out.elbo, (geco, {"elbo": out.elbo.detach(),
+                                  "recon": out.recon_loss.detach()})
+
+    return loss_fn
+
+
+class StepRecorder:
+    """Runs training steps and keeps, per step, the host seconds after
+    synchronize, the metrics as floats and the kernel launches; at
+    `capture_step` (a count of steps from the run's start) a copy of what
+    the step starts from and of its noise, loss and gradients."""
+
+    def __init__(self, device: torch.device, noise: Optional[Noise],
+                 capture_step: Optional[int]):
+        self.device, self.noise, self.capture_step = device, noise, \
+            capture_step
+        self.seconds, self.metrics, self.launches = [], [], []
+        self.captured = None
+
+    def step(self, state, batch, loss_fn, trainable: Dict[str, torch.Tensor],
+             index: int, **extra) -> dict:
+        snap = (_snapshot(state, batch, index, **extra)
+                if index == self.capture_step else None)
+        if snap is not None and self.noise is not None:
+            self.noise.draws = []
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        m = train.train_step(state, batch, loss_fn)
+        sync(self.device)
+        self.seconds.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        self.launches.append({k: after[k] - before[k] for k in after})
+        if snap is not None:
+            self.captured = _finish_capture(snap, state, trainable, m,
+                                            self.noise)
+        m = {k: float(v) for k, v in m.items()}
+        self.metrics.append(m)
+        return m
+
+    def summary(self, elapsed: float) -> None:
+        if self.seconds:
+            timed = self.seconds[1:] or self.seconds
+            print(f"total: {len(self.seconds)} steps, {elapsed:.1f}s; step "
+                  f"time first {1e3 * self.seconds[0]:.2f} ms, p50 "
+                  f"{1e3 * float(np.percentile(timed, 50)):.2f} ms, p90 "
+                  f"{1e3 * float(np.percentile(timed, 90)):.2f} ms")
+
+    def result(self) -> dict:
+        return {"step_seconds": self.seconds, "metrics": self.metrics,
+                "step_launches": self.launches, "captured": self.captured}
+
+
+def _check_finite(elbos, epoch: int, step: int) -> None:
+    if not np.all(np.isfinite(elbos)):
+        raise FloatingPointError(
+            f"non-finite ELBO in epoch {epoch} (step {step})")
+
+
+def _best(result: dict, evals: list, key: str = "cgen_mse") -> dict:
+    """Adds "cgen_mse" (the last eval's) and "best_cgen_mse" (the best
+    over the evals that have one) to `result`, and prints the best."""
+    scored = [e for e in evals if e.get(key) is not None]
+    result["cgen_mse"] = evals[-1].get(key) if evals else None
+    if scored:
+        best = min(scored, key=lambda e: e[key])
+        print(f"best cgen MSE {best[key]:.5f} at epoch {best['epoch']}")
+        result["best_cgen_mse"] = best[key]
+    return result
+
+
+def _save_cgen_images(run_dir: Optional[str], images) -> None:
+    if run_dir and images is not None:
+        with open(os.path.join(run_dir, "cgen_images.p"), "wb") as f:
+            pickle.dump(images.cpu().numpy(), f)
+
+
 def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
          capture_step: Optional[int] = None) -> dict:
-    """Train; returns a dict (see `run_svgpvae`).
+    """Train; returns a dict (see `run_svgpvae`, `run_svigp`,
+    `run_casale`).
 
     `splits` ({"train", "eval", "test", "pca_ov_init"}, as
     data.generate_rotated_mnist returns) skips loading the dataset.
-    `eps_fn(kind, shape)` ("train" or "eval") replaces the default noise
-    (tests inject the JAX draws).  `capture_step` keeps a copy of that
-    step's inputs, parameters before it, noise and gradients."""
+    `eps_fn(kind, shape)` ("train", "train/<regime>" for Casale, or
+    "eval") replaces the default noise (tests inject the JAX draws).
+    `capture_step` keeps a copy of that step's inputs, parameters before
+    it, noise and gradients."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     device = torch.device(args.device)
@@ -411,21 +588,35 @@ def main(argv=None, splits: Optional[dict] = None,
     elif args.N_t is not None:
         raise SystemExit("--N_t subsamples pickled data; pass the "
                          "subsampled splits instead")
-    return run_svgpvae(args, splits, device,
-                       eps_fn or default_eps_fn(args.seed, device),
-                       capture_step)
+    eps_fn = eps_fn or default_eps_fn(args.seed, device)
+    if args.elbo in CASALE_ELBOS:
+        return run_casale(args, splits, device, eps_fn, capture_step)
+    if args.elbo == "SVIGP_Hensman":
+        return run_svigp(args, splits, device, capture_step)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step)
+
+
+def _to_dev(split: dict, device: torch.device):
+    return (torch.as_tensor(split["images"], dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(split["aux_data"], dtype=torch.float32,
+                            device=device))
 
 
 def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 capture_step: Optional[int]) -> dict:
-    """Returns {"state", "step_seconds" (host clock after synchronize,
-    per step), "metrics" (per step), "evals" (per eval pass),
-    "step_launches" (kernel launches inside each step), "captured",
-    "cgen_mse", "best_cgen_mse"}."""
-    args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="mnist",
-        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
-    print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
+    """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
+    "step_seconds" (host clock after synchronize, per step), "metrics"
+    (per step), "evals" (per eval pass), "step_launches" (kernel launches
+    inside each step), "captured", "cgen_mse", "best_cgen_mse",
+    "regimes" (per epoch)}."""
+    is_svgpvae = "SVGPVAE" in args.elbo
+    is_cvae = args.elbo == "CVAE"
+    if is_svgpvae:
+        args.gp_block_impl = models.resolve_gp_block_impl(
+            args.gp_block_impl, workload="mnist",
+            titsias=args.elbo == "SVGPVAE_Titsias", device=device)
+        print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
     train_d, eval_d, test_d = splits["train"], splits["eval"], splits["test"]
     # as the JAX driver: N_train stays n_digits * 4050 under --N_t
     N_train = (len(train_d["images"]) if args.N_t is None
@@ -434,11 +625,14 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
 
     run_dir = open_run_dir(args)
     vae, gp = build_model(args, splits, N_train, device)
-    params = {"vae": vae, "gp": gp}
+    params = {"vae": vae} if gp is None else {"vae": vae, "gp": gp}
     trainable = train.trainable_tensors(params, trainable_predicate(args))
     print(f"parameters: {utils.count_params(params)}, trainable: "
           f"{sum(t.numel() for t in trainable.values())}")
-    nr_epochs, regime = train.parse_opt_regime(list(args.opt_regime))
+    if is_svgpvae:
+        nr_epochs, regime = train.parse_opt_regime(list(args.opt_regime))
+    else:
+        nr_epochs, regime = args.nr_epochs, ["VAE"] * args.nr_epochs
     # the lr-decay horizon counts N_train steps, as the JAX driver does
     steps_per_epoch = -(-N_train // args.batch_size)
     state = train.TrainState(
@@ -449,32 +643,40 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     noise = Noise(eps_fn)
     if args.resume_dir:
         resume(args, state, noise)
-    forward = make_forward(args, noise)
-    loss_fn = make_loss_fn(args, forward)
+    forward = make_forward(args, noise) if is_svgpvae else None
+    vae_forward = make_vae_forward(args, noise, cvae=is_cvae)
+    loss_fns = {"VAE": make_vae_loss_fn(vae_forward)}
+    if is_svgpvae:
+        loss_fns["joint"] = make_loss_fn(args, forward)
     savers = {}
     if args.save and run_dir:
-        savers["elbo"] = utils.ResultSaver(
-            os.path.join(run_dir, "res", "ELBO_results.csv"), ELBO_COLUMNS,
-            flush_every=1)
-        savers["gp"] = utils.ResultSaver(
-            os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
-            flush_every=1)
+        res = os.path.join(run_dir, "res")
+        if is_svgpvae:
+            savers["elbo"] = utils.ResultSaver(
+                os.path.join(res, "ELBO_results.csv"), ELBO_COLUMNS,
+                flush_every=1)
+            savers["gp"] = utils.ResultSaver(
+                os.path.join(res, "GP_params.csv"), GP_COLUMNS, flush_every=1)
+            if "VAE" in regime:
+                savers["elbo_vae"] = utils.ResultSaver(
+                    os.path.join(res, "ELBO_VAE_results.csv"), VAE_COLUMNS,
+                    flush_every=1)
+        else:
+            savers["elbo_vae"] = utils.ResultSaver(
+                os.path.join(res, "ELBO_results.csv"), VAE_COLUMNS,
+                flush_every=1)
 
-    def to_dev(split):
-        return (torch.as_tensor(split["images"], dtype=torch.float32,
-                                device=device),
-                torch.as_tensor(split["aux_data"], dtype=torch.float32,
-                                device=device))
-
-    train_im, train_aux = to_dev(train_d)
-    eval_im, eval_aux = to_dev(eval_d)
-    test_im, test_aux = to_dev(test_d)
+    train_im, train_aux = _to_dev(train_d, device)
+    eval_im, eval_aux = _to_dev(eval_d, device)
+    test_im, test_aux = _to_dev(test_d, device)
 
     @torch.no_grad()
-    def recon_sum(images, aux):
+    def recon_sum(images, aux, vae_pass):
         # the JAX driver's "MSE": the summed recon_loss over the split
         # (under GECO the constraint sum_b(mse_b - kappa^2))
-        return sum(float(forward(params, batch, state.geco, args.alpha,
+        return sum(float(vae_forward(params, batch, "eval").recon_loss
+                         if vae_pass else
+                         forward(params, batch, state.geco, args.alpha,
                                  "eval").recon_loss)
                    for batch in _chunks(images, aux, args.batch_size))
 
@@ -486,8 +688,16 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 torch.cat([e[1] for e in enc]))
 
     @torch.no_grad()
-    def cgen_sum():
-        """(summed cgen loss over the test split, its images)"""
+    def cgen():
+        """(the cgen MSE, its images) or (None, None) for the VAE."""
+        if is_cvae:
+            images, loss = models.predict_cvae(
+                vae, train_im, train_aux, test_im, test_aux,
+                noise("eval", (N_train, args.L)),
+                n_objects=len(splits["pca_ov_init"]))
+            return float(loss), images
+        if not is_svgpvae:
+            return None, None
         means, variances = encode_train()
         total, images = 0.0, []
         for batch in _chunks(test_im, test_aux, args.batch_size):
@@ -496,34 +706,23 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 noise("eval", (batch[0].shape[0], args.L)))
             total += float(loss)
             images.append(recon)
-        return total, torch.cat(images)
+        return total / N_test, torch.cat(images)
 
-    step_seconds, step_metrics, step_launches, evals = [], [], [], []
-    captured = cgen_images = None
+    rec = StepRecorder(device, noise, capture_step)
+    evals = []
+    cgen_images = None
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
+        use_vae_pass = regime[epoch] == "VAE"
+        loss_fn = loss_fns["VAE" if use_vae_pass else "joint"]
         t_epoch = time.perf_counter()
         elbos, losses = [], []
         for batch in _chunks(train_im, train_aux, args.batch_size):
-            snap = (_snapshot(state, batch) if state.step == capture_step
-                    else None)
-            before = ops.launch_counts()
-            t0 = time.perf_counter()
-            m = train.train_step(state, batch, loss_fn)
-            sync(device)
-            step_seconds.append(time.perf_counter() - t0)
-            after = ops.launch_counts()
-            step_launches.append({k: after[k] - before[k] for k in after})
-            if snap is not None:
-                captured = _finish_capture(snap, state, trainable, m,
-                                           noise.last)
-            m = {k: float(v) for k, v in m.items()}
-            step_metrics.append(m)
+            m = rec.step(state, batch, loss_fn, trainable, state.step,
+                         regime=regime[epoch])
             elbos.append(m["elbo"])
             losses.append(m["recon"])
-        if not np.all(np.isfinite(elbos)):
-            raise FloatingPointError(
-                f"non-finite ELBO in epoch {epoch} (step {state.step})")
+        _check_finite(elbos, epoch, state.step)
 
         if (epoch + 1) % args.eval_every == 0:
             print(f"epoch {epoch}, regime {regime[epoch]}, mean ELBO/batch "
@@ -532,57 +731,53 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   f"{time.perf_counter() - t_epoch:.2f}s")
             t0 = time.perf_counter()
             ev = {"epoch": epoch,
-                  "eval_mse": recon_sum(eval_im, eval_aux) / N_eval,
-                  "test_mse": recon_sum(test_im, test_aux) / N_test}
+                  "eval_mse": recon_sum(eval_im, eval_aux, use_vae_pass)
+                  / N_eval,
+                  "test_mse": recon_sum(test_im, test_aux, use_vae_pass)
+                  / N_test}
             sync(device)
             t1 = time.perf_counter()
-            cgen_total, cgen_images = cgen_sum()
-            ev["cgen_mse"] = cgen_total / N_test
+            ev["cgen_mse"], images = cgen()
+            cgen_images = images if images is not None else cgen_images
             sync(device)
             ev["seconds"] = {"eval_test": t1 - t0,
                              "cgen": time.perf_counter() - t1}
             evals.append(ev)
             print(f"  eval MSE: {ev['eval_mse']:.5f}")
             print(f"  test MSE: {ev['test_mse']:.5f}")
-            print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
-            if run_dir:
-                with open(os.path.join(run_dir, "pics", "test_metrics.txt"),
-                          "a") as f:
-                    f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
-                            f"{round(ev['cgen_mse'], 4)}\n")
-            if savers:
+            if ev["cgen_mse"] is not None:
+                print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+                if run_dir:
+                    with open(os.path.join(run_dir, "pics",
+                                           "test_metrics.txt"), "a") as f:
+                        f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
+                                f"{round(ev['cgen_mse'], 4)}\n")
+            metrics_batch = (eval_im[:args.batch_size],
+                             eval_aux[:args.batch_size])
+            if savers and use_vae_pass:
+                write_vae_row(savers["elbo_vae"], state.step, vae_forward,
+                              params, metrics_batch)
+            elif savers:
                 write_eval_rows(args, savers, run_dir, state, forward,
-                                (eval_im[:args.batch_size],
-                                 eval_aux[:args.batch_size]))
+                                metrics_batch)
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       checkpoint_state(state, noise),
                                       state.step)
 
-    elapsed = time.perf_counter() - t_start
-    if step_seconds:
-        timed = step_seconds[1:] or step_seconds
-        print(f"total: {len(step_seconds)} steps, {elapsed:.1f}s; step time "
-              f"first {1e3 * step_seconds[0]:.2f} ms, p50 "
-              f"{1e3 * float(np.percentile(timed, 50)):.2f} ms, p90 "
-              f"{1e3 * float(np.percentile(timed, 90)):.2f} ms")
-    result = {"state": state, "step_seconds": step_seconds,
-              "metrics": step_metrics, "evals": evals,
-              "step_launches": step_launches, "captured": captured,
-              "cgen_mse": evals[-1]["cgen_mse"] if evals else None,
-              "run_dir": run_dir, "noise": noise}
-    if evals:
-        best = min(evals, key=lambda e: e["cgen_mse"])
-        print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
-              f"{best['epoch']}")
-        result["best_cgen_mse"] = best["cgen_mse"]
-    if run_dir and cgen_images is not None:
-        with open(os.path.join(run_dir, "cgen_images.p"), "wb") as f:
-            pickle.dump(cgen_images.cpu().numpy(), f)
+    rec.summary(time.perf_counter() - t_start)
+    result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
+                  noise=noise, regimes=regime)
+    _best(result, evals)
+    _save_cgen_images(run_dir, cgen_images)
     if run_dir and args.save_latents:
         with torch.no_grad():
-            p_m, p_v, _, _ = gpm.posterior_params(gp, train_aux, train_aux,
-                                                  *encode_train())
+            mu, var = encode_train()
+            if gp is None:
+                p_m, p_v = mu, var
+            else:
+                p_m, p_v, _, _ = gpm.posterior_params(gp, train_aux,
+                                                      train_aux, mu, var)
         p_m, p_v = p_m.cpu().numpy(), p_v.cpu().numpy()
         z = p_m + np.sqrt(np.maximum(p_v, 0)) * \
             np.random.RandomState(0).randn(*p_m.shape)
@@ -591,10 +786,328 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     return result
 
 
+# --- deep SVIGP --------------------------------------------------------------
+
+
+def with_global_index(split: dict) -> dict:
+    """The split with a running row index prepended to its aux data."""
+    aux = split["aux_data"]
+    return dict(split, aux_data=np.c_[np.arange(len(aux), dtype=aux.dtype),
+                                      aux])
+
+
+def build_svigp(args, splits: dict, N_train: int, device: torch.device):
+    """{"dec": SVIGPDecoder, "gp": SVIGP} on `device`, initialised as the
+    JAX driver's run_svigp does (zero locs, identity scales, noise 0.1;
+    the KDE inducing points drawn from the global-indexed train aux, whose
+    columns 2: are the angle and the first M - 1 PCA columns), or from
+    --params."""
+    dec = SVIGPDecoder(L=args.L,
+                       generator=torch.Generator().manual_seed(args.seed))
+    ip_init = data.generate_init_inducing_points(
+        with_global_index(splits["train"]), n=args.nr_inducing_points,
+        use_pca=args.PCA, M=args.M, seed=args.seed)
+    opts = dict(jitter=args.jitter, N_train=N_train,
+                K_obj_normalize=args.object_kernel_normalize)
+    gp = gpm.init_svigp(ip_init, object_vectors_init(args, splits), L=args.L,
+                        **opts)
+    if args.params:
+        port = _load_params(args.params, svigp_params_from_jax)
+        dec.load_state_dict(port["dec"])
+        if ("object_vectors" in port["gp"]) != args.ov_joint:
+            raise ValueError("--params and --ov_joint disagree on the GPLVM "
+                             "object-vector table")
+        gp = gpm.SVIGP(**port["gp"], **opts)
+    return {"dec": dec.to(device), "gp": gp.to(device)}
+
+
+def make_svigp_loss_fn() -> Callable:
+    """loss_fn for train.train_step: minus the deep SVIGP's ELBO (no
+    draws)."""
+
+    def loss_fn(params, batch, geco, step):
+        out = models.forward_pass_deep_svigp(params["dec"], params["gp"],
+                                             batch)
+        return -out.elbo, (geco, {"elbo": out.elbo.detach(),
+                                  "recon": out.recon_loss.detach()})
+
+    return loss_fn
+
+
+def run_svigp(args, splits: dict, device: torch.device,
+              capture_step: Optional[int]) -> dict:
+    """SVIGP_Hensman: --nr_epochs epochs (every full batch and the tail),
+    the cgen MSE of the test split every --eval_every epochs.  Returns
+    {"state", "step_seconds", "metrics", "step_launches", "captured",
+    "evals", "cgen_mse", "best_cgen_mse"}."""
+    train_d = with_global_index(splits["train"])
+    test_d = with_global_index(splits["test"])
+    N_train, N_test = len(train_d["images"]), len(test_d["images"])
+    run_dir = open_run_dir(args)
+    params = build_svigp(args, splits, N_train, device)
+    trainable = train.trainable_tensors(params, trainable_predicate(args))
+    print(f"parameters: {utils.count_params(params)}, trainable: "
+          f"{sum(t.numel() for t in trainable.values())}")
+    state = train.TrainState(
+        params=params, optimizer=train.make_optimizer(trainable, args.lr),
+        geco=train.GECOState.init(device=device),
+        lr_fn=train.cosine_decay_lr(
+            args.lr, args.lr_decay,
+            args.nr_epochs * -(-N_train // args.batch_size)))
+    loss_fn = make_svigp_loss_fn()
+    train_im, train_aux = _to_dev(train_d, device)
+    test_im, test_aux = _to_dev(test_d, device)
+
+    rec = StepRecorder(device, None, capture_step)
+    evals, cgen_images = [], None
+    t_start = time.perf_counter()
+    for epoch in range(args.nr_epochs):
+        elbos, losses = [], []
+        for batch in _chunks(train_im, train_aux, args.batch_size):
+            m = rec.step(state, batch, loss_fn, trainable, state.step)
+            elbos.append(m["elbo"])
+            losses.append(m["recon"])
+        _check_finite(elbos, epoch, state.step)
+        if (epoch + 1) % args.eval_every == 0:
+            print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, "
+                  f"train MSE {np.sum(losses) / N_train:.5f}, noise "
+                  f"{params['gp'].noise.item():.4f}")
+            t0 = time.perf_counter()
+            total, images = 0.0, []
+            for batch in _chunks(test_im, test_aux, args.batch_size):
+                recon, loss = models.predict_deep_svigp(
+                    params["dec"], params["gp"], batch)
+                total += float(loss)
+                images.append(recon)
+            cgen_images = torch.cat(images)
+            sync(device)
+            evals.append({"epoch": epoch, "cgen_mse": total / N_test,
+                          "seconds": {"cgen": time.perf_counter() - t0}})
+            print(f"  cgen test MSE: {total / N_test:.5f}")
+            if run_dir and args.save_model_weights:
+                utils.save_checkpoint(
+                    os.path.join(run_dir, "ckpt"),
+                    {"train_state": state.state_dict()}, state.step)
+    rec.summary(time.perf_counter() - t_start)
+    result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir)
+    _save_cgen_images(run_dir, cgen_images)
+    return _best(result, evals)
+
+
+# --- Casale GPVAE ------------------------------------------------------------
+
+
+def sort_train_data(train_d: dict) -> dict:
+    """The Casale layout: rows sorted by (id, angle), the global row index
+    prepended to the aux data ([global index, id, angle, pca...])."""
+    aux = train_d["aux_data"]
+    order = np.lexsort((aux[:, 1], aux[:, 0]))
+    gidx = np.arange(len(aux), dtype=aux.dtype)[:, None]
+    return {"images": train_d["images"][order],
+            "aux_data": np.hstack([gidx, aux[order]])}
+
+
+def train_angles_mask(aux_sorted: np.ndarray) -> np.ndarray:
+    """Boolean mask over the (sorted unique id) x (sorted unique angle)
+    grid: which pairs the train set holds (aux columns [global index, id,
+    angle, ...])."""
+    ids = np.unique(aux_sorted[:, 1])
+    angles = np.unique(aux_sorted[:, 2])
+    present = set(zip(aux_sorted[:, 1], aux_sorted[:, 2]))
+    return np.array([(i, a) in present for i in ids for a in angles])
+
+
+def casale_constants(train_sorted: dict, device: torch.device) -> dict:
+    """What every Casale step reads besides the batch: the whole sorted
+    train split's images (the full-train encode), its sorted unique
+    angles and object ids, and the rows of the (object, angle) grid that
+    it holds (v_matrix's gather)."""
+    aux = train_sorted["aux_data"]
+    return {
+        "images": torch.as_tensor(train_sorted["images"],
+                                  dtype=torch.float32, device=device),
+        "angles": torch.as_tensor(np.unique(aux[:, 2]), dtype=torch.float32,
+                                  device=device),
+        "object_ids": torch.as_tensor(np.unique(aux[:, 1]).astype(np.int64),
+                                      device=device),
+        "grid_rows": torch.as_tensor(np.nonzero(train_angles_mask(aux))[0],
+                                     device=device)}
+
+
+def build_casale(args, splits: dict, device: torch.device) -> dict:
+    """{"vae": MnistVAE, "gp": CasaleGP} on `device`: the GPLVM table from
+    the PCA embeddings (--PCA) or, under --ov_joint, N(0, 1.5^2) draws;
+    or from --params."""
+    vae = MnistVAE(L=args.L,
+                   generator=torch.Generator().manual_seed(args.seed))
+    if not (args.PCA or args.ov_joint):
+        raise SystemExit("--elbo GPVAE_Casale: without --ov_joint the GPLVM "
+                         "table must start from --PCA")
+    opts = dict(object_kernel_normalize=args.object_kernel_normalize,
+                ov_joint=args.ov_joint, jitter=args.jitter,
+                alpha_transform="softplus" if args.casale_alpha_softplus
+                else "clamp", alpha_max=args.casale_alpha_max)
+    gp = gpm.init_casale_gp(splits["pca_ov_init"] if args.PCA
+                            else object_vectors_init(args, splits), **opts)
+    if args.params:
+        port = _load_params(args.params, casale_params_from_jax)
+        vae.load_state_dict(port["vae"])
+        gp = gpm.CasaleGP(**port["gp"], **opts)
+    return {"vae": vae.to(device), "gp": gp.to(device)}
+
+
+def make_casale_loss_fn(args, eps_fn: Callable, consts: dict, regime: str,
+                        held_Z: Optional[torch.Tensor] = None) -> Callable:
+    """loss_fn for train.train_step in a Casale `regime`.  "VAE": minus the
+    plain VAE ELBO of the batch (aux column 0, the global index, dropped;
+    no variance clip), one draw "train/VAE" (b, L).  "joint" / "GP": the
+    full-train encode Z (a draw "train/<regime>" (N, L); or `held_Z`,
+    without gradient), V and the Taylor terms, and the Casale objective
+    of the batch (a draw (b, L))."""
+    kind = f"train/{regime}"
+    if regime == "VAE":
+        forward = make_vae_forward(args, eps_fn, clip_qs=False)
+
+        def vae_loss_fn(params, batch, geco, step):
+            images, aux = batch
+            out = forward(params, (images, aux[:, 1:]), kind)
+            return -out.elbo, (geco, {"elbo": out.elbo.detach(),
+                                      "recon": out.recon_loss.detach()})
+
+        return vae_loss_fn
+
+    def loss_fn(params, batch, geco, step):
+        vae, gp = params["vae"], params["gp"]
+        Z = held_Z
+        if Z is None:
+            images = consts["images"]
+            Z = models.encode_full_casale(
+                vae, images, eps_fn(kind, (images.shape[0], args.L)),
+                clip_qs=args.clip_qs)
+        V = gpm.v_matrix(gp, consts["angles"], consts["object_ids"],
+                         consts["grid_rows"])
+        a, ztKV, K_inv_V, c = gpm.taylor_terms(gp, Z, V)
+        out = models.forward_pass_casale(
+            vae, gp, batch, eps_fn(kind, (batch[0].shape[0], args.L)), a, c,
+            V, args.beta, ztKV=ztKV, K_inv_V=K_inv_V, clip_qs=args.clip_qs)
+        return out.elbo, (geco, {"elbo": out.elbo.detach(),
+                                 "recon": out.recon_loss.detach()})
+
+    return loss_fn
+
+
+def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
+               capture_step: Optional[int]) -> dict:
+    """GPVAE_Casale: --opt_regime's epochs, each stepping its regime's own
+    Adam; the cgen MSE every CASALE_EVAL_EVERY epochs.  Returns
+    {"params", "states" (per regime), "step_seconds", "metrics",
+    "step_launches", "captured", "evals", "cgen_mse", "best_cgen_mse",
+    "regimes" (per step)}."""
+    train_d = sort_train_data(splits["train"])
+    N_train = len(train_d["images"])
+    consts = casale_constants(train_d, device)
+    test_im, test_aux = _to_dev(splits["test"], device)
+    train_aux = torch.as_tensor(train_d["aux_data"], dtype=torch.float32,
+                                device=device)
+    run_dir = open_run_dir(args)
+    params = build_casale(args, splits, device)
+    named = train.trainable_tensors(params, lambda name: True)
+    print(f"parameters: {utils.count_params(params)}")
+    subsets = {"joint": (named, args.lr_joint),
+               "GP": ({k: t for k, t in named.items()
+                       if k.startswith("gp/")}, args.lr_gp),
+               "VAE": ({k: t for k, t in named.items()
+                        if k.startswith("vae/")}, CASALE_VAE_LR)}
+    states = {r: train.TrainState(
+        params=params, optimizer=train.make_optimizer(tensors, lr),
+        geco=train.GECOState.init(device=device))
+        for r, (tensors, lr) in subsets.items()}
+    noise = Noise(eps_fn)
+    nr_epochs, regime = train.parse_opt_regime(list(args.opt_regime))
+    taylor_every = max(1, args.casale_taylor_every)
+    held_Z, age = None, 0
+
+    rec = StepRecorder(device, noise, capture_step)
+    evals, steps, regimes = [], 0, []
+    t_start = time.perf_counter()
+    for epoch in range(nr_epochs):
+        r = regime[epoch]
+        cadenced = taylor_every > 1 and r != "VAE"
+        elbos, losses = [], []
+        for batch in _chunks(consts["images"], train_aux, args.batch_size):
+            if cadenced:
+                if age % taylor_every == 0:
+                    with torch.no_grad():
+                        held_Z = models.encode_full_casale(
+                            params["vae"], consts["images"],
+                            noise(f"train/{r}", (N_train, args.L)),
+                            clip_qs=args.clip_qs)
+                age += 1
+            loss_fn = make_casale_loss_fn(args, noise, consts, r,
+                                          held_Z if cadenced else None)
+            m = rec.step(states[r], batch, loss_fn, subsets[r][0], steps,
+                         regime=r, held_Z=held_Z if cadenced else None)
+            steps += 1
+            regimes.append(r)
+            elbos.append(m["elbo"])
+            losses.append(m["recon"])
+        _check_finite(elbos, epoch, steps)
+
+        if (epoch + 1) % CASALE_EVAL_EVERY == 0:
+            gp = params["gp"]
+            print(f"epoch {epoch} ({r}): mean ELBO/batch {np.mean(elbos):.3f}"
+                  f", train MSE {np.sum(losses) / N_train:.5f}")
+            with torch.no_grad():
+                ov = torch.linalg.norm(gp.object_vectors).item()
+                print(f"  GP params: l={gp.length_scale.item():.4f} "
+                      f"amp={gp.amplitude.item():.4f} "
+                      f"alpha_raw={gp.alpha.item():.5f} "
+                      f"noise={gpm.casale_noise(gp).item():.6f} "
+                      f"|ov|={ov:.3f}")
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                Z = models.encode_full_casale(
+                    params["vae"], consts["images"],
+                    noise("eval", (N_train, args.L)), clip_qs=args.clip_qs)
+                V = gpm.v_matrix(gp, consts["angles"], consts["object_ids"],
+                                 consts["grid_rows"])
+                _, loss = models.predict_cgen_casale(
+                    params["vae"], gp, test_im, test_aux, train_aux, V, Z,
+                    noise("eval", (len(test_im), args.L)),
+                    noise_override=args.casale_predict_alpha or None)
+            sync(device)
+            evals.append({"epoch": epoch, "cgen_mse": float(loss),
+                          "seconds": {"cgen": time.perf_counter() - t0}})
+            print(f"  cgen test MSE: {float(loss):.5f}")
+            if run_dir and args.save_model_weights:
+                utils.save_checkpoint(
+                    os.path.join(run_dir, "ckpt"),
+                    {"regimes": {k: st.state_dict()
+                                 for k, st in states.items()}}, steps)
+    rec.summary(time.perf_counter() - t_start)
+    result = dict(rec.result(), params=params, states=states, evals=evals,
+                  run_dir=run_dir, noise=noise, regimes=regimes)
+    return _best(result, evals)
+
+
+# --- run outputs -------------------------------------------------------------
+
+
 ELBO_COLUMNS = ["step", "ELBO", "recon_loss", "KL_term", "min_qm", "max_qm",
                 "min_qv", "max_qv", "inside_elbo", "ce_term", "min_pm",
                 "max_pm", "min_pv", "max_pv", "C_ma", "lagrange_mult"]
+VAE_COLUMNS = ELBO_COLUMNS[:8]
 GP_COLUMNS = ["step", "length_scale", "amplitude", "ip_norm", "ov_norm"]
+
+
+@torch.no_grad()
+def write_vae_row(saver, step: int, vae_forward, params, batch) -> None:
+    """The JAX driver's per-eval VAE metric row (the VAE forward pass on
+    `batch` with the eval noise)."""
+    out = vae_forward(params, batch, "eval")
+    saver([step] + [float(x) for x in (
+        out.elbo, out.recon_loss, out.kl_term, out.qnet_mu.min(),
+        out.qnet_mu.max(), out.qnet_var.min(), out.qnet_var.max())])
 
 
 @torch.no_grad()
@@ -624,21 +1137,33 @@ def write_eval_rows(args, savers: dict, run_dir: str, state, forward,
              else ov.detach().cpu().numpy())
 
 
-def _snapshot(state, batch) -> dict:
-    """Copies of what a step starts from."""
-    vae, gp = state.params["vae"], state.params["gp"]
-    return {"step": state.step, "batch": batch,
-            "vae": {k: v.detach().clone()
-                    for k, v in vae.state_dict().items()},
-            "gp": {k: v.detach().clone()
-                   for k, v in gp.named_tensors().items()},
+def _snapshot(state, batch, index: int, **extra) -> dict:
+    """Copies of what a step starts from: its parameters by name (and, as
+    earlier consumers read them, the VAE's state dict and the GP's
+    tensors), the batch, the GECO state and the driver's `extra`."""
+    params = state.params
+    snap = {"step": index, "batch": batch,
+            "params": {k: v.detach().clone() for k, v in
+                       train.named_tensors(params).items()},
             "geco": train.GECOState(C_ma=state.geco.C_ma.clone(),
                                     lagrange_mult=state.geco.lagrange_mult
-                                    .clone())}
+                                    .clone()), **extra}
+    if "vae" in params:
+        snap["vae"] = {k: v.detach().clone()
+                       for k, v in params["vae"].state_dict().items()}
+    if "gp" in params:
+        snap["gp"] = {k: v.detach().clone()
+                      for k, v in params["gp"].named_tensors().items()}
+    return snap
 
 
-def _finish_capture(snap, state, trainable, metrics, eps) -> dict:
-    snap["eps"] = eps.clone()
+def _finish_capture(snap, state, trainable, metrics, noise) -> dict:
+    """The step's noise ("draws", in order; "eps" the last), loss,
+    gradients of its trainable tensors and the GECO state after it."""
+    if noise is not None:
+        snap["draws"] = [e.clone() for e in noise.draws]
+        snap["eps"] = snap["draws"][-1] if snap["draws"] else None
+        noise.draws = None
     snap["grads"] = {k: t.grad.detach().clone()
                      for k, t in trainable.items()}
     snap["loss"] = metrics["loss"]

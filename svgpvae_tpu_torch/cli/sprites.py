@@ -1,4 +1,4 @@
-"""SPRITES SVGPVAE training with the PyTorch port.
+"""SPRITES training with the PyTorch port: the SVGPVAE and the plain VAE.
 
     python -m svgpvae_tpu_torch.cli.sprites --elbo SVGPVAE_Hensman --GECO \
         --clip_qs --synthetic --synthetic_chars 1000 --opt_regime joint-1 \
@@ -71,9 +71,14 @@ with --basin_retry, whose restarts need the post-pretraining parameters.
 The pictures (pics/*.png) are not written: the port does without
 matplotlib.
 
-Not ported yet, refused with an error: the other --elbo values,
---test_set_metrics, --bf16, --bf16_hybrid, --data_parallel,
---profile_dir, --reshuffle, and a raw-npy corpus (its preprocessing).
+--elbo VAE (the JAX CLI's default) trains the SpritesVAE alone on the
+plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
+pretraining, no GP; its eval pass is the test_character reconstruction
+MSE, and its metric rows the eight VAE columns.
+
+Not ported yet, refused with an error: --test_set_metrics, --bf16,
+--bf16_hybrid, --data_parallel, --profile_dir, --reshuffle, and a
+raw-npy corpus (its preprocessing).
 --s2d64 and --fused_upsample are TPU rewrites that the port does not
 carry.
 """
@@ -98,7 +103,8 @@ from svgpvae_tpu_torch.cli.mnist import (Noise, checkpoint_state,
                                          default_eps_fn, open_run_dir,
                                          resume, sync)
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
-from svgpvae_tpu_torch.utils.convert import sprites_train_params_from_jax
+from svgpvae_tpu_torch.utils.convert import (params_from_jax,
+                                             sprites_train_params_from_jax)
 
 N_ACTIONS = data.N_ACTIONS
 FRAMES_PER_CHAR = 50      # train frames per character
@@ -217,7 +223,6 @@ NOT_PORTED = {  # flag -> is it set?
     "--profile_dir": lambda a: a.profile_dir is not None,
     "--reshuffle": lambda a: a.reshuffle,
 }
-PORTED_ELBOS = ("SVGPVAE_Hensman", "SVGPVAE_Titsias")
 TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
     "--s2d64": lambda a: bool(a.s2d64),
     "--fused_upsample": lambda a: a.fused_upsample,
@@ -225,16 +230,14 @@ TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
 
 
 def refuse_unported(args) -> None:
-    if args.elbo not in PORTED_ELBOS:
-        raise SystemExit(f"--elbo {args.elbo}: not ported yet (the port "
-                         f"trains {' and '.join(PORTED_ELBOS)})")
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
     for flag, is_set in TPU_ONLY.items():
         if is_set(args):
             raise SystemExit(f"{flag}: a TPU rewrite, not ported")
-    if any(not s.startswith("joint-") for s in args.opt_regime):
+    if "SVGPVAE" in args.elbo and any(not s.startswith("joint-")
+                                      for s in args.opt_regime):
         raise SystemExit("--opt_regime: SPRITES trains jointly only (joint-N)"
                          ", as the reference experiment")
     if args.object_kernel_normalize and args.K_SE:
@@ -334,10 +337,16 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
     """{"vae", "repr", "gp"} and the pretraining head on `device`: the GP
     initialised as the JAX CLI does, the nets from flax's init drawn
     from one generator seeded by --seed; or everything (the head if
-    present) from --params."""
+    present) from --params.  --elbo VAE: {"vae"} alone and no head."""
     n_chars = N_train // FRAMES_PER_CHAR
     gen = torch.Generator().manual_seed(args.seed)
     vae = SpritesVAE(L=args.L, generator=gen)
+    f32 = dict(device=device, dtype=torch.float32)
+    if "SVGPVAE" not in args.elbo:
+        if args.params:
+            with np.load(args.params) as z:
+                vae.load_state_dict(params_from_jax(dict(z))["vae"])
+        return {"vae": vae.to(**f32)}, None
     repr_net = SpritesReprNet(L=args.L_character, generator=gen)
     head = ClassificationHead(args.L_character, n_chars, generator=gen)
     if args.PCA:
@@ -361,7 +370,6 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
                 dict(z), cfg, args.L_action, use_se_kernel=args.K_SE)
         head = port.pop("head", head)
         params = port
-    f32 = dict(device=device, dtype=torch.float32)
     return {k: v.to(**f32) for k, v in params.items()}, head.to(**f32)
 
 
@@ -383,6 +391,30 @@ def make_forward(args, eps_fn: Callable) -> Callable:
             repr_net=params["repr"], frames_per_char=frames_per_char)
 
     return forward
+
+
+def make_vae_forward(args, eps_fn: Callable) -> Callable:
+    """make_forward's form for --elbo VAE: the plain VAE forward pass
+    (models.vae; the action ids and the GECO arguments go unused)."""
+
+    def forward(params, batch, geco, alpha, kind, frames_per_char):
+        return models.forward_pass_vae(
+            params["vae"], batch, eps_fn(kind, (batch[0].shape[0], args.L)),
+            clip_qs=args.clip_qs)
+
+    return forward
+
+
+def make_vae_loss_fn(forward: Callable) -> Callable:
+    """loss_fn for train.train_step with make_vae_forward's forward: minus
+    the VAE ELBO; the GECO state passes through."""
+
+    def loss_fn(params, batch, geco, step):
+        out = forward(params, batch, geco, 0.0, "train", FRAMES_PER_CHAR)
+        return -out.elbo, (geco, {"elbo": out.elbo.detach(),
+                                  "recon": out.recon_loss.detach()})
+
+    return loss_fn
 
 
 def make_loss_fn(args, forward: Callable) -> Callable:
@@ -513,11 +545,15 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     synchronize, per main step), "metrics" (per step), "step_launches"
     (kernel launches inside each step), "evals" (per eval pass: MSEs, the
     seconds and launches of its stages), "captured", "cgen_mse",
-    "best_cgen_mse", "basin_attempts"}."""
-    args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="sprites",
-        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
-    print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
+    "best_cgen_mse", "basin_attempts"}.  --elbo VAE: no pretraining, no
+    GP; --nr_epochs epochs, and the eval pass is the test_character
+    reconstruction alone."""
+    is_svgpvae = "SVGPVAE" in args.elbo
+    if is_svgpvae:
+        args.gp_block_impl = models.resolve_gp_block_impl(
+            args.gp_block_impl, workload="sprites",
+            titsias=args.elbo == "SVGPVAE_Titsias", device=device)
+        print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
     train_d, tc_d = splits["train"], splits["test_character"]
     N_train, N_test = len(train_d["frames"]), len(tc_d["frames"])
     batch_size = min(args.batch_size, N_train)
@@ -540,7 +576,7 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     tc_action = to_dev(tc_d["aux_data"][:, 1])
 
     pre = None
-    if "yes" in args.repr_nn_pretrain and not args.resume_dir:
+    if is_svgpvae and "yes" in args.repr_nn_pretrain and not args.resume_dir:
         ta_d = splits["test_action"]
         pre = pretrain(args, params, head, train_frames,
                        to_dev(train_d["aux_data"][:, 0]),
@@ -549,7 +585,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     trainable = train.trainable_tensors(params, trainable_predicate(args))
     print(f"parameters: {utils.count_params(params)}, trainable: "
           f"{sum(t.numel() for t in trainable.values())}")
-    nr_epochs = train.parse_opt_regime(list(args.opt_regime))[0]
+    nr_epochs = (train.parse_opt_regime(list(args.opt_regime))[0]
+                 if is_svgpvae else args.nr_epochs)
     steps_per_epoch = -(-N_train // batch_size)
 
     def fresh_state():
@@ -569,15 +606,20 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     noise = Noise(stream(0))
     if args.resume_dir:
         ckpt = resume(args, state, noise)
-        if ckpt is not None:
+        if ckpt is not None and head is not None:
             head.load_state_dict(ckpt["head"])
-    forward = make_forward(args, noise)
-    loss_fn = make_loss_fn(args, forward)
+    if is_svgpvae:
+        forward = make_forward(args, noise)
+        loss_fn = make_loss_fn(args, forward)
+    else:
+        forward = make_vae_forward(args, noise)
+        loss_fn = make_vae_loss_fn(forward)
     savers = {}
     if run_dir:
         savers["elbo"] = utils.ResultSaver(
-            os.path.join(run_dir, "res", "ELBO_results.csv"), ELBO_COLUMNS,
-            flush_every=1)
+            os.path.join(run_dir, "res", "ELBO_results.csv"),
+            ELBO_COLUMNS if is_svgpvae else ELBO_COLUMNS[:8], flush_every=1)
+    if run_dir and is_svgpvae:
         savers["gp"] = utils.ResultSaver(
             os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
             flush_every=1)
@@ -585,7 +627,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     def save_checkpoint():
         utils.save_checkpoint(
             os.path.join(run_dir, "ckpt"),
-            checkpoint_state(state, noise, head=head.state_dict()),
+            checkpoint_state(state, noise, head=None if head is None
+                             else head.state_dict()),
             state.step)
     # --basin_retry restarts from the post-pretraining parameters
     host_copy = ({k: v.detach().to("cpu", copy=True)
@@ -613,6 +656,9 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                     for b in tc_batches)
         ev["test_mse"] = recon / N_test
         t, lc = stage("recon", t, lc)
+        if not is_svgpvae:
+            ev["seconds"], ev["launches"] = secs, launches
+            return ev, None
         enc = []
         for lo, hi in bounds:
             im = train_frames[lo:hi]
@@ -675,27 +721,28 @@ def run_svgpvae(args, splits: dict, device: torch.device,
 
         plateau = False
         if (epoch + 1) % args.eval_every == 0:
-            if run_dir:
+            if run_dir and is_svgpvae:
                 gp = params["gp"]
                 np.savez(os.path.join(run_dir, "res",
                                       f"gp_params_{state.step}.npz"),
                          gplvm_action=gp.gplvm_action.detach().cpu().numpy(),
                          inducing_points=gp.inducing_points.detach().cpu()
                          .numpy())
-            ev, (pics, tgts) = eval_pass(epoch)
+            ev, images = eval_pass(epoch)
             evals.append(ev)
-            cgen_history.append(ev["cgen_mse"])
             print(f"  test recon MSE: {ev['test_mse']:.5f}")
-            print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+            if is_svgpvae:
+                cgen_history.append(ev["cgen_mse"])
+                print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+                plateau = (attempt < args.basin_retry
+                           and len(cgen_history) == args.basin_detect_evals
+                           and min(cgen_history) > (1 - args.basin_detect_rel)
+                           * cgen_history[0])
+                if run_dir:
+                    write_eval_outputs(run_dir, epoch, ev, *images,
+                                       ev["cgen_mse"] <= min(cgen_history))
             print("  eval seconds: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in ev["seconds"].items()))
-            plateau = (attempt < args.basin_retry
-                       and len(cgen_history) == args.basin_detect_evals
-                       and min(cgen_history) > (1 - args.basin_detect_rel)
-                       * cgen_history[0])
-            if run_dir:
-                write_eval_outputs(run_dir, epoch, ev, pics, tgts,
-                                   ev["cgen_mse"] <= min(cgen_history))
             if run_dir and args.save_model_weights:
                 save_checkpoint()
             if on_eval is not None:
@@ -728,9 +775,9 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     result = {"state": state, "pretrain": pre, "step_seconds": step_seconds,
               "metrics": step_metrics, "step_launches": step_launches,
               "evals": evals, "captured": captured, "basin_attempts": attempt,
-              "cgen_mse": evals[-1]["cgen_mse"] if evals else None,
+              "cgen_mse": evals[-1].get("cgen_mse") if evals else None,
               "run_dir": run_dir, "noise": noise}
-    if evals:
+    if is_svgpvae and evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
               f"{best['epoch']}")
@@ -750,15 +797,18 @@ GP_COLUMNS = ["step", "gplvm_norm", "ip_norm", "l_action", "sigma_action",
 def write_epoch_rows(args, savers: dict, state, forward, batch) -> None:
     """The JAX CLI's per-epoch metric rows: the forward pass on `batch`
     (whole train characters) with the eval noise, and the GP's norms and
-    kernel scalars."""
+    kernel scalars (the VAE's: its eight columns, no GP row)."""
     out = forward(state.params, batch, state.geco, args.alpha, "eval",
                   FRAMES_PER_CHAR)
-    savers["elbo"]([state.step] + [float(x) for x in (
-        out.elbo, out.recon_loss, out.kl_term, out.qnet_mu.min(),
-        out.qnet_mu.max(), out.qnet_var.min(), out.qnet_var.max(),
+    row = [out.elbo, out.recon_loss, out.kl_term, out.qnet_mu.min(),
+           out.qnet_mu.max(), out.qnet_var.min(), out.qnet_var.max()]
+    if "gp" not in savers:
+        savers["elbo"]([state.step] + [float(x) for x in row])
+        return
+    savers["elbo"]([state.step] + [float(x) for x in row + [
         out.inside_elbo, out.inside_elbo_recon, out.inside_elbo_kl,
         out.ce_term, out.p_m.min(), out.p_m.max(), out.p_v.min(),
-        out.p_v.max(), state.geco.C_ma, state.geco.lagrange_mult)])
+        out.p_v.max(), state.geco.C_ma, state.geco.lagrange_mult]])
     gp = state.params["gp"]
     savers["gp"]([state.step] + [float(x) for x in (
         torch.linalg.norm(gp.gplvm_action),

@@ -1,3 +1,15 @@
+from svgpvae_tpu_torch.gp.casale import (  # noqa: F401
+    ALPHA_FLOOR,
+    CasaleGP,
+    apply_k_inv,
+    casale_kernel_matrix,
+    casale_noise,
+    effective_alpha,
+    init_casale_gp,
+    kron,
+    taylor_terms,
+    v_matrix,
+)
 from svgpvae_tpu_torch.gp.exact import (  # noqa: F401
     GP1DPosterior,
     PearceLengthScales,
@@ -26,4 +38,10 @@ from svgpvae_tpu_torch.gp.svgp import (  # noqa: F401
     posterior_from_precomputed,
     titsias_terms,
     variational_loss,
+)
+from svgpvae_tpu_torch.gp.svigp import (  # noqa: F401
+    SVIGP,
+    init_svigp,
+    svigp_posterior_params,
+    svigp_variational_loss,
 )

@@ -1,6 +1,7 @@
 """SPRITES, rotated-MNIST and moving-ball networks as torch nn.Modules
-(port of the SPRITES, MNIST and ball parts of svgpvae_tpu/nn/nets.py;
-SPRITES in the reference form only: 16 filters, plain convs).
+(port of svgpvae_tpu/nn/nets.py: the MNIST VAE, CVAE and deep-SVIGP
+decoder, the SPRITES VAE, repr net and head, the ball MLPs; SPRITES in
+the reference form only: 16 filters, plain convs).
 
 Public methods take and return NHWC images, (b, 64, 64, 3) or
 (b, 28, 28, 1), like the flax modules; the modules work in NCHW inside.
@@ -191,10 +192,7 @@ class MnistVAE(nn.Module):
         self.enc_convs = nn.ModuleList(
             conv2d(1 if i == 0 else f, f, 3, stride=2) for i in range(3))
         self.enc_out = linear(4 * f, 2 * L)
-        self.dec_in = linear(L, 16 * f)
-        self.dec_convs = nn.ModuleList([
-            conv2d(f, f, 3, padding=1), conv2d(f, f, 3),
-            conv2d(f, 1, 3, padding=1)])
+        self.dec_in, self.dec_convs = mnist_decoder_layers(L)
         init_like_flax_(self, generator)
 
     def encode(self, images: Tensor) -> Tuple[Tensor, Tensor]:
@@ -207,14 +205,99 @@ class MnistVAE(nn.Module):
 
     def decode(self, latents: Tensor) -> Tensor:
         """(b, L) -> NHWC images (b, 28, 28, 1)."""
-        h = self.dec_in(latents).view(-1, MNIST_FILTERS, 4, 4)
-        for conv in self.dec_convs:
-            h = F.elu(conv(upsample2x(h)))
-        return h.permute(0, 2, 3, 1)
+        return mnist_decode(self.dec_in, self.dec_convs, latents)
 
     def forward(self, images: Tensor):
         mean, var = self.encode(images)
         return self.decode(mean), mean, var
+
+
+def mnist_decoder_layers(L: int, in_maps: int = MNIST_FILTERS):
+    """The MNIST decoder's Linear(L -> 128) and its three convs; the first
+    conv takes `in_maps` channels (the CVAE appends 2 angle maps)."""
+    f = MNIST_FILTERS
+    return linear(L, 16 * f), nn.ModuleList([
+        conv2d(in_maps, f, 3, padding=1), conv2d(f, f, 3),
+        conv2d(f, 1, 3, padding=1)])
+
+
+def mnist_decode(dec_in: nn.Linear, dec_convs: nn.ModuleList,
+                 latents: Tensor, maps: Optional[Tensor] = None) -> Tensor:
+    """(b, L) -> (8, 4, 4) maps [+ `maps` (b, c, 4, 4) appended as
+    channels] -> 3x [up2 + conv, elu] -> NHWC images (b, 28, 28, 1)."""
+    h = dec_in(latents).view(-1, MNIST_FILTERS, 4, 4)
+    if maps is not None:
+        h = torch.cat([h, maps], dim=1)
+    for conv in dec_convs:
+        h = F.elu(conv(upsample2x(h)))
+    return h.permute(0, 2, 3, 1)
+
+
+def _sin_cos(angles: Tensor) -> Tensor:
+    """(b,) angles -> (b, 2) [sin, cos]."""
+    return torch.stack([torch.sin(angles), torch.cos(angles)], dim=1)
+
+
+class MnistCVAE(nn.Module):
+    """Conditional conv VAE for rotated MNIST: sin/cos of the rotation
+    angle enter the encoder twice (as 2 input channels after the image,
+    and beside the flattened features before Linear(2L)) and the decoder
+    twice (beside the latents before Linear(128), and as 2 channels
+    appended to the (8, 4, 4) maps, so the first decoder conv takes 10).
+
+    `encode` takes the 3-channel NHWC input that models.vae.cvae_inputs
+    builds ([image, sin map, cos map]).  The Linear layers use torch's
+    (C, H, W) order; utils.convert.cvae_params_from_jax permutes flax's
+    (H, W, C) order to it.
+    """
+
+    def __init__(self, L: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.L = L
+        f = MNIST_FILTERS
+        self.enc_convs = nn.ModuleList(
+            conv2d(3 if i == 0 else f, f, 3, stride=2) for i in range(3))
+        self.enc_out = linear(4 * f + 2, 2 * L)
+        self.dec_in, self.dec_convs = mnist_decoder_layers(L + 2, f + 2)
+        init_like_flax_(self, generator)
+
+    def encode(self, images3: Tensor, angles: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+        """NHWC (b, 28, 28, 3), angles (b,) -> (mean (b, L), var (b, L))."""
+        h = images3.permute(0, 3, 1, 2)
+        for conv in self.enc_convs:
+            h = F.elu(conv(h))
+        enc = self.enc_out(torch.cat([h.flatten(1), _sin_cos(angles)], 1))
+        return enc[:, :self.L], safe_exp(enc[:, self.L:])
+
+    def decode(self, latents: Tensor, angles: Tensor) -> Tensor:
+        """(b, L), angles (b,) -> NHWC images (b, 28, 28, 1)."""
+        sc = _sin_cos(angles)
+        maps = sc[:, :, None, None].expand(-1, -1, 4, 4)
+        return mnist_decode(self.dec_in, self.dec_convs,
+                            torch.cat([latents, sc], 1), maps)
+
+    def forward(self, images3: Tensor, angles: Tensor):
+        mean, var = self.encode(images3, angles)
+        return self.decode(mean, angles), mean, var
+
+
+class SVIGPDecoder(nn.Module):
+    """The deep-SVIGP baseline's decoder, MnistVAE's decoder alone: (b, L)
+    GP posterior means -> NHWC images (b, 28, 28, 1)."""
+
+    def __init__(self, L: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.L = L
+        self.dec_in, self.dec_convs = mnist_decoder_layers(L)
+        init_like_flax_(self, generator)
+
+    def forward(self, latents: Tensor) -> Tensor:
+        return mnist_decode(self.dec_in, self.dec_convs, latents)
+
+    decode = forward
 
 
 class BallEncoder(nn.Module):

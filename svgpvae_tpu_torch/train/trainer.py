@@ -10,7 +10,8 @@ svgpvae_tpu/train/trainer.py, single device, eager).
   * Adam as optax.adam (b1 0.9, b2 0.999, eps 1e-8 added to sqrt(v_hat):
     torch.optim.Adam places eps the same way), with an optional value clip
     of the gradients and an optional cosine-decayed learning rate;
-  * `train_step(state, batch, loss_fn)`: one forward/backward/update.
+  * `train_step(state, batch, loss_fn)`: one forward/backward/update,
+    with a zero gradient for a trainable tensor the loss does not reach.
 """
 
 from __future__ import annotations
@@ -73,7 +74,12 @@ def train_step(state: TrainState, batch, loss_fn):
     """One step: loss_fn(params, batch, geco, step) -> (loss, (geco,
     metrics)); backward, optional value clip, Adam update, step + 1.
     Returns the metrics with "loss" added.  After the call every
-    trainable tensor's .grad holds this step's gradient."""
+    trainable tensor's .grad holds this step's gradient.
+
+    A trainable tensor that the loss does not reach (the GP's in an
+    --opt_regime VAE epoch) gets a zero gradient, as under JAX's masked
+    optax Adam: Adam still decays its moments, moves it on the first
+    moment and counts the step (torch would skip a .grad of None)."""
     opt = state.optimizer
     if state.lr_fn is not None:
         for group in opt.param_groups:
@@ -82,6 +88,10 @@ def train_step(state: TrainState, batch, loss_fn):
     loss, (geco, metrics) = loss_fn(state.params, batch, state.geco,
                                     state.step)
     loss.backward()
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:  # not reached by this loss: JAX's zero
+                p.grad = torch.zeros_like(p)
     if state.clip_grad_value is not None:
         linalg.tree_value_clip(
             (p.grad for g in opt.param_groups for p in g["params"]),

@@ -29,7 +29,10 @@ none).  `params_from_jax` dispatches a ball tree to it.
 ({"vae": flax MnistVAE params, "gp": MnistSVGP}, flattened alike:
 vae/params/encoder/Conv_0/kernel, ..., gp/inducing_points, ...) and
 returns {"vae": MnistVAE state dict, "gp": {field: tensor}}; the GPLVM
-table gp/object_vectors is optional.
+table gp/object_vectors is optional.  `cvae_params_from_jax`,
+`svigp_params_from_jax` and `casale_params_from_jax` do the same for the
+MNIST baselines (the CVAE; the deep-SVIGP decoder and SVIGP leaves; the
+Casale VAE and CasaleGP leaves).
 """
 
 from __future__ import annotations
@@ -114,9 +117,12 @@ def sprites_repr_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
     """Flat JAX SPRITES SVGPVAE parameters -> the port's (see module doc);
-    a moving-ball tree (enc/..., dec/...) goes to ball_params_from_jax."""
+    a moving-ball tree (enc/..., dec/...) goes to ball_params_from_jax, and
+    a tree without gp/ leaves (a plain VAE run) gives {"vae"} alone."""
     if any(k.startswith("enc/") for k in flat):
         return ball_params_from_jax(flat)
+    if not any(k.startswith("gp/") for k in flat):  # a plain VAE run
+        return {"vae": sprites_vae_state(_module(flat, "vae/params"))}
     missing = [f"gp/{k}" for k in GP_FIELDS if f"gp/{k}" not in flat]
     if missing:
         raise KeyError(f"missing GP parameters: {missing}")
@@ -153,46 +159,133 @@ def sprites_train_params_from_jax(flat: Dict[str, np.ndarray],
     return out
 
 
+def _hwc_rows(w: np.ndarray, side: int, f: int) -> np.ndarray:
+    """A Dense kernel's first side*side*f rows from flax's (h, w, c)
+    flatten order to torch's (c, h, w); any rows after them stay."""
+    n = side * side * f
+    head = w[:n].reshape(side, side, f, -1).transpose(2, 0, 1, 3)
+    return np.concatenate([head.reshape(n, -1), w[n:]])
+
+
+def _hwc_cols(w: np.ndarray, side: int, f: int) -> np.ndarray:
+    """A Dense kernel's (or bias's) last axis from flax's (h, w, c)
+    reshape order to torch's (c, h, w)."""
+    lead = w.shape[:-1]
+    return w.reshape(*lead, side, side, f).swapaxes(-1, -3).swapaxes(
+        -1, -2).reshape(w.shape)
+
+
+def _linear(dense: Dict[str, np.ndarray], name: str, rows=None,
+            cols=None) -> dict:
+    """{name.weight, name.bias} of a torch Linear from a flax Dense,
+    with its rows (inputs) and/or columns (outputs) reordered as
+    `rows(kernel)` / `cols(kernel or bias)`."""
+    kernel, bias = dense["kernel"], dense["bias"]
+    if rows is not None:
+        kernel = rows(kernel)
+    if cols is not None:
+        kernel, bias = cols(kernel), cols(bias)
+    return {f"{name}.weight": _t(kernel.T), f"{name}.bias": _t(bias)}
+
+
+def _convs(p, names, prefix: str) -> dict:
+    state = {}
+    for i, name in enumerate(names):
+        state[f"{prefix}.{i}.weight"] = _conv(p[name]["kernel"])
+        state[f"{prefix}.{i}.bias"] = _t(p[name]["bias"])
+    return state
+
+
+def mnist_decoder_state(p: Dict[str, Dict[str, np.ndarray]],
+                        prefix: str = "decoder/") -> dict:
+    """dec_in / dec_convs of the MNIST decoder (nn.nets.mnist_decoder_layers)
+    from flax's MnistDecoder params under `prefix` (Dense_0, Conv_0..2).
+    The decoder reshapes its Dense output to (4, 4, 8) NHWC; torch
+    reshapes (c, h, w), so the Dense columns are permuted."""
+    f = p[prefix + "Conv_0"]["bias"].shape[0]
+    state = _convs(p, [f"{prefix}Conv_{i}" for i in range(3)], "dec_convs")
+    state.update(_linear(p[prefix + "Dense_0"], "dec_in",
+                         cols=lambda w: _hwc_cols(w, 4, f)))
+    return state
+
+
 def mnist_vae_state(p: Dict[str, Dict[str, np.ndarray]]) -> dict:
     """State dict of nn.nets.MnistVAE from the flax MnistVAE params
     ({"encoder/Conv_0": {...}, ..., "decoder/Dense_0": {...}}).
 
-    The encoder flattens (2, 2, 8) NHWC maps in (h, w, c) order and the
-    decoder reshapes its Dense output to (4, 4, 8) NHWC; torch flattens
-    and reshapes (c, h, w), so the Dense rows/columns are permuted.
+    The encoder flattens (2, 2, 8) NHWC maps in (h, w, c) order; torch
+    flattens (c, h, w), so the Dense rows are permuted (the decoder's
+    columns likewise, see mnist_decoder_state).
     """
-    state = {}
-    for i in range(3):
-        for side, name in (("encoder", "enc_convs"), ("decoder", "dec_convs")):
-            conv = p[f"{side}/Conv_{i}"]
-            state[f"{name}.{i}.weight"] = _conv(conv["kernel"])
-            state[f"{name}.{i}.bias"] = _t(conv["bias"])
     f = p["encoder/Conv_0"]["bias"].shape[0]
-
-    w = p["encoder/Dense_0"]["kernel"]  # (2*2*f, 2L) rows in (h, w, c) order
-    w = w.reshape(2, 2, f, -1).transpose(2, 0, 1, 3).reshape(w.shape)
-    state["enc_out.weight"] = _t(w.T)
-    state["enc_out.bias"] = _t(p["encoder/Dense_0"]["bias"])
-
-    w = p["decoder/Dense_0"]["kernel"]  # (L, 4*4*f) columns in (h, w, c)
-    L = w.shape[0]
-    w = w.reshape(L, 4, 4, f).transpose(0, 3, 1, 2).reshape(w.shape)
-    state["dec_in.weight"] = _t(w.T)
-    b = p["decoder/Dense_0"]["bias"].reshape(4, 4, f).transpose(2, 0, 1)
-    state["dec_in.bias"] = _t(b.reshape(-1))
+    state = _convs(p, [f"encoder/Conv_{i}" for i in range(3)], "enc_convs")
+    state.update(_linear(p["encoder/Dense_0"], "enc_out",
+                         rows=lambda w: _hwc_rows(w, 2, f)))
+    state.update(mnist_decoder_state(p))
     return state
 
 
 def mnist_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
     """Flat JAX rotated-MNIST SVGPVAE parameters -> the port's (see the
-    module doc)."""
+    module doc).  A tree without gp/ leaves (a plain VAE run) gives the
+    VAE alone."""
+    vae = mnist_vae_state(_module(flat, "vae/params"))
+    if not any(k.startswith("gp/") for k in flat):
+        return {"vae": vae}
     missing = [f"gp/{k}" for k in MNIST_GP_FIELDS if f"gp/{k}" not in flat]
     if missing:
         raise KeyError(f"missing GP parameters: {missing}")
     gp = {k: _t(flat[f"gp/{k}"]) for k in MNIST_GP_FIELDS}
     if "gp/object_vectors" in flat:
         gp["object_vectors"] = _t(flat["gp/object_vectors"])
-    return {"vae": mnist_vae_state(_module(flat, "vae/params")), "gp": gp}
+    return {"vae": vae, "gp": gp}
+
+
+def cvae_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
+    """Flat JAX MNIST CVAE parameters ({"vae": flax MnistCVAE params}:
+    vae/params/enc_conv0/kernel, ..., enc_out, dec_in, dec_conv0..2) ->
+    {"vae": nn.nets.MnistCVAE state dict}.  The encoder's Dense takes the
+    (2, 2, 8) flatten and then [sin, cos]: only its first 32 rows are
+    permuted; the decoder's Dense columns as in mnist_decoder_state."""
+    p = _module(flat, "vae/params")
+    f = p["enc_conv0"]["bias"].shape[0]
+    state = _convs(p, [f"enc_conv{i}" for i in range(3)], "enc_convs")
+    state.update(_convs(p, [f"dec_conv{i}" for i in range(3)], "dec_convs"))
+    state.update(_linear(p["enc_out"], "enc_out",
+                         rows=lambda w: _hwc_rows(w, 2, f)))
+    state.update(_linear(p["dec_in"], "dec_in",
+                         cols=lambda w: _hwc_cols(w, 4, f)))
+    return {"vae": state}
+
+
+def _gp_leaves(flat: Dict[str, np.ndarray], required, optional=()) -> dict:
+    missing = [f"gp/{k}" for k in required if f"gp/{k}" not in flat]
+    if missing:
+        raise KeyError(f"missing GP parameters: {missing}")
+    return {k: _t(flat[f"gp/{k}"]) for k in (*required, *optional)
+            if f"gp/{k}" in flat}
+
+
+SVIGP_GP_FIELDS = ("inducing_points", "length_scale", "amplitude", "q_mu",
+                   "q_scale", "noise")
+CASALE_GP_FIELDS = ("length_scale", "amplitude", "alpha", "object_vectors")
+
+
+def svigp_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
+    """Flat JAX deep-SVIGP parameters ({"dec": flax SVIGPDecoder params,
+    "gp": SVIGP}: dec/params/decoder/Dense_0/kernel, ..., gp/q_mu, ...) ->
+    {"dec": nn.nets.SVIGPDecoder state dict, "gp": {field: tensor}} for
+    gp.svigp.SVIGP (the GPLVM table gp/object_vectors is optional)."""
+    return {"dec": mnist_decoder_state(_module(flat, "dec/params")),
+            "gp": _gp_leaves(flat, SVIGP_GP_FIELDS, ("object_vectors",))}
+
+
+def casale_params_from_jax(flat: Dict[str, np.ndarray]) -> dict:
+    """Flat JAX Casale GPVAE parameters ({"vae": flax MnistVAE params,
+    "gp": CasaleGP}) -> {"vae": MnistVAE state dict, "gp": {field:
+    tensor}} for gp.casale.CasaleGP."""
+    return {"vae": mnist_vae_state(_module(flat, "vae/params")),
+            "gp": _gp_leaves(flat, CASALE_GP_FIELDS)}
 
 
 BALL_GP_FIELDS = (("inducing_points", "length_scale"),

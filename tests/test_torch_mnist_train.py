@@ -369,9 +369,10 @@ def test_value_clip_clips_gradients_before_adam():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "GPVAE_Casale"], ["--bias_analysis"], ["--show_pics"],
-    ["--epoch_chunk", "2"], ["--bf16"], ["--x64"], ["--data_parallel", "2"],
-    ["--reshuffle"], ["--opt_regime", "VAE-1", "joint-1"],
+    ["--elbo", "GPVAE_Casale", "--data_parallel", "2"], ["--bias_analysis"],
+    ["--show_pics"], ["--epoch_chunk", "2"], ["--bf16"], ["--x64"],
+    ["--data_parallel", "2"], ["--reshuffle"],
+    ["--elbo", "SVIGP_Hensman", "--resume_dir", "x"],
     ["--profile_dir", "x"]])
 def test_unported_flags_are_refused(flag, tiny_splits):
     argv = SLICE_ARGV + ["--device", "cpu"] + flag

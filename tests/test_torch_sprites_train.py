@@ -450,14 +450,15 @@ def test_main_matches_jax_cli(tmp_path, corpus):
     # the test recon MSE of the JAX CLI's eval pass, on its final state
     vae, rep = jnets.SpritesVAE(L=L), jnets.SpritesReprNet(L=16)
     tc = corpus["test_character"]
-    recon = jmodels.forward_pass_svgpvae(
-        vae, state.params["vae"], state.params["gp"],
+    recon = jax.jit(lambda params, geco: jmodels.forward_pass_svgpvae(
+        vae, params["vae"], params["gp"],
         (jnp.asarray(tc["frames"]), jnp.asarray(tc["aux_data"][:, 1])),
-        jax.random.PRNGKey(11), beta=0.001, C_ma=state.geco.C_ma,
-        lagrange_mult=state.geco.lagrange_mult, alpha=0.99, kappa=KAPPA,
+        jax.random.PRNGKey(11), beta=0.001, C_ma=geco.C_ma,
+        lagrange_mult=geco.lagrange_mult, alpha=0.99, kappa=KAPPA,
         clip_qs=True, geco=True, repr_apply=rep.apply,
-        repr_params=state.params["repr"], frames_per_char=N_ACTIONS,
-        gp_block_impl="fused_rejitter_pallas").recon_loss
+        repr_params=params["repr"], frames_per_char=N_ACTIONS,
+        gp_block_impl="fused_rejitter_pallas").recon_loss)(
+            state.params, state.geco)  # one compile, not per op
     ev = got["evals"][0]
     np.testing.assert_allclose(ev["test_mse"],
                                float(recon) / len(tc["frames"]), rtol=1e-4)
@@ -581,7 +582,7 @@ def test_trainable_mask_matches_jax(flax_nets, pretrain):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "VAE"], ["--test_set_metrics"],
+    ["--elbo", "VAE", "--data_parallel", "2"], ["--test_set_metrics"],
     ["--bf16"], ["--bf16_hybrid"], ["--data_parallel", "2"],
     ["--profile_dir", "x"], ["--reshuffle"],
     ["--s2d64"], ["--fused_upsample"]])

@@ -366,15 +366,15 @@ def test_sprites_record_config_matches_jax_cli(tmp_path, sprites_corpus,
     vae = jnets.SpritesVAE(L=SPRITES_L)
     rep = jnets.SpritesReprNet(L=args.L_character)
     tc = sprites_corpus["test_character"]
-    recon = jmodels.forward_pass_svgpvae(
-        vae, state.params["vae"], state.params["gp"],
+    recon = jax.jit(lambda params, geco: jmodels.forward_pass_svgpvae(
+        vae, params["vae"], params["gp"],
         (jnp.asarray(tc["frames"]), jnp.asarray(tc["aux_data"][:, 1])),
-        jax.random.PRNGKey(11), beta=BETA, C_ma=state.geco.C_ma,
-        lagrange_mult=state.geco.lagrange_mult, alpha=0.99,
+        jax.random.PRNGKey(11), beta=BETA, C_ma=geco.C_ma,
+        lagrange_mult=geco.lagrange_mult, alpha=0.99,
         kappa=float(np.sqrt(args.kappa_squared)), clip_qs=True,
-        geco=args.GECO, repr_apply=rep.apply,
-        repr_params=state.params["repr"], frames_per_char=N_ACTIONS,
-        gp_block_impl=args.gp_block_impl).recon_loss
+        geco=args.GECO, repr_apply=rep.apply, repr_params=params["repr"],
+        frames_per_char=N_ACTIONS, gp_block_impl=args.gp_block_impl
+    ).recon_loss)(state.params, state.geco)  # one compile, not per op
     np.testing.assert_allclose(got["evals"][0]["test_mse"],
                                float(recon) / len(tc["frames"]),
                                rtol=MSE_RTOL)

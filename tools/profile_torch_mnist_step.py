@@ -1,11 +1,16 @@
 """Profile the PyTorch port's rotated-MNIST training step on a CUDA card.
 
-    PYTHONPATH=. python3 tools/profile_torch_mnist_step.py [--steps 20]
+    PYTHONPATH=. python3 tools/profile_torch_mnist_step.py [--steps 20] \
+        [--elbo SVGPVAE_Hensman|VAE|CVAE|SVIGP_Hensman|GPVAE_Casale]
 
 The north-star step of `svgpvae_tpu_torch.cli.mnist` (Hensman + GECO,
 batch 256, L = 16, m = 32, the 36-digit synthetic set with its 800-object
-GPLVM table, --gp_block_impl auto = fused_pallas on CUDA), built from the
-driver's own pieces.  After WARMUP steps it times --steps steps on the host
+GPLVM table, --gp_block_impl auto = fused_pallas on CUDA), or with --elbo
+a baseline's step at the same widths (VAE and CVAE with --clip_qs; the
+deep SVIGP with --PCA --ip_joint --GP_joint --ov_joint --clip_qs; a
+Casale joint step with --GP_joint --ov_joint --clip_qs --PCA, the
+full-train encode of 8,100 images included), built from the driver's
+own pieces.  After WARMUP steps it times --steps steps on the host
 clock (each ended by torch.cuda.synchronize), then runs --steps more under
 torch.profiler and prints:
   * the step time without and with the profiler;
@@ -33,6 +38,47 @@ from svgpvae_tpu_torch.cli import mnist
 ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
         "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
         "--device", "cuda", "--seed", "0"]
+BASELINE_ARGV = {  # the flags of tools/baselines_gate.py's runs
+    "VAE": ["--elbo", "VAE", "--clip_qs"],
+    "CVAE": ["--elbo", "CVAE", "--clip_qs"],
+    "SVIGP_Hensman": ["--elbo", "SVIGP_Hensman", "--PCA", "--ip_joint",
+                      "--GP_joint", "--ov_joint", "--clip_qs"],
+    "GPVAE_Casale": ["--elbo", "GPVAE_Casale", "--GP_joint", "--ov_joint",
+                     "--clip_qs", "--PCA"],
+}
+
+
+def build_step(elbo: str, splits: dict, device):
+    """(args, params, loss_fn, train split) of one --elbo's training
+    step."""
+    if elbo == "SVGPVAE_Hensman":
+        args = mnist.build_parser().parse_args(ARGV)
+        args.gp_block_impl = models.resolve_gp_block_impl(
+            args.gp_block_impl, device=device)
+    else:
+        args = mnist.build_parser().parse_args(
+            BASELINE_ARGV[elbo] + ["--dataset", "36", "--device", "cuda",
+                                   "--seed", "0"])
+    eps = mnist.default_eps_fn(args.seed, device)
+    n_train = len(splits["train"]["images"])
+    if elbo == "SVIGP_Hensman":
+        return (args, mnist.build_svigp(args, splits, n_train, device),
+                mnist.make_svigp_loss_fn(),
+                mnist.with_global_index(splits["train"]))
+    if elbo == "GPVAE_Casale":
+        train_d = mnist.sort_train_data(splits["train"])
+        return (args, mnist.build_casale(args, splits, device),
+                mnist.make_casale_loss_fn(
+                    args, eps, mnist.casale_constants(train_d, device),
+                    "joint"), train_d)
+    vae, gp = mnist.build_model(args, splits, n_train, device)
+    if gp is None:
+        return (args, {"vae": vae}, mnist.make_vae_loss_fn(
+            mnist.make_vae_forward(args, eps, cvae=elbo == "CVAE")),
+            splits["train"])
+    return (args, {"vae": vae, "gp": gp},
+            mnist.make_loss_fn(args, mnist.make_forward(args, eps)),
+            splits["train"])
 WARMUP = 10
 
 
@@ -55,6 +101,8 @@ def busy_ms(events) -> float:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--elbo", default="SVGPVAE_Hensman",
+                   choices=["SVGPVAE_Hensman", *BASELINE_ARGV])
     opts = p.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -63,24 +111,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    args = mnist.build_parser().parse_args(ARGV)
-    args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, device=device)
     base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
     splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
     n_train = len(splits["train"]["images"])
-    vae, gp = mnist.build_model(args, splits, n_train, device)
-    params = {"vae": vae, "gp": gp}
+    args, params, loss_fn, train_d = build_step(opts.elbo, splits, device)
     trainable = train.trainable_tensors(params, lambda name: True)
     state = train.TrainState(params=params,
                              optimizer=train.make_optimizer(trainable,
                                                             args.lr),
                              geco=train.GECOState.init(device=device))
-    loss_fn = mnist.make_loss_fn(args, mnist.make_forward(
-        args, mnist.default_eps_fn(args.seed, device)))
-    im = torch.as_tensor(splits["train"]["images"], dtype=torch.float32,
+    im = torch.as_tensor(train_d["images"], dtype=torch.float32,
                          device=device)
-    aux = torch.as_tensor(splits["train"]["aux_data"], dtype=torch.float32,
+    aux = torch.as_tensor(train_d["aux_data"], dtype=torch.float32,
                           device=device)
     bs = args.batch_size
     batches = [(im[i:i + bs], aux[i:i + bs])
@@ -109,8 +151,9 @@ def main() -> None:
                and not e.is_user_annotation]
     busy = busy_ms(kernels) / n
     p50 = float(np.median(plain))
-    print(f"{n} steps (batch {bs}, L {args.L}, m 32, gp_block_impl "
-          f"{args.gp_block_impl}): host step p50 {p50:.3f} ms (min "
+    print(f"{opts.elbo}: {n} steps (batch {bs}, L {args.L}, m 32, "
+          f"gp_block_impl {args.gp_block_impl}): host step p50 {p50:.3f} "
+          f"ms (min "
           f"{min(plain):.3f}, max {max(plain):.3f}), under the profiler "
           f"p50 {float(np.median(profiled)):.3f} ms; device busy "
           f"{busy:.3f} ms per step, idle share {1 - busy / p50:.3f} of the "

@@ -1,7 +1,7 @@
 """Profile the PyTorch port's SPRITES training step on a CUDA card.
 
     PYTHONPATH=. python3 tools/profile_torch_sprites_step.py [--steps 20]
-        [--chars 1000] [--config hensman|hensman_record|titsias_record]
+        [--chars 1000] [--config hensman|hensman_record|titsias_record|vae]
         [--gp_block_impl IMPL]
 
 The step of `svgpvae_tpu_torch.cli.sprites` at the JAX CLI's defaults
@@ -10,7 +10,8 @@ L_action = 8, L_character = 16, 72 inducing points, the vae and repr
 tensors trainable; --gp_block_impl auto = fused_rejitter_pallas on CUDA),
 or with the record configuration's flags (--ip_joint --GPLVM_joint
 --PCA --object_kernel_normalize --clip_grad) on Hensman + GECO or on
-Titsias without GECO (auto = fused), on the synthetic corpus of --chars
+Titsias without GECO (auto = fused), or the plain VAE (--elbo VAE
+--clip_qs: the SpritesVAE alone), on the synthetic corpus of --chars
 characters, built from the CLI's
 own pieces (no pretraining: it does not change the step's work).  After
 WARMUP steps it times --steps steps on the host clock (each ended by
@@ -52,7 +53,8 @@ RECORD_FLAGS = ["--ip_joint", "--GPLVM_joint", "--PCA",
                 "--object_kernel_normalize", "--clip_grad"]
 CONFIGS = {"hensman": ARGV, "hensman_record": ARGV + RECORD_FLAGS,
            "titsias_record": ["--elbo", "SVGPVAE_Titsias"] + [
-               a for a in ARGV[2:] if a != "--GECO"] + RECORD_FLAGS}
+               a for a in ARGV[2:] if a != "--GECO"] + RECORD_FLAGS,
+           "vae": ["--elbo", "VAE"] + ARGV[3:]}
 WARMUP = 10
 OWN = ("gauss_jordan", "stats_", "build_k_kernel")  # the port's kernels
 
@@ -73,9 +75,11 @@ def main() -> None:
 
     args = sprites.build_parser().parse_args(
         CONFIGS[opts.config] + ["--gp_block_impl", opts.gp_block_impl])
-    args.gp_block_impl = models.resolve_gp_block_impl(
-        args.gp_block_impl, workload="sprites",
-        titsias=args.elbo == "SVGPVAE_Titsias", device=device)
+    vae_only = args.elbo == "VAE"
+    if not vae_only:
+        args.gp_block_impl = models.resolve_gp_block_impl(
+            args.gp_block_impl, workload="sprites",
+            titsias=args.elbo == "SVGPVAE_Titsias", device=device)
     splits = data.generate_synthetic_sprites(
         n_train_chars=opts.chars, n_test_chars=max(2, opts.chars // 4),
         n_frames_train=sprites.FRAMES_PER_CHAR, seed=args.corpus_seed)
@@ -89,8 +93,10 @@ def main() -> None:
                              geco=train.GECOState.init(device=device),
                              clip_grad_value=args.clip_grad_thres
                              if args.clip_grad else None)
-    loss_fn = sprites.make_loss_fn(args, sprites.make_forward(
-        args, mnist.default_eps_fn(args.seed, device)))
+    eps = mnist.default_eps_fn(args.seed, device)
+    loss_fn = (sprites.make_vae_loss_fn(sprites.make_vae_forward(args, eps))
+               if vae_only else
+               sprites.make_loss_fn(args, sprites.make_forward(args, eps)))
     frames = torch.as_tensor(splits["train"]["frames"], device=device)
     aids = torch.as_tensor(splits["train"]["aux_data"][:, 1], device=device)
     bs = args.batch_size
