@@ -126,9 +126,30 @@ Phases, each of which raises (nonzero exit) on failure:
      reversed, f64).  Then phase 6's run with --opt_regime VAE-1 joint-1:
      the VAE epoch launches nothing, the joint epoch B1 once a step;
      phase 7's recheck of its step 40.
+ 16. the drivers' last single-GPU flags, each run with the launch
+     counters zeroed just before and read just after: (a) phase 6's run
+     with --reshuffle --test_set_metrics --profile_dir --save (phase 6's
+     checks: B1 once and B2 at least once a step; the trace holds epoch
+     1's 32 "train_step" ranges; one test-set metric row); (b)
+     --bias_analysis for one epoch: no B1 in the steps (the two-pass
+     block), B2 in every step and once in the bias pass at n = 8,100;
+     (c) NaN training draws under --save: NonFiniteLossError and
+     ckpt_nan/32.pt; (d) one --x64 epoch and its eval: 0 kernel launches
+     (the plain versions in float64), beside phase 6's counts; (e) phase
+     8's run with --reshuffle --test_set_metrics (phase 8's checks: B1
+     twice and B2 once a step, B3 once in the eval fit); (f) a 4-character
+     raw npy corpus written to a temporary directory, preprocessed into
+     shards by cli.sprites (equal to data.preprocess_sprites), then one
+     epoch on it at phase 8's widths; (g) the ball Hensman run for 200
+     steps with --profile_dir: the JAX driver's chunk is gcd(100, 10000,
+     50000) = 100, so the trace holds steps 100..199.
+
+Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
+((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
+and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36).
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10, 11, 12, 13 and 14, and the max error and
+the main paths of phases 4, 6, 8, 10-16, and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -139,8 +160,10 @@ throughout.  Each phase prints its seconds.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -200,7 +223,18 @@ TRAIN_STATS = [("train_step", "mnist", dict(n=256, m=32, L=16, d1=1, d2=8)),
                ("sprites_step", "sprites",
                 dict(n=500, m=72, L=64, d1=8, d2=16)),
                ("sprites_test_batch", "sprites",
-                dict(n=360, m=72, L=64, d1=8, d2=16))]
+                dict(n=360, m=72, L=64, d1=8, d2=16)),
+               # phase 10's m = 256 (MNIST) and m = 288 (SPRITES) runs
+               ("mnist_m256_step", "mnist",
+                dict(n=256, m=256, L=16, d1=1, d2=8)),
+               ("mnist_m256_cgen", "mnist",
+                dict(n=8_100, m=256, L=16, d1=1, d2=8)),
+               ("sprites_m288_step", "sprites",
+                dict(n=500, m=288, L=64, d1=8, d2=36)),
+               ("sprites_m288_test_batch", "sprites",
+                dict(n=360, m=288, L=64, d1=8, d2=36))]
+# B3 at phase 10's SPRITES eval fit (m = 288, L_character 36)
+SPRITES_M288_FIT = dict(n=50_000, m=288, L=64, d1=8, d2=36)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -481,7 +515,8 @@ def phase_kernels(device) -> list:
              ("gp_sufficient_stats", "sprites", False)]
     for shape_name, shape, shape_cases in (
             ("slice", SLICE, cases), ("ragged", RAGGED, cases),
-            ("mnist_fit", MNIST_FIT, [c for c in cases if c[1] == "mnist"])):
+            ("mnist_fit", MNIST_FIT, [c for c in cases if c[1] == "mnist"]),
+            ("sprites_m288_fit", SPRITES_M288_FIT, cases[:1])):
         for name, family, normalize in shape_cases:
             arrs = stats_inputs(rng, family=family, **shape)
             f1, f2, ip1, ip2, prec, py = (torch.from_numpy(a).to(device)
@@ -509,9 +544,9 @@ def phase_kernels(device) -> list:
             plain_ms = cuda_ms(twin)
             # the kernels line's shapes: the serve fits' (the sprites
             # family with and without normalize, the mnist family at the
-            # MNIST fit)
+            # MNIST fit) and phase 10's m = 288 eval fit
             in_line = ((shape_name == "slice" and family == "sprites")
-                       or shape_name == "mnist_fit")
+                       or shape_name in ("mnist_fit", "sprites_m288_fit"))
             dev_ms = graph_ms(run, reps=20) if in_line else None
             library_ms = None
             if name == "gp_sufficient_stats":
@@ -1780,6 +1815,192 @@ def phase_baselines(mnist_data, corpus) -> dict:
     return launches
 
 
+# --- phase 16 ---------------------------------------------------------------
+def _trace_kernels(trace_dir) -> tuple:
+    """(path, "train_step" ranges on the host, CUDA kernel events) of the
+    one Chrome trace under trace_dir (a range also shows on the device
+    track, as "gpu_user_annotation")."""
+    paths = glob.glob(os.path.join(trace_dir, "*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"{trace_dir}: traces {paths}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return (paths[0], sum(e.get("name") == "train_step"
+                          and e.get("cat") == "user_annotation"
+                          for e in events),
+            sum(e.get("cat") == "kernel" for e in events))
+
+
+def _nan_eps(device):
+    """eps_fn whose training draws are NaN (the eval draws are not)."""
+    import torch
+    from svgpvae_tpu_torch.cli import mnist
+    base = mnist.default_eps_fn(0, device)
+
+    def eps_fn(kind, shape):
+        eps = base(kind, shape)
+        return eps.fill_(float("nan")) if kind.startswith("train") else eps
+    return eps_fn
+
+
+def write_raw_sprites(path, n_train=4, n_test=2, seed=0) -> None:
+    """A small corpus in the published raw npy layout (the nine
+    {walk,spellcard,slash}_{front,left,right} frames/attributes x
+    train/test files; one 8-frame sequence per character in each, the
+    attributes' 4 x 6 one-hots naming the character)."""
+    from svgpvae_tpu_torch.data import sprites as sd
+    rng = np.random.RandomState(seed)
+    for action in sd.RAW_SPRITES_ACTIONS:
+        for direction in sd.RAW_SPRITES_DIRECTIONS:
+            for split, n, off in (("train", n_train, 0),
+                                  ("test", n_test, n_train)):
+                a = np.zeros((n, 8, 4, 6), np.float32)
+                for i in range(n):
+                    for t in range(4):
+                        a[i, :, t, (i + off + 2 * t) % 6] = 1.0
+                stem = os.path.join(path, f"{action}_{direction}")
+                np.save(f"{stem}_frames_{split}.npy",
+                        rng.rand(n, 8, 64, 64, 3).astype(np.float32))
+                np.save(f"{stem}_attributes_{split}.npy", a)
+
+
+def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
+    """Phase 16: the drivers' last single-GPU flags on the card; returns
+    each path's launch counts."""
+    import torch
+    from svgpvae_tpu_torch import data, ops, utils
+    from svgpvae_tpu_torch.cli import ball, mnist, sprites
+
+    device = torch.device("cuda", 0)
+    paths = {}
+    # (a) --reshuffle --test_set_metrics --profile_dir --save: phase 6's
+    # checks (B1 once, B2 at least once per step), the rows and the trace
+    trace_dir = os.path.join(base_dir, "trace_mnist")
+    res, paths["mnist_flags_train"] = phase_train(
+        mnist_data, TRAIN_ARGV + [
+            "--reshuffle", "--test_set_metrics", "--save", "--base_dir",
+            base_dir, "--profile_dir", trace_dir], 32, TRAIN_STEPS, None,
+        "mnist --reshuffle --test_set_metrics --profile_dir --save")
+    path, ranges, kernels = _trace_kernels(trace_dir)
+    with open(os.path.join(res["run_dir"], "res", "ELBO_results.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    if ranges != TRAIN_STEPS // 2 or len(rows) != 1:
+        raise AssertionError(f"trace {path}: {ranges} train_step ranges; "
+                             f"{len(rows)} metric rows")
+    sec = np.asarray(res["step_seconds"])
+    log(f"16(a): trace {os.path.basename(path)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB) holds epoch 1's "
+        f"{ranges} steps and {kernels} CUDA kernel events; step p50 "
+        f"{1e3 * np.percentile(sec[1:32], 50):.3f} ms in epoch 0, "
+        f"{1e3 * np.percentile(sec[32:], 50):.3f} ms in the traced epoch "
+        f"1; the test-set row {rows[0][:72]}...")
+    # (b) --bias_analysis: the two-pass block (no B1), B2 in every step
+    # and once in the bias pass at n = 8,100
+    ops.reset_launch_counts()
+    res = mnist.main(TRAIN_ARGV + ["--bias_analysis", "--opt_regime",
+                                   "joint-1"], splits=mnist_data)
+    paths["mnist_bias_train"] = ops.launch_counts()
+    (bias,) = res["bias"]
+    for i, sl in enumerate(res["step_launches"]):
+        if sl["chol_inverse"] != 0 or sl["gp_sufficient_stats"] < 1:
+            raise AssertionError(f"bias step {i} launched {sl}")
+    if bias["launches"]["gp_sufficient_stats"] != 1 or \
+            bias["launches"]["chol_inverse"] != 0 or \
+            not np.isfinite(bias["bias"]):
+        raise AssertionError(f"bias pass {bias}")
+    log(f"16(b): --bias_analysis: {len(res['step_launches'])} steps, per "
+        f"step {res['step_launches'][0]}; bias for epoch 0 "
+        f"{bias['bias']:.6f}, the bias pass launched {bias['launches']}; "
+        f"the run {paths['mnist_bias_train']}")
+    # (c) the sentinel: NaN draws under --save
+    ops.reset_launch_counts()
+    try:
+        mnist.main(TRAIN_ARGV + ["--opt_regime", "joint-1", "--save",
+                                 "--base_dir", base_dir],
+                   splits=mnist_data, eps_fn=_nan_eps(device))
+        raise AssertionError("a NaN run did not raise")
+    except utils.NonFiniteLossError as e:
+        msg = str(e)
+    paths["mnist_nan_train"] = ops.launch_counts()
+    where = msg.rsplit(" ", 1)[-1]
+    saved = utils.restore_checkpoint(where)
+    if utils.latest_step(where) != 32 or saved["train_state"]["step"] != 32:
+        raise AssertionError(f"ckpt_nan: {os.listdir(where)}")
+    log(f"16(c): NonFiniteLossError: {msg}; {os.listdir(where)}")
+    # (d) --x64: float64 on the card through the plain versions, 0 launches
+    ops.reset_launch_counts()
+    res = mnist.main(TRAIN_ARGV + ["--x64", "--opt_regime", "joint-1",
+                                   "--eval_every", "1"], splits=mnist_data)
+    paths["mnist_x64_train"] = launches = ops.launch_counts()
+    ev = res["evals"][-1]
+    dtypes = {t.dtype for t in res["state"].params["gp"].named_tensors()
+              .values()}
+    if any(launches.values()) or dtypes != {torch.float64} or not all(
+            np.isfinite([m["loss"] for m in res["metrics"]])) or \
+            not np.isfinite(ev["cgen_mse"]):
+        raise AssertionError(f"--x64: launches {launches}, dtypes {dtypes}, "
+                             f"eval {ev}")
+    sec = np.asarray(res["step_seconds"][1:])
+    log(f"16(d): --x64: {len(res['metrics'])} steps, p50 "
+        f"{1e3 * np.percentile(sec, 50):.3f} ms (fp32: phase 6); cgen MSE "
+        f"{ev['cgen_mse']:.6f}; launches {launches}, beside the fp32 run's "
+        f"{phase6}")
+    # (e) SPRITES --reshuffle --test_set_metrics at phase 8's widths
+    res, paths["sprites_flags_train"] = phase_sprites_train(
+        corpus, SPRITES_ARGV + ["--reshuffle", "--test_set_metrics",
+                                "--save", "--base_dir", base_dir],
+        tag="sprites --reshuffle --test_set_metrics")
+    # (f) a raw npy corpus: preprocessed into shards by the driver, then
+    # one epoch on it at phase 8's widths
+    raw = os.path.join(base_dir, "raw_sprites")
+    os.makedirs(raw)
+    write_raw_sprites(raw)
+    ops.reset_launch_counts()
+    res = sprites.main(
+        [a for a in SPRITES_ARGV if a not in ("--synthetic",
+                                              "--synthetic_chars",
+                                              str(SERVE_CHARS))]
+        + ["--sprites_data_path", raw, "--batch_size", "100",
+           "--batch_size_repr_nn", "100"])
+    paths["sprites_raw_train"] = launches = ops.launch_counts()
+    x_tr, x_te, a_tr, a_te, d_tr, d_te = data.load_raw_sprites_npys(raw)
+    want = data.preprocess_sprites(x_tr, a_tr, d_tr, x_te, a_te, d_te,
+                                   n_frames_train=SPRITES_FPC, seed=0)
+    got = data.load_sprites(raw)
+    for split in want:
+        for k in ("frames", "aux_data"):
+            if not np.array_equal(got[split][k], want[split][k]):
+                raise AssertionError(f"raw corpus shards: {split}/{k}")
+    ev = res["evals"][-1]
+    if [sl["chol_inverse"] for sl in res["step_launches"]] != [2, 2] or \
+            ev["launches"]["fit"]["fused_kernel_stats"] != 1 or \
+            not np.isfinite(ev["cgen_mse"]):
+        raise AssertionError(f"raw corpus run: {res['step_launches']}, "
+                             f"eval {ev}")
+    log(f"16(f): raw npy corpus -> shards ({len(got['train']['frames'])} "
+        f"train, {len(got['test_character']['frames'])} test_character "
+        f"frames, equal to preprocess_sprites); 2 steps, cgen MSE "
+        f"{ev['cgen_mse']:.6f}; launches {launches}")
+    # (g) the ball with --profile_dir: chunk = gcd(100, 10000, 50000) =
+    # 100, so steps 100..199 of 200 are traced
+    trace_dir = os.path.join(base_dir, "trace_ball")
+    ops.reset_launch_counts()
+    res = ball.main(BALL_RUNS["ball_hensman_train"][0] + [
+        "--steps", "200", "--eval_every", "100", "--plot_every", "10000",
+        "--ckpt_every", "50000", "--profile_dir", trace_dir, "--base_dir",
+        base_dir, "--device", "cuda", "--seed", "0"])
+    paths["ball_profile_train"] = launches = ops.launch_counts()
+    path, ranges, kernels = _trace_kernels(trace_dir)
+    if ranges != 100 or launches["chol_inverse"] != 202:
+        raise AssertionError(f"ball trace {path}: {ranges} train_step "
+                             f"ranges, {kernels} kernels; launches "
+                             f"{launches}")
+    log(f"16(g): ball trace {os.path.basename(path)} holds steps 100..199 "
+        f"({ranges} train_step ranges, {kernels} CUDA kernel events); "
+        f"launches {launches}; final MSE {res['mse']:.4f}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1846,6 +2067,8 @@ def main() -> int:
           RUN_FIT_NOISE_FACTOR)
     ball_launches = timed(14, phase_ball, runs.name)
     baseline_launches = timed(15, phase_baselines, mnist_data, corpus)
+    flag_launches = timed(16, phase_driver_flags, mnist_data, corpus,
+                          runs.name, train_launches)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -1854,7 +2077,7 @@ def main() -> int:
              "mnist_resume_train": resume_launches,
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
-             **baseline_launches}
+             **baseline_launches, **flag_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

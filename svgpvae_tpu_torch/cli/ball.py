@@ -39,16 +39,26 @@ res/ELBO_results.csv and, for the SVGPVAE, res/GP_params.csv (the JAX
 columns); every --ckpt_every steps and at the end a checkpoint (the
 TrainState, the noise and video generators) under ckpt/ and the eval
 batch's predictions in preds/preds_<step>.p.  --resume_dir <run dir>
-continues from its latest checkpoint.  Not ported yet, refused:
---show_pics, --squares_circles, --profile_dir, --data_parallel, and
---plot_every when a run dir would make it draw (pass a --plot_every
+continues from its latest checkpoint.  At every eval the batch-mean
+ELBO goes through utils.check_finite: on NaN/inf the current state goes
+to <run dir>/ckpt_nan/<step>.pt (a diagnostic, not a resume point) and
+utils.NonFiniteLossError is raised.  --profile_dir DIR writes a
+torch.profiler Chrome trace into DIR of the steps of the JAX driver's
+second chunk: with chunk the largest divisor of gcd(--eval_every,
+--plot_every, --ckpt_every) up to 500, the steps from start + chunk to
+start + 2 chunk, when they are all to run (the port has no chunk
+programs; the trace holds those steps one by one, "train_step" ranges).
+Not ported yet, refused: --show_pics, --squares_circles, --data_parallel,
+and --plot_every when a run dir would make it draw (pass a --plot_every
 above --steps with --save).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import math
 import os
 import pickle
 import time
@@ -128,7 +138,6 @@ def build_parser() -> argparse.ArgumentParser:
 NOT_PORTED = {  # flag -> is it set?
     "--show_pics": lambda a: a.show_pics,
     "--squares_circles": lambda a: a.squares_circles,
-    "--profile_dir": lambda a: a.profile_dir is not None,
     "--data_parallel": lambda a: a.data_parallel != 0,
     # the latent pictures, drawn into a run dir every --plot_every steps
     "--plot_every": lambda a: ((a.save or a.resume_dir is not None)
@@ -345,8 +354,15 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     td0 = torch.as_tensor(td0, dtype=torch.float32, device=device)
 
     @torch.no_grad()
-    def evaluate():
+    def evaluate(check_step: Optional[int] = None):
+        """The eval batch's outputs, MSE and aligned means and variances;
+        with `check_step` the sentinel sees the ELBO before the
+        alignment."""
         out = forward(params, td0, "eval", 1.0)
+        if check_step is not None:
+            utils.check_finite([float(out.elbo.mean())], check_step,
+                               lambda: checkpoint_state(state, noise,
+                                                        video_fn), run_dir)
         rp, _, mse, rv = utils.mse_rotation(
             out.p_m.cpu().numpy().astype(np.float64), tt0,
             out.p_v.cpu().numpy().astype(np.float64))
@@ -355,56 +371,66 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, last_mse = None, float("nan")
     start = state.step
+    traced = profile_steps(args, start)
     launches0 = ops.launch_counts()
     t_start = time.perf_counter()
-    while state.step < args.steps:
-        snap = (_snapshot(state) if state.step == capture_step else None)
-        before = ops.launch_counts()
-        t0 = time.perf_counter()
-        vids = video_fn()
-        m = train.train_step(state, vids, loss_fn)
-        sync(device)
-        step_seconds.append(time.perf_counter() - t0)
-        after = ops.launch_counts()
-        step_launches.append({k: after[k] - before[k] for k in after})
-        if snap is not None:
-            captured = dict(snap, vids=vids.clone(), eps=noise.last.clone(),
-                            loss=m["loss"], grads={
-                                k: t.grad.detach().clone()
-                                for k, t in trainable.items()})
-        step_metrics.append({k: float(v) for k, v in m.items()})
-        g_s = state.step
-
-        if g_s % args.eval_every == 0:
+    with contextlib.ExitStack() as trace:  # --profile_dir's range
+        while state.step < args.steps:
+            if traced and state.step == traced[0]:
+                trace.enter_context(utils.trace_if(args.profile_dir))
+            snap = (_snapshot(state) if state.step == capture_step else None)
             before = ops.launch_counts()
             t0 = time.perf_counter()
-            out, mse, _, _ = evaluate()
-            elbo = float(out.elbo.mean())
-            if not np.isfinite(elbo):
-                raise FloatingPointError(f"non-finite eval ELBO at step "
-                                         f"{g_s}")
-            sync(device)
+            with utils.annotate("train_step"):
+                vids = video_fn()
+                m = train.train_step(state, vids, loss_fn)
+                sync(device)
+            step_seconds.append(time.perf_counter() - t0)
             after = ops.launch_counts()
-            last_mse = mse
-            ev = {"step": g_s, "mse": mse, "elbo": elbo,
-                  "recon": float(out.recon.mean()),
-                  "prior_kl": float(out.prior_kl.mean()),
-                  "inside_elbo": float(out.inside_elbo.mean()),
-                  "ce_term": float(out.ce_term.mean()),
-                  "seconds": time.perf_counter() - t0,
-                  "launches": {k: after[k] - before[k] for k in after}}
-            evals.append(ev)
-            print(f"{g_s}: elbo {elbo:.3f} recon {ev['recon']:.3f} priorKL "
-                  f"{ev['prior_kl']:.3f} MSE {mse:.4f}")
-            if "SVGPVAE" in args.elbo:
-                print(f"   inside-ELBO {ev['inside_elbo']:.3f} CE "
-                      f"{ev['ce_term']:.3f}")
-            if savers:
-                write_eval_rows(savers, state, out, ev, args.beta0)
+            step_launches.append({k: after[k] - before[k] for k in after})
+            if snap is not None:
+                captured = dict(snap, vids=vids.clone(),
+                                eps=noise.last.clone(), loss=m["loss"],
+                                grads={k: t.grad.detach().clone()
+                                       for k, t in trainable.items()})
+            step_metrics.append({k: float(v) for k, v in m.items()})
+            g_s = state.step
+            if traced and g_s == traced[1]:
+                trace.close()
+                print(f"profiler trace written to {args.profile_dir} (steps "
+                      f"{traced[0]}..{traced[1] - 1})")
 
-        if run_dir and g_s % args.ckpt_every == 0:
-            save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
+            if g_s % args.eval_every == 0:
+                before = ops.launch_counts()
+                t0 = time.perf_counter()
+                with utils.annotate("eval_pass"):
+                    out, mse, _, _ = evaluate(check_step=g_s)
+                elbo = float(out.elbo.mean())
+                sync(device)
+                after = ops.launch_counts()
+                last_mse = mse
+                ev = {"step": g_s, "mse": mse, "elbo": elbo,
+                      "recon": float(out.recon.mean()),
+                      "prior_kl": float(out.prior_kl.mean()),
+                      "inside_elbo": float(out.inside_elbo.mean()),
+                      "ce_term": float(out.ce_term.mean()),
+                      "seconds": time.perf_counter() - t0,
+                      "launches": {k: after[k] - before[k] for k in after}}
+                evals.append(ev)
+                print(f"{g_s}: elbo {elbo:.3f} recon {ev['recon']:.3f} "
+                      f"priorKL {ev['prior_kl']:.3f} MSE {mse:.4f}")
+                if "SVGPVAE" in args.elbo:
+                    print(f"   inside-ELBO {ev['inside_elbo']:.3f} CE "
+                          f"{ev['ce_term']:.3f}")
+                if savers:
+                    write_eval_rows(savers, state, out, ev, args.beta0)
 
+            if run_dir and g_s % args.ckpt_every == 0:
+                save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
+
+    if args.profile_dir and not traced:
+        print("warning: --profile_dir set but no chunk was traced (needs "
+              "two whole chunks of steps)")
     elapsed = time.perf_counter() - t_start
     steps_done = state.step - start
     timed = np.asarray(step_seconds[1:] or step_seconds)
@@ -426,6 +452,20 @@ def main(argv=None, video_fn: Optional[Callable] = None,
             "step_launches": step_launches, "evals": evals,
             "captured": captured, "run_dir": run_dir, "noise": noise,
             "video_fn": video_fn}
+
+
+def profile_steps(args, start: int) -> Optional[tuple]:
+    """--profile_dir's step range [first, end): the JAX driver's second
+    chunk of `chunk` steps from `start` (chunk: the largest divisor of
+    gcd(--eval_every, --plot_every, --ckpt_every) up to 500), or None
+    without the flag or when that chunk would not run whole."""
+    if not args.profile_dir:
+        return None
+    gcd = math.gcd(args.eval_every, math.gcd(args.plot_every,
+                                             args.ckpt_every))
+    chunk = max(d for d in range(1, min(gcd, 500) + 1) if gcd % d == 0)
+    first = start + chunk
+    return (first, first + chunk) if first + chunk <= args.steps else None
 
 
 def _generator(fn) -> Optional[torch.Generator]:

@@ -84,10 +84,42 @@ refuses it there).  The JAX
 driver's pictures (pics/*.png) are not written: the port does without
 matplotlib, and --show_pics is refused.
 
-Not ported yet, refused with an error: --bias_analysis, --epoch_chunk,
---show_pics, --test_set_metrics, --bf16, --x64, --data_parallel (loudly
-for Casale too, where the JAX driver ignores it), --profile_dir,
---eval_bundle and --reshuffle.
+The sentinel: after every epoch the step metrics go through
+utils.check_finite; on the first NaN/inf it writes the current state (the
+checkpoint's dict) to <run dir>/ckpt_nan/<step>.pt when a run dir exists
+and raises utils.NonFiniteLossError, with the JAX package's message.
+That file is a diagnostic, not a resume point.
+
+Driver flags, as in the JAX driver:
+
+  * --reshuffle (SVGPVAE, VAE, CVAE, deep SVIGP): every epoch permutes
+    the full batches' examples and leaves the tail batch in place
+    (train.EpochShuffle), from a CPU torch.Generator seeded by --seed
+    whose state the checkpoints keep; `main(perm_fn=)` injects another
+    permutation (tests: JAX's).  A --bias_analysis epoch keeps the stored
+    order, as JAX's per-step loop does.  Refused for Casale, whose JAX
+    run never reads it;
+  * --test_set_metrics: the per-eval metric rows come from the test
+    split's first batch in place of the eval split's (run_svgpvae);
+  * --profile_dir DIR: a torch.profiler trace (CPU and CUDA activities,
+    one Chrome-trace JSON in DIR, opened by chrome://tracing or Perfetto)
+    of the first timed epoch: the first after epoch 0 whose regime is the
+    previous epoch's.  Its ranges "train_step", "gp_block" and
+    "eval_pass" come from utils.annotate;
+  * --x64 (SVGPVAE, VAE, CVAE): data, nets, GP and Adam in float64.  The
+    CUDA kernels take fp32 only, so the GP blocks of a float64 CUDA run
+    call their plain PyTorch versions (gp.svgp.on_plain_path, printed at
+    the start): such a run launches no kernel.  'auto' resolves as on the
+    CPU.  Refused for deep SVIGP and Casale, whose JAX runs ignore it;
+  * --bias_analysis (SVGPVAE): the training steps run the two-pass block
+    and keep its mu_hat (L, m); after each epoch the q(u) mean over the
+    whole train split (gp.posterior_params on every train encoding: B2 at
+    n = N_train on a CUDA device) and "bias for epoch E: B", the mean
+    |epoch average of the batch estimates - full-split mean|.
+
+Not ported yet, refused with an error: --epoch_chunk, --eval_bundle,
+--show_pics, --bf16 and --data_parallel (loudly for Casale too, where the
+JAX driver ignores it).
 """
 
 from __future__ import annotations
@@ -216,16 +248,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = {  # flag -> is it set?
-    "--bias_analysis": lambda a: a.bias_analysis,
     "--epoch_chunk": lambda a: a.epoch_chunk > 1,
     "--show_pics": lambda a: a.show_pics,
-    "--test_set_metrics": lambda a: a.test_set_metrics,
     "--bf16": lambda a: a.bf16,
-    "--x64": lambda a: a.x64,
     "--data_parallel": lambda a: a.data_parallel != 0,
-    "--profile_dir": lambda a: a.profile_dir is not None,
     "--eval_bundle": lambda a: a.eval_bundle,
-    "--reshuffle": lambda a: a.reshuffle,
+}
+# flag -> (is it set?, the --elbo values whose JAX run never reads it)
+IGNORED_BY_JAX = {
+    "--reshuffle": (lambda a: a.reshuffle, CASALE_ELBOS),
+    "--x64": (lambda a: a.x64, (*CASALE_ELBOS, "SVIGP_Hensman")),
+    "--resume_dir": (lambda a: a.resume_dir,
+                     (*CASALE_ELBOS, "SVIGP_Hensman")),
 }
 
 
@@ -237,10 +271,11 @@ def refuse_unported(args) -> None:
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
-    if args.resume_dir and (args.elbo in CASALE_ELBOS
-                            or args.elbo == "SVIGP_Hensman"):
-        raise SystemExit(f"--resume_dir: not ported for --elbo {args.elbo} "
-                         "(the JAX driver's run for it never reads the flag)")
+    for flag, (is_set, elbos) in IGNORED_BY_JAX.items():
+        if is_set(args) and args.elbo in elbos:
+            raise SystemExit(f"{flag}: not ported for --elbo {args.elbo} "
+                             "(the JAX driver's run for it never reads the "
+                             "flag)")
     if args.save_latents and args.elbo == "CVAE":
         raise SystemExit("--save_latents: not ported for --elbo CVAE (the "
                          "JAX driver's latents pass encodes without angles)")
@@ -292,10 +327,17 @@ def _load_params(path: str, convert: Callable) -> dict:
         return convert(dict(z))
 
 
+def run_dtype(args) -> torch.dtype:
+    """float64 under --x64, else float32."""
+    return torch.float64 if args.x64 else torch.float32
+
+
 def build_model(args, splits: dict, N_train: int, device: torch.device):
-    """(MnistVAE or MnistCVAE, MnistSVGP or None) on `device`: the GP (for
-    the SVGPVAE ELBOs) initialised as the JAX driver does; the net from
-    --params or flax's init from a generator seeded by --seed."""
+    """(MnistVAE or MnistCVAE, MnistSVGP or None) on `device` in the run's
+    dtype: the GP (for the SVGPVAE ELBOs) initialised as the JAX driver
+    does; the net from --params or flax's init from a generator seeded by
+    --seed."""
+    to = dict(device=device, dtype=run_dtype(args))
     net = MnistCVAE if args.elbo == "CVAE" else MnistVAE
     vae = net(L=args.L, generator=torch.Generator().manual_seed(args.seed))
     if "SVGPVAE" not in args.elbo:
@@ -303,7 +345,7 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
             vae.load_state_dict(_load_params(
                 args.params, cvae_params_from_jax if args.elbo == "CVAE"
                 else mnist_params_from_jax)["vae"])
-        return vae.to(device), None
+        return vae.to(**to), None
     ip_init = data.generate_init_inducing_points(
         splits["train"], n=args.nr_inducing_points, use_pca=args.PCA,
         M=args.M, seed=args.seed)
@@ -319,7 +361,7 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
             raise ValueError("--params and --ov_joint disagree on the GPLVM "
                              "object-vector table")
         gp = gpm.MnistSVGP(config=cfg, **port["gp"])
-    return vae.to(device), gp.to(device)
+    return vae.to(**to), gp.to(**to)
 
 
 def trainable_predicate(args) -> Callable[[str], bool]:
@@ -361,6 +403,20 @@ def checkpoint_state(state, noise: "Noise", **extra) -> dict:
             "noise": None if gen is None else gen.get_state(), **extra}
 
 
+def shuffle_state(shuffle: Optional[train.EpochShuffle]) -> dict:
+    """checkpoint_state's entry for --reshuffle's generator ({} without
+    the flag)."""
+    return {} if shuffle is None else {
+        "shuffle": shuffle.generator.get_state()}
+
+
+def restore_shuffle(ckpt: Optional[dict],
+                    shuffle: Optional[train.EpochShuffle]) -> None:
+    """--reshuffle's generator from a restored checkpoint that holds it."""
+    if shuffle is not None and ckpt is not None and "shuffle" in ckpt:
+        shuffle.generator.set_state(ckpt["shuffle"])
+
+
 def resume(args, state, noise: "Noise") -> Optional[dict]:
     """Restore the latest checkpoint under --resume_dir/ckpt into `state`
     and the noise stream; returns it (None when there is none)."""
@@ -384,24 +440,19 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _chunks(images: torch.Tensor, aux: torch.Tensor, bs: int):
-    """Full batches of `bs`, then the tail, as views."""
-    for lo in range(0, len(images), bs):
-        yield images[lo:lo + bs], aux[lo:lo + bs]
-
-
 def default_eps_fn(seed: int, device: torch.device,
-                   eval_seed: int = EVAL_SEED) -> Callable:
+                   eval_seed: int = EVAL_SEED,
+                   dtype: torch.dtype = torch.float32) -> Callable:
     """eps_fn(kind, shape): "train" draws (and "train/<regime>" ones)
     continue one generator seeded by `seed`; every "eval" draw comes from a
     generator seeded with `eval_seed` (the JAX CLIs use one fixed eval key
-    per batch)."""
+    per batch).  Draws in `dtype`."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def eps_fn(kind: str, shape) -> torch.Tensor:
         g = gen if kind.startswith("train") else \
             torch.Generator(device=device).manual_seed(eval_seed)
-        return torch.randn(shape, generator=g, device=device)
+        return torch.randn(shape, generator=g, device=device, dtype=dtype)
 
     eps_fn.generator = gen  # the "train" stream, which checkpoints keep
     return eps_fn
@@ -430,12 +481,12 @@ class Noise:
 
 
 def make_forward(args, eps_fn: Callable) -> Callable:
-    """forward(params, batch, geco, alpha, kind): the SVGPVAE training
-    forward pass with this run's options and `eps_fn(kind, (b, L))`
-    noise."""
+    """forward(params, batch, geco, alpha, kind, bias_analysis=False): the
+    SVGPVAE training forward pass with this run's options and
+    `eps_fn(kind, (b, L))` noise."""
     kappa = float(np.sqrt(args.kappa_squared))
 
-    def forward(params, batch, geco, alpha, kind):
+    def forward(params, batch, geco, alpha, kind, bias_analysis=False):
         return models.forward_pass_svgpvae(
             params["vae"], params["gp"], batch,
             eps_fn(kind, (batch[0].shape[0], args.L)), beta=args.beta,
@@ -443,19 +494,27 @@ def make_forward(args, eps_fn: Callable) -> Callable:
             kappa=kappa, clip_qs=args.clip_qs, geco=args.GECO,
             lagrange_max=args.geco_lambda_max,
             gp_block_impl=args.gp_block_impl, entropy_ce=args.entropy_ce,
-            titsias_reference_ce=args.titsias_reference_ce)
+            titsias_reference_ce=args.titsias_reference_ce,
+            bias_analysis=bias_analysis)
 
     return forward
 
 
-def make_loss_fn(args, forward: Callable) -> Callable:
+def make_loss_fn(args, forward: Callable,
+                 mean_vectors: Optional[list] = None) -> Callable:
     """loss_fn(params, batch, geco, step) -> (loss, (geco, metrics)) for
     train.train_step: GECO minimizes the objective, the plain objective
-    maximizes the ELBO."""
+    maximizes the ELBO.  With a `mean_vectors` list (--bias_analysis) the
+    step runs the two-pass block and appends its mu_hat (L, m)."""
+
+    kw = {} if mean_vectors is None else {"bias_analysis": True}
 
     def loss_fn(params, batch, geco, step):
         out = forward(params, batch, geco,
-                      train.geco_effective_alpha(step, args.alpha), "train")
+                      train.geco_effective_alpha(step, args.alpha), "train",
+                      **kw)
+        if mean_vectors is not None:
+            mean_vectors.append(out.mean_vectors.detach())
         new_geco = train.GECOState(C_ma=out.C_ma,
                                    lagrange_mult=out.lagrange_mult)
         loss = out.elbo if args.GECO else -out.elbo
@@ -514,8 +573,9 @@ class StepRecorder:
             self.noise.draws = []
         before = ops.launch_counts()
         t0 = time.perf_counter()
-        m = train.train_step(state, batch, loss_fn)
-        sync(self.device)
+        with utils.annotate("train_step"):
+            m = train.train_step(state, batch, loss_fn)
+            sync(self.device)
         self.seconds.append(time.perf_counter() - t0)
         after = ops.launch_counts()
         self.launches.append({k: after[k] - before[k] for k in after})
@@ -539,10 +599,28 @@ class StepRecorder:
                 "step_launches": self.launches, "captured": self.captured}
 
 
-def _check_finite(elbos, epoch: int, step: int) -> None:
-    if not np.all(np.isfinite(elbos)):
-        raise FloatingPointError(
-            f"non-finite ELBO in epoch {epoch} (step {step})")
+class EpochTracer:
+    """--profile_dir: `epoch(timed)` is a utils.trace_if context that
+    traces the first epoch it is given with timed=True (the JAX drivers'
+    first timed epoch) and no other; `report()` says where the trace went,
+    or warns when no epoch was traced."""
+
+    def __init__(self, profile_dir: Optional[str]):
+        self.dir, self.traced = profile_dir, False
+
+    def epoch(self, timed: bool):
+        enabled = bool(self.dir) and timed and not self.traced
+        self.traced = self.traced or enabled
+        return utils.trace_if(self.dir, enabled=enabled)
+
+    def report(self) -> None:
+        if not self.dir:
+            return
+        if self.traced:
+            print(f"profiler trace written to {self.dir}")
+        else:
+            print("warning: --profile_dir set but no epoch was traced "
+                  "(needs >= 2 epochs of one regime)")
 
 
 def _best(result: dict, evals: list, key: str = "cgen_mse") -> dict:
@@ -565,7 +643,8 @@ def _save_cgen_images(run_dir: Optional[str], images) -> None:
 
 def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
-         capture_step: Optional[int] = None) -> dict:
+         capture_step: Optional[int] = None,
+         perm_fn: Optional[Callable] = None) -> dict:
     """Train; returns a dict (see `run_svgpvae`, `run_svigp`,
     `run_casale`).
 
@@ -574,7 +653,8 @@ def main(argv=None, splits: Optional[dict] = None,
     `eps_fn(kind, shape)` ("train", "train/<regime>" for Casale, or
     "eval") replaces the default noise (tests inject the JAX draws).
     `capture_step` keeps a copy of that step's inputs, parameters before
-    it, noise and gradients."""
+    it, noise and gradients.  `perm_fn(n)` gives --reshuffle's
+    permutations of n examples in place of the seeded generator's."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     device = torch.device(args.device)
@@ -588,35 +668,51 @@ def main(argv=None, splits: Optional[dict] = None,
     elif args.N_t is not None:
         raise SystemExit("--N_t subsamples pickled data; pass the "
                          "subsampled splits instead")
-    eps_fn = eps_fn or default_eps_fn(args.seed, device)
+    eps_fn = eps_fn or default_eps_fn(args.seed, device,
+                                      dtype=run_dtype(args))
+    if args.x64:
+        print("--x64: data, nets, GP and Adam in float64; the GP blocks run "
+              "the kernels' plain PyTorch versions (the CUDA kernels take "
+              "fp32 only), so no kernel launches")
+    shuffle = None
+    if args.reshuffle:
+        shuffle = train.EpochShuffle(
+            len(splits["train"]["images"]), args.batch_size, seed=args.seed,
+            perm_fn=perm_fn)
     if args.elbo in CASALE_ELBOS:
         return run_casale(args, splits, device, eps_fn, capture_step)
     if args.elbo == "SVIGP_Hensman":
-        return run_svigp(args, splits, device, capture_step)
-    return run_svgpvae(args, splits, device, eps_fn, capture_step)
+        return run_svigp(args, splits, device, capture_step, shuffle)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step, shuffle)
 
 
-def _to_dev(split: dict, device: torch.device):
-    return (torch.as_tensor(split["images"], dtype=torch.float32,
-                            device=device),
-            torch.as_tensor(split["aux_data"], dtype=torch.float32,
-                            device=device))
+def _to_dev(split: dict, device: torch.device,
+            dtype: torch.dtype = torch.float32):
+    return (torch.as_tensor(split["images"], dtype=dtype, device=device),
+            torch.as_tensor(split["aux_data"], dtype=dtype, device=device))
 
 
 def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
-                capture_step: Optional[int]) -> dict:
+                capture_step: Optional[int],
+                shuffle: Optional[train.EpochShuffle] = None) -> dict:
     """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
     "step_seconds" (host clock after synchronize, per step), "metrics"
     (per step), "evals" (per eval pass), "step_launches" (kernel launches
     inside each step), "captured", "cgen_mse", "best_cgen_mse",
-    "regimes" (per epoch)}."""
+    "regimes" (per epoch), "bias" (--bias_analysis: per epoch its bias,
+    the epoch's mean of the batch estimates, the full-split mean vectors
+    and the pass's kernel launches)}."""
     is_svgpvae = "SVGPVAE" in args.elbo
     is_cvae = args.elbo == "CVAE"
+    dtype = run_dtype(args)
     if is_svgpvae:
+        # --x64: 'auto' resolves as on the CPU (the kernels take fp32 only)
         args.gp_block_impl = models.resolve_gp_block_impl(
             args.gp_block_impl, workload="mnist",
-            titsias=args.elbo == "SVGPVAE_Titsias", device=device)
-        print(f"gp_block_impl: {args.gp_block_impl}, device {device}")
+            titsias=args.elbo == "SVGPVAE_Titsias",
+            device=torch.device("cpu") if args.x64 else device)
+        print(f"gp_block_impl: {args.gp_block_impl}, device {device}, "
+              f"dtype {dtype}")
     train_d, eval_d, test_d = splits["train"], splits["eval"], splits["test"]
     # as the JAX driver: N_train stays n_digits * 4050 under --N_t
     N_train = (len(train_d["images"]) if args.N_t is None
@@ -637,17 +733,23 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     steps_per_epoch = -(-N_train // args.batch_size)
     state = train.TrainState(
         params=params, optimizer=train.make_optimizer(trainable, args.lr),
-        geco=train.GECOState.init(device=device),
+        geco=train.GECOState.init(dtype=dtype, device=device),
         lr_fn=train.cosine_decay_lr(args.lr, args.lr_decay,
                                     nr_epochs * steps_per_epoch))
     noise = Noise(eps_fn)
     if args.resume_dir:
-        resume(args, state, noise)
+        restore_shuffle(resume(args, state, noise), shuffle)
+
+    def ckpt_state():
+        return checkpoint_state(state, noise, **shuffle_state(shuffle))
+
     forward = make_forward(args, noise) if is_svgpvae else None
     vae_forward = make_vae_forward(args, noise, cvae=is_cvae)
     loss_fns = {"VAE": make_vae_loss_fn(vae_forward)}
+    batch_mean_vectors = [] if args.bias_analysis and is_svgpvae else None
     if is_svgpvae:
         loss_fns["joint"] = make_loss_fn(args, forward)
+        loss_fns["bias"] = make_loss_fn(args, forward, batch_mean_vectors)
     savers = {}
     if args.save and run_dir:
         res = os.path.join(run_dir, "res")
@@ -666,9 +768,9 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 os.path.join(res, "ELBO_results.csv"), VAE_COLUMNS,
                 flush_every=1)
 
-    train_im, train_aux = _to_dev(train_d, device)
-    eval_im, eval_aux = _to_dev(eval_d, device)
-    test_im, test_aux = _to_dev(test_d, device)
+    train_im, train_aux = _to_dev(train_d, device, dtype)
+    eval_im, eval_aux = _to_dev(eval_d, device, dtype)
+    test_im, test_aux = _to_dev(test_d, device, dtype)
 
     @torch.no_grad()
     def recon_sum(images, aux, vae_pass):
@@ -678,12 +780,14 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                          if vae_pass else
                          forward(params, batch, state.geco, args.alpha,
                                  "eval").recon_loss)
-                   for batch in _chunks(images, aux, args.batch_size))
+                   for batch in train.epoch_batches((images, aux),
+                                                    args.batch_size))
 
     @torch.no_grad()
     def encode_train():
         enc = [models.batching_encode_svgpvae(vae, im, clip_qs=args.clip_qs)
-               for im, _ in _chunks(train_im, train_aux, args.batch_size)]
+               for im, _ in train.epoch_batches((train_im, train_aux),
+                                                args.batch_size)]
         return (torch.cat([e[0] for e in enc]),
                 torch.cat([e[1] for e in enc]))
 
@@ -700,7 +804,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             return None, None
         means, variances = encode_train()
         total, images = 0.0, []
-        for batch in _chunks(test_im, test_aux, args.batch_size):
+        for batch in train.epoch_batches((test_im, test_aux),
+                                         args.batch_size):
             recon, loss = models.predict_cgen_mnist(
                 vae, gp, batch, means, variances, train_aux,
                 noise("eval", (batch[0].shape[0], args.L)))
@@ -708,21 +813,49 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             images.append(recon)
         return total / N_test, torch.cat(images)
 
+    @torch.no_grad()
+    def bias_pass(epoch):
+        """The full-split q(u) mean and the epoch's bias (JAX:
+        mean_vector_bias_analysis on every train encoding)."""
+        before = ops.launch_counts()
+        mu, var = encode_train()
+        full = gpm.posterior_params(gp, train_aux, train_aux, mu, var)[2]
+        avg = torch.stack(batch_mean_vectors).mean(0)
+        bias = float(torch.mean(torch.abs(avg - full)))
+        sync(device)
+        after = ops.launch_counts()
+        print(f"bias for epoch {epoch}: {bias:.6f}")
+        return {"epoch": epoch, "bias": bias, "batch_mean_vectors": avg,
+                "full_mean_vectors": full,
+                "launches": {k: after[k] - before[k] for k in after}}
+
     rec = StepRecorder(device, noise, capture_step)
-    evals = []
+    tracer = EpochTracer(args.profile_dir)
+    evals, biases = [], []
     cgen_images = None
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         use_vae_pass = regime[epoch] == "VAE"
-        loss_fn = loss_fns["VAE" if use_vae_pass else "joint"]
+        # --bias_analysis: JAX's per-step loop, in stored order
+        bias_epoch = batch_mean_vectors is not None and not use_vae_pass
+        loss_fn = loss_fns["VAE" if use_vae_pass else
+                           "bias" if bias_epoch else "joint"]
         t_epoch = time.perf_counter()
         elbos, losses = [], []
-        for batch in _chunks(train_im, train_aux, args.batch_size):
-            m = rec.step(state, batch, loss_fn, trainable, state.step,
-                         regime=regime[epoch])
-            elbos.append(m["elbo"])
-            losses.append(m["recon"])
-        _check_finite(elbos, epoch, state.step)
+        order = (shuffle.order() if shuffle is not None and not bias_epoch
+                 else None)
+        timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
+        with tracer.epoch(timed):
+            for batch in train.epoch_batches((train_im, train_aux),
+                                             args.batch_size, order):
+                m = rec.step(state, batch, loss_fn, trainable, state.step,
+                             regime=regime[epoch])
+                elbos.append(m["elbo"])
+                losses.append(m["recon"])
+        utils.check_finite(elbos, state.step, ckpt_state, run_dir)
+        if bias_epoch:
+            biases.append(bias_pass(epoch))
+            batch_mean_vectors.clear()
 
         if (epoch + 1) % args.eval_every == 0:
             print(f"epoch {epoch}, regime {regime[epoch]}, mean ELBO/batch "
@@ -730,16 +863,17 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   f"{np.sum(losses) / N_train:.5f}, epoch time "
                   f"{time.perf_counter() - t_epoch:.2f}s")
             t0 = time.perf_counter()
-            ev = {"epoch": epoch,
-                  "eval_mse": recon_sum(eval_im, eval_aux, use_vae_pass)
-                  / N_eval,
-                  "test_mse": recon_sum(test_im, test_aux, use_vae_pass)
-                  / N_test}
-            sync(device)
-            t1 = time.perf_counter()
-            ev["cgen_mse"], images = cgen()
+            with utils.annotate("eval_pass"):
+                ev = {"epoch": epoch,
+                      "eval_mse": recon_sum(eval_im, eval_aux, use_vae_pass)
+                      / N_eval,
+                      "test_mse": recon_sum(test_im, test_aux, use_vae_pass)
+                      / N_test}
+                sync(device)
+                t1 = time.perf_counter()
+                ev["cgen_mse"], images = cgen()
+                sync(device)
             cgen_images = images if images is not None else cgen_images
-            sync(device)
             ev["seconds"] = {"eval_test": t1 - t0,
                              "cgen": time.perf_counter() - t1}
             evals.append(ev)
@@ -752,8 +886,11 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                                            "test_metrics.txt"), "a") as f:
                         f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
                                 f"{round(ev['cgen_mse'], 4)}\n")
-            metrics_batch = (eval_im[:args.batch_size],
-                             eval_aux[:args.batch_size])
+            # one batch of the eval split, or of the test split
+            # (--test_set_metrics; reference MNIST_experiment.py:395-400)
+            m_im, m_aux = ((test_im, test_aux) if args.test_set_metrics
+                           else (eval_im, eval_aux))
+            metrics_batch = (m_im[:args.batch_size], m_aux[:args.batch_size])
             if savers and use_vae_pass:
                 write_vae_row(savers["elbo_vae"], state.step, vae_forward,
                               params, metrics_batch)
@@ -762,12 +899,12 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                                 metrics_batch)
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
-                                      checkpoint_state(state, noise),
-                                      state.step)
+                                      ckpt_state(), state.step)
 
     rec.summary(time.perf_counter() - t_start)
+    tracer.report()
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
-                  noise=noise, regimes=regime)
+                  noise=noise, regimes=regime, bias=biases, shuffle=shuffle)
     _best(result, evals)
     _save_cgen_images(run_dir, cgen_images)
     if run_dir and args.save_latents:
@@ -835,9 +972,11 @@ def make_svigp_loss_fn() -> Callable:
 
 
 def run_svigp(args, splits: dict, device: torch.device,
-              capture_step: Optional[int]) -> dict:
-    """SVIGP_Hensman: --nr_epochs epochs (every full batch and the tail),
-    the cgen MSE of the test split every --eval_every epochs.  Returns
+              capture_step: Optional[int],
+              shuffle: Optional[train.EpochShuffle] = None) -> dict:
+    """SVIGP_Hensman: --nr_epochs epochs (every full batch and the tail,
+    the full batches reshuffled under --reshuffle), the cgen MSE of the
+    test split every --eval_every epochs.  Returns
     {"state", "step_seconds", "metrics", "step_launches", "captured",
     "evals", "cgen_mse", "best_cgen_mse"}."""
     train_d = with_global_index(splits["train"])
@@ -858,23 +997,31 @@ def run_svigp(args, splits: dict, device: torch.device,
     train_im, train_aux = _to_dev(train_d, device)
     test_im, test_aux = _to_dev(test_d, device)
 
+    def ckpt_state():
+        return {"train_state": state.state_dict(), **shuffle_state(shuffle)}
+
     rec = StepRecorder(device, None, capture_step)
+    tracer = EpochTracer(args.profile_dir)
     evals, cgen_images = [], None
     t_start = time.perf_counter()
     for epoch in range(args.nr_epochs):
         elbos, losses = [], []
-        for batch in _chunks(train_im, train_aux, args.batch_size):
-            m = rec.step(state, batch, loss_fn, trainable, state.step)
-            elbos.append(m["elbo"])
-            losses.append(m["recon"])
-        _check_finite(elbos, epoch, state.step)
+        order = shuffle.order() if shuffle is not None else None
+        with tracer.epoch(epoch > 0):
+            for batch in train.epoch_batches((train_im, train_aux),
+                                             args.batch_size, order):
+                m = rec.step(state, batch, loss_fn, trainable, state.step)
+                elbos.append(m["elbo"])
+                losses.append(m["recon"])
+        utils.check_finite(elbos, state.step, ckpt_state, run_dir)
         if (epoch + 1) % args.eval_every == 0:
             print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, "
                   f"train MSE {np.sum(losses) / N_train:.5f}, noise "
                   f"{params['gp'].noise.item():.4f}")
             t0 = time.perf_counter()
             total, images = 0.0, []
-            for batch in _chunks(test_im, test_aux, args.batch_size):
+            for batch in train.epoch_batches((test_im, test_aux),
+                                             args.batch_size):
                 recon, loss = models.predict_deep_svigp(
                     params["dec"], params["gp"], batch)
                 total += float(loss)
@@ -885,10 +1032,10 @@ def run_svigp(args, splits: dict, device: torch.device,
                           "seconds": {"cgen": time.perf_counter() - t0}})
             print(f"  cgen test MSE: {total / N_test:.5f}")
             if run_dir and args.save_model_weights:
-                utils.save_checkpoint(
-                    os.path.join(run_dir, "ckpt"),
-                    {"train_state": state.state_dict()}, state.step)
+                utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
+                                      ckpt_state(), state.step)
     rec.summary(time.perf_counter() - t_start)
+    tracer.report()
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir)
     _save_cgen_images(run_dir, cgen_images)
     return _best(result, evals)
@@ -1027,31 +1174,38 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
     taylor_every = max(1, args.casale_taylor_every)
     held_Z, age = None, 0
 
+    def ckpt_state():
+        return {"regimes": {k: st.state_dict() for k, st in states.items()}}
+
     rec = StepRecorder(device, noise, capture_step)
+    tracer = EpochTracer(args.profile_dir)
     evals, steps, regimes = [], 0, []
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         r = regime[epoch]
         cadenced = taylor_every > 1 and r != "VAE"
         elbos, losses = [], []
-        for batch in _chunks(consts["images"], train_aux, args.batch_size):
-            if cadenced:
-                if age % taylor_every == 0:
-                    with torch.no_grad():
-                        held_Z = models.encode_full_casale(
-                            params["vae"], consts["images"],
-                            noise(f"train/{r}", (N_train, args.L)),
-                            clip_qs=args.clip_qs)
-                age += 1
-            loss_fn = make_casale_loss_fn(args, noise, consts, r,
-                                          held_Z if cadenced else None)
-            m = rec.step(states[r], batch, loss_fn, subsets[r][0], steps,
-                         regime=r, held_Z=held_Z if cadenced else None)
-            steps += 1
-            regimes.append(r)
-            elbos.append(m["elbo"])
-            losses.append(m["recon"])
-        _check_finite(elbos, epoch, steps)
+        with tracer.epoch(epoch > 0 and r == regime[epoch - 1]):
+            for batch in train.epoch_batches((consts["images"], train_aux),
+                                             args.batch_size):
+                if cadenced:
+                    if age % taylor_every == 0:
+                        with torch.no_grad():
+                            held_Z = models.encode_full_casale(
+                                params["vae"], consts["images"],
+                                noise(f"train/{r}", (N_train, args.L)),
+                                clip_qs=args.clip_qs)
+                    age += 1
+                loss_fn = make_casale_loss_fn(args, noise, consts, r,
+                                              held_Z if cadenced else None)
+                m = rec.step(states[r], batch, loss_fn, subsets[r][0],
+                             steps, regime=r,
+                             held_Z=held_Z if cadenced else None)
+                steps += 1
+                regimes.append(r)
+                elbos.append(m["elbo"])
+                losses.append(m["recon"])
+        utils.check_finite(elbos, steps, ckpt_state, run_dir)
 
         if (epoch + 1) % CASALE_EVAL_EVERY == 0:
             gp = params["gp"]
@@ -1080,11 +1234,10 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
                           "seconds": {"cgen": time.perf_counter() - t0}})
             print(f"  cgen test MSE: {float(loss):.5f}")
             if run_dir and args.save_model_weights:
-                utils.save_checkpoint(
-                    os.path.join(run_dir, "ckpt"),
-                    {"regimes": {k: st.state_dict()
-                                 for k, st in states.items()}}, steps)
+                utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
+                                      ckpt_state(), steps)
     rec.summary(time.perf_counter() - t_start)
+    tracer.report()
     result = dict(rec.result(), params=params, states=states, evals=evals,
                   run_dir=run_dir, noise=noise, regimes=regimes)
     return _best(result, evals)

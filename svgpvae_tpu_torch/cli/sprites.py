@@ -7,10 +7,15 @@
 The flow of svgpvae_tpu/cli/sprites.py::run_experiment for
 `SVGPVAE_Hensman` and `SVGPVAE_Titsias` (with or without --GECO):
 
-  * the corpus: npz shards under --sprites_data_path, generated there with
-    --synthetic (the stale-corpus guard refuses a corpus of another
-    scale), or in memory (`main(splits=...)`); the train and test splits
-    are uploaded to the device once;
+  * the corpus: npz shards under --sprites_data_path; when there are none,
+    the published raw npy corpus found there (the nine
+    {walk,spellcard,slash}_{front,left,right} frames/attributes x
+    train/test files) preprocessed into shards (data.load_raw_sprites_npys,
+    data.preprocess_sprites: 50 train frames per character from
+    RandomState(--corpus_seed), the JAX package's splits), or with
+    --synthetic a generated corpus (the stale-corpus guard refuses one of
+    another scale); or in memory (`main(splits=...)`); the train and test
+    splits are uploaded to the device once;
   * the GP initialisation: N(0, 1.5^2) draws from RandomState(--seed), or
     the PCA + KDE initializers with --PCA;
   * the repr-net pretraining: SpritesReprNet + ClassificationHead over the
@@ -18,7 +23,10 @@ The flow of svgpvae_tpu/cli/sprites.py::run_experiment for
     --batch_size_repr_nn; every 10 epochs the loss and accuracy on the
     test_action split;
   * per epoch, every full batch of --batch_size frames (whole characters,
-    50 frames each) and the tail through one training step each: conv
+    50 frames each; under --reshuffle the characters of the full batches
+    permuted each epoch, the tail left in place, train.EpochShuffle with a
+    CPU generator seeded by --seed whose state the checkpoints keep) and
+    the tail through one training step each: conv
     encoder and the variance clip; the aux data from the repr net (the
     segment mean over each character's frames, under autograd); the
     SpritesSVGP kernel matrices; the GP block; the posterior-variance clip,
@@ -59,7 +67,8 @@ with 11 (the JAX CLI's eval key is one fixed key too).
 Run outputs, as the JAX CLI writes them (see cli/mnist.py): --save makes
 the run dir with args.json; every epoch appends a row to
 res/ELBO_results.csv and res/GP_params.csv (the JAX columns, on the first
-train batch with the eval noise); every eval pass writes
+train batch with the eval noise, or under --test_set_metrics on the first
+test_character batch, 72 frames per character); every eval pass writes
 res/gp_params_<step>.npz and a line of pics/test_metrics.txt, and at its
 best cgen so far the last test batch's cgen images and their targets
 (cgen_images.p, cgen_images_target.p); --save_model_weights writes a
@@ -69,18 +78,20 @@ pretraining, restores the latest checkpoint and runs --opt_regime's
 epochs from the restored step, writing into that run dir; it is refused
 with --basin_retry, whose restarts need the post-pretraining parameters.
 The pictures (pics/*.png) are not written: the port does without
-matplotlib.
+matplotlib.  After every epoch utils.check_finite: on a NaN/inf ELBO the
+current state goes to <run dir>/ckpt_nan/<step>.pt (a diagnostic, not a
+resume point) and utils.NonFiniteLossError is raised.  --profile_dir DIR
+writes a torch.profiler Chrome trace of epoch 1 (the JAX CLI's choice)
+into DIR, with the ranges "train_step", "gp_block" and "eval_pass".
 
 --elbo VAE (the JAX CLI's default) trains the SpritesVAE alone on the
 plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
 pretraining, no GP; its eval pass is the test_character reconstruction
 MSE, and its metric rows the eight VAE columns.
 
-Not ported yet, refused with an error: --test_set_metrics, --bf16,
---bf16_hybrid, --data_parallel, --profile_dir, --reshuffle, and a
-raw-npy corpus (its preprocessing).
---s2d64 and --fused_upsample are TPU rewrites that the port does not
-carry.
+Not ported yet, refused with an error: --bf16, --bf16_hybrid and
+--data_parallel.  --s2d64 and --fused_upsample are TPU rewrites that the
+port does not carry.
 """
 
 from __future__ import annotations
@@ -99,9 +110,10 @@ import torch.nn.functional as F
 
 from svgpvae_tpu_torch import data, models, ops, train, utils
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch.cli.mnist import (Noise, checkpoint_state,
-                                         default_eps_fn, open_run_dir,
-                                         resume, sync)
+from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
+                                         checkpoint_state, default_eps_fn,
+                                         open_run_dir, restore_shuffle,
+                                         resume, shuffle_state, sync)
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils.convert import (params_from_jax,
                                              sprites_train_params_from_jax)
@@ -216,12 +228,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = {  # flag -> is it set?
-    "--test_set_metrics": lambda a: a.test_set_metrics,
     "--bf16": lambda a: a.bf16,
     "--bf16_hybrid": lambda a: a.bf16_hybrid,
     "--data_parallel": lambda a: a.data_parallel != 0,
-    "--profile_dir": lambda a: a.profile_dir is not None,
-    "--reshuffle": lambda a: a.reshuffle,
 }
 TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
     "--s2d64": lambda a: bool(a.s2d64),
@@ -297,9 +306,14 @@ def ensure_dataset(args) -> None:
                 " delete the directory to regenerate, or pass "
                 "--allow_stale_corpus to reuse it anyway")
     if data.has_raw_sprites_npys(path):
-        raise SystemExit(f"raw sprites npy corpus at {path}: its "
-                         "preprocessing is not ported yet (write shards with "
-                         "the JAX package's data.save_sprites_shards)")
+        print(f"raw sprites npy corpus found at {path}; preprocessing "
+              f"({FRAMES_PER_CHAR} train frames/char)")
+        x_tr, x_te, a_tr, a_te, d_tr, d_te = data.load_raw_sprites_npys(path)
+        splits = data.preprocess_sprites(x_tr, a_tr, d_tr, x_te, a_te, d_te,
+                                         n_frames_train=FRAMES_PER_CHAR,
+                                         seed=args.corpus_seed)
+        data.save_sprites_shards(splits, path)
+        return
     if not args.synthetic:
         raise SystemExit(f"no SPRITES shards at {path}: provide shards "
                          "(data.save_sprites_shards) or pass --synthetic")
@@ -451,7 +465,8 @@ def pretrain_loss(params, batch, geco, step):
 def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
          capture_step: Optional[int] = None,
-         on_eval: Optional[Callable[[dict], None]] = None) -> dict:
+         on_eval: Optional[Callable[[dict], None]] = None,
+         perm_fn: Optional[Callable] = None) -> dict:
     """Train; returns a dict (see `run_svgpvae`).
 
     `splits` ({"train", "test_action", "test_character"}, as
@@ -460,7 +475,9 @@ def main(argv=None, splits: Optional[dict] = None,
     (tests inject the JAX draws; a --basin_retry restart keeps drawing
     from it).  `capture_step` keeps a copy of that main step's inputs,
     parameters before it, noise and gradients.  `on_eval(ev)` is called
-    after each eval pass (and its checkpoint) with its record."""
+    after each eval pass (and its checkpoint) with its record.
+    `perm_fn(n)` gives --reshuffle's permutations of the n characters of
+    the full batches (tests inject JAX's)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     device = torch.device(args.device)
@@ -472,7 +489,8 @@ def main(argv=None, splits: Optional[dict] = None,
     if splits is None:
         ensure_dataset(args)
         splits = data.load_sprites(args.sprites_data_path)
-    return run_svgpvae(args, splits, device, eps_fn, capture_step, on_eval)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step, on_eval,
+                       perm_fn)
 
 
 def _stream_seed(args, attempt: int) -> int:
@@ -540,7 +558,8 @@ def pretrain(args, params: dict, head, train_frames, train_chars,
 
 def run_svgpvae(args, splits: dict, device: torch.device,
                 eps_fn: Optional[Callable], capture_step: Optional[int],
-                on_eval: Optional[Callable[[dict], None]] = None) -> dict:
+                on_eval: Optional[Callable[[dict], None]] = None,
+                perm_fn: Optional[Callable] = None) -> dict:
     """Returns {"state", "pretrain", "step_seconds" (host clock after
     synchronize, per main step), "metrics" (per step), "step_launches"
     (kernel launches inside each step), "evals" (per eval pass: MSEs, the
@@ -602,12 +621,17 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         return eps_fn or default_eps_fn(_stream_seed(args, attempt), device,
                                         eval_seed=EVAL_SEED)
 
+    # --reshuffle permutes whole characters of the full batches
+    shuffle = (train.EpochShuffle(N_train, batch_size, block=FRAMES_PER_CHAR,
+                                  seed=args.seed, perm_fn=perm_fn)
+               if args.reshuffle else None)
     state = fresh_state()
     noise = Noise(stream(0))
     if args.resume_dir:
         ckpt = resume(args, state, noise)
         if ckpt is not None and head is not None:
             head.load_state_dict(ckpt["head"])
+        restore_shuffle(ckpt, shuffle)
     if is_svgpvae:
         forward = make_forward(args, noise)
         loss_fn = make_loss_fn(args, forward)
@@ -624,20 +648,31 @@ def run_svgpvae(args, splits: dict, device: torch.device,
             os.path.join(run_dir, "res", "GP_params.csv"), GP_COLUMNS,
             flush_every=1)
 
+    def ckpt_state():
+        return checkpoint_state(state, noise, head=None if head is None
+                                else head.state_dict(),
+                                **shuffle_state(shuffle))
+
     def save_checkpoint():
-        utils.save_checkpoint(
-            os.path.join(run_dir, "ckpt"),
-            checkpoint_state(state, noise, head=None if head is None
-                             else head.state_dict()),
-            state.step)
+        utils.save_checkpoint(os.path.join(run_dir, "ckpt"), ckpt_state(),
+                              state.step)
     # --basin_retry restarts from the post-pretraining parameters
     host_copy = ({k: v.detach().to("cpu", copy=True)
                   for k, v in train.named_tensors(params).items()}
                  if args.basin_retry else None)
     bounds = [(lo, min(lo + batch_size, N_train))
               for lo in range(0, N_train, batch_size)]
+    # the per-epoch metric rows' batch: the first train batch, or the first
+    # test_character batch (--test_set_metrics; its characters hold all 72
+    # frames)
+    metrics_batch, metrics_fpc = (
+        ((tc_frames[:batch_tc], tc_action[:batch_tc]), N_ACTIONS)
+        if args.test_set_metrics else
+        ((train_frames[:batch_size], train_action[:batch_size]),
+         FRAMES_PER_CHAR))
 
     @torch.no_grad()
+    @utils.annotate("eval_pass")
     def eval_pass(epoch):
         ev, secs, launches = {"epoch": epoch}, {}, {}
 
@@ -686,38 +721,40 @@ def run_svgpvae(args, splits: dict, device: torch.device,
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, cgen_history, attempt, epoch = None, [], 0, 0
+    tracer = EpochTracer(args.profile_dir)
     t_start = time.perf_counter()
     while epoch < nr_epochs:
         t_epoch = time.perf_counter()
         elbos, losses = [], []
-        for lo, hi in bounds:
-            batch = (train_frames[lo:hi], train_action[lo:hi])
-            snap = (_snapshot(state, batch) if len(step_seconds) ==
-                    capture_step else None)
-            before = ops.launch_counts()
-            t0 = time.perf_counter()
-            m = train.train_step(state, batch, loss_fn)
-            sync(device)
-            step_seconds.append(time.perf_counter() - t0)
-            after = ops.launch_counts()
-            step_launches.append({k: after[k] - before[k] for k in after})
-            if snap is not None:
-                captured = _finish_capture(snap, state, trainable, m,
-                                           noise.last)
-            m = {k: float(v) for k, v in m.items()}
-            step_metrics.append(m)
-            elbos.append(m["elbo"])
-            losses.append(m["recon"])
-        if not np.all(np.isfinite(elbos)):
-            raise FloatingPointError(
-                f"non-finite ELBO in epoch {epoch} (step {state.step})")
+        order = shuffle.order() if shuffle is not None else None
+        with tracer.epoch(epoch == 1):
+            for batch in train.epoch_batches((train_frames, train_action),
+                                             batch_size, order):
+                snap = (_snapshot(state, batch) if len(step_seconds) ==
+                        capture_step else None)
+                before = ops.launch_counts()
+                t0 = time.perf_counter()
+                with utils.annotate("train_step"):
+                    m = train.train_step(state, batch, loss_fn)
+                    sync(device)
+                step_seconds.append(time.perf_counter() - t0)
+                after = ops.launch_counts()
+                step_launches.append({k: after[k] - before[k]
+                                      for k in after})
+                if snap is not None:
+                    captured = _finish_capture(snap, state, trainable, m,
+                                               noise.last)
+                m = {k: float(v) for k, v in m.items()}
+                step_metrics.append(m)
+                elbos.append(m["elbo"])
+                losses.append(m["recon"])
+        utils.check_finite(elbos, state.step, ckpt_state, run_dir)
         print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, train "
               f"MSE {np.sum(losses) / N_train:.5f}, "
               f"{time.perf_counter() - t_epoch:.2f}s")
         if savers:
-            write_epoch_rows(args, savers, state, forward,
-                             (train_frames[:batch_size],
-                              train_action[:batch_size]))
+            write_epoch_rows(args, savers, state, forward, metrics_batch,
+                             metrics_fpc)
 
         plateau = False
         if (epoch + 1) % args.eval_every == 0:
@@ -761,6 +798,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                     v.copy_(host_copy[k])
             state = fresh_state()
             noise.eps_fn = stream(attempt)
+            if shuffle is not None:
+                shuffle.generator.manual_seed(_stream_seed(args, attempt))
             cgen_history, epoch = [], 0
 
     elapsed = time.perf_counter() - t_start
@@ -770,13 +809,14 @@ def run_svgpvae(args, splits: dict, device: torch.device,
               f"first {1e3 * step_seconds[0]:.2f} ms, p50 "
               f"{1e3 * float(np.percentile(timed, 50)):.2f} ms, p90 "
               f"{1e3 * float(np.percentile(timed, 90)):.2f} ms")
+    tracer.report()
     if run_dir and args.save_model_weights:
         save_checkpoint()
     result = {"state": state, "pretrain": pre, "step_seconds": step_seconds,
               "metrics": step_metrics, "step_launches": step_launches,
               "evals": evals, "captured": captured, "basin_attempts": attempt,
               "cgen_mse": evals[-1].get("cgen_mse") if evals else None,
-              "run_dir": run_dir, "noise": noise}
+              "run_dir": run_dir, "noise": noise, "shuffle": shuffle}
     if is_svgpvae and evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
@@ -794,12 +834,14 @@ GP_COLUMNS = ["step", "gplvm_norm", "ip_norm", "l_action", "sigma_action",
 
 
 @torch.no_grad()
-def write_epoch_rows(args, savers: dict, state, forward, batch) -> None:
+def write_epoch_rows(args, savers: dict, state, forward, batch,
+                     frames_per_char: int = FRAMES_PER_CHAR) -> None:
     """The JAX CLI's per-epoch metric rows: the forward pass on `batch`
-    (whole train characters) with the eval noise, and the GP's norms and
-    kernel scalars (the VAE's: its eight columns, no GP row)."""
+    (whole characters of `frames_per_char` frames) with the eval noise,
+    and the GP's norms and kernel scalars (the VAE's: its eight columns,
+    no GP row)."""
     out = forward(state.params, batch, state.geco, args.alpha, "eval",
-                  FRAMES_PER_CHAR)
+                  frames_per_char)
     row = [out.elbo, out.recon_loss, out.kl_term, out.qnet_mu.min(),
            out.qnet_mu.max(), out.qnet_var.min(), out.qnet_var.max()]
     if "gp" not in savers:

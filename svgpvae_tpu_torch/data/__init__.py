@@ -17,7 +17,9 @@ from svgpvae_tpu_torch.data.sprites import (  # noqa: F401
     N_ACTIONS,
     generate_synthetic_sprites,
     has_raw_sprites_npys,
+    load_raw_sprites_npys,
     load_sprites,
+    preprocess_sprites,
     save_sprites_shards,
     sprites_batch_iterator,
     sprites_pca_init,

@@ -18,7 +18,9 @@ remains per step is ONE inverse-or-factorization of the (L+1, m, m) stack
 `inverse_impl="pallas"` (the JAX name, kept so one argv drives both
 drivers) takes explicit inverses and logdets of that stack from
 `ops.chol_inverse.chol_inverse`: the hand-written CUDA kernel B1 on a
-CUDA tensor, its plain Cholesky twin on a CPU tensor.  `"chol"` factorizes
+CUDA tensor, its plain Cholesky twin on a CPU tensor.  A float64 CUDA
+stack (cli.mnist --x64) takes B1's and B2's plain versions, called here
+(gp.svgp.on_plain_path): the kernels take fp32 only.  `"chol"` factorizes
 with torch.linalg.cholesky and solves.  The jitter policy is that of the
 two-pass path.
 
@@ -39,11 +41,30 @@ import torch
 from torch import Tensor
 
 from svgpvae_tpu_torch import linalg
-from svgpvae_tpu_torch.gp.svgp import relative_ridge, sigma_jitter
-from svgpvae_tpu_torch.ops.chol_inverse import chol_inverse
-from svgpvae_tpu_torch.ops.gp_stats import gp_stats
+from svgpvae_tpu_torch.gp.svgp import (on_plain_path, relative_ridge,
+                                       sigma_jitter)
+from svgpvae_tpu_torch.ops.chol_inverse import (chol_inverse,
+                                                chol_inverse_reference)
+from svgpvae_tpu_torch.ops.gp_stats import (gp_stats,
+                                            gp_sufficient_stats_reference)
 
 INVERSE_IMPLS = ("chol", "pallas")
+
+
+def _stats(Knm: Tensor, precision: Tensor, py: Tensor):
+    """B2's autograd form `gp_stats`, or on the plain path (see
+    gp.svgp.on_plain_path) its plain version."""
+    if on_plain_path(Knm):
+        return gp_sufficient_stats_reference(Knm, precision, py)
+    return gp_stats(Knm, precision, py)
+
+
+def _inverse(M: Tensor):
+    """B1's autograd form `chol_inverse`, or on the plain path its plain
+    version."""
+    if on_plain_path(M):
+        return chol_inverse_reference(M)
+    return chol_inverse(M)
 KL_IMPLS = ("identity", "rejitter")
 
 
@@ -75,13 +96,13 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    sigma_contrib, r = _stats(Knm, precision, precision * y)
     Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     M = torch.cat([linalg.add_jitter(Kmm, cfg.jitter)[None],
                    linalg.add_jitter(Sigma, sigma_jitter(Sigma, cfg))])
 
     if inverse_impl == "pallas":
-        Minv, logdets = chol_inverse(M)
+        Minv, logdets = _inverse(M)
         Kmm_inv, Sigma_inv = Minv[0], Minv[1:]
         logdet_K, logdet_S = logdets[0], logdets[1:]
         sir = torch.einsum("lmp,lp->lm", Sigma_inv, r)              # (L, m)
@@ -124,7 +145,7 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
         # triangle (Cholesky: the twin) then differ by up to ~0.3.  B1
         # takes a symmetric PD matrix: average the triangles.
         A_hat = 0.5 * (A_hat + A_hat.transpose(-1, -2))
-        _, logdet_A = chol_inverse(linalg.add_jitter(A_hat, cfg.jitter))
+        _, logdet_A = _inverse(linalg.add_jitter(A_hat, cfg.jitter))
         tr_KiA = torch.sum(Kmm_inv[None] * A_hat, dim=(-2, -1))
         quad_mu = torch.einsum("lm,mp,lp->l", mu_hat, Kmm_inv, mu_hat)
         kl_terms = 0.5 * (logdet_K - logdet_A - m + tr_KiA + quad_mu)
@@ -180,12 +201,12 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    sigma_contrib, r = _stats(Knm, precision, precision * y)
     Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     # the bound's statistics at the jittered noise
     noise_b = noise + cfg.jitter
     prec_b = linalg.reciprocal_no_nan(noise_b)            # (b, L)
-    contrib_b, r_b = gp_stats(Knm, prec_b, prec_b * y)
+    contrib_b, r_b = _stats(Knm, prec_b, prec_b * y)
     Kmm_j = linalg.add_jitter(Kmm, cfg.jitter)
     Sigma1 = Kmm_j[None] + contrib_b                      # (L, m, m)
     M = torch.cat([Kmm_j[None],
@@ -193,7 +214,7 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
                    linalg.add_jitter(Sigma1, relative_ridge(Sigma1))])
 
     if inverse_impl == "pallas":
-        Minv, logdets = chol_inverse(M)
+        Minv, logdets = _inverse(M)
         Kmm_inv, Sigma_inv, Sigma1_inv = Minv[0], Minv[1:L + 1], Minv[L + 1:]
         logdet_K, logdet_S1 = logdets[0], logdets[L + 1:]
         sir = torch.einsum("lmp,lp->lm", Sigma_inv, r)              # (L, m)
@@ -281,7 +302,7 @@ def ball_gp_block(gp, times: Tensor, y: Tensor, noise: Tensor,
                    linalg.add_jitter(Sigma, cfg.jitter)], dim=1)
     KmnT = Knm.transpose(-1, -2)                          # (C, m, T)
     if inverse_impl == "pallas":
-        Minv, lds = chol_inverse(M.reshape(C * (V + 1), m, m))
+        Minv, lds = _inverse(M.reshape(C * (V + 1), m, m))
         Minv, lds = Minv.reshape(C, V + 1, m, m), lds.reshape(C, V + 1)
         Kmm_inv, Sigma_inv = Minv[:, 0], Minv[:, 1:]
         logdet_K, logdet_S = lds[:, 0], lds[:, 1:]
@@ -356,7 +377,7 @@ def ball_gp_block_titsias(gp, times: Tensor, y: Tensor, noise: Tensor,
                    Sigma1], dim=1)                        # (C, 2V+1, m, m)
     KmnT = Knm.transpose(-1, -2)
     if inverse_impl == "pallas":
-        Minv, lds = chol_inverse(M.reshape(C * (2 * V + 1), m, m))
+        Minv, lds = _inverse(M.reshape(C * (2 * V + 1), m, m))
         Minv = Minv.reshape(C, 2 * V + 1, m, m)
         lds = lds.reshape(C, 2 * V + 1)
         Kmm_inv, Sigma_inv = Minv[:, 0], Minv[:, 1:V + 1]

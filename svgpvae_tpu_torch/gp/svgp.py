@@ -27,7 +27,8 @@ from torch import Tensor
 
 from svgpvae_tpu_torch import kernels, linalg
 from svgpvae_tpu_torch.ops.fused_kernel_stats import fused_kernel_stats
-from svgpvae_tpu_torch.ops.gp_stats import gp_stats, gp_sufficient_stats
+from svgpvae_tpu_torch.ops.gp_stats import (gp_stats, gp_sufficient_stats,
+                                            gp_sufficient_stats_reference)
 
 
 # Relative ridge of the Sigma_l factorization, scaled by Sigma's max
@@ -241,6 +242,22 @@ def init_sprites_svgp(initial_inducing_points, initial_gplvm_action,
         L_action=L_action, use_se_kernel=use_se_kernel)
 
 
+def on_plain_path(t: Tensor) -> bool:
+    """A float64 CUDA tensor (cli.mnist --x64).  The kernels take fp32
+    only, and their wrappers launch or raise on a CUDA tensor, so the GP
+    blocks call the kernels' plain PyTorch versions for it themselves.
+    CPU tensors go to the wrappers, which run those versions there."""
+    return t.is_cuda and t.dtype == torch.float64
+
+
+def stats(Knm: Tensor, precision: Tensor, py: Tensor):
+    """B2's autograd form `gp_stats`, or on the plain path its plain
+    version (differentiable as it stands)."""
+    if on_plain_path(Knm):
+        return gp_sufficient_stats_reference(Knm, precision, py)
+    return gp_stats(Knm, precision, py)
+
+
 def relative_ridge(stack: Tensor):
     """SIGMA_REL_JITTER x the max diagonal over ALL matrices of the stack
     (as the JAX package: the f32 assembly's round-off scales with
@@ -297,7 +314,7 @@ def posterior_params(gp, aux_test: Tensor, aux_train: Tensor, y: Tensor,
                         y_inducing=False)          # (x,)
 
     precision = linalg.reciprocal_no_nan(noise)    # (b, L)
-    sigma_contrib, r = gp_stats(Knm, precision, precision * y)
+    sigma_contrib, r = stats(Knm, precision, precision * y)
     Sigma = Kmm[None] + scale * sigma_contrib
     Sigma_chol = _sigma_cholesky(Sigma, cfg)       # (L, m, m)
     sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]  # (L, m)

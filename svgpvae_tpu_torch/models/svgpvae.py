@@ -15,6 +15,7 @@ from torch import Tensor
 
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch.utils.profiling import annotate
 
 # q-network variance clip range (reference: SVGPVAE_model.py:858-859)
 QVAR_CLIP = (1e-3, 10.0)
@@ -119,6 +120,7 @@ class SVGPVAEOutputs(NamedTuple):
     latent_samples: Tensor
     C_ma: Tensor
     lagrange_mult: Tensor
+    mean_vectors: Optional[Tensor] = None  # mu_hat (L, m) or 0 (see below)
 
 
 def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
@@ -127,8 +129,8 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
                          gp_block_impl: str = "reference",
                          entropy_ce: bool = False, repr_net=None,
                          frames_per_char: int = 0,
-                         titsias_reference_ce: bool = False
-                         ) -> SVGPVAEOutputs:
+                         titsias_reference_ce: bool = False,
+                         bias_analysis: bool = False) -> SVGPVAEOutputs:
     """Training forward: encoder -> GP posterior + inside-ELBO (Hensman,
     or Titsias when gp_params.config.titsias) for all channels ->
     cross-entropy term -> reparameterized sample with the given `eps`
@@ -140,6 +142,12 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     the encoder Gaussian, which rewards their divergence where the
     Titsias bound has no data-fit term to cancel it (PARITY.md #13).
     `entropy_ce` takes the entropy for either bound.
+
+    `bias_analysis` forces the two-pass block whatever `gp_block_impl`
+    says and returns its mu_hat (L, m) as `mean_vectors`: the minibatch
+    estimate of the q(u) mean that cli.mnist --bias_analysis averages
+    over an epoch (JAX: the same forcing and reuse).  Without it
+    `mean_vectors` is a scalar 0, as JAX's.
 
     batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)) for rotated
     MNIST, or (frames (b, 64, 64, 3), action ids (b,)) for SPRITES, where
@@ -172,19 +180,23 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
 
     titsias = gp_params.config.titsias
     inverse_impl = "pallas" if gp_block_impl.endswith("_pallas") else "chol"
-    if gp_block_impl == "reference":
-        p_m, p_v, mu_hat, A_hat = gpm.posterior_params(
-            gp_params, aux_data, aux_data, qnet_mu, qnet_var)
-        sum_terms, kl_terms = gpm.variational_loss(
-            gp_params, aux_data, qnet_mu, qnet_var, mu_hat, A_hat)
-    elif titsias:  # the rejitter distinction does not arise: no q(u) KL
-        p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_titsias(
-            gp_params, aux_data, qnet_mu, qnet_var, inverse_impl=inverse_impl)
-    else:
-        p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_hensman(
-            gp_params, aux_data, qnet_mu, qnet_var, inverse_impl=inverse_impl,
-            kl_impl="rejitter" if "rejitter" in gp_block_impl
-            else "identity")
+    mu_hat = None
+    with annotate("gp_block"):
+        if gp_block_impl == "reference" or bias_analysis:
+            p_m, p_v, mu_hat, A_hat = gpm.posterior_params(
+                gp_params, aux_data, aux_data, qnet_mu, qnet_var)
+            sum_terms, kl_terms = gpm.variational_loss(
+                gp_params, aux_data, qnet_mu, qnet_var, mu_hat, A_hat)
+        elif titsias:  # the rejitter distinction does not arise: no KL
+            p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_titsias(
+                gp_params, aux_data, qnet_mu, qnet_var,
+                inverse_impl=inverse_impl)
+        else:
+            p_m, p_v, sum_terms, kl_terms, _ = gpm.gp_block_hensman(
+                gp_params, aux_data, qnet_mu, qnet_var,
+                inverse_impl=inverse_impl,
+                kl_impl="rejitter" if "rejitter" in gp_block_impl
+                else "identity")
 
     inside_elbo_recon = torch.sum(sum_terms)
     inside_elbo_kl = torch.sum(kl_terms)
@@ -230,7 +242,9 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
         qnet_mu=qnet_mu, qnet_var=qnet_var, recon_images=recon_images,
         inside_elbo_recon=inside_elbo_recon, inside_elbo_kl=inside_elbo_kl,
         latent_samples=latent_samples, C_ma=C_ma_new,
-        lagrange_mult=lagrange_new)
+        lagrange_mult=lagrange_new,
+        mean_vectors=mu_hat if bias_analysis
+        else torch.zeros((), dtype=elbo.dtype, device=elbo.device))
 
 
 @torch.no_grad()

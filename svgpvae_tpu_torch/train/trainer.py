@@ -11,14 +11,17 @@ svgpvae_tpu/train/trainer.py, single device, eager).
     torch.optim.Adam places eps the same way), with an optional value clip
     of the gradients and an optional cosine-decayed learning rate;
   * `train_step(state, batch, loss_fn)`: one forward/backward/update,
-    with a zero gradient for a trainable tensor the loss does not reach.
+    with a zero gradient for a trainable tensor the loss does not reach;
+  * `EpochShuffle` (--reshuffle): each epoch's example order, as JAX's
+    make_epoch_fn(shuffle=True, shuffle_block=...).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from svgpvae_tpu_torch import linalg
@@ -100,3 +103,56 @@ def train_step(state: TrainState, batch, loss_fn):
     state.geco = geco
     state.step += 1
     return dict(metrics, loss=loss.detach())
+
+
+class EpochShuffle:
+    """--reshuffle: every epoch permutes the examples of the full batches
+    in blocks of `block` consecutive examples (SPRITES keeps each
+    character's frames together) and leaves the tail batch in place, the
+    order of JAX's make_epoch_fn(shuffle=True, shuffle_block=block).
+
+    The permutation of the blocks comes from `perm_fn(n_blocks)` when one
+    is given (tests inject JAX's threefry permutation), else from a CPU
+    torch.Generator seeded by `seed` (`generator`, whose state checkpoints
+    keep, so that a resumed run draws the permutations of an unbroken
+    one)."""
+
+    def __init__(self, n: int, batch_size: int, block: int = 1,
+                 seed: int = 0, perm_fn: Optional[Callable] = None):
+        self.n, self.batch_size, self.block = n, batch_size, block
+        self.n_full = (n // batch_size) * batch_size
+        if self.n_full % block:
+            raise ValueError(f"full batches of {self.n_full} examples do not "
+                             f"split into blocks of {block}")
+        self.generator = torch.Generator().manual_seed(seed)
+        self.perm_fn = perm_fn
+
+    def order(self) -> torch.Tensor:
+        """The next epoch's example order (int64, a permutation of
+        0..n-1)."""
+        n_blocks = self.n_full // self.block
+        if self.perm_fn is not None:
+            perm = torch.tensor(np.asarray(self.perm_fn(n_blocks)),
+                                dtype=torch.long)
+        else:
+            perm = torch.randperm(n_blocks, generator=self.generator)
+        full = (perm[:, None] * self.block
+                + torch.arange(self.block)).reshape(-1)
+        return torch.cat([full, torch.arange(self.n_full, self.n)])
+
+
+def epoch_batches(tensors: Tuple[torch.Tensor, ...], batch_size: int,
+                  order: Optional[torch.Tensor] = None
+                  ) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """An epoch's batches of `tensors` (split on their first axis): the
+    full batches, then the tail.  Views in stored order, or gathered in
+    `order` (EpochShuffle.order, moved to the tensors' device)."""
+    n = len(tensors[0])
+    if order is not None:
+        order = order.to(tensors[0].device)
+    for lo in range(0, n, batch_size):
+        if order is None:
+            yield tuple(t[lo:lo + batch_size] for t in tensors)
+        else:
+            idx = order[lo:lo + batch_size]
+            yield tuple(t[idx] for t in tensors)

@@ -1,5 +1,5 @@
-"""Metrics and result persistence (port of svgpvae_tpu/utils/metrics.py,
-less its NaN sentinel).
+"""Metrics, result persistence and the NaN sentinel (port of
+svgpvae_tpu/utils/metrics.py).
 
   * `mse_rotation` -- the moving-ball trajectory metric: affine-align
     predicted latents to the true 2-D paths by least squares and report
@@ -9,7 +9,10 @@ less its NaN sentinel).
     an existing file whose header matches (a resumed run appends to it),
     else starts a timestamped sibling;
   * `count_params` -- the parameter count of a {part: module or GP
-    parameter dataclass} dict.
+    parameter dataclass} dict;
+  * `check_finite` / `NonFiniteLossError` -- the drivers' fail-fast
+    sentinel on each epoch's (ball: each eval's) metrics, with an
+    emergency checkpoint <run_dir>/ckpt_nan/<step>.pt.
 """
 
 from __future__ import annotations
@@ -17,11 +20,12 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from svgpvae_tpu_torch.train.state import named_tensors
+from svgpvae_tpu_torch.utils.checkpoint import save_checkpoint
 
 
 def mse_rotation(X: np.ndarray, Y: np.ndarray,
@@ -107,3 +111,31 @@ def count_params(params: dict) -> int:
     """Total element count of every tensor of `params` (see
     train.named_tensors)."""
     return sum(t.numel() for t in named_tensors(params).values())
+
+
+class NonFiniteLossError(RuntimeError):
+    """Raised by `check_finite` when a training metric goes NaN/inf."""
+
+
+def check_finite(values, step: int,
+                 state: Union[dict, Callable[[], dict], None] = None,
+                 run_dir: Optional[str] = None,
+                 context: str = "train") -> None:
+    """Fail-fast NaN/inf sentinel: on the first non-finite value of
+    `values`, write the CURRENT state (typically already NaN-poisoned) as
+    <run_dir>/ckpt_nan/<step>.pt when a run dir and a state are given,
+    then raise NonFiniteLossError with the JAX package's message.  The
+    file is a diagnostic (which leaves went non-finite), not a resume
+    point: --resume_dir reads ckpt/.  `state` is the dict to save, or a
+    function returning it (called only when a value is bad)."""
+    arr = np.asarray(values, dtype=np.float64)
+    ok = np.isfinite(arr)
+    if np.all(ok):
+        return
+    msg = (f"non-finite {context} metric at step {step}: "
+           f"{int(arr.size - ok.sum())}/{arr.size} bad values")
+    if run_dir is not None and state is not None:
+        path = os.path.join(run_dir, "ckpt_nan")
+        save_checkpoint(path, state() if callable(state) else state, step)
+        msg += f"; emergency checkpoint written to {path}"
+    raise NonFiniteLossError(msg)

@@ -65,6 +65,17 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -241,7 +252,8 @@ def test_resume_equals_uninterrupted_run(tmp_path, elbo):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--show_pics"], ["--squares_circles"], ["--profile_dir", "p"],
+    ["--show_pics"], ["--squares_circles"],
+    ["--profile_dir", "p", "--data_parallel", "2"],
     ["--data_parallel", "5"], ["--save", "--plot_every", "10"]])
 def test_unported_flags_are_refused(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -290,6 +302,7 @@ def test_ball_entry_point_imports_no_jax():
         "before = mods()\n"
         "import svgpvae_tpu_torch.cli.ball, svgpvae_tpu_torch.gp.exact\n"
         "import svgpvae_tpu_torch.models.ball, svgpvae_tpu_torch.data.ball\n"
+        "import svgpvae_tpu_torch.utils.profiling\n"
         "added = sorted(mods() - before)\n"
         "assert not added, added\n"
         "print('ok')\n")

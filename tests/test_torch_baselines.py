@@ -59,6 +59,17 @@ QUICK = {"xla_backend_optimization_level": 0,
          "xla_llvm_disable_expensive_passes": True}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _quick(jitted):
     """`jitted` compiled with QUICK, once per argument shapes."""
     compiled = {}

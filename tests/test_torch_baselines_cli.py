@@ -80,6 +80,17 @@ COMMON = ["--dataset", "36", "--L", str(L), "--seed", str(SEED),
           "--device", "cpu"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def splits():
     """202 train rows; eval and test cut to one batch each (every JAX

@@ -33,6 +33,17 @@ SPRITES_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
                 "--gp_block_impl", "fused_rejitter_pallas"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def mnist_splits():
     base = tdata.synthetic_digit_base_images("36", per_digit=10, seed=0)

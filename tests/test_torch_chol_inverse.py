@@ -32,6 +32,17 @@ from svgpvae_tpu_torch.ops import gp_stats as gps
 RTOL64 = 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _pd_stack(rng, B, m, cond):
     out = np.empty((B, m, m))
     for i in range(B):

@@ -32,6 +32,17 @@ LARGE = [("SpritesVAE", "enc_out"), ("SpritesVAE", "dec_in"),
          ("ClassificationHead", "dense")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _layers(net):
     return [(name, m) for name, m in net.named_modules()
             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]

@@ -16,6 +16,17 @@ from svgpvae_tpu_torch import kernels as tk, linalg as tl
 RTOL, ATOL = 1e-10, 1e-12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _x64():
     jax.config.update("jax_enable_x64", True)

@@ -33,6 +33,17 @@ from export_jax_params import flatten_params  # noqa: E402
 PCA_ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def datasets():
     base_j = jdata.synthetic_digit_base_images("36", per_digit=8, seed=3)

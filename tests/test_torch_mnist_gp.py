@@ -14,7 +14,9 @@
 Tolerance rtol 1e-9 (relative to each output's max |entry|): the same
 formulas at float64, summed in other orders.  The "pallas" inverse runs
 the Cholesky twin on the CPU in the port and JAX's XLA reference off the
-TPU, so both sides factorize.
+TPU, so both sides factorize.  The JAX references compile at XLA's
+lowest optimisation level (tests/test_torch_sprites_train.py's quick_jit),
+which moves their results by round-off.
 """
 
 import numpy as np
@@ -27,6 +29,8 @@ from svgpvae_tpu import gp as jgp, linalg as jlinalg
 from svgpvae_tpu.gp.svgp import SVGPConfig as JConfig
 from svgpvae_tpu_torch import gp as tgp, linalg as tlinalg
 
+from test_torch_sprites_train import quick_jit
+
 RTOL64 = 1e-9
 # The blocks at m = 256 and 288 on a rank-deficient K_mm (PD only through
 # the jitter): K_mm^-1 carries entries ~1/jitter, the gradients go through
@@ -34,6 +38,17 @@ RTOL64 = 1e-9
 # ~cond^2 * eps, not 1e-9 (1e-6 is the bound the SPRITES forward tests and
 # tests/test_fused_gp.py hold the "pallas" path to at float64).
 RANK_DEFICIENT_RTOL64 = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.fixture(autouse=True)
@@ -126,7 +141,7 @@ def _gp_tensors(t_gp):
 
 def _jax_grads(fn, j_gp, y, noise):
     """Value and gradients of sum(outputs * weights) in JAX."""
-    return jax.jit(jax.value_and_grad(fn, argnums=(0, 1, 2)))(
+    return quick_jit(jax.value_and_grad(fn, argnums=(0, 1, 2)))(
         j_gp, jnp.asarray(y), jnp.asarray(noise))
 
 

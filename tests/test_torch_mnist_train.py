@@ -369,11 +369,13 @@ def test_value_clip_clips_gradients_before_adam():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "GPVAE_Casale", "--data_parallel", "2"], ["--bias_analysis"],
-    ["--show_pics"], ["--epoch_chunk", "2"], ["--bf16"], ["--x64"],
-    ["--data_parallel", "2"], ["--reshuffle"],
+    ["--elbo", "GPVAE_Casale", "--data_parallel", "2"],
+    ["--elbo", "SVIGP_Hensman", "--x64"],
+    ["--show_pics"], ["--epoch_chunk", "2"], ["--bf16"],
+    ["--elbo", "GPVAE_Casale", "--x64"],
+    ["--data_parallel", "2"], ["--elbo", "GPVAE_Casale", "--reshuffle"],
     ["--elbo", "SVIGP_Hensman", "--resume_dir", "x"],
-    ["--profile_dir", "x"]])
+    ["--eval_bundle"]])
 def test_unported_flags_are_refused(flag, tiny_splits):
     argv = SLICE_ARGV + ["--device", "cpu"] + flag
     with pytest.raises(SystemExit, match="not ported"):
@@ -399,6 +401,7 @@ def test_mnist_entry_point_imports_no_jax():
         "before = mods()\n"
         "import svgpvae_tpu_torch.cli.mnist, svgpvae_tpu_torch.ops\n"
         "import svgpvae_tpu_torch.ops.chol_inverse\n"
+        "import svgpvae_tpu_torch.utils.profiling\n"
         "added = sorted(mods() - before)\n"
         "assert not added, added\n"
         "print('ok')\n")

@@ -27,6 +27,17 @@ RTOL, ATOL = 1e-4, 1e-5
 L, L_CHAR = 6, 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def models():
     key = jax.random.PRNGKey(1)

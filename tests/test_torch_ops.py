@@ -25,6 +25,17 @@ from svgpvae_tpu_torch.ops import gp_stats as gps
 RTOL, ATOL = 2e-4, 2e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _stats_inputs(rng, n, m, L):
     knm = rng.randn(n, m).astype(np.float32)
     prec = (rng.rand(n, L) + 0.5).astype(np.float32)

@@ -46,6 +46,17 @@ RTOL32, ATOL32 = 1e-3, 1e-4
 RTOL64 = 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -344,9 +355,10 @@ def test_serve_main_refuses_a_missing_cuda_device():
 
 
 def test_port_imports_no_jax():
-    """Importing the serve entry point adds no jax/flax/orbax/sklearn module
-    (the set is compared before/after, so a preloading hook cannot mask an
-    import)."""
+    """Importing the serve entry point, the profiling utilities (and
+    tracing a block with them), the sentinel and the raw SPRITES npy
+    loader adds no jax/flax/orbax/sklearn module (the set is compared
+    before/after, so a preloading hook cannot mask an import)."""
     code = (
         "import sys\n"
         "banned = ('jax', 'jaxlib', 'flax', 'orbax', 'sklearn')\n"
@@ -356,6 +368,12 @@ def test_port_imports_no_jax():
         "import svgpvae_tpu_torch.cli.serve, svgpvae_tpu_torch.ops.gp_stats\n"
         "import svgpvae_tpu_torch.ops.fused_kernel_stats\n"
         "import svgpvae_tpu_torch.ops._build\n"
+        "import svgpvae_tpu_torch.utils.profiling as prof, tempfile\n"
+        "from svgpvae_tpu_torch.utils.metrics import check_finite\n"
+        "from svgpvae_tpu_torch.data.sprites import (\n"
+        "    load_raw_sprites_npys, preprocess_sprites)\n"
+        "with prof.trace_if(tempfile.mkdtemp()), prof.annotate('x'):\n"
+        "    check_finite([1.0], 0)\n"
         "added = sorted(mods() - before)\n"
         "assert not added, added\n"
         "print('ok')\n")

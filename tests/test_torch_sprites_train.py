@@ -22,15 +22,9 @@ L_character 4, on weights converted from flax and JAX's noise.
     noise: the parameters and the GECO state;
   * two pretraining steps (repr net + classification head, cross-entropy)
     against JAX: loss, accuracy and parameters;
-  * the whole slice: cli.sprites.main(..., "--device", "cpu") on a tiny
-    in-memory corpus (pretraining, the main steps with the tail, one eval
-    pass), against JAX's CLI run on the same corpus with the same
-    weights and noise: test MSE and cgen MSE within rtol 1e-4, and no
-    kernel launch counted on the CPU.  It uses the CLI's default
-    L_action 8 and L_character 16: the CLI makes 72 inducing points,
-    so the small widths would be rank-deficient, where A_hat + jitter
-    loses positive definiteness in fp32 in both packages;
-  * sprites_pca_init, the dispatch cells, the trainability mask, the
+  * the trainability mask;
+  * (tests/test_torch_sprites_train_cli.py) the whole slice through
+    cli.sprites.main, sprites_pca_init, the dispatch cells, the
     refusals, and that the entry point imports no jax.
 
 Scalars that are the difference of large terms (the objective, the
@@ -41,9 +35,7 @@ they are computed from, as tests/test_torch_mnist_train.py does.
 import contextlib
 import copy
 import functools
-import io
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -52,11 +44,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from svgpvae_tpu import data as jdata, gp as jgp, models as jmodels
+from svgpvae_tpu import gp as jgp, models as jmodels
 from svgpvae_tpu import nn as jnets, train as jtrain
-from svgpvae_tpu.cli import sprites as jsprites
 from svgpvae_tpu.gp.svgp import SVGPConfig as JConfig
-from svgpvae_tpu_torch import data as tdata, gp as tgp, models as tmodels
+from svgpvae_tpu_torch import gp as tgp, models as tmodels
 from svgpvae_tpu_torch import train as ttrain
 from svgpvae_tpu_torch.cli import sprites as tsprites
 from svgpvae_tpu_torch.utils.convert import (params_from_jax,
@@ -77,6 +68,54 @@ GECO0 = (0.3, 1.5)  # C_ma, lagrange multiplier going into the step
 SCALAR_TERMS = {"elbo": ("kl_term", "recon_loss"),
                 "kl_term": ("ce_term", "inside_elbo"),
                 "inside_elbo": ("inside_elbo_recon", "inside_elbo_kl")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+# XLA's CPU backend at its lowest optimisation level: the same HLO, a
+# compile about half as long, results that move by round-off.  The port's
+# tests compile with it the JAX programs that are only references and run
+# briefly beside their compile (GP blocks, the ball's MLPs, small MNIST
+# batches).  Not the conv nets at SPRITES size: unoptimised they run
+# several times slower (the float64 SPRITES forward of this file's
+# forward_case took 292 s against 66 s).  A JAX training step whose
+# parameters are held to a tenth of an Adam step compiles as the JAX
+# drivers compile it, except at float64 (a round-off change can flip an
+# Adam step on an entry whose fp32 gradient is round-off).
+QUICK = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
+
+def quick_jit(fun, **kw):
+    """jax.jit(fun, **kw), compiled with QUICK once per argument shapes
+    when called on arrays; inside another traced function (a tracer among
+    the arguments) it traces inline as jax.jit does."""
+    jitted = jax.jit(fun, **kw)
+    if "static_argnums" in kw or "static_argnames" in kw:
+        return jitted
+    compiled = {}
+
+    @functools.wraps(fun)
+    def call(*args, **kwargs):
+        leaves = jax.tree_util.tree_leaves((args, kwargs))
+        if any(isinstance(x, jax.core.Tracer) for x in leaves):
+            return jitted(*args, **kwargs)
+        key = (str(jax.tree_util.tree_structure((args, kwargs))),
+               tuple((np.shape(x), np.result_type(x).name) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args, **kwargs).compile(
+                compiler_options=QUICK)
+        return compiled[key](*args, **kwargs)
+    return call
 
 
 def _np(x):
@@ -380,166 +419,7 @@ def test_pretrain_steps_match_jax(flax_nets):
     _assert_params(ttrain.named_tensors(t_pre), want_port, atol=1e-3)
 
 
-# --- the whole slice ----------------------------------------------------------
-
-
-MAIN_CHARS = 3  # 150 train frames: a full batch of 100 and a tail of 50
-SLICE_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
-              "--synthetic", "--synthetic_chars", str(MAIN_CHARS),
-              "--opt_regime", "joint-1", "--eval_every", "1",
-              "--nr_epochs_repr_nn", "2", "--batch_size", "100",
-              "--batch_size_repr_nn", "100", "--L", str(L), "--seed", "0",
-              "--gp_block_impl", "fused_rejitter_pallas"]  # the CUDA block
-
-
-@pytest.fixture(scope="module")
-def corpus():
-    return tdata.generate_synthetic_sprites(
-        n_train_chars=MAIN_CHARS, n_test_chars=max(2, MAIN_CHARS // 4),
-        n_frames_train=FPC, seed=0)
-
-
-def _jax_eps(seed):
-    """eps_fn giving the JAX CLI's draws: main step t uses the subkey of
-    the t-th split of fold_in(PRNGKey(seed), 202); every eval batch uses
-    PRNGKey(11)."""
-    key = [jax.random.fold_in(jax.random.PRNGKey(seed), 202)]
-
-    def eps_fn(kind, shape):
-        if kind == "train":
-            key[0], sub = jax.random.split(key[0])
-        else:
-            sub = jax.random.PRNGKey(11)
-        return torch.from_numpy(np.array(jax.random.normal(sub, shape)))
-    return eps_fn
-
-
-def _jax_cli_init(seed, n_chars, args):
-    """The JAX CLI's initial parameters (vae, repr, head from
-    PRNGKey(seed), the GP from RandomState(seed)) as a flat dict."""
-    key, dummy = jax.random.PRNGKey(seed), jnp.zeros((2, 64, 64, 3))
-    rng = np.random.RandomState(seed)
-    gplvm = rng.normal(0, 1.5, (N_ACTIONS, args.L_action))
-    ip = rng.normal(0, 1.5, (N_ACTIONS, args.L_action + args.L_character))
-    return flatten_params({
-        "vae": jnets.SpritesVAE(L=args.L).init(key, dummy),
-        "repr": jnets.SpritesReprNet(L=args.L_character).init(key, dummy),
-        "head": jnets.ClassificationHead(num_classes=n_chars).init(
-            key, jnp.zeros((2, args.L_character))),
-        "gp": jgp.init_sprites_svgp(ip, gplvm, L_action=args.L_action)})
-
-
-def test_main_matches_jax_cli(tmp_path, corpus):
-    args = tsprites.build_parser().parse_args(SLICE_ARGV)
-    npz = str(tmp_path / "params.npz")
-    np.savez(npz, **_jax_cli_init(0, MAIN_CHARS, args))
-    got = tsprites.main(SLICE_ARGV + ["--device", "cpu", "--params", npz],
-                        splits=corpus, eps_fn=_jax_eps(0))
-
-    jargs = jsprites.build_parser().parse_args(
-        SLICE_ARGV + ["--sprites_data_path", str(tmp_path / "corpus")])
-    with contextlib.redirect_stdout(io.StringIO()):
-        want = jsprites.run_experiment(jargs)
-    assert len(got["metrics"]) == 2 and got["pretrain"]["steps"] == 2
-    np.testing.assert_allclose(got["cgen_mse"], want["best_cgen_mse"],
-                               rtol=1e-4)
-    state = want["state"]
-    _assert_params(ttrain.named_tensors(got["state"].params),
-                   _flat_port_names(flatten_params(state.params)))
-
-    # the test recon MSE of the JAX CLI's eval pass, on its final state
-    vae, rep = jnets.SpritesVAE(L=L), jnets.SpritesReprNet(L=16)
-    tc = corpus["test_character"]
-    recon = jax.jit(lambda params, geco: jmodels.forward_pass_svgpvae(
-        vae, params["vae"], params["gp"],
-        (jnp.asarray(tc["frames"]), jnp.asarray(tc["aux_data"][:, 1])),
-        jax.random.PRNGKey(11), beta=0.001, C_ma=geco.C_ma,
-        lagrange_mult=geco.lagrange_mult, alpha=0.99, kappa=KAPPA,
-        clip_qs=True, geco=True, repr_apply=rep.apply,
-        repr_params=params["repr"], frames_per_char=N_ACTIONS,
-        gp_block_impl="fused_rejitter_pallas").recon_loss)(
-            state.params, state.geco)  # one compile, not per op
-    ev = got["evals"][0]
-    np.testing.assert_allclose(ev["test_mse"],
-                               float(recon) / len(tc["frames"]), rtol=1e-4)
-    # CPU tensors: the twins ran and no kernel launched
-    assert all(n == 0 for s in got["step_launches"] for n in s.values())
-    assert all(n == 0 for s in ev["launches"].values() for n in s.values())
-
-
-def test_basin_retry_restarts_from_the_pretrained_params(corpus):
-    """--basin_retry: a restart (forced here by a 100% descent demand)
-    begins from the post-pretraining parameters with a fresh GECO state.
-    --PCA takes the numpy PCA initializers; with them this corpus drives
-    fused_rejitter_pallas's A_hat + jitter off positive definiteness in
-    fp32 at the tail step, in the JAX CLI as in the port, so this run
-    takes the Cholesky form of the rejittered block."""
-    argv = SLICE_ARGV + [
-        "--device", "cpu", "--PCA", "--gp_block_impl", "fused_rejitter",
-        "--basin_retry", "1",
-        "--basin_detect_evals", "1", "--basin_detect_rel", "1.0"]
-    first = tsprites.main(argv, splits=corpus, capture_step=0)
-    again = tsprites.main(argv, splits=corpus, capture_step=2)
-    assert again["basin_attempts"] == 1 and len(again["evals"]) == 2
-    assert len(again["metrics"]) == 4
-    a, b = first["captured"], again["captured"]
-    for k, v in a["params"].items():
-        assert torch.equal(v, b["params"][k]), k
-    assert float(b["geco"].C_ma) == 0.0
-    assert float(b["geco"].lagrange_mult) == 1.0
-    assert not torch.equal(a["eps"], b["eps"])  # a new noise stream
-
-
-# --- pieces -----------------------------------------------------------------
-
-
-def test_sprites_pca_init_matches_jax(monkeypatch):
-    """The JAX package's PCA is sklearn's with its default solver, which
-    at these shapes is a randomized SVD drawn from numpy's global RNG:
-    approximate (its 2nd and 3rd components differ from the exact ones by
-    ~2% here) and different from run to run.  The JAX function is run
-    with sklearn's exact solver instead; the port's numpy SVD is exact."""
-    from sklearn.decomposition import PCA
-    monkeypatch.setattr(jdata.sprites, "PCA",
-                        functools.partial(PCA, svd_solver="full"))
-    train_d = tdata.generate_synthetic_sprites(4, 2, FPC, seed=3)["train"]
-    want = jdata.sprites_pca_init(train_d, m=2, L_action=L_ACT,
-                                  L_character=L_CHAR)
-    got = tdata.sprites_pca_init(train_d, m=2, L_action=L_ACT,
-                                 L_character=L_CHAR)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max())
-
-
-def test_batch_iterator_matches_jax(corpus):
-    tc = corpus["test_character"]
-    for (gf, ga), (wf, wa) in zip(tdata.sprites_batch_iterator(tc, 100),
-                                  jdata.sprites_batch_iterator(tc, 100),
-                                  strict=True):
-        assert np.array_equal(gf, wf) and np.array_equal(ga, wa)
-
-
-def test_dispatch_cells():
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    resolve = tmodels.resolve_gp_block_impl
-    assert resolve("auto", workload="sprites", device=cuda) == \
-        "fused_rejitter_pallas"
-    assert resolve("auto", workload="sprites", device=cpu) == "reference"
-    assert jmodels.svgpvae.GP_BLOCK_AUTO_TABLE[
-        ("sprites", "hensman", "other")][0] == "reference"
-    # PARITY.md #10: no SPRITES Hensman cell resolves to an identity-KL
-    # block
-    for (workload, bound, _), (impl, _) in \
-            tmodels.GP_BLOCK_AUTO_TABLE.items():
-        if workload == "sprites" and bound == "hensman":
-            assert impl not in ("fused", "fused_pallas")
-    # Titsias: the Cholesky Woodbury block on every device, as JAX
-    for device, backend in ((cuda, "tpu"), (cpu, "other")):
-        assert resolve("auto", workload="sprites", titsias=True,
-                       device=device) == "fused" == \
-            jmodels.svgpvae.GP_BLOCK_AUTO_TABLE[
-                ("sprites", "titsias", backend)][0]
+# --- the trainability mask ---------------------------------------------------
 
 
 def _jax_trainable(args):
@@ -579,71 +459,3 @@ def test_trainable_mask_matches_jax(flax_nets, pretrain):
                     and (part != "gp" or k == name)}
             assert want == {name in trainable} == {t.requires_grad}, \
                 (argv, name)
-
-
-@pytest.mark.parametrize("flag", [
-    ["--elbo", "VAE", "--data_parallel", "2"], ["--test_set_metrics"],
-    ["--bf16"], ["--bf16_hybrid"], ["--data_parallel", "2"],
-    ["--profile_dir", "x"], ["--reshuffle"],
-    ["--s2d64"], ["--fused_upsample"]])
-def test_unported_flags_are_refused(flag, corpus):
-    with pytest.raises(SystemExit, match="not ported"):
-        tsprites.main(SLICE_ARGV + ["--device", "cpu"] + flag, splits=corpus)
-
-
-@pytest.mark.parametrize("flag,match", [
-    (["--opt_regime", "VAE-1", "joint-1"], "jointly"),
-    (["--batch_size", "120"], "multiple of 50"),
-    (["--K_SE", "--object_kernel_normalize"], "at most one"),
-    (["--basin_retry", "1", "--resume_dir", "x"], "cannot be combined")])
-def test_bad_configurations_are_refused(flag, match, corpus):
-    with pytest.raises(SystemExit, match=match):
-        tsprites.main(SLICE_ARGV + ["--device", "cpu"] + flag, splits=corpus)
-
-
-def test_ensure_dataset_guards_the_corpus(tmp_path):
-    path = str(tmp_path / "corpus")
-    args = tsprites.build_parser().parse_args(
-        ["--synthetic", "--synthetic_chars", "2", "--sprites_data_path",
-         path])
-    tsprites.ensure_dataset(args)
-    assert len(tdata.load_sprites(path)["train"]["frames"]) == 2 * FPC
-    args.synthetic_chars = 3
-    with pytest.raises(SystemExit, match="N_train=100"):
-        tsprites.ensure_dataset(args)
-    args.allow_stale_corpus = True
-    tsprites.ensure_dataset(args)  # reused
-    raw = tmp_path / "raw"
-    raw.mkdir()
-    (raw / "walk_front_frames_train.npy").write_bytes(b"")
-    with pytest.raises(SystemExit, match="not ported"):
-        tsprites.ensure_dataset(tsprites.build_parser().parse_args(
-            ["--synthetic", "--sprites_data_path", str(raw)]))
-
-
-def test_main_refuses_a_missing_cuda_device(corpus):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    with pytest.raises(SystemExit, match="no CUDA device"):
-        tsprites.main(SLICE_ARGV, splits=corpus)
-
-
-def test_sprites_entry_point_imports_no_jax():
-    """Importing the SPRITES trainer adds no module of jax, flax, optax or
-    sklearn (compared before/after, so a preloading hook cannot mask an
-    import)."""
-    code = (
-        "import sys\n"
-        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn',\n"
-        "          'svgpvae_tpu')\n"
-        "def mods(): return {m for m in sys.modules "
-        "if m.split('.')[0] in banned}\n"
-        "before = mods()\n"
-        "import svgpvae_tpu_torch.cli.sprites\n"
-        "added = sorted(mods() - before)\n"
-        "assert not added, added\n"
-        "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"

@@ -15,12 +15,8 @@
     ill-conditioned MNIST case of tests/test_fused_gp.py (cond(K_mm) past
     1/eps32, encoder variances at the clip floor), finite in fp32 and
     tracking float64 in both packages;
-  * forward_pass_svgpvae with the Titsias bound (the plain objective of
-    the record configs), MNIST through the CUDA cell's fused_pallas and
-    SPRITES through its fused, with the exact-entropy CE and with
-    --titsias_reference_ce, on injected noise: every output and the
-    objective's gradient with respect to every parameter, in fp32 and in
-    float64;
+  * (tests/test_torch_titsias_forward.py) forward_pass_svgpvae with the
+    Titsias bound, both workloads, both CE forms, fp32 and float64;
   * two training steps of each workload against JAX's make_train_step.
 
 Tolerances: float64 within RTOL64 = 1e-9 of each output's max |entry|
@@ -33,10 +29,12 @@ from (tests/test_torch_mnist_train.py), every other output to 1e-5 of its
 max |entry| (at least 1); gradients to the fp32 tolerances of the
 existing training tests (MNIST 2e-4, SPRITES 1e-3 of each tensor's max
 |entry|); parameters after Adam steps atol 1e-4, a tenth of one step.
+The float64 JAX references of the GP level compile at XLA's lowest
+optimisation level (tests/test_torch_sprites_train.py's quick_jit), which
+moves their results by round-off.
 """
 
 import contextlib
-import copy
 import os
 import sys
 
@@ -60,6 +58,7 @@ from svgpvae_tpu_torch.utils.convert import (mnist_params_from_jax,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from test_torch_sprites_train import quick_jit  # noqa: E402
 
 RTOL64 = 1e-9
 RANK_DEFICIENT_RTOL64 = 1e-6
@@ -69,6 +68,17 @@ PARAM_ATOL = 1e-4
 BETA = 0.001
 SPRITES_JITTER = 0.01
 N_ACTIONS = 72
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 @contextlib.contextmanager
@@ -145,7 +155,7 @@ def _grad_check(j_fn, t_fn, j_gp, t_gp, y, noise, w, rtol):
     def j_loss(gp, y_, noise_):
         return sum(jnp.sum(o * wi) for o, wi in zip(j_fn(gp, y_, noise_), w))
 
-    want, j_grads = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1, 2)))(
+    want, j_grads = quick_jit(jax.value_and_grad(j_loss, argnums=(0, 1, 2)))(
         j_gp, jnp.asarray(y), jnp.asarray(noise))
     leaves = list(t_gp.named_tensors().values())
     for t in leaves:
@@ -402,154 +412,6 @@ def _sprites_port(params, tdtype):
 
 
 IMPL = {"mnist": "fused_pallas", "sprites": "fused"}  # the CUDA cells
-CES = ("entropy", "reference")
-# scalars that are the difference of larger terms: (term, weight)
-SCALAR_TERMS = {"elbo": (("recon_loss", 1.0), ("kl_term", None)),
-                "kl_term": (("ce_term", 1.0), ("inside_elbo", 1.0)),
-                "inside_elbo": (("inside_elbo_recon", 1.0),
-                                ("inside_elbo_kl", 1.0))}
-
-
-def _jax_forward(workload, nets, dtype):
-    """jit(value_and_grad) of the plain objective under both CE forms."""
-    def fwd(params, batch, key, reference_ce):
-        kw = dict(beta=BETA, C_ma=jnp.asarray(0.0, dtype),
-                  lagrange_mult=jnp.asarray(1.0, dtype), alpha=0.99,
-                  kappa=0.1, clip_qs=True, geco=False,
-                  gp_block_impl=IMPL[workload],
-                  titsias_reference_ce=reference_ce)
-        if workload == "sprites":
-            vae, rep = nets
-            kw.update(repr_apply=rep.apply, repr_params=params["repr"],
-                      frames_per_char=FPC)
-        else:
-            vae = nets
-        out = jmodels.forward_pass_svgpvae(vae, params["vae"], params["gp"],
-                                           batch, key, **kw)
-        return out.elbo, out
-
-    grad = jax.value_and_grad(fwd, has_aux=True)
-    return jax.jit(lambda p, b, k: [grad(p, b, k, ce == "reference")
-                                    for ce in CES])
-
-
-@pytest.fixture(scope="module", params=[
-    (w, p) for w in ("mnist", "sprites") for p in ("f32", "f64")],
-    ids=lambda c: f"{c[0]}-{c[1]}")
-def forward_case(request):
-    """The JAX side of one (workload, precision): inputs, noise, and each
-    CE form's outputs and gradients in the port's layout."""
-    workload, precision = request.param
-    f64 = precision == "f64"
-    jdtype, tdtype = ((jnp.float64, torch.float64) if f64
-                      else (jnp.float32, torch.float32))
-    with _x64(f64):
-        if workload == "mnist":
-            nets, params, batches = _mnist_case(jdtype)
-            batch = batches[0]
-            port = _mnist_port(params, tdtype)
-        else:
-            nets, params, batch = _sprites_case(jdtype)
-            port = _sprites_port(params, tdtype)
-        key = jax.random.PRNGKey(3)
-        jb = tuple(jnp.asarray(a, jdtype) for a in batch)
-        outs = _jax_forward(workload, nets, jdtype)(params, jb, key)
-        eps = np.array(jax.random.normal(key, (len(batch[0]),
-                                               outs[0][0][1].p_m.shape[1]),
-                                         jdtype))
-        want = {}
-        for ce, ((_, out), g) in zip(CES, outs):
-            flat = flatten_params(g)
-            if workload == "mnist":
-                conv = mnist_params_from_jax(flat)
-            else:
-                conv = params_from_jax(flat)
-            want[ce] = (jax.tree_util.tree_map(np.asarray, out),
-                        {f"{part}/{k}": _np(v) for part, d in conv.items()
-                         for k, v in d.items()})
-    return dict(workload=workload, precision=precision, dtype=tdtype,
-                params=port, batch=batch, eps=eps, want=want)
-
-
-def _assert_forward(got, want, grads_got, grads_want, tol_v, tol_g, f64):
-    for name in tmodels.SVGPVAEOutputs._fields:
-        w = np.asarray(getattr(want, name), np.float64)
-        g = _np(getattr(got, name)).astype(np.float64)
-        scale = max(np.abs(w).max(), 1.0)
-        if name in SCALAR_TERMS and not f64:
-            scale = max(scale, sum(
-                abs(float(getattr(want, t))) * (wt if wt is not None else
-                                                 BETA / got.p_m.shape[1])
-                for t, wt in SCALAR_TERMS[name]))
-        err = np.abs(g - w).max()
-        assert err <= tol_v * scale, (name, err, scale)
-    assert set(grads_got) == set(grads_want)
-    for name, w in grads_want.items():
-        g = grads_got[name]
-        g = np.zeros_like(w) if g is None else _np(g)
-        scale = max(np.abs(w).max(), 1e-30)
-        err = np.abs(g - w).max()
-        assert err <= tol_g * scale, (name, err, scale)
-
-
-@pytest.mark.parametrize("ce", CES)
-def test_forward_pass_matches_jax(forward_case, ce):
-    c = forward_case
-    params = copy.deepcopy(c["params"])  # gradients accumulate in place
-    named = ttrain.trainable_tensors(params, lambda name: True)
-    batch = tuple(torch.tensor(a, dtype=c["dtype"]) for a in c["batch"])
-    kw = dict(beta=BETA, C_ma=torch.tensor(0.0, dtype=c["dtype"]),
-              lagrange_mult=torch.tensor(1.0, dtype=c["dtype"]), alpha=0.99,
-              kappa=0.1, clip_qs=True, geco=False,
-              gp_block_impl=IMPL[c["workload"]],
-              titsias_reference_ce=ce == "reference")
-    if c["workload"] == "sprites":
-        kw.update(repr_net=params["repr"], frames_per_char=FPC)
-    got = tmodels.forward_pass_svgpvae(params["vae"], params["gp"], batch,
-                                       torch.from_numpy(c["eps"]), **kw)
-    got.elbo.backward()
-    f64 = c["precision"] == "f64"
-    if f64:
-        tol_v = tol_g = RTOL64
-    else:
-        tol_v, tol_g = RTOL_LOSS, GRAD_RTOL32[c["workload"]]
-    want, grads_want = c["want"][ce]
-    _assert_forward(got, want, {k: t.grad for k, t in named.items()},
-                    grads_want, tol_v, tol_g, f64)
-
-
-def test_entropy_ce_is_the_titsias_default():
-    """The CE term under the Titsias bound is the exact entropy of
-    N(p_m, p_v) unless titsias_reference_ce; under Hensman the reference
-    cross-entropy unless entropy_ce (PARITY.md #13)."""
-    _, params, batches = _mnist_case(jnp.float32)
-    port = _mnist_port(params, torch.float32)
-    batch = tuple(torch.tensor(a, dtype=torch.float32) for a in batches[0])
-    eps = torch.zeros(len(batch[0]), 4)
-
-    def ce(titsias, **kw):
-        gp = copy.copy(port["gp"])
-        gp.config = tgp.SVGPConfig(titsias=titsias, jitter=1e-6,
-                                   N_train=gp.config.N_train)
-        with torch.no_grad():
-            out = tmodels.forward_pass_svgpvae(
-                port["vae"], gp, batch, eps, beta=BETA, C_ma=torch.tensor(0.),
-                lagrange_mult=torch.tensor(1.), alpha=0.99, kappa=0.1,
-                gp_block_impl="fused", **kw)
-        entropy = torch.sum(-0.5 * (1.0 + np.log(2 * np.pi)
-                                    + torch.log(out.p_v)))
-        return float(out.ce_term), float(entropy)
-
-    got, entropy = ce(True)
-    assert got == entropy
-    got, entropy = ce(True, titsias_reference_ce=True)
-    assert got != entropy
-    got, entropy = ce(False)
-    assert got != entropy
-    got, entropy = ce(False, entropy_ce=True)
-    assert got == entropy
-
-
 # --- training steps ----------------------------------------------------------
 
 

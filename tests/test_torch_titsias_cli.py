@@ -1,5 +1,8 @@
 """The port's drivers against the JAX package's on the Titsias bound and the
-SPRITES record config.
+SPRITES record config (the record config's two driver runs are in
+tests/test_torch_titsias_cli_record.py and
+tests/test_torch_titsias_cli_record_titsias.py, a file each, so that the
+suite's workers take them in parallel).
 
   * cli.mnist.main --elbo SVGPVAE_Titsias (the plain objective, the CUDA
     cell's fused_pallas block, B1's twin on the CPU), with the exact
@@ -28,6 +31,11 @@ of fp32 round-off, measured), floored at 2e-4 of each tensor's max
 step) on every entry whose first-step gradient exceeds what the two
 packages' fp32 gradients may differ by (MNIST: that limit; SPRITES: 1e-3
 of its tensor's max, the SPRITES gradient tolerance), `_assert_params`.
+The JAX programs that are only references (the first step's gradients,
+the eval passes, the float64 blocks) compile at XLA's lowest
+optimisation level (tests/test_torch_sprites_train.py's quick_jit), which
+moves their results by round-off; the JAX training steps compile as the
+JAX driver compiles them.
 
 The record config's PCA initializers give every inducing point the same
 character vector (the KDE resample is seeded alike for each action), so
@@ -42,9 +50,6 @@ float64 test below holds both record-config blocks' gradients, the
 inducing points' included, to JAX.
 """
 
-import contextlib
-import functools
-import io
 import os
 import sys
 
@@ -52,21 +57,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from svgpvae_tpu import data as jdata, gp as jgp, models as jmodels
 from svgpvae_tpu import nn as jnets, train as jtrain
-from svgpvae_tpu.cli import sprites as jsprites
 from svgpvae_tpu.gp.svgp import SVGPConfig as JConfig
-from svgpvae_tpu_torch import data as tdata, models as tmodels
+from svgpvae_tpu_torch import data as tdata
 from svgpvae_tpu_torch import train as ttrain
 from svgpvae_tpu_torch.cli import mnist as tmnist
-from svgpvae_tpu_torch.cli import sprites as tsprites
-from svgpvae_tpu_torch.utils.convert import (mnist_params_from_jax,
-                                             params_from_jax)
+from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from test_torch_sprites_train import quick_jit  # noqa: E402
 
 RTOL_LOSS = 1e-5
 MNIST_GRAD_RTOL = 2e-4
@@ -77,6 +81,17 @@ SPRITES_GRAD_RTOL = 1e-3
 PARAM_ATOL = 1e-4
 MSE_RTOL = 1e-4
 BETA = 0.001
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for torch in this module, restored after: the
+    suite's workers share the CPU, and torch's default pool (a thread per
+    core in each) oversubscribes it several times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 def _np(x):
@@ -214,7 +229,7 @@ def test_mnist_main_matches_jax(tmp_path, tiny_splits, ce):
     assert len(got["metrics"]) == 2 and N_train - MNIST_BS == 74
     # the first step's gradients, at the same weights, batch and noise,
     # against the port's own float64 redo of the step
-    grads0 = jax.jit(jax.grad(lambda p: loss_fn(
+    grads0 = quick_jit(jax.grad(lambda p: loss_fn(
         p, batches[0], jax.random.split(key)[1], None, 0)[0]))(params)
     grads0 = _port_names(mnist_params_from_jax(flatten_params(grads0)))
     cap = got["captured"]
@@ -241,8 +256,8 @@ def test_mnist_main_matches_jax(tmp_path, tiny_splits, ce):
 
     # one eval pass: eval/test recon MSE and cgen MSE, eval key 7
     ekey = jax.random.PRNGKey(7)
-    recon = jax.jit(lambda p, b: forward(p, b, ekey).recon_loss)
-    cgen_loss = jax.jit(lambda p, b, mu, var: jmodels.predict_cgen_mnist(
+    recon = quick_jit(lambda p, b: forward(p, b, ekey).recon_loss)
+    cgen_loss = quick_jit(lambda p, b, mu, var: jmodels.predict_cgen_mnist(
         vae, p["vae"], p["gp"], b, mu, var, aux, ekey)[1])
 
     def recon_sum(split):
@@ -269,121 +284,11 @@ def test_mnist_main_matches_jax(tmp_path, tiny_splits, ce):
     assert all(n == 0 for s in got["step_launches"] for n in s.values())
 
 
-# --- SPRITES: the record config ----------------------------------------------
+# --- SPRITES: the record config's GP blocks at float64 ---------------------
+# (the record config's driver runs: tests/test_torch_titsias_cli_record*.py)
 
 
-SPRITES_L, SPRITES_CHARS, N_ACTIONS = 8, 3, 72
-RECORD_FLAGS = ["--ip_joint", "--GPLVM_joint", "--PCA",
-                "--object_kernel_normalize", "--clip_grad"]
-# 150 train frames: a full batch of 100 and a tail of 50.  The CLI's
-# L_action 8 and L_character 16 are kept (8 * 16 >= 72 inducing points).
-SPRITES_ARGV = ["--clip_qs", "--synthetic", "--synthetic_chars",
-                str(SPRITES_CHARS), "--opt_regime", "joint-1",
-                "--eval_every", "1", "--nr_epochs_repr_nn", "2",
-                "--batch_size", "100", "--batch_size_repr_nn", "100",
-                "--L", str(SPRITES_L), "--seed", "0", *RECORD_FLAGS]
-RECORD_CASES = {
-    # the Hensman CUDA cell, with the cosine lr
-    "hensman-geco-fused_rejitter_pallas": [
-        "--elbo", "SVGPVAE_Hensman", "--GECO", "--gp_block_impl",
-        "fused_rejitter_pallas", "--lr_decay", "0.1"],
-    # the Titsias CUDA cell, as the record runs (no GECO)
-    "titsias-fused": ["--elbo", "SVGPVAE_Titsias", "--gp_block_impl",
-                      "fused"],
-}
-
-
-@pytest.fixture(scope="module")
-def sprites_corpus():
-    return tdata.generate_synthetic_sprites(
-        n_train_chars=SPRITES_CHARS, n_test_chars=2, n_frames_train=50,
-        seed=0)
-
-
-def _sprites_jax_eps(seed):
-    """The JAX SPRITES CLI's draws: main step t the subkey of the t-th
-    split of fold_in(PRNGKey(seed), 202), every eval batch PRNGKey(11)."""
-    key = [jax.random.fold_in(jax.random.PRNGKey(seed), 202)]
-
-    def eps_fn(kind, shape):
-        import torch
-        if kind == "train":
-            key[0], sub = jax.random.split(key[0])
-        else:
-            sub = jax.random.PRNGKey(11)
-        return torch.from_numpy(np.array(jax.random.normal(sub, shape)))
-    return eps_fn
-
-
-def _sprites_jax_init(seed, train_d, args):
-    """The JAX CLI's initial parameters under --PCA (vae, repr, head from
-    PRNGKey(seed), the GP from sprites_pca_init) as a flat dict."""
-    key, dummy = jax.random.PRNGKey(seed), jnp.zeros((2, 64, 64, 3))
-    gplvm, ip = jdata.sprites_pca_init(train_d, m=args.m,
-                                       L_action=args.L_action,
-                                       L_character=args.L_character)
-    n_chars = len(train_d["frames"]) // 50
-    return flatten_params({
-        "vae": jnets.SpritesVAE(L=args.L).init(key, dummy),
-        "repr": jnets.SpritesReprNet(L=args.L_character).init(key, dummy),
-        "head": jnets.ClassificationHead(num_classes=n_chars).init(
-            key, jnp.zeros((2, args.L_character))),
-        "gp": jgp.init_sprites_svgp(ip, gplvm, L_action=args.L_action)})
-
-
-@pytest.mark.parametrize("case", list(RECORD_CASES))
-def test_sprites_record_config_matches_jax_cli(tmp_path, sprites_corpus,
-                                               case, monkeypatch):
-    from sklearn.decomposition import PCA
-    monkeypatch.setattr(jdata.sprites, "PCA",
-                        functools.partial(PCA, svd_solver="full"))
-    argv = SPRITES_ARGV + RECORD_CASES[case]
-    args = tsprites.build_parser().parse_args(argv)
-    npz = str(tmp_path / "params.npz")
-    np.savez(npz, **_sprites_jax_init(0, sprites_corpus["train"], args))
-    got = tsprites.main(argv + ["--device", "cpu", "--params", npz],
-                        splits=sprites_corpus, eps_fn=_sprites_jax_eps(0),
-                        capture_step=0)
-
-    jargs = jsprites.build_parser().parse_args(
-        argv + ["--sprites_data_path", str(tmp_path / "corpus")])
-    with contextlib.redirect_stdout(io.StringIO()):
-        want = jsprites.run_experiment(jargs)
-    assert len(got["metrics"]) == 2 and got["pretrain"]["steps"] == 2
-    assert got["state"].params["gp"].config.K_obj_normalize
-    state = want["state"]
-    np.testing.assert_allclose(got["cgen_mse"], want["best_cgen_mse"],
-                               rtol=MSE_RTOL)
-    g0 = {k: np.abs(_np(g)) for k, g in got["captured"]["grads"].items()}
-    _assert_params(ttrain.named_tensors(got["state"].params),
-                   _port_names(params_from_jax(flatten_params(
-                       state.params))),
-                   {k: g >= SPRITES_GRAD_RTOL * max(g.max(), 1e-30)
-                    for k, g in g0.items()},
-                   skip=("gp/inducing_points",) if args.GECO else ())
-
-    # the test recon MSE of the JAX CLI's eval pass, on its final state
-    vae = jnets.SpritesVAE(L=SPRITES_L)
-    rep = jnets.SpritesReprNet(L=args.L_character)
-    tc = sprites_corpus["test_character"]
-    recon = jax.jit(lambda params, geco: jmodels.forward_pass_svgpvae(
-        vae, params["vae"], params["gp"],
-        (jnp.asarray(tc["frames"]), jnp.asarray(tc["aux_data"][:, 1])),
-        jax.random.PRNGKey(11), beta=BETA, C_ma=geco.C_ma,
-        lagrange_mult=geco.lagrange_mult, alpha=0.99,
-        kappa=float(np.sqrt(args.kappa_squared)), clip_qs=True,
-        geco=args.GECO, repr_apply=rep.apply, repr_params=params["repr"],
-        frames_per_char=N_ACTIONS, gp_block_impl=args.gp_block_impl
-    ).recon_loss)(state.params, state.geco)  # one compile, not per op
-    np.testing.assert_allclose(got["evals"][0]["test_mse"],
-                               float(recon) / len(tc["frames"]),
-                               rtol=MSE_RTOL)
-    # CPU tensors: the twins ran and no kernel launched
-    assert all(n == 0 for s in got["step_launches"] for n in s.values())
-    resolved = tmodels.resolve_gp_block_impl(
-        "auto", workload="sprites", titsias=args.elbo == "SVGPVAE_Titsias",
-        device="cuda")
-    assert resolved == args.gp_block_impl  # the case runs the CUDA cell
+N_ACTIONS = 72
 
 
 @pytest.mark.parametrize("bound", ["hensman-rejitter-pallas", "titsias-chol"])
@@ -420,15 +325,17 @@ def test_record_config_blocks_match_jax_f64(bound):
         j_gp = jgp.init_sprites_svgp(ip, gplvm, L_action=La,
                                      config=JConfig(**cfg),
                                      dtype=jnp.float64)
-        j_outs = block(jgp)(j_gp, aux, y, noise, **kw)
+        j_outs = quick_jit(lambda gp, y_, noise_: block(jgp)(
+            gp, aux, y_, noise_, **kw))(j_gp, y, noise)
         w = [rng.randn(*np.shape(o)) for o in j_outs]
 
         def j_loss(gp, y_, noise_):
             return sum(jnp.sum(o * wi) for o, wi in
                        zip(block(jgp)(gp, aux, y_, noise_, **kw), w))
 
-        j_val, j_grads = jax.value_and_grad(j_loss, argnums=(0, 1, 2))(
-            j_gp, jnp.asarray(y), jnp.asarray(noise))
+        j_val, j_grads = quick_jit(jax.value_and_grad(
+            j_loss, argnums=(0, 1, 2)))(j_gp, jnp.asarray(y),
+                                        jnp.asarray(noise))
     finally:
         jax.config.update("jax_enable_x64", False)
 
