@@ -262,6 +262,11 @@ CAPTURE_STEP = 40      # the mid-run step rechecked on the CPU (phase 7)
 # ulp of their scale (for the loss, the magnitudes it is the difference
 # of: |inside-ELBO| + |CE term| + |loss|, ~1.7e4 against a loss of ~40).
 RECHECK_FACTOR = 10.0
+# Phase 15's rechecks sample the CPU's fp32 round-off in four more batch
+# orders (seeded permutations) beside those two: the Casale step's loss
+# gap came out of the two at 6.1e-7 to 4.0e-5 over seven card runs, and
+# in one of them below a tenth of the card's 2.3e-5 (PR 11's runs).
+BASELINE_PERMUTATIONS = 4
 SUM_FLOOR = math.sqrt(256 * 28 * 28) * 2.0 ** -24
 FP32_ULP = 2.0 ** -23
 # SPRITES training run (phase 8): the JAX CLI's defaults on phase 4's
@@ -933,8 +938,8 @@ def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
         eps = cpu_b(cap["eps"])
         forward, outs = mnist.make_forward(args, lambda kind, shape: eps), []
 
-        def recording(*a):
-            outs.append(forward(*a))
+        def recording(*a, **kw):
+            outs.append(forward(*a, **kw))
             return outs[-1]
 
         loss, (geco, _) = mnist.make_loss_fn(args, recording)(
@@ -954,22 +959,23 @@ def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
     r64, loss_terms = cpu_step(torch.float64, reverse=False)
     log(f"cpu step {cap['step']} (fp32 twice, f64): "
         f"{time.perf_counter() - t0:.2f} s")
-    hold_to_cpu_gap(f"step {cap['step']}", got, r32, r32_rev, r64,
+    hold_to_cpu_gap(f"step {cap['step']}", got, r32, [r32_rev], r64,
                     loss_terms, SUM_FLOOR)
 
 
-def hold_to_cpu_gap(tag, got, r32, r32_rev, r64, loss_terms,
+def hold_to_cpu_gap(tag, got, r32, r32_more, r64, loss_terms,
                     sum_floor) -> None:
     """The card's loss, GECO state and gradients (`got`) against the CPU
-    fp32 twin, each within RECHECK_FACTOR x the larger of the CPU's two
-    fp32-vs-f64 gaps, floored (see RECHECK_FACTOR)."""
+    fp32 twin `r32` (the batch in its order), each within RECHECK_FACTOR x
+    the largest fp32-vs-f64 gap of the CPU's orderings (`r32` and the list
+    `r32_more`), floored (see RECHECK_FACTOR)."""
     rows = []
     for k, g in got.items():
         g = g.detach().cpu().double()
         scale = loss_terms if k == "loss" else float(r64[k].abs().max())
         err = float((g - r32[k]).abs().max())
-        gap = max(float((r32[k] - r64[k]).abs().max()),
-                  float((r32_rev[k] - r64[k]).abs().max()))
+        gap = max(float((r[k] - r64[k]).abs().max())
+                  for r in [r32] + r32_more)
         floor = (FP32_ULP if k in ("loss", "C_ma", "lagrange_mult")
                  else sum_floor) * scale
         limit = RECHECK_FACTOR * max(gap, floor)
@@ -1235,7 +1241,7 @@ def phase_sprites_cpu_check(res, argv=SPRITES_ARGV) -> None:
         f"{time.perf_counter() - t0:.2f} s")
     if set(r32) != set(got):
         raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
-    hold_to_cpu_gap(f"sprites step {cap['step']}", got, r32, r32_rev, r64,
+    hold_to_cpu_gap(f"sprites step {cap['step']}", got, r32, [r32_rev], r64,
                     loss_terms, SPRITES_SUM_FLOOR)
 
 
@@ -1565,7 +1571,7 @@ def phase_ball_cpu_check(tag, res) -> None:
         f"{time.perf_counter() - t0:.2f} s")
     if set(r32) != set(got):
         raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
-    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, r32_rev, r64,
+    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, [r32_rev], r64,
                     loss_terms, BALL_SUM_FLOOR)
 
 
@@ -1663,10 +1669,11 @@ def _baseline_step_params(tag, cap, card_params, dtype):
 
 def phase_baseline_cpu_check(tag, res, splits) -> None:
     """Phase 15: the captured step redone on the CPU, in fp32 with the
-    batch in its order and reversed (every baseline's loss sums over the
-    batch's rows; the reversed batch takes its draw reversed with it, the
-    Casale step's full-train draw as it is) and in f64; the card's loss
-    and gradients held as phase 7 holds MNIST's."""
+    batch in its order, reversed and in BASELINE_PERMUTATIONS seeded
+    orders (every baseline's loss sums over the batch's rows; a reordered
+    batch takes its draw with it, the Casale step's full-train draw as it
+    is) and in f64; the card's loss and gradients held as phase 7 holds
+    MNIST's, to the largest of those orders' gaps."""
     import torch
     from svgpvae_tpu_torch import models, train
     from svgpvae_tpu_torch.cli import mnist, sprites
@@ -1682,12 +1689,12 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
                                      torch.device("cpu"))
               if tag == "casale_train" else None)
 
-    def cpu_step(dtype, reverse):
+    def cpu_step(dtype, order=None):
         def cpu(t):
             return t.detach().to("cpu", dtype)
 
-        def cpu_b(t):  # a batch-axis tensor, in its order or reversed
-            return cpu(t).flip(0) if reverse else cpu(t)
+        def cpu_b(t):  # a batch-axis tensor, in its order or in `order`
+            return cpu(t) if order is None else cpu(t)[order]
         params = _baseline_step_params(tag, cap, card_params, dtype)
         trainable = {k: t.requires_grad_(True) for k, t in
                      train.named_tensors(params).items() if k in got}
@@ -1753,14 +1760,19 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
             **dict(zip(trainable, grads))}.items()}, terms)
 
     t0 = time.perf_counter()
-    r32, _ = cpu_step(torch.float32, reverse=False)
-    r32_rev, _ = cpu_step(torch.float32, reverse=True)
-    r64, loss_terms = cpu_step(torch.float64, reverse=False)
-    log(f"cpu {tag} step {cap['step']} (fp32 twice, f64): "
-        f"{time.perf_counter() - t0:.2f} s")
+    b = cap["batch"][0].shape[0]
+    gen = torch.Generator().manual_seed(0)
+    orders = [torch.arange(b - 1, -1, -1)] + [
+        torch.randperm(b, generator=gen)
+        for _ in range(BASELINE_PERMUTATIONS)]
+    r32, _ = cpu_step(torch.float32)
+    r32_more = [cpu_step(torch.float32, o)[0] for o in orders]
+    r64, loss_terms = cpu_step(torch.float64)
+    log(f"cpu {tag} step {cap['step']} (fp32 in {1 + len(orders)} orders, "
+        f"f64): {time.perf_counter() - t0:.2f} s")
     if set(r32) != set(got):
         raise AssertionError(f"gradients {sorted(set(got) ^ set(r32))}")
-    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, r32_rev, r64,
+    hold_to_cpu_gap(f"{tag} step {cap['step']}", got, r32, r32_more, r64,
                     loss_terms, math.sqrt(longest_sum) * 2.0 ** -24)
 
 

@@ -507,12 +507,10 @@ def make_loss_fn(args, forward: Callable,
     maximizes the ELBO.  With a `mean_vectors` list (--bias_analysis) the
     step runs the two-pass block and appends its mu_hat (L, m)."""
 
-    kw = {} if mean_vectors is None else {"bias_analysis": True}
-
     def loss_fn(params, batch, geco, step):
         out = forward(params, batch, geco,
                       train.geco_effective_alpha(step, args.alpha), "train",
-                      **kw)
+                      bias_analysis=mean_vectors is not None)
         if mean_vectors is not None:
             mean_vectors.append(out.mean_vectors.detach())
         new_geco = train.GECOState(C_ma=out.C_ma,

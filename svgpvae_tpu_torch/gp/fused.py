@@ -42,21 +42,11 @@ from torch import Tensor
 
 from svgpvae_tpu_torch import linalg
 from svgpvae_tpu_torch.gp.svgp import (on_plain_path, relative_ridge,
-                                       sigma_jitter)
+                                       sigma_jitter, stats)
 from svgpvae_tpu_torch.ops.chol_inverse import (chol_inverse,
                                                 chol_inverse_reference)
-from svgpvae_tpu_torch.ops.gp_stats import (gp_stats,
-                                            gp_sufficient_stats_reference)
 
 INVERSE_IMPLS = ("chol", "pallas")
-
-
-def _stats(Knm: Tensor, precision: Tensor, py: Tensor):
-    """B2's autograd form `gp_stats`, or on the plain path (see
-    gp.svgp.on_plain_path) its plain version."""
-    if on_plain_path(Knm):
-        return gp_sufficient_stats_reference(Knm, precision, py)
-    return gp_stats(Knm, precision, py)
 
 
 def _inverse(M: Tensor):
@@ -96,7 +86,7 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = _stats(Knm, precision, precision * y)
+    sigma_contrib, r = stats(Knm, precision, precision * y)
     Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     M = torch.cat([linalg.add_jitter(Kmm, cfg.jitter)[None],
                    linalg.add_jitter(Sigma, sigma_jitter(Sigma, cfg))])
@@ -201,12 +191,12 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = _stats(Knm, precision, precision * y)
+    sigma_contrib, r = stats(Knm, precision, precision * y)
     Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     # the bound's statistics at the jittered noise
     noise_b = noise + cfg.jitter
     prec_b = linalg.reciprocal_no_nan(noise_b)            # (b, L)
-    contrib_b, r_b = _stats(Knm, prec_b, prec_b * y)
+    contrib_b, r_b = stats(Knm, prec_b, prec_b * y)
     Kmm_j = linalg.add_jitter(Kmm, cfg.jitter)
     Sigma1 = Kmm_j[None] + contrib_b                      # (L, m, m)
     M = torch.cat([Kmm_j[None],

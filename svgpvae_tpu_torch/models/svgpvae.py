@@ -120,7 +120,7 @@ class SVGPVAEOutputs(NamedTuple):
     latent_samples: Tensor
     C_ma: Tensor
     lagrange_mult: Tensor
-    mean_vectors: Optional[Tensor] = None  # mu_hat (L, m) or 0 (see below)
+    mean_vectors: Optional[Tensor] = None  # mu_hat (L, m) (see below)
 
 
 def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
@@ -147,7 +147,7 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     says and returns its mu_hat (L, m) as `mean_vectors`: the minibatch
     estimate of the q(u) mean that cli.mnist --bias_analysis averages
     over an epoch (JAX: the same forcing and reuse).  Without it
-    `mean_vectors` is a scalar 0, as JAX's.
+    `mean_vectors` is None (JAX's is a scalar 0 that nothing reads).
 
     batch = (images (b, 28, 28, 1) NHWC, aux_data (b, 2 + M)) for rotated
     MNIST, or (frames (b, 64, 64, 3), action ids (b,)) for SPRITES, where
@@ -243,8 +243,7 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
         inside_elbo_recon=inside_elbo_recon, inside_elbo_kl=inside_elbo_kl,
         latent_samples=latent_samples, C_ma=C_ma_new,
         lagrange_mult=lagrange_new,
-        mean_vectors=mu_hat if bias_analysis
-        else torch.zeros((), dtype=elbo.dtype, device=elbo.device))
+        mean_vectors=mu_hat if bias_analysis else None)
 
 
 @torch.no_grad()

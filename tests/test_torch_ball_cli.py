@@ -47,6 +47,7 @@ from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 GRAD_RTOL = 2e-4
 PARAM_ATOL = 1e-4
@@ -63,17 +64,6 @@ CASES = {
     "pearce": ["--elbo", "GPVAE_Pearce", "--GP_joint"],
     "np": ["--elbo", "NP"],
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _np(x):

@@ -49,6 +49,7 @@ from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-9
 RTOL32 = 1e-5
@@ -57,17 +58,6 @@ L = 4
 # compile about half as long (the file's time is mostly JAX compiles)
 QUICK = {"xla_backend_optimization_level": 0,
          "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _quick(jitted):

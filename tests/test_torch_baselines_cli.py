@@ -69,6 +69,7 @@ from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL_LOSS = 1e-5
 SVIGP_RTOL_LOSS = 1e-4
@@ -78,17 +79,6 @@ CASALE_CGEN_RTOL = 1e-2
 L, SEED, BS = 6, 0, 101  # two batches of the 202 train rows
 COMMON = ["--dataset", "36", "--L", str(L), "--seed", str(SEED),
           "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ from svgpvae_tpu_torch import train as ttrain
 from svgpvae_tpu_torch import utils as tutils
 from svgpvae_tpu_torch.cli import mnist as tmnist
 from svgpvae_tpu_torch.cli import sprites as tsprites
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 MNIST_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
               "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
@@ -31,17 +32,6 @@ SPRITES_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
                 "--batch_size_repr_nn", "100", "--L", "8",
                 "--L_character", "9", "--seed", "0", "--device", "cpu",
                 "--gp_block_impl", "fused_rejitter_pallas"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

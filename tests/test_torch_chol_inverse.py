@@ -28,19 +28,9 @@ from svgpvae_tpu.ops.chol_inverse import (chol_inverse as jax_chol_inverse,
 from svgpvae_tpu.ops.gp_stats import gp_stats as jax_gp_stats
 from svgpvae_tpu_torch.ops import chol_inverse as ci
 from svgpvae_tpu_torch.ops import gp_stats as gps
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _pd_stack(rng, B, m, cond):

@@ -51,6 +51,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
 from test_torch_sprites_train import quick_jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-9
 KAPPA = float(np.sqrt(0.02))
@@ -59,17 +60,6 @@ ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
         "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
         "--eval_every", "1", "--L", str(L), "--batch_size", str(BS),
         "--seed", str(SEED), "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

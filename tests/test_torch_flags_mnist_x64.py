@@ -29,17 +29,7 @@ from test_torch_flags_mnist import (ARGV, BS, KAPPA, RTOL64, SEED, JaxKeys,
                                     _jax_loss_fn, _jax_params,
                                     flatten_params)
 from test_torch_sprites_train import quick_jit
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ import torch
 
 from svgpvae_tpu_torch.nn import (ClassificationHead, MnistVAE,
                                   SpritesReprNet, SpritesVAE)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 NETS = {
     "SpritesVAE": lambda g: SpritesVAE(L=64, generator=g),
@@ -30,17 +31,6 @@ NETS = {
 }
 LARGE = [("SpritesVAE", "enc_out"), ("SpritesVAE", "dec_in"),
          ("ClassificationHead", "dense")]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _layers(net):

@@ -12,19 +12,9 @@ import torch
 
 from svgpvae_tpu import kernels as jk, linalg as jl
 from svgpvae_tpu_torch import kernels as tk, linalg as tl
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL, ATOL = 1e-10, 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -30,6 +30,7 @@ from svgpvae_tpu.gp.svgp import SVGPConfig as JConfig
 from svgpvae_tpu_torch import gp as tgp, linalg as tlinalg
 
 from test_torch_sprites_train import quick_jit
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-9
 # The blocks at m = 256 and 288 on a rank-deficient K_mm (PD only through
@@ -38,17 +39,6 @@ RTOL64 = 1e-9
 # ~cond^2 * eps, not 1e-9 (1e-6 is the bound the SPRITES forward tests and
 # tests/test_fused_gp.py hold the "pallas" path to at float64).
 RANK_DEFICIENT_RTOL64 = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture(autouse=True)

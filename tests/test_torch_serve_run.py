@@ -42,6 +42,7 @@ from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-10
 SERVE_RTOL = 1e-5
@@ -58,17 +59,6 @@ SPRITES_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs",
                 "--nr_epochs_repr_nn", "1", "--batch_size", "100",
                 "--batch_size_repr_nn", "100", "--L", "8", "--seed", "0",
                 "--gp_block_impl", "fused_rejitter"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @pytest.fixture

@@ -30,17 +30,7 @@ from svgpvae_tpu_torch.cli import sprites as tsprites
 from test_torch_serve_run import (N_ACTIONS, PARITY_RTOL, SERVE_RTOL,
                                   SPRITES_ARGV, SPRITES_CHARS, _close, _csv,
                                   _direct, flatten_params)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -36,17 +36,7 @@ from svgpvae_tpu_torch.cli import sprites as tsprites
 from test_torch_sprites_train import (FPC, KAPPA, L, L_ACT, L_CHAR,
                                       N_ACTIONS, ROOT, _assert_params,
                                       _flat_port_names, flatten_params)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 
 # --- the whole slice ----------------------------------------------------------

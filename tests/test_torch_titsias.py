@@ -59,6 +59,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
 from test_torch_sprites_train import quick_jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL64 = 1e-9
 RANK_DEFICIENT_RTOL64 = 1e-6
@@ -68,17 +69,6 @@ PARAM_ATOL = 1e-4
 BETA = 0.001
 SPRITES_JITTER = 0.01
 N_ACTIONS = 72
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 @contextlib.contextmanager
@@ -237,7 +227,7 @@ def test_fused_block_stacks_one_b1_call(monkeypatch):
     from svgpvae_tpu_torch.gp import fused
     with _x64(True):
         _, t_gp, aux, y, noise = _mnist_gp(np.random.RandomState(3))
-    seen, stats, twin, b2 = [], [], fused.chol_inverse, fused.gp_stats
+    seen, stats, twin, b2 = [], [], fused.chol_inverse, tsvgp.gp_stats
 
     def recording(M):
         seen.append(M)
@@ -248,7 +238,7 @@ def test_fused_block_stacks_one_b1_call(monkeypatch):
         return b2(Knm, prec, py)
 
     monkeypatch.setattr(fused, "chol_inverse", recording)
-    monkeypatch.setattr(fused, "gp_stats", recording_stats)
+    monkeypatch.setattr(tsvgp, "gp_stats", recording_stats)
     fused.gp_block_titsias(t_gp, _t(aux), _t(y), _t(noise),
                            inverse_impl="pallas")
     L, m = y.shape[1], t_gp.inducing_points.shape[0]

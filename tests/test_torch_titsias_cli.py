@@ -71,6 +71,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
 from test_torch_sprites_train import quick_jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL_LOSS = 1e-5
 MNIST_GRAD_RTOL = 2e-4
@@ -81,17 +82,6 @@ SPRITES_GRAD_RTOL = 1e-3
 PARAM_ATOL = 1e-4
 MSE_RTOL = 1e-4
 BETA = 0.001
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
 
 
 def _np(x):

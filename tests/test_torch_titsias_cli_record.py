@@ -36,17 +36,7 @@ from svgpvae_tpu_torch.utils.convert import params_from_jax
 from test_torch_titsias_cli import (BETA, MSE_RTOL, SPRITES_GRAD_RTOL,
                                     _assert_params, _np, _port_names,
                                     flatten_params)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 
 SPRITES_L, SPRITES_CHARS, N_ACTIONS = 8, 3, 72

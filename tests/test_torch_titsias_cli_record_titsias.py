@@ -7,22 +7,11 @@ Tolerances as there.
 """
 
 import pytest
-import torch
 
 from svgpvae_tpu_torch import data as tdata
 
 from test_torch_titsias_cli_record import SPRITES_CHARS, check_record_case
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_threads():
-    """Two intra-op threads for torch in this module, restored after: the
-    suite's workers share the CPU, and torch's default pool (a thread per
-    core in each) oversubscribes it several times over."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import _torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
