@@ -143,13 +143,26 @@ Phases, each of which raises (nonzero exit) on failure:
      epoch on it at phase 8's widths; (g) the ball Hensman run for 200
      steps with --profile_dir: the JAX driver's chunk is gcd(100, 10000,
      50000) = 100, so the trace holds steps 100..199.
+ 17. mixed precision, each run with the launch counters zeroed just
+     before and read just after: (a) phase 8's run with --bf16, then with
+     --bf16_hybrid (phase 8's checks: B1 twice and B2 once a step, B3
+     once in the eval fit); the encoder's outputs bf16 (fp32 under the
+     hybrid) and every tensor handed to B1, B2 and B3 fp32; the step
+     p50/p90 beside phase 8's; the --bf16 run's step 60 redone on the CPU
+     with its nets in bf16 from the same state, batch and noise (loss and
+     GECO state within 10x the CPU's spread over six character orders,
+     floored; each gradient within BF16_LEAF_FACTOR x the CPU's
+     bf16-vs-fp32 distance; the gradients together nearer the CPU's bf16
+     step than its fp32 one); (b) phase 6's run with
+     --bf16 (phase 6's checks, B2 also in the cgen pass), the same dtype
+     checks, its p50 beside phase 6's.
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
 and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36).
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10-16, and the max error and
+the main paths of phases 4, 6, 8, 10-17, and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -394,6 +407,27 @@ BASELINE_RUNS = {
                           500 * 64 * 64 * 3),
 }
 BASELINE_WIDTHS = {"mnist": (16, 8_100), "sprites": (64, 50_000)}  # L, N
+# Phase 17: the --bf16 run's captured step is redone on the CPU with its
+# nets in bf16 (the same state, batch and noise) in six character orders
+# (as captured, reversed and BASELINE_PERMUTATIONS seeded ones) and once
+# with its nets in fp32.  The card's loss and GECO state are held to the
+# first bf16 run within RECHECK_FACTOR x the spread of the six, floored
+# at phase 9(b)'s SPRITES_SUM_FLOOR of their magnitude.  The card's
+# convolutions round their bf16 activations and gradients apart from the
+# CPU's, as an independent implementation would: over every gradient the
+# card sat 0.82 of the CPU's bf16-vs-fp32 distance from the CPU's bf16
+# step, and up to 1.64 of it in one leaf (the decoder's first bias;
+# median 0.80), where the CPU's six orders moved a leaf by 0.09 of it
+# (median; at most 0.24; this phase on an NVIDIA H100 80GB HBM3, 700 W).
+# So each gradient is held in the Frobenius norm (a gradient of a bf16
+# layer is a bf16 number, one rounding moves an entry by a whole bf16
+# ulp, and a maximum would let it set the result) within
+# BF16_LEAF_FACTOR x that leaf's CPU bf16-vs-fp32 distance: two
+# independent roundings sit sqrt(2) x one apart, and a factor of 2 covers
+# the spread of a small leaf's norm.  And all gradients together must
+# sit nearer the CPU's bf16 step than its fp32 step (the card: 486
+# against 822), which a card that ran the nets in fp32 would not.
+BF16_LEAF_FACTOR = 2.0 * math.sqrt(2.0)
 # Hensman + GECO with a VAE phase: phase 6's run, --opt_regime VAE-1 joint-1
 VAE_PHASE_ARGV = [x for a in TRAIN_ARGV
                   for x in (["VAE-1", "joint-1"] if a == "joint-2" else [a])]
@@ -1179,14 +1213,69 @@ def hold_b1_on_stacks(step, tagged_stacks) -> None:
                                  f"{tag}: {bad} past the limit")
 
 
+def sprites_cpu_step(res, args, dtype, order=None, nets=(None, None)):
+    """The captured step of a SPRITES run redone on the CPU with the
+    twins, its parameters in `dtype`, the nets at the compute dtypes
+    `nets` (dtype, head dtype), the batch's characters taken in `order`
+    (None: as captured; whole characters, so every segment mean is the
+    same).  Under --clip_grad the gradients take the card's value clip.
+    Returns ({loss, C_ma, lagrange_mult, every gradient}, the loss's
+    magnitudes)."""
+    import torch
+    from svgpvae_tpu_torch import linalg, train
+    from svgpvae_tpu_torch.cli import sprites
+
+    cap = res["captured"]
+
+    def cpu(t):
+        return t.detach().to("cpu", dtype)
+
+    def cpu_b(t):  # a batch-axis tensor, its characters in `order`
+        t = cpu(t)
+        if order is None:
+            return t
+        chars = t.view(-1, SPRITES_FPC, *t.shape[1:])[order]
+        return chars.reshape(t.shape)
+    params = _sprites_step_params(cap, res["state"].params["gp"],
+                                  torch.device("cpu"), dtype)
+    params["vae"].set_compute_dtype(*nets)
+    params["repr"].set_compute_dtype(nets[0])
+    trainable = train.trainable_tensors(
+        params, sprites.trainable_predicate(args))
+    batch = tuple(cpu_b(x) for x in cap["batch"])
+    eps = cpu_b(cap["eps"])
+    forward, outs = sprites.make_forward(args, lambda kind, shape: eps), []
+
+    def recording(*a):
+        outs.append(forward(*a))
+        return outs[-1]
+
+    loss, (geco, _) = sprites.make_loss_fn(args, recording)(
+        params, batch, train.GECOState(
+            C_ma=cpu(cap["geco"].C_ma),
+            lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    if args.clip_grad:
+        linalg.tree_value_clip(grads, args.clip_grad_thres)
+    out = {"loss": loss.detach(), "C_ma": geco.C_ma,
+           "lagrange_mult": geco.lagrange_mult,
+           **dict(zip(trainable, grads))}
+    terms = loss_magnitudes(outs[-1], loss, args)
+    return {k: v.detach().double() for k, v in out.items()}, terms
+
+
+def _card_step(cap) -> dict:
+    return {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
+            "lagrange_mult": cap["geco_after"].lagrange_mult,
+            **cap["grads"]}
+
+
 def phase_sprites_cpu_check(res, argv=SPRITES_ARGV) -> None:
     """Phase 9(b): the captured step of the SPRITES run made with `argv`
     redone on the CPU with the twins, in fp32 with the batch in its order
-    and with its characters reversed (whole characters, so every segment
-    mean is the same), and in f64.  Under --clip_grad the CPU's gradients
-    take the card's value clip."""
+    and with its characters reversed, and in f64."""
     import torch
-    from svgpvae_tpu_torch import linalg, models, train
+    from svgpvae_tpu_torch import models
     from svgpvae_tpu_torch.cli import sprites
 
     cap = res["captured"]
@@ -1194,49 +1283,14 @@ def phase_sprites_cpu_check(res, argv=SPRITES_ARGV) -> None:
     args.gp_block_impl = models.resolve_gp_block_impl(
         args.gp_block_impl, workload="sprites",
         titsias=args.elbo == "SVGPVAE_Titsias", device=torch.device("cuda"))
-    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
-           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
-
-    def cpu_step(dtype, reverse):
-        def cpu(t):
-            return t.detach().to("cpu", dtype)
-
-        def cpu_b(t):  # a batch-axis tensor, its characters in reverse
-            t = cpu(t)
-            if not reverse:
-                return t
-            chars = t.view(-1, SPRITES_FPC, *t.shape[1:]).flip(0)
-            return chars.reshape(t.shape)
-        params = _sprites_step_params(cap, res["state"].params["gp"],
-                                      torch.device("cpu"), dtype)
-        trainable = train.trainable_tensors(
-            params, sprites.trainable_predicate(args))
-        batch = tuple(cpu_b(x) for x in cap["batch"])
-        eps = cpu_b(cap["eps"])
-        forward, outs = sprites.make_forward(
-            args, lambda kind, shape: eps), []
-
-        def recording(*a):
-            outs.append(forward(*a))
-            return outs[-1]
-
-        loss, (geco, _) = sprites.make_loss_fn(args, recording)(
-            params, batch, train.GECOState(
-                C_ma=cpu(cap["geco"].C_ma),
-                lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
-        grads = torch.autograd.grad(loss, list(trainable.values()))
-        if args.clip_grad:
-            linalg.tree_value_clip(grads, args.clip_grad_thres)
-        out = {"loss": loss.detach(), "C_ma": geco.C_ma,
-               "lagrange_mult": geco.lagrange_mult,
-               **dict(zip(trainable, grads))}
-        terms = loss_magnitudes(outs[-1], loss, args)
-        return {k: v.detach().double() for k, v in out.items()}, terms
+    got = _card_step(cap)
+    n_chars = cap["batch"][0].shape[0] // SPRITES_FPC
 
     t0 = time.perf_counter()
-    r32, _ = cpu_step(torch.float32, reverse=False)
-    r32_rev, _ = cpu_step(torch.float32, reverse=True)
-    r64, loss_terms = cpu_step(torch.float64, reverse=False)
+    r32, _ = sprites_cpu_step(res, args, torch.float32)
+    r32_rev, _ = sprites_cpu_step(res, args, torch.float32,
+                                  order=torch.arange(n_chars - 1, -1, -1))
+    r64, loss_terms = sprites_cpu_step(res, args, torch.float64)
     log(f"cpu sprites step {cap['step']} (fp32 twice, f64): "
         f"{time.perf_counter() - t0:.2f} s")
     if set(r32) != set(got):
@@ -2013,6 +2067,152 @@ def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
     return paths
 
 
+# --- phase 17 ---------------------------------------------------------------
+class RecordedDtypes:
+    """While open: the dtypes of the encoders' outputs (`encoder`) and
+    the kernels' inputs (`kernels`, ops.KernelInputRecorder)."""
+
+    def __enter__(self):
+        from svgpvae_tpu_torch import ops
+        from svgpvae_tpu_torch.nn import MnistVAE, SpritesVAE
+        self.encoder = set()
+        self.saved = [(net, net.encode) for net in (MnistVAE, SpritesVAE)]
+        for net, fn in self.saved:
+            net.encode = self._recording(fn)
+        self.kernels = ops.KernelInputRecorder().__enter__()
+        return self
+
+    def _recording(self, fn):
+        def encode(net, *args, **kwargs):
+            out = fn(net, *args, **kwargs)
+            self.encoder.update(t.dtype for t in out)
+            return out
+        return encode
+
+    def __exit__(self, *exc):
+        self.kernels.__exit__(*exc)
+        for net, fn in self.saved:
+            net.encode = fn
+        return False
+
+    def check(self, tag, encoder_dtype) -> None:
+        import torch
+        kernels = self.kernels.dtypes()
+        if self.encoder != {encoder_dtype} or kernels != {torch.float32}:
+            raise AssertionError(f"{tag}: encoder outputs {self.encoder}, "
+                                 f"kernel inputs {kernels}")
+        log(f"{tag}: encoder outputs {sorted(map(str, self.encoder))}, "
+            f"every input of {sorted(self.kernels.names())} "
+            f"{sorted(map(str, kernels))}")
+
+
+def phase_bf16_cpu_check(res, argv) -> None:
+    """Phase 17(a): the --bf16 run's captured step redone on the CPU, with
+    its nets in bf16 in six character orders and in fp32 once, and the
+    card's loss, GECO state and gradients held to it (see the comment on
+    phase 17 among the constants)."""
+    import torch
+    from svgpvae_tpu_torch import models
+    from svgpvae_tpu_torch.cli import sprites
+
+    cap = res["captured"]
+    args = sprites.build_parser().parse_args(argv)
+    args.gp_block_impl = models.resolve_gp_block_impl(
+        args.gp_block_impl, workload="sprites", device=torch.device("cuda"))
+    nets = sprites.net_dtypes(args)
+    n_chars = cap["batch"][0].shape[0] // SPRITES_FPC
+    gen = torch.Generator().manual_seed(0)
+    orders = [None, torch.arange(n_chars - 1, -1, -1)] + [
+        torch.randperm(n_chars, generator=gen)
+        for _ in range(BASELINE_PERMUTATIONS)]
+    got = {k: v.detach().cpu().double() for k, v in _card_step(cap).items()}
+
+    t0 = time.perf_counter()
+    r16 = [sprites_cpu_step(res, args, torch.float32, order, nets)[0]
+           for order in orders]
+    r32, _ = sprites_cpu_step(res, args, torch.float32)
+    log(f"cpu sprites step {cap['step']} (nets in bf16 in {len(orders)} "
+        f"orders, in fp32 once): {time.perf_counter() - t0:.2f} s")
+    if set(r16[0]) != set(got):
+        raise AssertionError(f"gradients {sorted(set(got) ^ set(r16[0]))}")
+    def fro(a, b, keys):
+        return math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum())
+                             for k in keys))
+
+    rows, tag = [], f"bf16 sprites step {cap['step']}"
+    for k in ("loss", "C_ma", "lagrange_mult"):
+        err = abs(float(got[k] - r16[0][k]))
+        spread = max(abs(float(r[k] - r16[0][k])) for r in r16)
+        scale = abs(float(r16[0][k]))
+        limit = RECHECK_FACTOR * max(spread, SPRITES_SUM_FLOOR * scale)
+        rows.append((k, err, limit))
+        log(f"{tag} {k}: card {float(got[k]):.9g}, cpu bf16 "
+            f"{float(r16[0][k]):.9g}, cpu fp32 {float(r32[k]):.9g}; card "
+            f"vs cpu bf16 {err:.3e}, cpu spread over the orders "
+            f"{spread:.3e}, limit {limit:.3e}")
+    leaves = [k for k in got if k not in ("loss", "C_ma", "lagrange_mult")]
+    for k in leaves:
+        err, to_fp32 = fro(got, r16[0], [k]), fro(r32, r16[0], [k])
+        spread = max(fro(r, r16[0], [k]) for r in r16)
+        limit = BF16_LEAF_FACTOR * to_fp32
+        rows.append((k, err, limit))
+        log(f"{tag} {k}: card vs cpu bf16 {err:.3e}, cpu bf16 vs fp32 "
+            f"{to_fp32:.3e}, cpu spread over the orders {spread:.3e}, limit "
+            f"{limit:.3e}, norm {float(r16[0][k].norm()):.3e} (Frobenius)")
+    whole, to_fp32 = fro(got, r16[0], leaves), fro(r32, r16[0], leaves)
+    card_fp32 = fro(got, r32, leaves)
+    worst = max((err / limit, k) for k, err, limit in rows)
+    log(f"{tag}: worst err/limit {worst[0]:.3f} ({worst[1]}); the "
+        f"{len(leaves)} gradients together: card vs cpu bf16 {whole:.3e}, "
+        f"card vs cpu fp32 {card_fp32:.3e}, cpu bf16 vs fp32 "
+        f"{to_fp32:.3e} (card vs cpu bf16 / cpu bf16 vs fp32: "
+        f"{whole / to_fp32:.3f})")
+    bad = [k for k, err, limit in rows if not err <= limit]
+    if bad or not whole < card_fp32:
+        raise AssertionError(f"{tag}: the card disagrees with the CPU on "
+                             f"{bad}, or its gradients sit {whole:.3e} from "
+                             f"the CPU's bf16 ones and {card_fp32:.3e} from "
+                             "its fp32 ones")
+
+
+def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> dict:
+    """Phase 17: the SPRITES run under --bf16 and --bf16_hybrid and the
+    MNIST run under --bf16 (see the module doc); returns each run's
+    launch counts."""
+    import torch
+
+    paths = {}
+    p50 = {"sprites": np.percentile(phase8["step_seconds"][1:], 50),
+           "mnist": np.percentile(phase6["step_seconds"][1:], 50)}
+    for flag, enc in (("--bf16", torch.bfloat16),
+                      ("--bf16_hybrid", torch.float32)):
+        argv = SPRITES_ARGV + [flag]
+        with RecordedDtypes() as rec:
+            res, paths[f"sprites_{flag.strip('-')}_train"] = \
+                phase_sprites_train(corpus, argv, tag=f"sprites {flag}")
+        rec.check(f"sprites {flag}", enc)
+        sec = np.asarray(res["step_seconds"][1:])
+        log(f"17(a) sprites {flag}: step p50 "
+            f"{1e3 * np.percentile(sec, 50):.3f} ms, p90 "
+            f"{1e3 * np.percentile(sec, 90):.3f} ms; fp32 (phase 8) p50 "
+            f"{1e3 * p50['sprites']:.3f} ms")
+        if flag == "--bf16":
+            phase_bf16_cpu_check(res, argv)
+    with RecordedDtypes() as rec:
+        res, launches = phase_train(mnist_data, TRAIN_ARGV + ["--bf16"], 32,
+                                    TRAIN_STEPS, None, "mnist --bf16")
+    rec.check("mnist --bf16", torch.bfloat16)
+    in_steps = sum(sl["gp_sufficient_stats"] for sl in res["step_launches"])
+    if launches["gp_sufficient_stats"] <= in_steps:
+        raise AssertionError(f"mnist --bf16: B2 launched {in_steps} times "
+                             "in the steps and never in the eval pass")
+    paths["mnist_bf16_train"] = launches
+    log(f"17(b) mnist --bf16: step p50 "
+        f"{1e3 * np.percentile(res['step_seconds'][1:], 50):.3f} ms; fp32 "
+        f"(phase 6) p50 {1e3 * p50['mnist']:.3f} ms")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2081,6 +2281,8 @@ def main() -> int:
     baseline_launches = timed(15, phase_baselines, mnist_data, corpus)
     flag_launches = timed(16, phase_driver_flags, mnist_data, corpus,
                           runs.name, train_launches)
+    bf16_launches = timed(17, phase_mixed_precision, corpus, mnist_data,
+                          train_res, sprites_res)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -2089,7 +2291,7 @@ def main() -> int:
              "mnist_resume_train": resume_launches,
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
-             **baseline_launches, **flag_launches}
+             **baseline_launches, **flag_launches, **bf16_launches}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

@@ -115,11 +115,19 @@ Driver flags, as in the JAX driver:
     and keep its mu_hat (L, m); after each epoch the q(u) mean over the
     whole train split (gp.posterior_params on every train encoding: B2 at
     n = N_train on a CUDA device) and "bias for epoch E: B", the mean
-    |epoch average of the batch estimates - full-split mean|.
+    |epoch average of the batch estimates - full-split mean|;
+  * --bf16 (SVGPVAE, VAE, CVAE): the conv nets compute in bfloat16 (the
+    flax meaning of dtype=, nn.nets.cast_layer); their parameters, the
+    Adam state and the checkpoints stay fp32, and so does the GP math:
+    the encodings are cast to fp32 before the GP block, which with every
+    kernel (B1, B2) takes fp32 only.  The VAE and CVAE keep their latent
+    sample and KL in bf16, as JAX does.  --x64 overrides it (float64, with
+    JAX's warning).  Refused for deep SVIGP and Casale, whose JAX runs
+    ignore it.  The cgen images are pickled as fp32 (numpy has no bf16).
 
 Not ported yet, refused with an error: --epoch_chunk, --eval_bundle,
---show_pics, --bf16 and --data_parallel (loudly for Casale too, where the
-JAX driver ignores it).
+--show_pics and --data_parallel (loudly for Casale too, where the JAX
+driver ignores it).
 """
 
 from __future__ import annotations
@@ -250,7 +258,6 @@ def build_parser() -> argparse.ArgumentParser:
 NOT_PORTED = {  # flag -> is it set?
     "--epoch_chunk": lambda a: a.epoch_chunk > 1,
     "--show_pics": lambda a: a.show_pics,
-    "--bf16": lambda a: a.bf16,
     "--data_parallel": lambda a: a.data_parallel != 0,
     "--eval_bundle": lambda a: a.eval_bundle,
 }
@@ -258,6 +265,7 @@ NOT_PORTED = {  # flag -> is it set?
 IGNORED_BY_JAX = {
     "--reshuffle": (lambda a: a.reshuffle, CASALE_ELBOS),
     "--x64": (lambda a: a.x64, (*CASALE_ELBOS, "SVIGP_Hensman")),
+    "--bf16": (lambda a: a.bf16, (*CASALE_ELBOS, "SVIGP_Hensman")),
     "--resume_dir": (lambda a: a.resume_dir,
                      (*CASALE_ELBOS, "SVIGP_Hensman")),
 }
@@ -328,18 +336,31 @@ def _load_params(path: str, convert: Callable) -> dict:
 
 
 def run_dtype(args) -> torch.dtype:
-    """float64 under --x64, else float32."""
+    """float64 under --x64, else float32: the data, parameters and GP."""
     return torch.float64 if args.x64 else torch.float32
+
+
+def net_dtype(args) -> Optional[torch.dtype]:
+    """The nets' compute dtype: bfloat16 under --bf16 unless --x64
+    overrides it, else None (the parameters' dtype)."""
+    return torch.bfloat16 if args.bf16 and not args.x64 else None
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """`t` on the host as a numpy array; bf16 (which numpy lacks) as
+    fp32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def build_model(args, splits: dict, N_train: int, device: torch.device):
     """(MnistVAE or MnistCVAE, MnistSVGP or None) on `device` in the run's
-    dtype: the GP (for the SVGPVAE ELBOs) initialised as the JAX driver
-    does; the net from --params or flax's init from a generator seeded by
-    --seed."""
+    dtype, the net computing in `net_dtype(args)`: the GP (for the SVGPVAE
+    ELBOs) initialised as the JAX driver does; the net from --params or
+    flax's init from a generator seeded by --seed."""
     to = dict(device=device, dtype=run_dtype(args))
     net = MnistCVAE if args.elbo == "CVAE" else MnistVAE
-    vae = net(L=args.L, generator=torch.Generator().manual_seed(args.seed))
+    vae = net(L=args.L, generator=torch.Generator().manual_seed(args.seed),
+              dtype=net_dtype(args))
     if "SVGPVAE" not in args.elbo:
         if args.params:
             vae.load_state_dict(_load_params(
@@ -636,13 +657,14 @@ def _best(result: dict, evals: list, key: str = "cgen_mse") -> dict:
 def _save_cgen_images(run_dir: Optional[str], images) -> None:
     if run_dir and images is not None:
         with open(os.path.join(run_dir, "cgen_images.p"), "wb") as f:
-            pickle.dump(images.cpu().numpy(), f)
+            pickle.dump(host_array(images), f)
 
 
 def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
          capture_step: Optional[int] = None,
-         perm_fn: Optional[Callable] = None) -> dict:
+         perm_fn: Optional[Callable] = None,
+         on_eval: Optional[Callable[[dict], None]] = None) -> dict:
     """Train; returns a dict (see `run_svgpvae`, `run_svigp`,
     `run_casale`).
 
@@ -652,7 +674,9 @@ def main(argv=None, splits: Optional[dict] = None,
     "eval") replaces the default noise (tests inject the JAX draws).
     `capture_step` keeps a copy of that step's inputs, parameters before
     it, noise and gradients.  `perm_fn(n)` gives --reshuffle's
-    permutations of n examples in place of the seeded generator's."""
+    permutations of n examples in place of the seeded generator's.
+    `on_eval(ev)` is called after each eval pass of `run_svgpvae` (and its
+    checkpoint) with its record."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     device = torch.device(args.device)
@@ -669,9 +693,14 @@ def main(argv=None, splits: Optional[dict] = None,
     eps_fn = eps_fn or default_eps_fn(args.seed, device,
                                       dtype=run_dtype(args))
     if args.x64:
+        if args.bf16:
+            print("warning: --x64 overrides --bf16 (float64 mode)")
         print("--x64: data, nets, GP and Adam in float64; the GP blocks run "
               "the kernels' plain PyTorch versions (the CUDA kernels take "
               "fp32 only), so no kernel launches")
+    elif args.bf16:
+        print("--bf16: the nets compute in bfloat16; their parameters, Adam "
+              "and the GP math (and every kernel) stay fp32")
     shuffle = None
     if args.reshuffle:
         shuffle = train.EpochShuffle(
@@ -681,7 +710,8 @@ def main(argv=None, splits: Optional[dict] = None,
         return run_casale(args, splits, device, eps_fn, capture_step)
     if args.elbo == "SVIGP_Hensman":
         return run_svigp(args, splits, device, capture_step, shuffle)
-    return run_svgpvae(args, splits, device, eps_fn, capture_step, shuffle)
+    return run_svgpvae(args, splits, device, eps_fn, capture_step, shuffle,
+                       on_eval)
 
 
 def _to_dev(split: dict, device: torch.device,
@@ -692,7 +722,8 @@ def _to_dev(split: dict, device: torch.device,
 
 def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 capture_step: Optional[int],
-                shuffle: Optional[train.EpochShuffle] = None) -> dict:
+                shuffle: Optional[train.EpochShuffle] = None,
+                on_eval: Optional[Callable[[dict], None]] = None) -> dict:
     """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
     "step_seconds" (host clock after synchronize, per step), "metrics"
     (per step), "evals" (per eval pass), "step_launches" (kernel launches
@@ -898,6 +929,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       ckpt_state(), state.step)
+            if on_eval is not None:
+                on_eval(ev)
 
     rec.summary(time.perf_counter() - t_start)
     tracer.report()

@@ -201,10 +201,13 @@ def _restore(run_dir: str, params: dict, predicate, args, device) -> int:
 
 def _rebuild_args(args) -> argparse.Namespace:
     """The run's flags for rebuilding its models: no --params (the
-    checkpoint holds the weights) and no --PCA, which only sets initial
+    checkpoint holds the weights), no --PCA, which only sets initial
     values the checkpoint overwrites (on SPRITES it would decompose the
-    whole train split)."""
-    return argparse.Namespace(**dict(vars(args), params=None, PCA=False))
+    whole train split), and fp32 nets whatever precision the run trained
+    in (--bf16, --bf16_hybrid: its parameters are fp32), as the JAX serve
+    builds them."""
+    return argparse.Namespace(**dict(vars(args), params=None, PCA=False,
+                                     bf16=False, bf16_hybrid=False))
 
 
 def load_mnist_predictor(run_dir: str, device: torch.device,

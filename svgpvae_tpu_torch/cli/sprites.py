@@ -89,9 +89,19 @@ plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
 pretraining, no GP; its eval pass is the test_character reconstruction
 MSE, and its metric rows the eight VAE columns.
 
-Not ported yet, refused with an error: --bf16, --bf16_hybrid and
---data_parallel.  --s2d64 and --fused_upsample are TPU rewrites that the
-port does not carry.
+Mixed precision, as the JAX CLI: --bf16 runs the SpritesVAE and the repr
+net in bfloat16 (the flax meaning of dtype=, nn.nets.cast_layer), and
+--bf16_hybrid the same with the VAE's heads (enc_out, dec_out and the
+last elu) in fp32.  Their parameters, the Adam state and the checkpoints
+stay fp32.  The pretraining runs the bf16 repr net under the fp32
+classification head; every GP input is cast to fp32 (the encodings and
+aux data of the training step, the eval pass's encode, fit and cgen), so
+B1, B2 and B3 take fp32 only.  The cgen images are pickled as fp32
+(numpy has no bf16).
+
+Not ported yet, refused with an error: --data_parallel.  --s2d64 and
+--fused_upsample are TPU rewrites that the port does not carry (the JAX
+CLI turns --s2d64 off under bf16 too).
 """
 
 from __future__ import annotations
@@ -112,8 +122,9 @@ from svgpvae_tpu_torch import data, models, ops, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
                                          checkpoint_state, default_eps_fn,
-                                         open_run_dir, restore_shuffle,
-                                         resume, shuffle_state, sync)
+                                         host_array, open_run_dir,
+                                         restore_shuffle, resume,
+                                         shuffle_state, sync)
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils.convert import (params_from_jax,
                                              sprites_train_params_from_jax)
@@ -228,8 +239,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = {  # flag -> is it set?
-    "--bf16": lambda a: a.bf16,
-    "--bf16_hybrid": lambda a: a.bf16_hybrid,
     "--data_parallel": lambda a: a.data_parallel != 0,
 }
 TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
@@ -347,21 +356,33 @@ def trainable_predicate(args) -> Callable[[str], bool]:
     return predicate
 
 
+def net_dtypes(args) -> tuple:
+    """(compute dtype, head dtype) of the SpritesVAE, the first also the
+    repr net's: bfloat16 under --bf16 or --bf16_hybrid, the hybrid's heads
+    fp32; (None, None), the parameters' dtype, without either."""
+    if not (args.bf16 or args.bf16_hybrid):
+        return None, None
+    return torch.bfloat16, torch.float32 if args.bf16_hybrid else None
+
+
 def build_model(args, splits: dict, N_train: int, device: torch.device):
     """{"vae", "repr", "gp"} and the pretraining head on `device`: the GP
     initialised as the JAX CLI does, the nets from flax's init drawn
     from one generator seeded by --seed; or everything (the head if
-    present) from --params.  --elbo VAE: {"vae"} alone and no head."""
+    present) from --params.  The nets compute in `net_dtypes(args)`, the
+    head in fp32.  --elbo VAE: {"vae"} alone and no head."""
     n_chars = N_train // FRAMES_PER_CHAR
     gen = torch.Generator().manual_seed(args.seed)
-    vae = SpritesVAE(L=args.L, generator=gen)
+    dtype, head_dtype = net_dtypes(args)
+    vae = SpritesVAE(L=args.L, generator=gen, dtype=dtype,
+                     head_dtype=head_dtype)
     f32 = dict(device=device, dtype=torch.float32)
     if "SVGPVAE" not in args.elbo:
         if args.params:
             with np.load(args.params) as z:
                 vae.load_state_dict(params_from_jax(dict(z))["vae"])
         return {"vae": vae.to(**f32)}, None
-    repr_net = SpritesReprNet(L=args.L_character, generator=gen)
+    repr_net = SpritesReprNet(L=args.L_character, generator=gen, dtype=dtype)
     head = ClassificationHead(args.L_character, n_chars, generator=gen)
     if args.PCA:
         gplvm_init, ip_init = data.sprites_pca_init(
@@ -383,7 +404,9 @@ def build_model(args, splits: dict, N_train: int, device: torch.device):
             port = sprites_train_params_from_jax(
                 dict(z), cfg, args.L_action, use_se_kernel=args.K_SE)
         head = port.pop("head", head)
-        params = port
+        vae.load_state_dict(port["vae"].state_dict())
+        repr_net.load_state_dict(port["repr"].state_dict())
+        params["gp"] = port["gp"]
     return {k: v.to(**f32) for k, v in params.items()}, head.to(**f32)
 
 
@@ -486,6 +509,12 @@ def main(argv=None, splits: Optional[dict] = None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
+    if args.bf16 or args.bf16_hybrid:
+        print("--bf16" + ("_hybrid: the nets compute in bfloat16, the VAE's "
+                          "heads in fp32" if args.bf16_hybrid else
+                          ": the nets compute in bfloat16")
+              + "; their parameters, Adam and the GP math (and every "
+              "kernel) stay fp32")
     if splits is None:
         ensure_dataset(args)
         splits = data.load_sprites(args.sprites_data_path)
@@ -700,7 +729,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
             mu, var = models.batching_encode_svgpvae(params["vae"], im,
                                                      clip_qs=args.clip_qs)
             enc.append((mu, var, models.sprites_aux_data(
-                params["repr"], im, train_action[lo:hi], FRAMES_PER_CHAR)))
+                params["repr"], im, train_action[lo:hi], FRAMES_PER_CHAR)
+                .to(mu.dtype)))  # the fit (B3) takes fp32
         means, variances, aux = (torch.cat(x) for x in zip(*enc))
         t, lc = stage("encode", t, lc)
         terms = models.precompute_gp_params(params["gp"], means, variances,
@@ -866,7 +896,7 @@ def write_eval_outputs(run_dir: str, epoch: int, ev: dict, pics, tgts,
         for name, x in (("cgen_images.p", pics),
                         ("cgen_images_target.p", tgts)):
             with open(os.path.join(run_dir, name), "wb") as f:
-                pickle.dump(x.cpu().numpy(), f)
+                pickle.dump(host_array(x), f)
     with open(os.path.join(run_dir, "pics", "test_metrics.txt"), "a") as f:
         f.write(f"{epoch + 1},{round(ev['test_mse'], 4)},"
                 f"{round(ev['cgen_mse'], 4)}\n")

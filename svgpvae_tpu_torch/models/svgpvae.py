@@ -155,6 +155,11 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     autograd) from `frames_per_char` consecutive frames per character,
     and p_v is clipped to PVAR_CLIP (MNIST: floored at MNIST_PVAR_FLOOR).
 
+    The nets may compute in bfloat16 (--bf16); the GP math stays in the
+    images' dtype: the encoder's mean and variance and the SPRITES aux
+    data are cast to it before the GP block, and the decoder's output
+    before the pixel error (as JAX casts).  `eps` comes in p_m's dtype.
+
     GECO:
       recon = sum_b( mean_px_sq_err - kappa^2 )
       C_ma' = alpha * C_ma + (1 - alpha) * recon / b
@@ -170,13 +175,15 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     b = images.shape[0]
     K = images.shape[1] * images.shape[2] * images.shape[3]
 
+    dtype = images.dtype
     qnet_mu, qnet_var = vae.encode(images)
     L = qnet_mu.shape[1]
+    qnet_mu, qnet_var = qnet_mu.to(dtype), qnet_var.to(dtype)
     if clip_qs:
         qnet_var = torch.clamp(qnet_var, *QVAR_CLIP)
     if repr_net is not None:
         aux_data = sprites_aux_data(repr_net, images, aux_data,
-                                    frames_per_char)
+                                    frames_per_char).to(dtype)
 
     titsias = gp_params.config.titsias
     inverse_impl = "pallas" if gp_block_impl.endswith("_pallas") else "chol"
@@ -222,7 +229,7 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     latent_samples = p_m + eps * linalg.stable_sqrt(p_v)
     recon_images = vae.decode(latent_samples)
 
-    sq_err = (images - recon_images) ** 2
+    sq_err = (images - recon_images.to(dtype)) ** 2
     if geco:
         per_image_mse = torch.mean(sq_err, dim=(1, 2, 3))
         recon_loss = torch.sum(per_image_mse - kappa * kappa)
@@ -264,7 +271,8 @@ def predict_cgen_mnist(vae, gp_params, test_batch, train_means: Tensor,
 def sprites_aux_data(repr_net, images: Tensor, action_ids: Tensor,
                      frames_per_char: int) -> Tensor:
     """SPRITES auxiliary data: repr net -> per-character mean -> broadcast
-    back to the frames -> prepend the action-id column.  The batch holds
+    back to the frames -> prepend the action-id column, in the repr net's
+    compute dtype (callers cast it for the GP).  The batch holds
     `frames_per_char` consecutive frames per character.  Differentiable
     (the training forward); test-time callers run it under no_grad."""
     emb = repr_net(images)  # (b, L_char)
@@ -276,11 +284,15 @@ def sprites_aux_data(repr_net, images: Tensor, action_ids: Tensor,
 
 @torch.no_grad()
 def batching_encode_svgpvae(vae, images: Tensor, clip_qs: bool = True):
-    """Encode a batch to (means, vars) for the test pipelines."""
+    """Encode a batch to (means, vars) for the test pipelines, in at
+    least fp32 (they condition GP posteriors) whatever the encoder's
+    compute dtype; the variance clip comes first, in that dtype, as in
+    JAX."""
     qnet_mu, qnet_var = vae.encode(images)
     if clip_qs:
         qnet_var = torch.clamp(qnet_var, *QVAR_CLIP)
-    return qnet_mu, qnet_var
+    dt = torch.promote_types(qnet_mu.dtype, torch.float32)
+    return qnet_mu.to(dt), qnet_var.to(dt)
 
 
 def precompute_gp_params(gp_params, means: Tensor, variances: Tensor,
@@ -328,7 +340,8 @@ def predict_cgen_sprites(vae, gp_params, repr_net, images: Tensor,
     emb = repr_net(ctx_images)  # (n_char * n_context, d)
     char_mean = emb.view(n_char, n_context, -1).mean(dim=1)
     char_vecs = torch.repeat_interleave(char_mean, fpc - n_context, dim=0)
-    aux_target = torch.cat([tgt_ids.to(emb.dtype)[:, None], char_vecs], dim=1)
+    aux_target = torch.cat([tgt_ids.to(emb.dtype)[:, None], char_vecs],
+                           dim=1).to(images.dtype)  # GP math in fp32
 
     p_m, p_v = gpm.posterior_from_precomputed(
         gp_params, aux_target, mean_terms, Sigma_inv, Kmm_inv)

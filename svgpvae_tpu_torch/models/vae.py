@@ -43,7 +43,9 @@ def forward_pass_vae(vae, batch, eps: Tensor,
     """elbo = -recon / (2 sigma^2) - KL(q || N(0, I)); the reported recon
     loss is the per-pixel MSE sum.  batch = (images NHWC, aux); the CVAE
     reads the angle from aux column 1.  `eps` (b, L) is the
-    reparameterisation noise."""
+    reparameterisation noise, cast to the encoder's output dtype (JAX
+    draws it there): under --bf16 the latent sample and the KL are bf16,
+    and the pixel error is promoted to the images' fp32."""
     images, aux_data = batch
     K = images.shape[1] * images.shape[2] * images.shape[3]
 
@@ -55,7 +57,8 @@ def forward_pass_vae(vae, batch, eps: Tensor,
     if clip_qs:
         qnet_var = torch.clamp(qnet_var, *QVAR_CLIP)
 
-    latent_samples = qnet_mu + eps * linalg.stable_sqrt(qnet_var)
+    latent_samples = qnet_mu + eps.to(qnet_mu.dtype) * linalg.stable_sqrt(
+        qnet_var)
     recon_images = (vae.decode(latent_samples, aux_data[:, 1]) if cvae
                     else vae.decode(latent_samples))
 
@@ -75,10 +78,11 @@ def predict_cvae(vae, images_train: Tensor, aux_train: Tensor,
     `eps` (N_train, L), average the samples of each object id (aux column
     0, in [0, n_objects); an index_add_ segment mean, count floored at 1),
     decode each test row's object mean at its angle.  Returns (recon
-    images, mean per-pixel squared error)."""
+    images, mean per-pixel squared error).  The latents and their means
+    are in the encoder's output dtype (`eps` is cast to it), as in JAX."""
     angles = aux_train[:, 1]
     qnet_mu, qnet_var = vae.encode(cvae_inputs(images_train, angles), angles)
-    latent = qnet_mu + eps * linalg.stable_sqrt(qnet_var)
+    latent = qnet_mu + eps.to(qnet_mu.dtype) * linalg.stable_sqrt(qnet_var)
 
     ids = aux_train[:, 0].long()
     sums = latent.new_zeros(n_objects, latent.shape[1]).index_add_(

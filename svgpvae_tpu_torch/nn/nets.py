@@ -12,6 +12,17 @@ pad explicitly and use padding=0.  At stride 1 SAME is (1, 1).
 Every constructor initialises as flax does (`init_like_flax_`): conv and
 linear weights from lecun-normal, biases zero, drawn from the optional
 `generator` (the global RNG without one).
+
+The image nets take a compute dtype, `dtype`, with the meaning of flax's
+`dtype=` (`cast_layer`): each conv and linear layer casts its input,
+weight and bias to it and computes and returns in it, while the
+parameters keep their own dtype (fp32 under --bf16, so autograd returns
+fp32 gradients and Adam and the checkpoints stay fp32).  None computes in
+the parameters' dtype.  `SpritesVAE` also takes `head_dtype`, the dtype of
+its encoder head and output conv (--bf16_hybrid: fp32 heads on bf16
+trunks); every image net's `set_compute_dtype` sets both.  The
+elementwise ops between layers (elu, the upsampling, the pooling,
+safe_exp) run in the dtype their input arrives in, as in flax.
 """
 
 from __future__ import annotations
@@ -60,6 +71,31 @@ def safe_exp(x: Tensor) -> Tensor:
     return torch.exp(torch.clamp(x, max=SAFE_EXP_CAP))
 
 
+def cast_layer(layer: nn.Module, x: Tensor,
+               dtype: Optional[torch.dtype] = None) -> Tensor:
+    """A Conv2d or Linear applied as a flax layer with `dtype=` is: input,
+    weight and bias cast to `dtype` (None: the weight's), the product in
+    that dtype.  The casts are differentiable, so the parameters' gradients
+    come back in their own dtype."""
+    dt = dtype or layer.weight.dtype
+    w = layer.weight.to(dt)
+    b = None if layer.bias is None else layer.bias.to(dt)
+    if isinstance(layer, nn.Conv2d):
+        return F.conv2d(x.to(dt), w, b, layer.stride, layer.padding,
+                        layer.dilation, layer.groups)
+    return F.linear(x.to(dt), w, b)
+
+
+class ComputeDtype:
+    """The compute dtypes of an image net (see the module doc)."""
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype],
+                          head_dtype: Optional[torch.dtype] = None) -> None:
+        """`dtype` for the layers, `head_dtype` (None: `dtype`) for
+        SpritesVAE's heads."""
+        self.dtype, self.head_dtype = dtype, head_dtype or dtype
+
+
 def upsample2x(x: Tensor) -> Tensor:
     """Nearest-neighbour 2x spatial upsampling, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
@@ -88,19 +124,24 @@ def same_pad_stride2(x: Tensor) -> Tensor:
     return F.pad(x, (0, 1, 0, 1))
 
 
-class SpritesVAE(nn.Module):
+class SpritesVAE(ComputeDtype, nn.Module):
     """Conv VAE for 64x64x3 frames: encoder 6x Conv(16, 3, SAME, elu) with
     strides 1/2/1/2/1/2 -> Linear(2L); decoder Linear(1024) -> (16, 8, 8)
     -> 3x [up2 + 2x Conv(16, 3, SAME, elu)] -> Conv(3, 3, SAME) -> elu.
 
     The Linear layers use torch's (C, H, W) flatten order;
     utils.convert.params_from_jax permutes flax's (H, W, C) order to it.
+    `dtype` is the compute dtype; `head_dtype` (None: `dtype`) that of
+    enc_out and dec_out and of the last elu, as flax's SpritesVAE.
     """
 
     def __init__(self, L: int = 64,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None,
+                 head_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.L = L
+        self.set_compute_dtype(dtype, head_dtype)
         f = FILTERS
         self.enc_convs = nn.ModuleList(
             conv3x3(3 if i == 0 else f, f, stride=s)
@@ -117,33 +158,37 @@ class SpritesVAE(nn.Module):
         for conv in self.enc_convs:
             if conv.stride[0] == 2:
                 h = same_pad_stride2(h)
-            h = F.elu(conv(h))
-        enc = self.enc_out(h.flatten(1))
+            h = F.elu(cast_layer(conv, h, self.dtype))
+        enc = cast_layer(self.enc_out, h.flatten(1), self.head_dtype)
         return enc[:, :self.L], safe_exp(enc[:, self.L:])
 
     def decode(self, latents: Tensor) -> Tensor:
         """(b, L) -> NHWC images (b, 64, 64, 3)."""
-        h = self.dec_in(latents).view(-1, FILTERS, 8, 8)
+        h = cast_layer(self.dec_in, latents, self.dtype).view(
+            -1, FILTERS, 8, 8)
         for i in range(3):
             h = upsample2x(h)
-            h = F.elu(self.dec_convs[2 * i](h))
-            h = F.elu(self.dec_convs[2 * i + 1](h))
-        return F.elu(self.dec_out(h)).permute(0, 2, 3, 1)
+            h = F.elu(cast_layer(self.dec_convs[2 * i], h, self.dtype))
+            h = F.elu(cast_layer(self.dec_convs[2 * i + 1], h, self.dtype))
+        return F.elu(cast_layer(self.dec_out, h, self.head_dtype)).permute(
+            0, 2, 3, 1)
 
     def forward(self, images: Tensor):
         mean, var = self.encode(images)
         return self.decode(mean), mean, var
 
 
-class SpritesReprNet(nn.Module):
+class SpritesReprNet(ComputeDtype, nn.Module):
     """Character-style embedder: 3x Conv(L, 2, stride 2, elu) + 8x8 average
-    pool -> (b, L) per frame.  (SAME padding of a 2x2 stride-2 conv on an
-    even size is zero.)"""
+    pool -> (b, L) per frame, in the compute dtype `dtype`.  (SAME padding
+    of a 2x2 stride-2 conv on an even size is zero.)"""
 
     def __init__(self, L: int = 16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.L = L
+        self.set_compute_dtype(dtype)
         self.convs = nn.ModuleList(
             conv2d(3 if i == 0 else L, L, 2, stride=2) for i in range(3))
         init_like_flax_(self, generator)
@@ -152,13 +197,15 @@ class SpritesReprNet(nn.Module):
         """NHWC images (b, 64, 64, 3) -> (b, L)."""
         h = images.permute(0, 3, 1, 2)
         for conv in self.convs:
-            h = F.elu(conv(h))
+            h = F.elu(cast_layer(conv, h, self.dtype))
         return h.mean(dim=(2, 3))
 
 
 class ClassificationHead(nn.Module):
     """Linear classifier stacked on the repr net for its pretraining:
-    (b, in_features) embeddings -> (b, num_classes) logits."""
+    (b, in_features) embeddings -> (b, num_classes) logits, in the
+    parameters' dtype (flax's fp32 head promotes the repr net's bf16
+    embeddings under --bf16)."""
 
     def __init__(self, in_features: int, num_classes: int = 1000,
                  generator: Optional[torch.Generator] = None):
@@ -167,13 +214,13 @@ class ClassificationHead(nn.Module):
         init_like_flax_(self, generator)
 
     def forward(self, embeddings: Tensor) -> Tensor:
-        return self.dense(embeddings)
+        return cast_layer(self.dense, embeddings)
 
 
 MNIST_FILTERS = 8  # the reference's conv width
 
 
-class MnistVAE(nn.Module):
+class MnistVAE(ComputeDtype, nn.Module):
     """Conv VAE for rotated MNIST: encoder 3x Conv(8, 3, stride 2, VALID,
     elu) (28 -> 13 -> 6 -> 2) -> Linear(2L), split into mean and
     safe_exp(log-variance); decoder Linear(128) -> (8, 4, 4) -> up2 +
@@ -182,12 +229,15 @@ class MnistVAE(nn.Module):
 
     The Linear layers use torch's (C, H, W) flatten order;
     utils.convert.mnist_vae_state permutes flax's (H, W, C) order to it.
+    `dtype` is the compute dtype.
     """
 
     def __init__(self, L: int = 16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.L = L
+        self.set_compute_dtype(dtype)
         f = MNIST_FILTERS
         self.enc_convs = nn.ModuleList(
             conv2d(1 if i == 0 else f, f, 3, stride=2) for i in range(3))
@@ -199,13 +249,14 @@ class MnistVAE(nn.Module):
         """NHWC images (b, 28, 28, 1) -> (mean (b, L), var (b, L))."""
         h = images.permute(0, 3, 1, 2)
         for conv in self.enc_convs:
-            h = F.elu(conv(h))
-        enc = self.enc_out(h.flatten(1))
+            h = F.elu(cast_layer(conv, h, self.dtype))
+        enc = cast_layer(self.enc_out, h.flatten(1), self.dtype)
         return enc[:, :self.L], safe_exp(enc[:, self.L:])
 
     def decode(self, latents: Tensor) -> Tensor:
         """(b, L) -> NHWC images (b, 28, 28, 1)."""
-        return mnist_decode(self.dec_in, self.dec_convs, latents)
+        return mnist_decode(self.dec_in, self.dec_convs, latents,
+                            dtype=self.dtype)
 
     def forward(self, images: Tensor):
         mean, var = self.encode(images)
@@ -222,14 +273,16 @@ def mnist_decoder_layers(L: int, in_maps: int = MNIST_FILTERS):
 
 
 def mnist_decode(dec_in: nn.Linear, dec_convs: nn.ModuleList,
-                 latents: Tensor, maps: Optional[Tensor] = None) -> Tensor:
+                 latents: Tensor, maps: Optional[Tensor] = None,
+                 dtype: Optional[torch.dtype] = None) -> Tensor:
     """(b, L) -> (8, 4, 4) maps [+ `maps` (b, c, 4, 4) appended as
-    channels] -> 3x [up2 + conv, elu] -> NHWC images (b, 28, 28, 1)."""
-    h = dec_in(latents).view(-1, MNIST_FILTERS, 4, 4)
+    channels] -> 3x [up2 + conv, elu] -> NHWC images (b, 28, 28, 1), in
+    the compute dtype `dtype`."""
+    h = cast_layer(dec_in, latents, dtype).view(-1, MNIST_FILTERS, 4, 4)
     if maps is not None:
-        h = torch.cat([h, maps], dim=1)
+        h = torch.cat([h, maps.to(h.dtype)], dim=1)
     for conv in dec_convs:
-        h = F.elu(conv(upsample2x(h)))
+        h = F.elu(cast_layer(conv, upsample2x(h), dtype))
     return h.permute(0, 2, 3, 1)
 
 
@@ -238,7 +291,7 @@ def _sin_cos(angles: Tensor) -> Tensor:
     return torch.stack([torch.sin(angles), torch.cos(angles)], dim=1)
 
 
-class MnistCVAE(nn.Module):
+class MnistCVAE(ComputeDtype, nn.Module):
     """Conditional conv VAE for rotated MNIST: sin/cos of the rotation
     angle enter the encoder twice (as 2 input channels after the image,
     and beside the flattened features before Linear(2L)) and the decoder
@@ -248,13 +301,16 @@ class MnistCVAE(nn.Module):
     `encode` takes the 3-channel NHWC input that models.vae.cvae_inputs
     builds ([image, sin map, cos map]).  The Linear layers use torch's
     (C, H, W) order; utils.convert.cvae_params_from_jax permutes flax's
-    (H, W, C) order to it.
+    (H, W, C) order to it.  `dtype` is the compute dtype; the angles are
+    cast to it before their sin and cos, as in flax.
     """
 
     def __init__(self, L: int = 16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.L = L
+        self.set_compute_dtype(dtype)
         f = MNIST_FILTERS
         self.enc_convs = nn.ModuleList(
             conv2d(3 if i == 0 else f, f, 3, stride=2) for i in range(3))
@@ -267,16 +323,20 @@ class MnistCVAE(nn.Module):
         """NHWC (b, 28, 28, 3), angles (b,) -> (mean (b, L), var (b, L))."""
         h = images3.permute(0, 3, 1, 2)
         for conv in self.enc_convs:
-            h = F.elu(conv(h))
-        enc = self.enc_out(torch.cat([h.flatten(1), _sin_cos(angles)], 1))
+            h = F.elu(cast_layer(conv, h, self.dtype))
+        sc = _sin_cos(angles.to(h.dtype))
+        enc = cast_layer(self.enc_out, torch.cat([h.flatten(1), sc], 1),
+                         self.dtype)
         return enc[:, :self.L], safe_exp(enc[:, self.L:])
 
     def decode(self, latents: Tensor, angles: Tensor) -> Tensor:
         """(b, L), angles (b,) -> NHWC images (b, 28, 28, 1)."""
-        sc = _sin_cos(angles)
+        dt = self.dtype or self.dec_in.weight.dtype
+        sc = _sin_cos(angles.to(dt))
         maps = sc[:, :, None, None].expand(-1, -1, 4, 4)
         return mnist_decode(self.dec_in, self.dec_convs,
-                            torch.cat([latents, sc], 1), maps)
+                            torch.cat([latents.to(dt), sc], 1), maps,
+                            dtype=self.dtype)
 
     def forward(self, images3: Tensor, angles: Tensor):
         mean, var = self.encode(images3, angles)

@@ -8,6 +8,8 @@
 Import the submodules directly: the function `fused_kernel_stats` shares
 its module's name, so it is not re-exported here.  `launch_counts` reads
 every kernel wrapper's launch counter; `reset_launch_counts` zeroes them.
+`KernelInputRecorder` records the dtype of every tensor the GP modules
+hand to the kernels' wrappers.
 """
 
 
@@ -28,3 +30,43 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+class KernelInputRecorder:
+    """While open, `seen` collects (name, dtype) of every tensor handed,
+    by position or by keyword, to the kernels' wrappers where the GP
+    modules call them: B2 `gp_stats` and the forward-only
+    `gp_sufficient_stats`, B3 `fused_kernel_stats` (gp.svgp), B1
+    `chol_inverse` (gp.fused).  It wraps those names and counts no
+    launch."""
+
+    def __enter__(self):
+        from svgpvae_tpu_torch.gp import fused, svgp
+        self.seen, self.saved = [], []
+        for owner, name in ((svgp, "gp_stats"), (svgp, "gp_sufficient_stats"),
+                            (svgp, "fused_kernel_stats"),
+                            (fused, "chol_inverse")):
+            self._wrap(owner, name)
+        return self
+
+    def _wrap(self, owner, name):
+        import torch
+        fn = getattr(owner, name)
+        self.saved.append((owner, name, fn))
+
+        def recording(*args, **kwargs):
+            self.seen.extend((name, a.dtype) for a in (*args, *kwargs.values())
+                             if isinstance(a, torch.Tensor))
+            return fn(*args, **kwargs)
+        setattr(owner, name, recording)
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        return False
+
+    def names(self) -> set:
+        return {n for n, _ in self.seen}
+
+    def dtypes(self) -> set:
+        return {d for _, d in self.seen}

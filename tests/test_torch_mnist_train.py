@@ -371,11 +371,12 @@ def test_value_clip_clips_gradients_before_adam():
 @pytest.mark.parametrize("flag", [
     ["--elbo", "GPVAE_Casale", "--data_parallel", "2"],
     ["--elbo", "SVIGP_Hensman", "--x64"],
-    ["--show_pics"], ["--epoch_chunk", "2"], ["--bf16"],
+    ["--show_pics"], ["--epoch_chunk", "2"],
+    ["--elbo", "GPVAE_Casale", "--bf16"],
     ["--elbo", "GPVAE_Casale", "--x64"],
     ["--data_parallel", "2"], ["--elbo", "GPVAE_Casale", "--reshuffle"],
     ["--elbo", "SVIGP_Hensman", "--resume_dir", "x"],
-    ["--eval_bundle"]])
+    ["--eval_bundle"], ["--elbo", "SVIGP_Hensman", "--bf16"]])
 def test_unported_flags_are_refused(flag, tiny_splits):
     argv = SLICE_ARGV + ["--device", "cpu"] + flag
     with pytest.raises(SystemExit, match="not ported"):
@@ -402,6 +403,9 @@ def test_mnist_entry_point_imports_no_jax():
         "import svgpvae_tpu_torch.cli.mnist, svgpvae_tpu_torch.ops\n"
         "import svgpvae_tpu_torch.ops.chol_inverse\n"
         "import svgpvae_tpu_torch.utils.profiling\n"
+        "import svgpvae_tpu_torch.nn.nets, svgpvae_tpu_torch.cli.serve\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import profile_torch_mnist_step\n"
         "added = sorted(mods() - before)\n"
         "assert not added, added\n"
         "print('ok')\n")

@@ -203,9 +203,10 @@ def test_dispatch_cells():
 
 @pytest.mark.parametrize("flag", [
     ["--elbo", "VAE", "--data_parallel", "2"],
-    ["--test_set_metrics", "--bf16"],
-    ["--bf16"], ["--bf16_hybrid"], ["--data_parallel", "2"],
-    ["--profile_dir", "x", "--bf16_hybrid"],
+    ["--test_set_metrics", "--data_parallel", "2"],
+    ["--bf16", "--s2d64"], ["--bf16_hybrid", "--fused_upsample"],
+    ["--data_parallel", "2"],
+    ["--profile_dir", "x", "--data_parallel", "4"],
     ["--reshuffle", "--data_parallel", "2"],
     ["--s2d64"], ["--fused_upsample"]])
 def test_unported_flags_are_refused(flag, corpus):
@@ -265,9 +266,9 @@ def test_main_refuses_a_missing_cuda_device(corpus):
 
 
 def test_sprites_entry_point_imports_no_jax():
-    """Importing the SPRITES trainer adds no module of jax, flax, optax or
-    sklearn (compared before/after, so a preloading hook cannot mask an
-    import)."""
+    """Importing the SPRITES trainer, the nets and the card's gate and
+    profile tools adds no module of jax, flax, optax or sklearn (compared
+    before/after, so a preloading hook cannot mask an import)."""
     code = (
         "import sys\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn',\n"
@@ -277,6 +278,9 @@ def test_sprites_entry_point_imports_no_jax():
         "before = mods()\n"
         "import svgpvae_tpu_torch.cli.sprites\n"
         "import svgpvae_tpu_torch.data.sprites, svgpvae_tpu_torch.utils\n"
+        "import svgpvae_tpu_torch.nn.nets\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import quality_gate, profile_torch_sprites_step\n"
         "added = sorted(mods() - before)\n"
         "assert not added, added\n"
         "print('ok')\n")

@@ -1,7 +1,8 @@
 """Profile the PyTorch port's rotated-MNIST training step on a CUDA card.
 
     PYTHONPATH=. python3 tools/profile_torch_mnist_step.py [--steps 20] \
-        [--elbo SVGPVAE_Hensman|VAE|CVAE|SVIGP_Hensman|GPVAE_Casale]
+        [--elbo SVGPVAE_Hensman|VAE|CVAE|SVIGP_Hensman|GPVAE_Casale] \
+        [--precision fp32|bf16]
 
 The north-star step of `svgpvae_tpu_torch.cli.mnist` (Hensman + GECO,
 batch 256, L = 16, m = 32, the 36-digit synthetic set with its 800-object
@@ -10,9 +11,10 @@ a baseline's step at the same widths (VAE and CVAE with --clip_qs; the
 deep SVIGP with --PCA --ip_joint --GP_joint --ov_joint --clip_qs; a
 Casale joint step with --GP_joint --ov_joint --clip_qs --PCA, the
 full-train encode of 8,100 images included), built from the driver's
-own pieces.  After WARMUP steps it times --steps steps on the host
-clock (each ended by torch.cuda.synchronize), then runs --steps more under
-torch.profiler and prints:
+own pieces; --precision bf16 adds cli.mnist's --bf16 (SVGPVAE, VAE,
+CVAE: the net in bfloat16, the GP in fp32).  After WARMUP steps it times
+--steps steps on the host clock (each ended by torch.cuda.synchronize),
+then runs --steps more under torch.profiler and prints:
   * the step time without and with the profiler;
   * the device's busy time per step (the union of the CUDA kernels'
     intervals, user annotations left out) and its idle share of the
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from quality_gate import PRECISION_FLAGS
 from svgpvae_tpu_torch import data, models, train
 from svgpvae_tpu_torch.cli import mnist
 
@@ -48,17 +51,17 @@ BASELINE_ARGV = {  # the flags of tools/baselines_gate.py's runs
 }
 
 
-def build_step(elbo: str, splits: dict, device):
+def build_step(elbo: str, splits: dict, device, extra=()):
     """(args, params, loss_fn, train split) of one --elbo's training
-    step."""
+    step, with cli.mnist's flags `extra` added."""
     if elbo == "SVGPVAE_Hensman":
-        args = mnist.build_parser().parse_args(ARGV)
+        args = mnist.build_parser().parse_args(ARGV + list(extra))
         args.gp_block_impl = models.resolve_gp_block_impl(
             args.gp_block_impl, device=device)
     else:
         args = mnist.build_parser().parse_args(
             BASELINE_ARGV[elbo] + ["--dataset", "36", "--device", "cuda",
-                                   "--seed", "0"])
+                                   "--seed", "0", *extra])
     eps = mnist.default_eps_fn(args.seed, device)
     n_train = len(splits["train"]["images"])
     if elbo == "SVIGP_Hensman":
@@ -103,6 +106,7 @@ def main() -> None:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--elbo", default="SVGPVAE_Hensman",
                    choices=["SVGPVAE_Hensman", *BASELINE_ARGV])
+    p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     opts = p.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -114,7 +118,8 @@ def main() -> None:
     base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
     splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
     n_train = len(splits["train"]["images"])
-    args, params, loss_fn, train_d = build_step(opts.elbo, splits, device)
+    args, params, loss_fn, train_d = build_step(
+        opts.elbo, splits, device, PRECISION_FLAGS[opts.precision])
     trainable = train.trainable_tensors(params, lambda name: True)
     state = train.TrainState(params=params,
                              optimizer=train.make_optimizer(trainable,
@@ -151,7 +156,8 @@ def main() -> None:
                and not e.is_user_annotation]
     busy = busy_ms(kernels) / n
     p50 = float(np.median(plain))
-    print(f"{opts.elbo}: {n} steps (batch {bs}, L {args.L}, m 32, "
+    print(f"{opts.elbo} {opts.precision}: {n} steps (batch {bs}, L "
+          f"{args.L}, m 32, "
           f"gp_block_impl {args.gp_block_impl}): host step p50 {p50:.3f} "
           f"ms (min "
           f"{min(plain):.3f}, max {max(plain):.3f}), under the profiler "

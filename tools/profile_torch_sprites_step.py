@@ -2,7 +2,7 @@
 
     PYTHONPATH=. python3 tools/profile_torch_sprites_step.py [--steps 20]
         [--chars 1000] [--config hensman|hensman_record|titsias_record|vae]
-        [--gp_block_impl IMPL]
+        [--precision fp32|bf16|bf16_hybrid] [--gp_block_impl IMPL]
 
 The step of `svgpvae_tpu_torch.cli.sprites` at the JAX CLI's defaults
 (Hensman + GECO, batch 500 = 10 characters x 50 frames, L = 64,
@@ -13,8 +13,10 @@ or with the record configuration's flags (--ip_joint --GPLVM_joint
 Titsias without GECO (auto = fused), or the plain VAE (--elbo VAE
 --clip_qs: the SpritesVAE alone), on the synthetic corpus of --chars
 characters, built from the CLI's
-own pieces (no pretraining: it does not change the step's work).  After
-WARMUP steps it times --steps steps on the host clock (each ended by
+own pieces (no pretraining: it does not change the step's work).
+--precision bf16 or bf16_hybrid adds the CLI's --bf16 or --bf16_hybrid
+(the nets in bfloat16, the hybrid's VAE heads in fp32; the GP in fp32).
+After WARMUP steps it times --steps steps on the host clock (each ended by
 torch.cuda.synchronize), then runs --steps more under torch.profiler and
 prints:
   * the step time without and with the profiler;
@@ -44,6 +46,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from profile_torch_mnist_step import busy_ms
+from quality_gate import PRECISION_FLAGS
 from svgpvae_tpu_torch import data, models, ops, train
 from svgpvae_tpu_torch.cli import mnist, sprites
 
@@ -64,6 +67,8 @@ def main() -> None:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--chars", type=int, default=1000)
     p.add_argument("--config", choices=list(CONFIGS), default="hensman")
+    p.add_argument("--precision", choices=list(PRECISION_FLAGS),
+                   default="fp32")
     p.add_argument("--gp_block_impl", default="auto")
     opts = p.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -74,7 +79,8 @@ def main() -> None:
     device = torch.device("cuda")
 
     args = sprites.build_parser().parse_args(
-        CONFIGS[opts.config] + ["--gp_block_impl", opts.gp_block_impl])
+        CONFIGS[opts.config] + PRECISION_FLAGS[opts.precision]
+        + ["--gp_block_impl", opts.gp_block_impl])
     vae_only = args.elbo == "VAE"
     if not vae_only:
         args.gp_block_impl = models.resolve_gp_block_impl(
@@ -128,7 +134,8 @@ def main() -> None:
                and not e.is_user_annotation]
     busy = busy_ms(kernels) / n
     p50 = float(np.median(plain))
-    print(f"{opts.config}: {n} steps (batch {bs}, L {args.L}, m 72, "
+    print(f"{opts.config} {opts.precision}: {n} steps (batch {bs}, L "
+          f"{args.L}, m 72, "
           f"gp_block_impl "
           f"{args.gp_block_impl}, N_train {n_train}): host step p50 "
           f"{p50:.3f} ms (min {min(plain):.3f}, max {max(plain):.3f}), "
