@@ -122,8 +122,10 @@ Phases, each of which raises (nonzero exit) on failure:
      epoch 5), and through cli.sprites.main --elbo VAE on phase 4's corpus
      (1 epoch of 100 steps at batch 500 + eval): no kernel of the port
      may launch (counters zeroed before each run, read after); each
-     run's captured step redone on the CPU as phase 7 (fp32 in order and
-     reversed, f64).  Then phase 6's run with --opt_regime VAE-1 joint-1:
+     run's captured step redone on the CPU as phase 7 (fp32 in order,
+     reversed and in BASELINE_PERMUTATIONS seeded orders, f64; Casale's
+     reordered steps also take the train split's rows, the Taylor sum's,
+     in a reversed or seeded order).  Then phase 6's run with --opt_regime VAE-1 joint-1:
      the VAE epoch launches nothing, the joint epoch B1 once a step;
      phase 7's recheck of its step 40.
  16. the drivers' last single-GPU flags, each run with the launch
@@ -156,13 +158,31 @@ Phases, each of which raises (nonzero exit) on failure:
      step than its fp32 one); (b) phase 6's run with
      --bf16 (phase 6's checks, B2 also in the cgen pass), the same dtype
      checks, its p50 beside phase 6's.
+ 18. --data_parallel, the ranks sharing the one card through gloo (a
+     correctness run, not a scaling one; every rank's launch counts,
+     which each rank zeroes as it starts, are read by rank 0 at the end
+     of the run and must agree across ranks): (a) phase 6's run over 2
+     ranks, held to phase 6's 1-process run (per-step loss and GECO
+     state, final parameters, eval rows) within RECHECK_FACTOR x the
+     same run's fp32-vs-float64 gap (--x64 on the same draws), and its
+     captured step rechecked on the CPU as phase 7; (b) phase 8's widths
+     and flags over 4 ranks at batch 500 (125 frames a rank, shares
+     starting inside characters) on a DP_SPRITES_CHARS-character corpus,
+     beside the same run in 1 process and over 2 ranks, held to the
+     1-process run within RECHECK_FACTOR x its gap to the 2-rank run,
+     and its captured step rechecked on the CPU as phase 9(b); (c) phase
+     13(c)'s serve with the fit over 2 ranks (B3 once a rank), held to
+     the CPU twin as phase 13 holds it.
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
-and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36).
+and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36), and phase
+18's per-rank shares: B2 at (128, 32, 16), (4,050, 32, 16) and
+(125, 72, 64), B3 and B2 at (25,000, 72, 64).
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10-17, and the max error and
+the main paths of phases 4, 6, 8, 10-18, phase 18's summed over its
+runs and ranks under the path "data_parallel", and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -245,9 +265,20 @@ TRAIN_STATS = [("train_step", "mnist", dict(n=256, m=32, L=16, d1=1, d2=8)),
                ("sprites_m288_step", "sprites",
                 dict(n=500, m=288, L=64, d1=8, d2=36)),
                ("sprites_m288_test_batch", "sprites",
-                dict(n=360, m=288, L=64, d1=8, d2=36))]
+                dict(n=360, m=288, L=64, d1=8, d2=36)),
+               # phase 18's per-rank shares: MNIST over 2 ranks (a
+               # minibatch, the cgen pass), SPRITES over 4
+               ("dp2_mnist_rank_step", "mnist",
+                dict(n=128, m=32, L=16, d1=1, d2=8)),
+               ("dp2_mnist_rank_cgen", "mnist",
+                dict(n=4_050, m=32, L=16, d1=1, d2=8)),
+               ("dp4_sprites_rank_step", "sprites",
+                dict(n=125, m=72, L=64, d1=8, d2=16))]
 # B3 at phase 10's SPRITES eval fit (m = 288, L_character 36)
 SPRITES_M288_FIT = dict(n=50_000, m=288, L=64, d1=8, d2=36)
+# B3 (and B2 under --K_SE) at one rank's share of the serve's fit over 2
+# ranks (phase 18)
+DP_RANK_FIT = dict(n=25_000, m=72, L=64, d1=8, d2=16)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -278,7 +309,10 @@ RECHECK_FACTOR = 10.0
 # Phase 15's rechecks sample the CPU's fp32 round-off in four more batch
 # orders (seeded permutations) beside those two: the Casale step's loss
 # gap came out of the two at 6.1e-7 to 4.0e-5 over seven card runs, and
-# in one of them below a tenth of the card's 2.3e-5 (PR 11's runs).
+# in one of them below a tenth of the card's 2.3e-5 (PR 11's runs).  The
+# Casale loss also sums its Taylor terms over the whole train split, so
+# its reordered steps take the train rows in a reversed or seeded order
+# too.
 BASELINE_PERMUTATIONS = 4
 SUM_FLOOR = math.sqrt(256 * 28 * 28) * 2.0 ** -24
 FP32_ULP = 2.0 ** -23
@@ -433,6 +467,30 @@ VAE_PHASE_ARGV = [x for a in TRAIN_ARGV
                   for x in (["VAE-1", "joint-1"] if a == "joint-2" else [a])]
 
 
+# Phase 18: --data_parallel on the one card, every rank a process and the
+# ranks sharing the card through gloo (SVGPVAE_RANKS_PER_DEVICE): a
+# correctness run, not a scaling one.  (a) Phase 6's run over 2 ranks (128
+# rows a rank; the tail batch of 164 rows replicated), against phase 6's
+# 1-process run; the yardstick of its reordering is the same run in
+# float64 (--x64, the plain path), whose draws are phase 6's fp32 draws.
+# (b) Phase 8's widths and flags over 4 ranks at batch 500 (125 frames a
+# rank: ranks 1-3 start inside a character) on a DP_SPRITES_CHARS-
+# character corpus (4 steps, then the eval pass with its fit sharded),
+# against the same run in 1 process; the yardstick is the same run over 2
+# ranks, another summation order.  Each run's captured step (the global
+# batch and draws, the gradients summed across ranks) is also redone on
+# the CPU as phases 7 and 9(b) do.  (c) Phase 13(c)'s serve of phase 8's
+# run dir over 2 ranks (25,000 train rows a rank), held to the CPU twin
+# under phase 13's rule.  The runs' per-step losses, GECO state, final
+# parameters and eval rows are held as hold_to_cpu_gap holds a step, with
+# the parameters' floor at two Adam steps (DP_PARAM_FLOOR_STEPS x lr): an
+# entry whose gradient is round-off may step either way.
+DP_SPRITES_CHARS = 40
+DP_SPRITES_CAPTURE = 2
+DP_PARAM_FLOOR_STEPS = 2
+DP_LR = 1e-3  # both drivers' default --lr
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -555,7 +613,8 @@ def phase_kernels(device) -> list:
     for shape_name, shape, shape_cases in (
             ("slice", SLICE, cases), ("ragged", RAGGED, cases),
             ("mnist_fit", MNIST_FIT, [c for c in cases if c[1] == "mnist"]),
-            ("sprites_m288_fit", SPRITES_M288_FIT, cases[:1])):
+            ("sprites_m288_fit", SPRITES_M288_FIT, cases[:1]),
+            ("dp_rank_fit", DP_RANK_FIT, [cases[0], cases[4]])):
         for name, family, normalize in shape_cases:
             arrs = stats_inputs(rng, family=family, **shape)
             f1, f2, ip1, ip2, prec, py = (torch.from_numpy(a).to(device)
@@ -583,9 +642,11 @@ def phase_kernels(device) -> list:
             plain_ms = cuda_ms(twin)
             # the kernels line's shapes: the serve fits' (the sprites
             # family with and without normalize, the mnist family at the
-            # MNIST fit) and phase 10's m = 288 eval fit
+            # MNIST fit), phase 10's m = 288 eval fit and phase 18's fit
+            # share of a rank
             in_line = ((shape_name == "slice" and family == "sprites")
-                       or shape_name in ("mnist_fit", "sprites_m288_fit"))
+                       or shape_name in ("mnist_fit", "sprites_m288_fit",
+                                         "dp_rank_fit"))
             dev_ms = graph_ms(run, reps=20) if in_line else None
             library_ms = None
             if name == "gp_sufficient_stats":
@@ -998,35 +1059,44 @@ def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
 
 
 def hold_to_cpu_gap(tag, got, r32, r32_more, r64, loss_terms,
-                    sum_floor) -> None:
+                    sum_floor, names=("card", "cpu fp32", "cpu f64"),
+                    floors=None) -> None:
     """The card's loss, GECO state and gradients (`got`) against the CPU
     fp32 twin `r32` (the batch in its order), each within RECHECK_FACTOR x
     the largest fp32-vs-f64 gap of the CPU's orderings (`r32` and the list
-    `r32_more`), floored (see RECHECK_FACTOR)."""
+    `r32_more`), floored (see RECHECK_FACTOR).  Phase 18 holds whole runs
+    the same way (`names` label the three, `floors` sets a key's floor
+    outright)."""
     rows = []
+    floors = floors or {}
+    a, b, c = names
     for k, g in got.items():
         g = g.detach().cpu().double()
         scale = loss_terms if k == "loss" else float(r64[k].abs().max())
         err = float((g - r32[k]).abs().max())
         gap = max(float((r[k] - r64[k]).abs().max())
                   for r in [r32] + r32_more)
-        floor = (FP32_ULP if k in ("loss", "C_ma", "lagrange_mult")
-                 else sum_floor) * scale
+        floor = floors.get(k, (FP32_ULP if k in ("loss", "C_ma",
+                                                 "lagrange_mult")
+                               else sum_floor) * scale)
         limit = RECHECK_FACTOR * max(gap, floor)
         rows.append((k, err, limit))
-        log(f"{tag} {k}: card vs cpu fp32 {err:.3e}, cpu fp32 "
-            f"vs f64 {gap:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
-            + (f"; card {float(g):.9g}, cpu fp32 {float(r32[k]):.9g}, "
-               f"cpu f64 {float(r64[k]):.12g}" if g.numel() == 1 else ""))
+        log(f"{tag} {k}: {a} vs {b} {err:.3e}, {b} "
+            f"vs {c} {gap:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
+            + (f"; {a} {float(g):.9g}, {b} {float(r32[k]):.9g}, "
+               f"{c} {float(r64[k]):.12g}" if g.numel() == 1 else ""))
     bad = [k for k, err, limit in rows if not err <= limit]
     if bad:
-        raise AssertionError(f"{tag}: the card disagrees with the CPU twins "
+        raise AssertionError(f"{tag}: the {a} disagrees with the {b} "
                              f"on {bad}")
     # a limit of 0 is the GECO state of the plain objective: 0 and 1,
     # passed through untouched (and held to equality above)
-    log(f"{tag}: {len(got) - 3} gradients and the loss/GECO within "
-        f"{RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap (floored); worst "
-        f"err/limit {max(err / limit for _, err, limit in rows if limit):.3f}")
+    what = (f"{len(got) - 3} gradients and the loss/GECO within "
+            f"{RECHECK_FACTOR:g}x the cpu fp32-vs-f64 gap" if c == "cpu f64"
+            else f"{len(got)} values within {RECHECK_FACTOR:g}x the {b} vs "
+            f"{c} gap")
+    log(f"{tag}: {what} (floored); worst err/limit "
+        f"{max(err / limit for _, err, limit in rows if limit):.3f}")
 
 
 def phase_sprites_train(splits, argv=SPRITES_ARGV, m=72, l_character=16,
@@ -1725,9 +1795,14 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
     """Phase 15: the captured step redone on the CPU, in fp32 with the
     batch in its order, reversed and in BASELINE_PERMUTATIONS seeded
     orders (every baseline's loss sums over the batch's rows; a reordered
-    batch takes its draw with it, the Casale step's full-train draw as it
-    is) and in f64; the card's loss and gradients held as phase 7 holds
-    MNIST's, to the largest of those orders' gaps."""
+    batch takes its draw with it) and in f64; the card's loss and
+    gradients held as phase 7 holds MNIST's, to the largest of those
+    orders' gaps.  The Casale loss also sums its Taylor terms over the
+    whole train split's latents Z and V, which no batch order permutes:
+    each reordered Casale step also takes the train rows (Z's encode and
+    draw, V's grid rows, the batch's global indices) in the reversed or
+    the seeded order of the same count, so that the orders sample that
+    sum's round-off too."""
     import torch
     from svgpvae_tpu_torch import models, train
     from svgpvae_tpu_torch.cli import mnist, sprites
@@ -1743,31 +1818,47 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
                                      torch.device("cpu"))
               if tag == "casale_train" else None)
 
-    def cpu_step(dtype, order=None):
+    def cpu_step(dtype, order=None, rows=None):
+        """The step on the CPU in `dtype`, the batch in `order` and (Casale)
+        the train split's rows in `rows`."""
         def cpu(t):
             return t.detach().to("cpu", dtype)
 
         def cpu_b(t):  # a batch-axis tensor, in its order or in `order`
             return cpu(t) if order is None else cpu(t)[order]
+
+        def cpu_n(t):  # a train-row-axis tensor, in its order or in `rows`
+            return cpu(t) if rows is None else cpu(t)[rows]
         params = _baseline_step_params(tag, cap, card_params, dtype)
         trainable = {k: t.requires_grad_(True) for k, t in
                      train.named_tensors(params).items() if k in got}
         # cli.mnist captures every draw of the step, cli.sprites its one
         raw = cap.get("draws", [cap["eps"]] if "eps" in cap else [])
-        draws = [cpu(e) for e in raw]
+        draws = [cpu_n(e) if consts is not None
+                 and e.shape[0] == len(consts["images"]) else cpu(e)
+                 for e in raw]
         if draws and draws[-1].shape[0] == cap["batch"][0].shape[0]:
             draws[-1] = cpu_b(raw[-1])
         replay = iter(draws)
+        batch = [cpu_b(x) for x in cap["batch"]]
 
         def eps_fn(kind, shape):
             return next(replay)
 
         if tag == "casale_train":
+            keep = (slice(None) if rows is None else rows)
+            if rows is not None:  # the batch's global indices follow Z's rows
+                where = torch.empty_like(rows)
+                where[rows] = torch.arange(len(rows))
+                batch[1] = batch[1].clone()
+                batch[1][:, 0] = where[batch[1][:, 0].long()].to(dtype)
             loss_fn = mnist.make_casale_loss_fn(
-                args, eps_fn, dict(consts, images=consts["images"].to(dtype),
-                                   angles=consts["angles"].to(dtype)),
+                args, eps_fn, dict(consts,
+                                   images=consts["images"][keep].to(dtype),
+                                   angles=consts["angles"].to(dtype),
+                                   grid_rows=consts["grid_rows"][keep]),
                 cap["regime"],
-                None if cap["held_Z"] is None else cpu(cap["held_Z"]))
+                None if cap["held_Z"] is None else cpu_n(cap["held_Z"]))
         elif tag == "svigp_train":
             loss_fn = mnist.make_svigp_loss_fn()
         elif driver == "sprites":
@@ -1788,7 +1879,7 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
         setattr(models, name, recording)
         try:
             loss, (geco, _) = loss_fn(
-                params, tuple(cpu_b(x) for x in cap["batch"]),
+                params, tuple(batch),
                 train.GECOState(C_ma=cpu(cap["geco"].C_ma),
                                 lagrange_mult=cpu(cap["geco"].lagrange_mult)),
                 cap["step"])
@@ -1819,8 +1910,16 @@ def phase_baseline_cpu_check(tag, res, splits) -> None:
     orders = [torch.arange(b - 1, -1, -1)] + [
         torch.randperm(b, generator=gen)
         for _ in range(BASELINE_PERMUTATIONS)]
+    rows = [None] * len(orders)
+    if consts is not None:
+        n = len(consts["images"])
+        gen = torch.Generator().manual_seed(0)
+        rows = [torch.arange(n - 1, -1, -1)] + [
+            torch.randperm(n, generator=gen)
+            for _ in range(BASELINE_PERMUTATIONS)]
     r32, _ = cpu_step(torch.float32)
-    r32_more = [cpu_step(torch.float32, o)[0] for o in orders]
+    r32_more = [cpu_step(torch.float32, o, r)[0]
+                for o, r in zip(orders, rows)]
     r64, loss_terms = cpu_step(torch.float64)
     log(f"cpu {tag} step {cap['step']} (fp32 in {1 + len(orders)} orders, "
         f"f64): {time.perf_counter() - t0:.2f} s")
@@ -2213,6 +2312,201 @@ def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> dict:
     return paths
 
 
+# --- phase 18 ---------------------------------------------------------------
+
+
+class ranks_share_card:
+    """Context: up to `n` ranks of a data-parallel run on each card
+    (gloo), restored after."""
+
+    def __init__(self, n: int):
+        from svgpvae_tpu_torch.parallel import mesh
+        self.key, self.n = mesh.RANKS_PER_DEVICE_ENV, n
+
+    def __enter__(self):
+        self.old = os.environ.get(self.key)
+        os.environ[self.key] = str(self.n)
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.key, None)
+        else:
+            os.environ[self.key] = self.old
+        return False
+
+
+def run_values(res, scores) -> dict:
+    """A run's per-step losses and GECO state, its final parameters (one
+    vector) and its last eval's `scores`, as float64 CPU tensors."""
+    import torch
+    from svgpvae_tpu_torch import train
+    series = {k: torch.tensor([m[m_k] for m in res["metrics"]],
+                              dtype=torch.float64)
+              for k, m_k in (("loss", "loss"), ("C_ma", "C_ma"),
+                             ("lagrange_mult", "lagrange"))}
+    params = torch.cat([t.detach().reshape(-1).cpu().double() for t in
+                        train.named_tensors(res["state"].params).values()])
+    ev = res["evals"][-1]
+    return dict(series, params=params, **{
+        k: torch.tensor(float(ev[k]), dtype=torch.float64) for k in scores})
+
+
+def hold_runs(tag, got, r32, r64, names, sum_floor) -> None:
+    """A data-parallel run (`got`) against the 1-process run (`r32`),
+    each value within RECHECK_FACTOR x its gap to `r64` (another order or
+    precision of the same run), floored as hold_to_cpu_gap floors; the
+    parameters at DP_PARAM_FLOOR_STEPS Adam steps."""
+    hold_to_cpu_gap(tag, got, r32, [], r64, float(r64["loss"].abs().max()),
+                    sum_floor, names=names,
+                    floors={"params": DP_PARAM_FLOOR_STEPS * DP_LR})
+
+
+def check_step_launches(tag, res, steps, want) -> None:
+    """`steps` steps, each of whose launches on rank 0 satisfy `want`."""
+    if len(res["metrics"]) != steps or not all(
+            want(s) for s in res["step_launches"]):
+        raise AssertionError(f"{tag}: {len(res['metrics'])} steps, rank 0 "
+                             f"launching {res['step_launches']}")
+
+
+def check_rank_launches(tag, res, ranks, want) -> dict:
+    """Every rank's launches over the run: the same on every rank (each
+    runs its share of every step and the replicated passes alike), and
+    `want(counts)` must hold; returns their sum by kernel."""
+    per_rank = res["rank_launches"]
+    if len(per_rank) != ranks:
+        raise AssertionError(f"{tag}: {len(per_rank)} ranks reported")
+    for r, counts in enumerate(per_rank):
+        if counts != per_rank[0] or not want(counts):
+            raise AssertionError(f"{tag}: rank {r} launched {counts}")
+    log(f"{tag}: launches per rank {per_rank}")
+    return {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+
+
+def phase_dp_mnist(mnist_data, phase6) -> dict:
+    """Phase 18(a): phase 6's run over 2 ranks sharing the card."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import mnist
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ranks_share_card(2):
+        dp = mnist.main(TRAIN_ARGV + ["--data_parallel", "2"],
+                        splits=mnist_data, capture_step=CAPTURE_STEP)
+    seconds = time.perf_counter() - t0
+    check_step_launches("mnist over 2 ranks", dp, TRAIN_STEPS,
+                        lambda s: s["chol_inverse"] == 1
+                        and s["gp_sufficient_stats"] >= 1)
+    launches = check_rank_launches(
+        "mnist over 2 ranks", dp, 2,
+        lambda c: c["chol_inverse"] >= TRAIN_STEPS
+        and c["gp_sufficient_stats"] > TRAIN_STEPS)
+    base = mnist.default_eps_fn(0, torch.device(
+        TRAIN_ARGV[TRAIN_ARGV.index("--device") + 1]))
+    x64 = mnist.main(TRAIN_ARGV + ["--x64"], splits=mnist_data,
+                     eps_fn=lambda kind, shape: base(kind, shape).double())
+    scores = ("eval_mse", "test_mse", "cgen_mse")
+    sec = np.asarray(dp["step_seconds"][1:])
+    log(f"mnist over 2 ranks (gloo, one card): {TRAIN_STEPS} steps and the "
+        f"eval in {seconds:.1f} s (spawning rank 1 included); step p50 "
+        f"{1e3 * np.percentile(sec, 50):.2f} ms, p90 "
+        f"{1e3 * np.percentile(sec, 90):.2f} ms (phase 6, 1 process: "
+        f"{1e3 * np.percentile(phase6['step_seconds'][1:], 50):.2f} ms); "
+        f"cgen MSE {dp['cgen_mse']:.6f} (phase 6 {phase6['cgen_mse']:.6f})")
+    hold_runs("mnist over 2 ranks", run_values(dp, scores),
+              run_values(phase6, scores), run_values(x64, scores),
+              ("2 ranks", "1 process", "1 process f64"), SUM_FLOOR)
+    phase_train_cpu_check(dp)
+    return {"data_parallel_mnist": launches}
+
+
+def phase_dp_sprites() -> dict:
+    """Phase 18(b): phase 8's widths over 4 ranks on a small corpus,
+    beside 1 process and 2 ranks."""
+    from svgpvae_tpu_torch import data, ops
+    from svgpvae_tpu_torch.cli import sprites
+
+    corpus = data.generate_synthetic_sprites(
+        n_train_chars=DP_SPRITES_CHARS, n_test_chars=DP_SPRITES_CHARS // 4,
+        n_frames_train=SPRITES_FPC, seed=0)
+    steps = DP_SPRITES_CHARS * SPRITES_FPC // 500
+    runs, launches = {}, {}
+    for ranks in (1, 2, 4):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ranks_share_card(4):
+            res = sprites.main(
+                SPRITES_ARGV + (["--data_parallel", str(ranks)]
+                                if ranks > 1 else []),
+                splits=corpus, capture_step=DP_SPRITES_CAPTURE)
+        check_step_launches(
+            f"sprites over {ranks} rank(s)", res, steps,
+            lambda s: (s["chol_inverse"], s["gp_sufficient_stats"],
+                       s["fused_kernel_stats"]) == (2, 1, 0))
+        sec = np.asarray(res["step_seconds"][1:])
+        log(f"sprites over {ranks} rank(s) (one card): {steps} steps, "
+            f"pretraining and the eval in {time.perf_counter() - t0:.1f} s; "
+            f"step p50 {1e3 * np.percentile(sec, 50):.2f} ms; cgen MSE "
+            f"{res['cgen_mse']:.6f}")
+        if ranks > 1:
+            launches[ranks] = check_rank_launches(
+                f"sprites over {ranks} ranks", res, ranks,
+                lambda c: c["chol_inverse"] >= 2 * steps
+                and c["gp_sufficient_stats"] >= steps
+                and c["fused_kernel_stats"] == 1)
+        runs[ranks] = res
+    scores = ("test_mse", "cgen_mse")
+    hold_runs("sprites over 4 ranks", *(run_values(runs[r], scores)
+                                        for r in (4, 1, 2)),
+              ("4 ranks", "1 process", "2 ranks"), SPRITES_SUM_FLOOR)
+    phase_sprites_cpu_check(runs[4])
+    return {"data_parallel_sprites": launches[4],
+            "data_parallel_sprites_2": launches[2]}
+
+
+def phase_dp_serve(run_dir, corpus, out_dir, unsharded) -> dict:
+    """Phase 18(c): phase 13(c)'s serve with its fit over 2 ranks."""
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import serve
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ranks_share_card(2):
+        res = serve.main(["--run_dir", run_dir, "--device", "cuda", "--out",
+                          os.path.join(out_dir, "sprites_dp.npz"),
+                          "--data_parallel", "2"], splits=corpus)
+    want = {"chol_inverse": 0, "fused_kernel_stats": 1,
+            "gp_sufficient_stats": 0}
+    launches = check_rank_launches("serve over 2 ranks", res, 2,
+                                   lambda c: c == want)
+    if res["fit_launches"] != want:
+        raise AssertionError(f"serve over 2 ranks: the fit launched "
+                             f"{res['fit_launches']}")
+    served, one = res["state"]["served"][0], \
+        unsharded["state"]["served"][0]
+    log(f"serve over 2 ranks: {time.perf_counter() - t0:.1f} s (spawning "
+        f"rank 1 and pickling the corpus to it included), fit "
+        f"{res['seconds']['fit']:.4f} s (1 process "
+        f"{unsharded['seconds']['fit']:.4f} s); against the 1-process fit: "
+        + ", ".join(f"{k} {float((served[k] - one[k]).abs().max()):.3e} "
+                    f"(max|.| {float(one[k].abs().max()):.3e})"
+                    for k in ("p_m", "p_v")))
+    phase_cpu_check("sprites run, fit over 2 ranks", res,
+                    RUN_FIT_NOISE_FACTOR)
+    return {"data_parallel_serve": launches}
+
+
+def phase_data_parallel(mnist_data, phase6, corpus, sprites_run_dir,
+                        out_dir, sprites_served) -> dict:
+    """Phase 18: --data_parallel, every rank's launches counted."""
+    out = phase_dp_mnist(mnist_data, phase6)
+    out.update(phase_dp_sprites())
+    out.update(phase_dp_serve(sprites_run_dir, corpus, out_dir,
+                              sprites_served))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2283,6 +2577,9 @@ def main() -> int:
                           runs.name, train_launches)
     bf16_launches = timed(17, phase_mixed_precision, corpus, mnist_data,
                           train_res, sprites_res)
+    dp_launches = timed(18, phase_data_parallel, mnist_data, train_res,
+                        corpus, sprites_res["run_dir"], runs.name,
+                        sprites_served)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -2292,6 +2589,9 @@ def main() -> int:
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
              **baseline_launches, **flag_launches, **bf16_launches}
+    # phase 18's paths (every rank's launches, summed) under one key
+    paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
+                              for k in KERNELS}
 
     at_slice = {r["name"]: r for r in records
                 if r["shape"] == "slice" and r["family"] == "sprites"

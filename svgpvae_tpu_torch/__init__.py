@@ -18,7 +18,10 @@ Ported so far:
     checkpoints and serving from a run, cli/sprites.py and cli/serve.py;
   * the moving-ball family (the SVGPVAE under both bounds with B1 on the
     per-video stacks, and the exact-GP Pearce, NP and VAE baselines),
-    cli/ball.py.
+    cli/ball.py;
+  * --data_parallel on the three trainers and serve: one process per
+    rank, each launching the kernels on its share of the batch or of the
+    fit's rows, parallel/.
 Public functions keep the JAX layouts: images are NHWC and GP shapes
 follow svgpvae_tpu/gp/svgp.py.
 """

@@ -48,8 +48,17 @@ second chunk: with chunk the largest divisor of gcd(--eval_every,
 --plot_every, --ckpt_every) up to 500, the steps from start + chunk to
 start + 2 chunk, when they are all to run (the port has no chunk
 programs; the trace holds those steps one by one, "train_step" ranges).
-Not ported yet, refused: --show_pics, --squares_circles, --data_parallel,
-and --plot_every when a run dir would make it draw (pass a --plot_every
+--data_parallel N (0 off, -1 every visible device; N must divide the
+batch of 35 videos): N ranks, one process each.  Every rank generates
+the whole batch of videos and draws the global batch's noise (and the
+NP's split) from the run's generators, then takes its contiguous share
+of the videos (JAX pins the generated batch to the data axis); the
+per-video ELBOs are averaged over the global batch (parallel.mean_rows)
+and the gradients summed across ranks, so every rank takes the
+1-process step.  The eval passes run replicated; only rank 0 writes the
+run dir and prints.
+Not ported yet, refused: --show_pics, --squares_circles, and
+--plot_every when a run dir would make it draw (pass a --plot_every
 above --steps with --save).
 """
 
@@ -67,7 +76,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import data, gp as gpm, models, ops, train, utils
+from svgpvae_tpu_torch import (data, gp as gpm, models, ops, parallel,
+                               train, utils)
 from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
 from svgpvae_tpu_torch.nn import BallDecoder, BallEncoder
 from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
@@ -138,7 +148,6 @@ def build_parser() -> argparse.ArgumentParser:
 NOT_PORTED = {  # flag -> is it set?
     "--show_pics": lambda a: a.show_pics,
     "--squares_circles": lambda a: a.squares_circles,
-    "--data_parallel": lambda a: a.data_parallel != 0,
     # the latent pictures, drawn into a run dir every --plot_every steps
     "--plot_every": lambda a: ((a.save or a.resume_dir is not None)
                                and a.plot_every <= a.steps),
@@ -161,9 +170,12 @@ def load_test_batches(args) -> list:
             return pickle.load(f)
     batches = data.make_test_batches(10, tmax=args.tmax, px=PX, py=PY,
                                      lt=args.vidlt, batch=BATCH, r=RADIUS)
-    os.makedirs(args.base_dir, exist_ok=True)
-    with open(cache, "wb") as f:
-        pickle.dump(batches, f)
+    if parallel.is_writer():  # the other ranks of a data-parallel run
+        os.makedirs(args.base_dir, exist_ok=True)  # generate theirs alike
+        tmp = f"{cache}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(batches, f)
+        os.replace(tmp, cache)  # never a half-written cache
     return batches
 
 
@@ -219,6 +231,8 @@ def trainable_predicate(args) -> Callable[[str], bool]:
 
 
 def open_run_dir(args) -> Optional[str]:
+    if not parallel.is_writer():  # rank 0 of a data-parallel run writes
+        return None
     if args.resume_dir:
         print(f"resuming into: {args.resume_dir}")
         return args.resume_dir
@@ -259,7 +273,10 @@ def make_forward(args, noise: Callable, np_split_fn: Callable,
         gp = params.get("gp")
         ls = model_lt if gp is None else (gp.length_scale_x,
                                           gp.length_scale_y)
-        split = np_split_fn(kind, b, t) if args.elbo == "NP" else None
+        split = None
+        if args.elbo == "NP":  # the global batch's draw, this rank's rows
+            n_ctx, perm = np_split_fn(kind, parallel.global_rows(b), t)
+            split = (n_ctx, parallel.local_rows(perm))
         return models.pearce_elbo(
             params["enc"], params["dec"], vids, beta, eps, ls,
             elbo_type=args.elbo, context_length_scale=model_lt,
@@ -269,13 +286,15 @@ def make_forward(args, noise: Callable, np_split_fn: Callable,
 
 def make_loss_fn(args, forward: Callable) -> Callable:
     """loss_fn(params, vids, geco, step) -> (-mean ELBO, (None, metrics))
-    for train.train_step."""
+    for train.train_step; the means are over the global batch
+    (data-parallel: parallel.mean_rows)."""
     def loss_fn(params, vids, geco, step):
         out = forward(params, vids, "train", args.beta0)
-        metrics = {"elbo": out.elbo.mean().detach(),
-                   "recon": out.recon.mean().detach(),
-                   "prior_kl": out.prior_kl.mean().detach()}
-        return -out.elbo.mean(), (None, metrics)
+        elbo = parallel.mean_rows(out.elbo)
+        metrics = {"elbo": elbo.detach(),
+                   "recon": parallel.mean_rows(out.recon).detach(),
+                   "prior_kl": parallel.mean_rows(out.prior_kl).detach()}
+        return -elbo, (None, metrics)
     return loss_fn
 
 
@@ -302,9 +321,25 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     videos, parameters before it, draws and gradients."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
+    ranks = parallel.resolve_data_parallel(args.data_parallel, BATCH,
+                                           args.device)
+    if parallel.needs_launch(ranks):
+        return parallel.launch(
+            "svgpvae_tpu_torch.cli.ball", argv, {k: v for k, v in dict(
+                video_fn=video_fn, eps_fn=eps_fn, np_split_fn=np_split_fn,
+                capture_step=capture_step).items() if v is not None},
+            ranks, args.device)
+    with parallel.active(ranks):
+        device = parallel.device(args.device)
+        parallel.announce(device)
+        return _main(args, device, video_fn, eps_fn, np_split_fn,
+                     capture_step)
+
+
+def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
@@ -335,9 +370,10 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     video_fn = video_fn or data.make_video_batch_fn(
         tmax=args.tmax, px=PX, py=PY, lt=args.vidlt, batch=BATCH, r=RADIUS,
         device=device, seed=1234 if args.seed is None else args.seed + 1)
-    ckpt_dir = os.path.join(run_dir, "ckpt") if run_dir else None
-    if args.resume_dir:
-        resume(ckpt_dir, state, noise, video_fn)
+    if args.resume_dir:  # every rank restores
+        resume(os.path.join(args.resume_dir, "ckpt"), state, noise,
+               video_fn)
+    parallel.check_replicated(list(train.named_tensors(params).values()))
     forward = make_forward(args, noise, np_split_fn, model_lt)
     loss_fn = make_loss_fn(args, forward)
 
@@ -381,9 +417,11 @@ def main(argv=None, video_fn: Optional[Callable] = None,
             snap = (_snapshot(state) if state.step == capture_step else None)
             before = ops.launch_counts()
             t0 = time.perf_counter()
-            with utils.annotate("train_step"):
+            # every rank generates the batch and takes its share of videos
+            with utils.annotate("train_step"), parallel.sharded():
                 vids = video_fn()
-                m = train.train_step(state, vids, loss_fn)
+                m = train.train_step(state, parallel.local_rows(vids),
+                                     loss_fn)
                 sync(device)
             step_seconds.append(time.perf_counter() - t0)
             after = ops.launch_counts()

@@ -125,9 +125,24 @@ Driver flags, as in the JAX driver:
     JAX's warning).  Refused for deep SVIGP and Casale, whose JAX runs
     ignore it.  The cgen images are pickled as fp32 (numpy has no bf16).
 
-Not ported yet, refused with an error: --epoch_chunk, --eval_bundle,
---show_pics and --data_parallel (loudly for Casale too, where the JAX
-driver ignores it).
+--data_parallel N (SVGPVAE, VAE, CVAE, deep SVIGP; 0 off, -1 every
+visible device): N ranks, one process each (parallel.launch starts ranks
+1..N-1 when the driver runs alone).  Every rank holds the parameters,
+draws the global batch's noise from the run's generator and takes its
+contiguous share of each full batch's rows; the GP statistics and every
+sum over the batch are added across ranks (parallel.psum), so the loss,
+the GECO state and each gradient are the 1-process run's, and every
+rank's Adam takes the same step.  The tail batch runs replicated on every
+rank, as the eval passes do, but for the cgen's full-train fit, which
+each rank runs on its share of the train rows (B2) before the sums are
+added.  Only rank 0 writes the run dir, its CSVs and checkpoints and
+prints; --resume_dir restores on every rank.  Refused, with the JAX
+driver's messages: N above the visible devices, a --batch_size that N
+does not divide, and --bias_analysis; and for Casale, which the JAX
+driver runs on one device whatever the flag says.
+
+Not ported yet, refused with an error: --epoch_chunk, --eval_bundle and
+--show_pics.
 """
 
 from __future__ import annotations
@@ -141,7 +156,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import data, models, ops, train, utils
+from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.nn import MnistCVAE, MnistVAE, SVIGPDecoder
 from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
@@ -258,7 +273,6 @@ def build_parser() -> argparse.ArgumentParser:
 NOT_PORTED = {  # flag -> is it set?
     "--epoch_chunk": lambda a: a.epoch_chunk > 1,
     "--show_pics": lambda a: a.show_pics,
-    "--data_parallel": lambda a: a.data_parallel != 0,
     "--eval_bundle": lambda a: a.eval_bundle,
 }
 # flag -> (is it set?, the --elbo values whose JAX run never reads it)
@@ -273,9 +287,9 @@ IGNORED_BY_JAX = {
 
 def refuse_unported(args) -> None:
     if args.elbo in CASALE_ELBOS and args.data_parallel:
-        raise SystemExit("--data_parallel: not ported yet, and refused for "
-                         f"--elbo {args.elbo}, which the JAX driver runs on "
-                         "one device whatever the flag says")
+        raise SystemExit(f"--data_parallel: not ported for --elbo "
+                         f"{args.elbo}, which the JAX driver runs on one "
+                         "device whatever the flag says")
     for flag, is_set in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet")
@@ -402,7 +416,10 @@ def trainable_predicate(args) -> Callable[[str], bool]:
 
 def open_run_dir(args) -> Optional[str]:
     """The run's output directory: --resume_dir as it is, or with --save a
-    new one (utils.make_checkpoint_folder) holding args.json; else None."""
+    new one (utils.make_checkpoint_folder) holding args.json; else None.
+    None on the ranks > 0 of a data-parallel run: rank 0 writes."""
+    if not parallel.is_writer():
+        return None
     if args.resume_dir:
         print(f"resuming into: {args.resume_dir}")
         return args.resume_dir
@@ -481,7 +498,9 @@ def default_eps_fn(seed: int, device: torch.device,
 
 class Noise:
     """eps_fn that also keeps its last training draw, and every training
-    draw while `draws` is a list (a captured step's)."""
+    draw while `draws` is a list (a captured step's).  In a data-parallel
+    step (parallel.sharded) it draws the global batch's noise, keeps that,
+    and hands back this rank's rows."""
 
     def __init__(self, eps_fn: Callable):
         self.eps_fn, self.last, self.draws = eps_fn, None, None
@@ -493,12 +512,13 @@ class Noise:
         return getattr(self.eps_fn, "generator", None)
 
     def __call__(self, kind: str, shape) -> torch.Tensor:
-        eps = self.eps_fn(kind, shape)
+        eps = self.eps_fn(kind, (parallel.global_rows(shape[0]),
+                                 *shape[1:]))
         if kind.startswith("train"):
             self.last = eps
             if self.draws is not None:
                 self.draws.append(eps)
-        return eps
+        return parallel.local_rows(eps)
 
 
 def make_forward(args, eps_fn: Callable) -> Callable:
@@ -575,12 +595,18 @@ class StepRecorder:
     """Runs training steps and keeps, per step, the host seconds after
     synchronize, the metrics as floats and the kernel launches; at
     `capture_step` (a count of steps from the run's start) a copy of what
-    the step starts from and of its noise, loss and gradients."""
+    the step starts from and of its noise, loss and gradients.  In a
+    data-parallel run a full batch (`batch_size` rows) is sharded: the
+    step takes this rank's rows (parallel.sharded); the tail batch runs
+    replicated.  A capture keeps the global batch and draws, and the
+    gradients summed across ranks: the 1-process step's."""
 
     def __init__(self, device: torch.device, noise: Optional[Noise],
-                 capture_step: Optional[int]):
+                 capture_step: Optional[int],
+                 batch_size: Optional[int] = None):
         self.device, self.noise, self.capture_step = device, noise, \
             capture_step
+        self.batch_size = batch_size
         self.seconds, self.metrics, self.launches = [], [], []
         self.captured = None
 
@@ -592,8 +618,10 @@ class StepRecorder:
             self.noise.draws = []
         before = ops.launch_counts()
         t0 = time.perf_counter()
-        with utils.annotate("train_step"):
-            m = train.train_step(state, batch, loss_fn)
+        with utils.annotate("train_step"), \
+                parallel.sharded(len(batch[0]) == self.batch_size):
+            m = train.train_step(
+                state, tuple(parallel.local_rows(t) for t in batch), loss_fn)
             sync(self.device)
         self.seconds.append(time.perf_counter() - t0)
         after = ops.launch_counts()
@@ -679,9 +707,27 @@ def main(argv=None, splits: Optional[dict] = None,
     checkpoint) with its record."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
+    ranks = parallel.resolve_data_parallel(args.data_parallel,
+                                           args.batch_size, args.device)
+    if ranks and args.bias_analysis:
+        raise SystemExit("--data_parallel does not support "
+                         "--bias_analysis (per-step host loop)")
+    if parallel.needs_launch(ranks):
+        return parallel.launch(
+            "svgpvae_tpu_torch.cli.mnist", argv, {k: v for k, v in dict(
+                splits=splits, eps_fn=eps_fn, capture_step=capture_step,
+                perm_fn=perm_fn, on_eval=on_eval).items() if v is not None},
+            ranks, args.device)
+    with parallel.active(ranks):
+        return _main(args, parallel.device(args.device), splits, eps_fn,
+                     capture_step, perm_fn, on_eval)
+
+
+def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval):
+    parallel.announce(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
@@ -858,7 +904,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 "full_mean_vectors": full,
                 "launches": {k: after[k] - before[k] for k in after}}
 
-    rec = StepRecorder(device, noise, capture_step)
+    parallel.check_replicated(list(train.named_tensors(params).values()))
+    rec = StepRecorder(device, noise, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
     evals, biases = [], []
     cgen_images = None
@@ -1031,7 +1078,8 @@ def run_svigp(args, splits: dict, device: torch.device,
     def ckpt_state():
         return {"train_state": state.state_dict(), **shuffle_state(shuffle)}
 
-    rec = StepRecorder(device, None, capture_step)
+    parallel.check_replicated(list(train.named_tensors(params).values()))
+    rec = StepRecorder(device, None, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
     evals, cgen_images = [], None
     t_start = time.perf_counter()

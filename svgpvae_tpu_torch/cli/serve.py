@@ -22,7 +22,14 @@ the rows of --queries, or the demo: MNIST's test split (held-out angles,
 the first --limit rows), SPRITES's first unseen character (its first
 N_context frames in, the remaining actions out).  Writes the images,
 p_m, p_v and aux queries to --out and prints the demo's cgen MSE.
---data_parallel (a fit sharded over devices) is not ported yet.
+
+--data_parallel N (0 off, -1 every visible device) shards the fit, as
+the JAX serve does: N ranks, one process each, encode the train split
+alike, then each fits its contiguous share of the N rows (B3, or B2
+under --K_SE) and the (L, m, m) / (L, m) sums are added across ranks
+before the replicated solves.  When the ranks do not divide the rows the
+fit runs unsharded, with the JAX serve's warning.  Rank 0 alone prints
+and writes --out.
 
 Without --run_dir (SPRITES only): encode every train frame and build the
 character auxiliary data -> `serving.fit` -> one request per unseen
@@ -44,7 +51,8 @@ import time
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import data, models, ops, serving, train, utils
+from svgpvae_tpu_torch import (data, models, ops, parallel, serving, train,
+                               utils)
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.nn import SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils.convert import params_from_jax
@@ -95,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--run_dir: .npy of (x, D) auxiliary-data query rows;"
                         " default: the demo queries")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet")
+                   help="shard the O(N) train-set conditioning (fit) over "
+                        "N ranks (-1: every visible device)")
     return p
 
 
@@ -162,6 +171,11 @@ def _sync(device: torch.device) -> None:
 
 def _timed_fit(gp, means, variances, aux, device) -> tuple:
     """(predictor, seconds, kernel launches inside `serving.fit`)."""
+    ranks = parallel.run_ranks()
+    if len(means) % ranks:
+        print(f"warning: N={len(means)} does not tile {ranks} devices; "
+              "running the fit unsharded")
+    parallel.barrier()  # the fit's seconds start when every rank is there
     before = ops.launch_counts()
     t0 = time.perf_counter()
     predictor = serving.fit(gp, means, variances, aux)
@@ -326,7 +340,8 @@ def serve_run(args, device: torch.device, splits: dict = None) -> dict:
     _sync(device)
     t_predict = time.perf_counter() - t0
     out = {"images": images, "p_m": p_m, "p_v": p_v, "aux_query": aux_q}
-    np.savez(args.out, **{k: v.cpu().numpy() for k, v in out.items()})
+    if parallel.is_writer():
+        np.savez(args.out, **{k: v.cpu().numpy() for k, v in out.items()})
     sec = dict(loaded["seconds"], predict=t_predict)
     print(f"encode {len(loaded['means'])} rows: {sec['encode']:.3f} s; fit: "
           f"{sec['fit']:.3f} s; predict {len(aux_q)} queries: "
@@ -362,11 +377,23 @@ def main(argv=None, splits: dict = None) -> dict:
     predictor and the served (aux_query, images, p_m, p_v), and under
     "fit_launches" the kernel launches made inside `serving.fit`."""
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: not ported yet")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
+    ranks = parallel.resolve_data_parallel(args.data_parallel, 0,
+                                           args.device)
+    if parallel.needs_launch(ranks):
+        return parallel.launch("svgpvae_tpu_torch.cli.serve", argv,
+                               {} if splits is None else {"splits": splits},
+                               ranks, args.device)
+    with parallel.active(ranks):
+        device = parallel.device(args.device)
+        if ranks > 1:
+            print(f"sharding fit over {ranks} ranks")
+        return _main(args, device, splits)
+
+
+def _main(args, device, splits):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")

@@ -99,9 +99,21 @@ aux data of the training step, the eval pass's encode, fit and cgen), so
 B1, B2 and B3 take fp32 only.  The cgen images are pickled as fp32
 (numpy has no bf16).
 
-Not ported yet, refused with an error: --data_parallel.  --s2d64 and
---fused_upsample are TPU rewrites that the port does not carry (the JAX
-CLI turns --s2d64 off under bf16 too).
+--data_parallel N (0 off, -1 every visible device), as cli.mnist: N
+ranks, one process each; every rank pretrains the repr net alike, then
+each full main batch is sharded over the ranks by frames (a rank's share
+need not align with the 50-frame characters: the character means add
+per-character sums across ranks), the GP statistics and every sum over
+the batch are added across ranks, and the tail batch and the eval passes
+run replicated, but for the full-train fit (B3), which each rank runs on
+its share of the train rows.  A --basin_retry restart re-replicates the
+post-pretraining parameters on every rank.  Only rank 0 writes the run
+dir and prints.  Refused as in JAX: N above the visible devices, or a
+batch that N does not divide.
+
+--s2d64 and --fused_upsample are TPU rewrites that the port does not
+carry, refused with an error (the JAX CLI turns --s2d64 off under bf16
+too).
 """
 
 from __future__ import annotations
@@ -118,7 +130,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from svgpvae_tpu_torch import data, models, ops, train, utils
+from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
                                          checkpoint_state, default_eps_fn,
@@ -238,9 +250,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = {  # flag -> is it set?
-    "--data_parallel": lambda a: a.data_parallel != 0,
-}
 TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
     "--s2d64": lambda a: bool(a.s2d64),
     "--fused_upsample": lambda a: a.fused_upsample,
@@ -248,9 +257,6 @@ TPU_ONLY = {  # TPU rewrites of the convs, not carried by the port
 
 
 def refuse_unported(args) -> None:
-    for flag, is_set in NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag}: not ported yet")
     for flag, is_set in TPU_ONLY.items():
         if is_set(args):
             raise SystemExit(f"{flag}: a TPU rewrite, not ported")
@@ -503,9 +509,33 @@ def main(argv=None, splits: Optional[dict] = None,
     the full batches (tests inject JAX's)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
+    loaded = splits is None
+    if loaded:
+        ensure_dataset(args)
+        splits = data.load_sprites(args.sprites_data_path)
+    ranks = parallel.resolve_data_parallel(
+        args.data_parallel, min(args.batch_size,
+                                len(splits["train"]["frames"])), args.device)
+    if parallel.needs_launch(ranks):
+        # the other ranks load the corpus that rank 0 made sure of
+        kw = {k: v for k, v in dict(
+            eps_fn=eps_fn, capture_step=capture_step, on_eval=on_eval,
+            perm_fn=perm_fn).items() if v is not None}
+        return parallel.launch(
+            "svgpvae_tpu_torch.cli.sprites", argv,
+            kw if loaded else dict(kw, splits=splits), ranks, args.device,
+            rank0_kwargs=dict(kw, splits=splits))
+    with parallel.active(ranks):
+        device = parallel.device(args.device)
+        parallel.announce(device)
+        return _main(args, device, splits, eps_fn, capture_step, on_eval,
+                     perm_fn)
+
+
+def _main(args, device, splits, eps_fn, capture_step, on_eval, perm_fn):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
@@ -515,9 +545,6 @@ def main(argv=None, splits: Optional[dict] = None,
                           ": the nets compute in bfloat16")
               + "; their parameters, Adam and the GP math (and every "
               "kernel) stay fp32")
-    if splits is None:
-        ensure_dataset(args)
-        splits = data.load_sprites(args.sprites_data_path)
     return run_svgpvae(args, splits, device, eps_fn, capture_step, on_eval,
                        perm_fn)
 
@@ -661,6 +688,7 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         if ckpt is not None and head is not None:
             head.load_state_dict(ckpt["head"])
         restore_shuffle(ckpt, shuffle)
+    parallel.check_replicated(list(train.named_tensors(params).values()))
     if is_svgpvae:
         forward = make_forward(args, noise)
         loss_fn = make_loss_fn(args, forward)
@@ -764,8 +792,12 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                         capture_step else None)
                 before = ops.launch_counts()
                 t0 = time.perf_counter()
-                with utils.annotate("train_step"):
-                    m = train.train_step(state, batch, loss_fn)
+                # a full batch takes this rank's frames (data-parallel)
+                with utils.annotate("train_step"), \
+                        parallel.sharded(len(batch[0]) == batch_size):
+                    m = train.train_step(
+                        state, tuple(parallel.local_rows(t) for t in batch),
+                        loss_fn)
                     sync(device)
                 step_seconds.append(time.perf_counter() - t0)
                 after = ops.launch_counts()

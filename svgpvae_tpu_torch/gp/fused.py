@@ -33,6 +33,13 @@ moving ball's per-video GPs over time: one (C (V+1), m, m) stack
 [K_mm_c; Sigma_c1..cV] per step (Titsias: (C (2V+1), m, m), with
 Sigma1), absolute jitter only, and the batch-mean posterior covariance
 (the gp_cov diagnostic) through mean_v Sigma_v^-1.
+
+Under --data_parallel (parallel.sharded) the Hensman and Titsias blocks
+take this rank's rows of the global batch: B2 runs on them, Sigma's and
+r's statistics and the per-row sums go through parallel.psum before B1's
+stack is built, and b in the N/b scale is the global batch; the stack,
+its inverse (B1) and the KL run replicated on every rank.  The ball
+blocks need no sum: each video is its own GP.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.gp.svgp import (on_plain_path, relative_ridge,
                                        sigma_jitter, stats)
 from svgpvae_tpu_torch.ops.chol_inverse import (chol_inverse,
@@ -76,7 +83,7 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
         raise ValueError(f"inverse_impl {inverse_impl!r}, kl_impl {kl_impl!r}")
     cfg = gp.config
     b, L = y.shape
-    scale = (cfg.N_train / b) if cfg.N_train else 1.0
+    scale = (cfg.N_train / parallel.global_rows(b)) if cfg.N_train else 1.0
 
     z = gp.inducing_points
     m = z.shape[0]
@@ -86,7 +93,7 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = stats(Knm, precision, precision * y)
+    sigma_contrib, r = parallel.psum(*stats(Knm, precision, precision * y))
     Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     M = torch.cat([linalg.add_jitter(Kmm, cfg.jitter)[None],
                    linalg.add_jitter(Sigma, sigma_jitter(Sigma, cfg))])
@@ -117,12 +124,12 @@ def gp_block_hensman(gp, aux: Tensor, y: Tensor, noise: Tensor,
     k_tilde = Knn_diag - nystrom                            # (b,)
     p_v = k_tilde[:, None] + sig_quad                       # (b, L)
 
-    sum_terms = -0.5 * (
+    sum_terms = parallel.psum(-0.5 * (
         torch.sum(precision * k_tilde[:, None], dim=0)
         + torch.sum(precision * sig_quad, dim=0)
         + torch.sum(torch.log(noise), dim=0)
         + b * linalg.LOG_2PI
-        + torch.sum(precision * (y - p_m) ** 2, dim=0))    # (L,)
+        + torch.sum(precision * (y - p_m) ** 2, dim=0)))   # (L,)
 
     mu_hat = scale * torch.einsum("mp,lp->lm", Kmm, sir)    # (L, m)
 
@@ -181,7 +188,8 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
         raise ValueError(f"inverse_impl {inverse_impl!r}")
     cfg = gp.config
     b, L = y.shape
-    scale = (cfg.N_train / b) if cfg.N_train else 1.0
+    b_all = parallel.global_rows(b)
+    scale = (cfg.N_train / b_all) if cfg.N_train else 1.0
 
     z = gp.inducing_points
     m = z.shape[0]
@@ -191,12 +199,13 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
                         y_inducing=False)                 # (b,)
 
     precision = linalg.reciprocal_no_nan(noise)           # (b, L)
-    sigma_contrib, r = stats(Knm, precision, precision * y)
-    Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     # the bound's statistics at the jittered noise
     noise_b = noise + cfg.jitter
     prec_b = linalg.reciprocal_no_nan(noise_b)            # (b, L)
-    contrib_b, r_b = stats(Knm, prec_b, prec_b * y)
+    sigma_contrib, r, contrib_b, r_b = parallel.psum(
+        *stats(Knm, precision, precision * y),
+        *stats(Knm, prec_b, prec_b * y))
+    Sigma = Kmm[None] + scale * sigma_contrib             # (L, m, m)
     Kmm_j = linalg.add_jitter(Kmm, cfg.jitter)
     Sigma1 = Kmm_j[None] + contrib_b                      # (L, m, m)
     M = torch.cat([Kmm_j[None],
@@ -229,13 +238,15 @@ def gp_block_titsias(gp, aux: Tensor, y: Tensor, noise: Tensor,
     k_tilde = Knn_diag - nystrom                            # (b,)
     p_v = k_tilde[:, None] + sig_quad                       # (b, L)
 
-    logdet = (torch.sum(torch.log(noise_b), dim=0)
-              + logdet_S1 - logdet_K)                       # (L,)
-    quad = (torch.sum(prec_b * y * y, dim=0)
-            - torch.sum(r_b * s1ir, dim=-1))                # (L,)
-    trace = torch.sum(precision * torch.clamp(k_tilde, min=0.0)[:, None],
-                      dim=0)                                # (L,)
-    l2_terms = -0.5 * (b * linalg.LOG_2PI + logdet + quad + trace)
+    # the sums over the batch's rows
+    logdet_D, quad_D, trace = parallel.psum(
+        torch.sum(torch.log(noise_b), dim=0),
+        torch.sum(prec_b * y * y, dim=0),
+        torch.sum(precision * torch.clamp(k_tilde, min=0.0)[:, None],
+                  dim=0))                                   # (L,) each
+    logdet = logdet_D + logdet_S1 - logdet_K                # (L,)
+    quad = quad_D - torch.sum(r_b * s1ir, dim=-1)           # (L,)
+    l2_terms = -0.5 * (b_all * linalg.LOG_2PI + logdet + quad + trace)
 
     mu_hat = scale * torch.einsum("mp,lp->lm", Kmm, sir)    # (L, m)
     return p_m, p_v, l2_terms, torch.zeros_like(l2_terms), mu_hat

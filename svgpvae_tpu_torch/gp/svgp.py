@@ -14,6 +14,11 @@ twins.
 
 Shapes: b = minibatch, m = #inducing points, L = #latent channels,
 x = #query points, N = full-train size.
+
+Under --data_parallel (parallel.sharded) the batch-level math takes this
+rank's rows of the global batch: the (L, m, m) / (L, m) statistics and
+the per-row sums go through parallel.psum, b in the N/b scale is the
+global batch, and everything m-sized runs replicated on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import Tensor
 
-from svgpvae_tpu_torch import kernels, linalg
+from svgpvae_tpu_torch import kernels, linalg, parallel
 from svgpvae_tpu_torch.ops.fused_kernel_stats import fused_kernel_stats
 from svgpvae_tpu_torch.ops.gp_stats import (gp_stats, gp_sufficient_stats,
                                             gp_sufficient_stats_reference)
@@ -302,7 +307,7 @@ def posterior_params(gp, aux_test: Tensor, aux_train: Tensor, y: Tensor,
     Returns p_m (x, L), p_v (x, L), mu_hat (L, m), A_hat (L, m, m).
     """
     cfg = gp.config
-    b = y.shape[0]
+    b = parallel.global_rows(y.shape[0])
     scale = (cfg.N_train / b) if cfg.N_train else 1.0
 
     z = gp.inducing_points
@@ -314,7 +319,7 @@ def posterior_params(gp, aux_test: Tensor, aux_train: Tensor, y: Tensor,
                         y_inducing=False)          # (x,)
 
     precision = linalg.reciprocal_no_nan(noise)    # (b, L)
-    sigma_contrib, r = stats(Knm, precision, precision * y)
+    sigma_contrib, r = parallel.psum(*stats(Knm, precision, precision * y))
     Sigma = Kmm[None] + scale * sigma_contrib
     Sigma_chol = _sigma_cholesky(Sigma, cfg)       # (L, m, m)
     sir = linalg.cho_solve(Sigma_chol, r[..., None])[..., 0]  # (L, m)
@@ -357,7 +362,7 @@ def hensman_terms(gp, Kmm_chol: Tensor, Knm: Tensor, Knn_diag: Tensor,
         + torch.sum(precision * (y - mean_vec) ** 2, dim=0))     # (L,)
     kl_terms = linalg.mvn_kl_against_prior(mu_hat, A_hat, Kmm_chol,
                                            cfg.jitter)            # (L,)
-    return sum_terms, kl_terms
+    return parallel.psum(sum_terms), kl_terms
 
 
 @linalg.precise
@@ -392,7 +397,14 @@ def titsias_terms(gp, Kmm_chol: Tensor, Knm: Tensor, Knn_diag: Tensor,
 def variational_loss(gp, aux: Tensor, y: Tensor, noise: Tensor,
                      mu_hat: Tensor, A_hat: Tensor):
     """Per-channel inside-ELBO terms (sum_terms (L,), kl_terms (L,)) of the
-    Titsias bound when config.titsias, else of the Hensman bound."""
+    Titsias bound when config.titsias, else of the Hensman bound.  The
+    Titsias bound's dense (L, b, b) covariance couples every row, so a
+    data-parallel step gathers the global batch's rows for it first and
+    every rank evaluates the whole bound."""
+    if gp.config.titsias and parallel.world() > 1:
+        aux, y, noise = parallel.gather_rows(aux, y, noise)
+        with parallel.sharded(False):
+            return variational_loss(gp, aux, y, noise, mu_hat, A_hat)
     _, Kmm_chol, Knm, Knn_diag = kernel_matrices(gp, aux)
     if gp.config.titsias:
         return titsias_terms(gp, Kmm_chol, Knm, Knn_diag, y, noise)
@@ -433,6 +445,8 @@ def precompute_test_posterior_terms(gp, means: Tensor, variances: Tensor,
 
     means/variances: (N, L) encoder outputs over the ENTIRE train set.
     Returns (mean_terms (L, m), Sigma_inv (L, m, m), Kmm_inv (m, m)).
+    Inside parallel.sharded the rows are this rank's share of the train
+    set and the statistics are summed across ranks.
     """
     cfg = gp.config
     z = gp.inducing_points
@@ -440,8 +454,8 @@ def precompute_test_posterior_terms(gp, means: Tensor, variances: Tensor,
 
     precision = linalg.reciprocal_no_nan(variances).contiguous()  # (N, L)
     # over the FULL train set: no N/b scaling
-    sigma_contrib, r = _fused_precompute_stats(
-        gp, aux_train, precision, (precision * means).contiguous())
+    sigma_contrib, r = parallel.psum(*_fused_precompute_stats(
+        gp, aux_train, precision, (precision * means).contiguous()))
     Sigma = Kmm[None] + sigma_contrib  # (L, m, m)
     Sigma_chol = _sigma_cholesky(Sigma, cfg)
     eye = torch.eye(Kmm.shape[0], dtype=Kmm.dtype, device=Kmm.device)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from svgpvae_tpu_torch import kernels, linalg
+from svgpvae_tpu_torch import kernels, linalg, parallel
 from svgpvae_tpu_torch.gp.svgp import _named_tensors, _to
 
 
@@ -118,7 +118,8 @@ def svigp_variational_loss(gp: SVIGP, aux: Tensor):
     sum_terms = -0.5 * (precision * torch.sum(k_tilde)
                         + precision * torch.sum(wSw, dim=-1))
     kl_terms = linalg.mvn_kl_against_prior(gp.q_mu, S, Kmm_chol, gp.jitter)
-    return sum_terms, kl_terms, mean_vectors
+    # over the global batch in a data-parallel step (parallel.sharded)
+    return parallel.psum(sum_terms), kl_terms, mean_vectors
 
 
 @linalg.precise

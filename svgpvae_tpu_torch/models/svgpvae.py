@@ -4,6 +4,15 @@ of SPRITES (aux data from the repr net, under autograd), the rotated-MNIST
 conditional generation, and the SPRITES test-time passes (encode,
 full-train-set precompute, conditional generation for unseen characters,
 under no_grad).
+
+Under --data_parallel (parallel.sharded) the training forward takes this
+rank's rows of the global batch: the GP blocks sum their statistics
+across ranks, the cross-entropy and reconstruction sums go through
+parallel.psum, and b in GECO's moving average and the KL's b / N weight
+is the global batch, so the objective and the GECO state are the global
+batch's, replicated on every rank.  The SPRITES character means add each
+rank's per-character sums across ranks (a rank's share may end inside a
+character).
 """
 
 from __future__ import annotations
@@ -14,7 +23,7 @@ import torch
 from torch import Tensor
 
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.utils.profiling import annotate
 
 # q-network variance clip range (reference: SVGPVAE_model.py:858-859)
@@ -172,7 +181,7 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
         raise ValueError(f"gp_block_impl {gp_block_impl!r} ('auto' must be "
                          "resolved by the caller)")
     images, aux_data = batch
-    b = images.shape[0]
+    b = parallel.global_rows(images.shape[0])
     K = images.shape[1] * images.shape[2] * images.shape[3]
 
     dtype = images.dtype
@@ -224,6 +233,7 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     else:
         ce_term = torch.sum(linalg.gauss_cross_entropy(p_m, p_v, qnet_mu,
                                                        qnet_var))
+    ce_term = parallel.psum(ce_term)
     kl_term = -ce_term + inside_elbo
 
     latent_samples = p_m + eps * linalg.stable_sqrt(p_v)
@@ -232,14 +242,14 @@ def forward_pass_svgpvae(vae, gp_params, batch, eps: Tensor, beta, C_ma,
     sq_err = (images - recon_images.to(dtype)) ** 2
     if geco:
         per_image_mse = torch.mean(sq_err, dim=(1, 2, 3))
-        recon_loss = torch.sum(per_image_mse - kappa * kappa)
+        recon_loss = parallel.psum(torch.sum(per_image_mse - kappa * kappa))
         C_ma_new = (alpha * C_ma + (1.0 - alpha) * recon_loss / b).detach()
         elbo = -kl_term + lagrange_mult * (
             recon_loss / b + (C_ma_new - recon_loss / b).detach())
         lagrange_new = torch.clamp(lagrange_mult * torch.exp(C_ma_new),
                                    max=lagrange_max).detach()
     else:
-        recon_loss = torch.sum(sq_err) / K
+        recon_loss = parallel.psum(torch.sum(sq_err)) / K
         elbo = -recon_loss + (beta / L) * kl_term
         C_ma_new, lagrange_new = C_ma, lagrange_mult
 
@@ -262,7 +272,7 @@ def predict_cgen_mnist(vae, gp_params, test_batch, train_means: Tensor,
     (x, L), decoded.  Returns (recon images, per-pixel MSE sum)."""
     images_test, aux_test = test_batch
     K = images_test.shape[1] * images_test.shape[2]
-    p_m, p_v, _, _ = gpm.posterior_params(
+    p_m, p_v, _, _ = parallel.sharded_posterior_params(
         gp_params, aux_test, aux_data_train, train_means, train_vars)
     recon = vae.decode(p_m + eps * linalg.stable_sqrt(p_v))
     return recon, torch.sum((images_test - recon) ** 2) / K
@@ -274,11 +284,27 @@ def sprites_aux_data(repr_net, images: Tensor, action_ids: Tensor,
     back to the frames -> prepend the action-id column, in the repr net's
     compute dtype (callers cast it for the GP).  The batch holds
     `frames_per_char` consecutive frames per character.  Differentiable
-    (the training forward); test-time callers run it under no_grad."""
+    (the training forward); test-time callers run it under no_grad.
+
+    Inside parallel.sharded `images` is this rank's share of a global
+    batch of whole characters, which may start or end inside one: each
+    rank sums its frames' embeddings per global character, the sums are
+    added across ranks, and every character's sum is divided by its
+    frames_per_char frames."""
     emb = repr_net(images)  # (b, L_char)
     b, d = emb.shape
-    char_mean = emb.view(b // frames_per_char, frames_per_char, d).mean(dim=1)
-    char_vecs = torch.repeat_interleave(char_mean, frames_per_char, dim=0)
+    if parallel.world() > 1:
+        char = torch.div(torch.arange(b, device=emb.device)
+                         + parallel.row_offset(b), frames_per_char,
+                         rounding_mode="floor")  # global character ids
+        sums = emb.new_zeros(parallel.global_rows(b) // frames_per_char,
+                             d).index_add(0, char, emb)
+        char_vecs = (parallel.psum(sums) / frames_per_char)[char]
+    else:
+        char_mean = emb.view(b // frames_per_char, frames_per_char,
+                             d).mean(dim=1)
+        char_vecs = torch.repeat_interleave(char_mean, frames_per_char,
+                                            dim=0)
     return torch.cat([action_ids.to(emb.dtype)[:, None], char_vecs], dim=1)
 
 
@@ -297,9 +323,10 @@ def batching_encode_svgpvae(vae, images: Tensor, clip_qs: bool = True):
 
 def precompute_gp_params(gp_params, means: Tensor, variances: Tensor,
                          aux_data: Tensor):
-    """Full-train-set GP posterior precompute for the SPRITES test pipeline."""
-    return gpm.precompute_test_posterior_terms(gp_params, means, variances,
-                                               aux_data)
+    """Full-train-set GP posterior precompute for the SPRITES test pipeline
+    (each rank fits its share of the rows in a data-parallel run)."""
+    return parallel.sharded_precompute_gp_params(gp_params, means,
+                                                 variances, aux_data)
 
 
 @torch.no_grad()

@@ -11,7 +11,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.gp.svigp import (SVIGP, svigp_posterior_params,
                                         svigp_variational_loss)
 
@@ -30,9 +30,11 @@ class SVIGPOutputs(NamedTuple):
 def forward_pass_deep_svigp(decoder, gp: SVIGP, batch) -> SVIGPOutputs:
     """elbo = -bK log(noise) - bK log(2 pi) / 2 - recon / (2 noise^2)
     + [sum_terms - (b / N) KL].  Aux rows are [global_index, id, angle,
-    pca...]; the GP takes columns 1: (the global index is dropped)."""
+    pca...]; the GP takes columns 1: (the global index is dropped).  In a
+    data-parallel step (parallel.sharded) b and the sums are the global
+    batch's."""
     images, aux_data = batch
-    b = images.shape[0]
+    b = parallel.global_rows(images.shape[0])
     K = images.shape[1] * images.shape[2] * images.shape[3]
 
     sum_terms, kl_terms, mean_vectors = svigp_variational_loss(
@@ -42,7 +44,7 @@ def forward_pass_deep_svigp(decoder, gp: SVIGP, batch) -> SVIGPOutputs:
     inside_elbo = inside_elbo_recon - (b / gp.N_train) * inside_elbo_kl
 
     recon_images = decoder(mean_vectors)
-    recon_sum = torch.sum((images - recon_images) ** 2)
+    recon_sum = parallel.psum(torch.sum((images - recon_images) ** 2))
     elbo = (-b * K * torch.log(gp.noise) - 0.5 * b * K * linalg.LOG_2PI
             - 0.5 * recon_sum / gp.noise ** 2 + inside_elbo)
     return SVIGPOutputs(elbo=elbo, recon_loss=recon_sum / K,

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 
 QVAR_CLIP = (1e-3, 10.0)
 
@@ -62,8 +62,10 @@ def forward_pass_vae(vae, batch, eps: Tensor,
     recon_images = (vae.decode(latent_samples, aux_data[:, 1]) if cvae
                     else vae.decode(latent_samples))
 
-    recon_sum = torch.sum((images - recon_images) ** 2)
-    kl_term = linalg.kl_diag_standard_normal(qnet_mu, qnet_var)
+    # over the global batch in a data-parallel step (parallel.sharded)
+    recon_sum, kl_term = parallel.psum(
+        torch.sum((images - recon_images) ** 2),
+        linalg.kl_diag_standard_normal(qnet_mu, qnet_var))
     elbo = -(0.5 / sigma_gaussian_decoder ** 2) * recon_sum - kl_term
     return VAEOutputs(recon_loss=recon_sum / K, kl_term=kl_term, elbo=elbo,
                       recon_images=recon_images, qnet_mu=qnet_mu,

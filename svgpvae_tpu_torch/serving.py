@@ -1,10 +1,12 @@
 """Serving: precompute-once conditional-generation predictors
-(port of svgpvae_tpu/serving.py, single device), for the rotated-MNIST
+(port of svgpvae_tpu/serving.py), for the rotated-MNIST
 and SPRITES GP families.
 
   * `fit` — one pass over the encoded train set: fold the O(N) GP
     conditioning into (L, m) / (L, m, m) posterior terms (the CUDA
-    sufficient-statistics kernels run here);
+    sufficient-statistics kernels run here; in a data-parallel run each
+    rank on its share of the rows, parallel.sharded_precompute_gp_params,
+    as the JAX `fit` under a mesh);
   * `predict` — a function of the query auxiliary data only: GP posterior
     at the queries -> decode -> images.
 """
@@ -18,7 +20,7 @@ import torch
 from torch import Tensor
 
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.models.svgpvae import PVAR_CLIP
 
 
@@ -37,7 +39,7 @@ def fit(gp_params, train_means: Tensor, train_vars: Tensor,
         aux_train: Tensor) -> CGenPredictor:
     """Fold the full-train-set conditioning into reusable posterior terms.
     train_means/train_vars: (N, L) encoder outputs; aux_train: (N, D)."""
-    mt, si, ki = gpm.precompute_test_posterior_terms(
+    mt, si, ki = parallel.sharded_precompute_gp_params(
         gp_params, train_means, train_vars, aux_train)
     return CGenPredictor(gp_params=gp_params, mean_terms=mt, sigma_inv=si,
                          kmm_inv=ki)

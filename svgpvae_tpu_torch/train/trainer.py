@@ -12,6 +12,8 @@ svgpvae_tpu/train/trainer.py, single device, eager).
     of the gradients and an optional cosine-decayed learning rate;
   * `train_step(state, batch, loss_fn)`: one forward/backward/update,
     with a zero gradient for a trainable tensor the loss does not reach;
+    in a data-parallel step (parallel.sharded) the gradients are summed
+    across ranks first, so every rank takes the same update;
   * `EpochShuffle` (--reshuffle): each epoch's example order, as JAX's
     make_epoch_fn(shuffle=True, shuffle_block=...).
 """
@@ -24,7 +26,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from svgpvae_tpu_torch import linalg
+from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.train.state import TrainState, named_tensors
 
 
@@ -82,7 +84,18 @@ def train_step(state: TrainState, batch, loss_fn):
     A trainable tensor that the loss does not reach (the GP's in an
     --opt_regime VAE epoch) gets a zero gradient, as under JAX's masked
     optax Adam: Adam still decays its moments, moves it on the first
-    moment and counts the step (torch would skip a .grad of None)."""
+    moment and counts the step (torch would skip a .grad of None).
+
+    In a data-parallel step (parallel.sharded; `batch` holds this rank's
+    rows) the loss is the global batch's, replicated on every rank: each
+    rank backpropagates loss / world, whose psums sum the gradients of
+    their inputs across ranks, and the parameters' gradients, zero fill
+    included, are summed across ranks before the value clip
+    (parallel/mesh.py says why this is the 1-process gradient).  A step
+    that every rank of a data-parallel run takes whole (the tail batch,
+    the SPRITES pretraining) averages its gradients and GECO state across
+    ranks: the ranks' copies agree to round-off, and the average keeps
+    their parameters bit for bit alike."""
     opt = state.optimizer
     if state.lr_fn is not None:
         for group in opt.param_groups:
@@ -90,11 +103,18 @@ def train_step(state: TrainState, batch, loss_fn):
     opt.zero_grad(set_to_none=True)
     loss, (geco, metrics) = loss_fn(state.params, batch, state.geco,
                                     state.step)
-    loss.backward()
+    world = parallel.world()
+    (loss / world if world > 1 else loss).backward()
     for group in opt.param_groups:
         for p in group["params"]:
             if p.grad is None:  # not reached by this loss: JAX's zero
                 p.grad = torch.zeros_like(p)
+    if parallel.run_ranks() > 1:
+        parallel.all_reduce_grads([p for g in opt.param_groups
+                                   for p in g["params"]], mean=world == 1)
+        if geco is not None and world == 1:
+            geco = type(geco)(*parallel.all_reduce_mean(geco.C_ma,
+                                                        geco.lagrange_mult))
     if state.clip_grad_value is not None:
         linalg.tree_value_clip(
             (p.grad for g in opt.param_groups for p in g["params"]),

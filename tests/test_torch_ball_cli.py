@@ -243,8 +243,11 @@ def test_resume_equals_uninterrupted_run(tmp_path, elbo):
 
 @pytest.mark.parametrize("flags", [
     ["--show_pics"], ["--squares_circles"],
-    ["--profile_dir", "p", "--data_parallel", "2"],
-    ["--data_parallel", "5"], ["--save", "--plot_every", "10"]])
+    # the pictures stay refused under --data_parallel, which runs
+    # (tests/test_torch_parallel_drivers.py)
+    ["--profile_dir", "p", "--data_parallel", "5", "--show_pics"],
+    ["--data_parallel", "5", "--squares_circles"],
+    ["--save", "--plot_every", "10"]])
 def test_unported_flags_are_refused(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         tball.main(["--elbo", "VAE", "--steps", "20", "--device", "cpu",

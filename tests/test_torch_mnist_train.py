@@ -374,7 +374,8 @@ def test_value_clip_clips_gradients_before_adam():
     ["--show_pics"], ["--epoch_chunk", "2"],
     ["--elbo", "GPVAE_Casale", "--bf16"],
     ["--elbo", "GPVAE_Casale", "--x64"],
-    ["--data_parallel", "2"], ["--elbo", "GPVAE_Casale", "--reshuffle"],
+    ["--elbo", "GPVAE_Casale_batch", "--data_parallel", "2"],
+    ["--elbo", "GPVAE_Casale", "--reshuffle"],
     ["--elbo", "SVIGP_Hensman", "--resume_dir", "x"],
     ["--eval_bundle"], ["--elbo", "SVIGP_Hensman", "--bf16"]])
 def test_unported_flags_are_refused(flag, tiny_splits):

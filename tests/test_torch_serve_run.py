@@ -35,6 +35,7 @@ from svgpvae_tpu import gp as jgp, nn as jnets
 from svgpvae_tpu.cli import mnist as jmnist
 from svgpvae_tpu.gp.svgp import SVGPConfig as JConfig
 from svgpvae_tpu_torch import data as tdata, gp as tgp, models as tmodels
+from svgpvae_tpu_torch import parallel as tparallel
 from svgpvae_tpu_torch import serving as tserving
 from svgpvae_tpu_torch.cli import mnist as tmnist, serve as tserve
 from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
@@ -214,6 +215,11 @@ def test_mnist_run_outputs_and_serve(tmp_path, mnist_splits):
 
 
 def test_serve_refuses_data_parallel():
-    with pytest.raises(SystemExit, match="not ported"):
-        tserve.main(["--run_dir", "x", "--data_parallel", "2",
+    """--data_parallel shards the fit (tests/test_torch_parallel_drivers.py);
+    more ranks than visible devices are refused, with the JAX package's
+    message."""
+    n = tparallel.mesh.visible_devices("cpu") + 1
+    with pytest.raises(SystemExit,
+                       match=f"--data_parallel {n}: only .* visible"):
+        tserve.main(["--run_dir", "x", "--data_parallel", str(n),
                      "--device", "cpu"])

@@ -202,12 +202,14 @@ def test_dispatch_cells():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--elbo", "VAE", "--data_parallel", "2"],
-    ["--test_set_metrics", "--data_parallel", "2"],
+    # the TPU rewrites stay refused under --data_parallel, which runs
+    # (tests/test_torch_parallel_drivers.py)
+    ["--elbo", "VAE", "--data_parallel", "2", "--s2d64"],
+    ["--test_set_metrics", "--data_parallel", "2", "--fused_upsample"],
     ["--bf16", "--s2d64"], ["--bf16_hybrid", "--fused_upsample"],
-    ["--data_parallel", "2"],
-    ["--profile_dir", "x", "--data_parallel", "4"],
-    ["--reshuffle", "--data_parallel", "2"],
+    ["--data_parallel", "2", "--s2d64"],
+    ["--profile_dir", "x", "--data_parallel", "4", "--fused_upsample"],
+    ["--reshuffle", "--data_parallel", "2", "--s2d64"],
     ["--s2d64"], ["--fused_upsample"]])
 def test_unported_flags_are_refused(flag, corpus):
     with pytest.raises(SystemExit, match="not ported"):
