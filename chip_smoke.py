@@ -173,6 +173,22 @@ Phases, each of which raises (nonzero exit) on failure:
      and its captured step rechecked on the CPU as phase 9(b); (c) phase
      13(c)'s serve with the fit over 2 ranks (B3 once a rank), held to
      the CPU twin as phase 13 holds it.
+ 19. the pictures, drawn with numpy alone (no matplotlib on the card's
+     machine): (a) the ball, Hensman then Titsias, at phase 14's widths
+     with --save --squares_circles --eval_every 50 --plot_every 50 for
+     100 steps (launch counters zeroed just before each run and read
+     just after, under the path "pictures"): every step, eval and
+     picture pass launches B1 once on the run's stack, (72, 15, 15) or
+     (142, 15, 15), 3 a plot (the eval pass drawn and the two probes);
+     the last plot's probe latents, aligned on the card, held to the same
+     weights' fp32 CPU twin within the larger of CPU_RTOL and
+     RECHECK_FACTOR x the CPU's own fp32-vs-f64 gap (phase 13's rule);
+     (b) the run dirs of phases 8, 13(a), 16(a), 16(e) and 19(a): pics/
+     holds exactly the PNG names the JAX driver writes for their flags
+     and steps, each decoded by utils.png.read_png at the JAX figure's
+     size, not constant, its title (the kernel pictures: their three
+     panel titles) in its text chunks; (c) the host ms of each picture
+     kind on a line of its own, and matplotlib never imported.
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
@@ -181,7 +197,7 @@ and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36), and phase
 (125, 72, 64), B3 and B2 at (25,000, 72, 64).
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10-18, phase 18's summed over its
+the main paths of phases 4, 6, 8, 10-19, phase 18's summed over its
 runs and ranks under the path "data_parallel", and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
@@ -1411,8 +1427,9 @@ def phase_mnist_save_resume(splits, base_dir, phase6) -> tuple:
     """Phase 13(a): phase 6's run for one epoch with --save
     --save_model_weights; a fresh run restored from its checkpoint (0
     epochs) must equal the saved state bit for bit, the noise generator
-    included; then --resume_dir for one epoch more.  Returns the run dir
-    and the launch counts of the two training runs."""
+    included; then --resume_dir for one epoch more.  Returns the run dir,
+    the launch counts of the two training runs and their pictures'
+    records."""
     import torch
     from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import mnist
@@ -1453,7 +1470,7 @@ def phase_mnist_save_resume(splits, base_dir, phase6) -> tuple:
         f"one {cgen:.9f} (phase 6's uninterrupted 2 epochs: {cgen6:.9f}, "
         f"equal {cgen == cgen6}; a rerun on the card need not be bitwise, "
         f"cuDNN's backward is not deterministic); launches {launches}")
-    return run_dir, launches
+    return run_dir, launches, first["pictures"] + rest["pictures"]
 
 
 def phase_serve_run(run_dir, splits, out_dir, family) -> tuple:
@@ -2029,15 +2046,16 @@ def write_raw_sprites(path, n_train=4, n_test=2, seed=0) -> None:
                 np.save(f"{stem}_attributes_{split}.npy", a)
 
 
-def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
+def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> tuple:
     """Phase 16: the drivers' last single-GPU flags on the card; returns
-    each path's launch counts."""
+    each path's launch counts and the results of the saved runs (a) and
+    (e), whose pictures phase 19 checks."""
     import torch
     from svgpvae_tpu_torch import data, ops, utils
     from svgpvae_tpu_torch.cli import ball, mnist, sprites
 
     device = torch.device("cuda", 0)
-    paths = {}
+    paths, saved_runs = {}, {}
     # (a) --reshuffle --test_set_metrics --profile_dir --save: phase 6's
     # checks (B1 once, B2 at least once per step), the rows and the trace
     trace_dir = os.path.join(base_dir, "trace_mnist")
@@ -2046,6 +2064,7 @@ def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
             "--reshuffle", "--test_set_metrics", "--save", "--base_dir",
             base_dir, "--profile_dir", trace_dir], 32, TRAIN_STEPS, None,
         "mnist --reshuffle --test_set_metrics --profile_dir --save")
+    saved_runs["16(a)"] = res
     path, ranges, kernels = _trace_kernels(trace_dir)
     with open(os.path.join(res["run_dir"], "res", "ELBO_results.csv")) as f:
         rows = f.read().strip().splitlines()[1:]
@@ -2115,6 +2134,7 @@ def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
         corpus, SPRITES_ARGV + ["--reshuffle", "--test_set_metrics",
                                 "--save", "--base_dir", base_dir],
         tag="sprites --reshuffle --test_set_metrics")
+    saved_runs["16(e)"] = res
     # (f) a raw npy corpus: preprocessed into shards by the driver, then
     # one epoch on it at phase 8's widths
     raw = os.path.join(base_dir, "raw_sprites")
@@ -2163,7 +2183,7 @@ def phase_driver_flags(mnist_data, corpus, base_dir, phase6) -> dict:
     log(f"16(g): ball trace {os.path.basename(path)} holds steps 100..199 "
         f"({ranges} train_step ranges, {kernels} CUDA kernel events); "
         f"launches {launches}; final MSE {res['mse']:.4f}")
-    return paths
+    return paths, saved_runs
 
 
 # --- phase 17 ---------------------------------------------------------------
@@ -2507,6 +2527,186 @@ def phase_data_parallel(mnist_data, phase6, corpus, sprites_run_dir,
     return out
 
 
+# --- phase 19 ---------------------------------------------------------------
+# Phase 19(a): phase 14's Hensman and Titsias runs, 100 steps with an eval
+# pass and a picture pass (the eval drawn, the two probes) every 50 steps.
+PICTURE_ARGV = ["--steps", "100", "--eval_every", "50", "--plot_every", "50",
+                "--save", "--squares_circles", "--device", "cuda", "--seed",
+                "0"]
+PICTURE_RUNS = ("ball_hensman_train", "ball_titsias_train")
+
+
+def _ball_probes_cpu(tag, res, base_dir, dtype) -> dict:
+    """Phase 19(a): the last picture pass redone on the CPU with the twins
+    in `dtype`, from the run's final weights and the eval draw: the eval
+    batch's mse_rotation W, then each probe's aligned latents."""
+    import torch
+    from svgpvae_tpu_torch import train, utils
+    from svgpvae_tpu_torch.cli import ball
+
+    args = _ball_args(tag)
+    args.base_dir = base_dir
+    cpu = torch.device("cpu")
+    snap = {"params": {k: t.detach() for k, t in
+                       train.named_tensors(res["state"].params).items()},
+            "vids": torch.zeros(1, args.tmax)}
+    params = _ball_step_params(snap, res["state"].params["gp"], cpu, dtype)
+    # the eval draw of cli.mnist.default_eps_fn, made on the run's device
+    run = res["state"].params["gp"].inducing_points.device
+    eps = torch.randn((ball.BATCH, args.tmax, 2), device=run,
+                      generator=torch.Generator(device=run).manual_seed(
+                          ball.EVAL_SEED)).to(cpu, dtype)
+    forward = ball.make_forward(args, lambda kind, shape: eps, None,
+                                args.modellt)
+    tt0, td0 = ball.load_test_batches(args)[0]
+    with torch.no_grad():
+        out = forward(params, torch.as_tensor(td0, dtype=dtype), "eval", 1.0)
+    _, W, _, _ = utils.mse_rotation(out.p_m.numpy().astype(np.float64), tt0,
+                                    out.p_v.numpy().astype(np.float64))
+    return {kind: ball.probe_latents(forward, params, kind, W, args.tmax,
+                                     cpu, dtype)[2] for kind in ball.PROBES}
+
+
+def phase_picture_ball(tag, base_dir) -> tuple:
+    """Phase 19(a): one ball run with the pictures and probes; returns its
+    result and launch counts."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import ball
+    from svgpvae_tpu_torch.gp import fused
+
+    argv, _, stack = BALL_RUNS[tag]
+    shapes, kernel = set(), fused.chol_inverse
+
+    def recording(M):
+        shapes.add(tuple(M.shape))
+        return kernel(M)
+
+    fused.chol_inverse = recording
+    try:
+        ops.reset_launch_counts()
+        res = ball.main(argv + PICTURE_ARGV + ["--base_dir", base_dir])
+        launches = ops.launch_counts()
+    finally:
+        fused.chol_inverse = kernel
+    want = {"chol_inverse": 1, "fused_kernel_stats": 0,
+            "gp_sufficient_stats": 0}
+    if shapes != {stack} or any(sl != want for sl in res["step_launches"]) \
+            or any(ev["launches"] != want for ev in res["evals"]):
+        raise AssertionError(f"{tag}: B1 on {shapes}; steps "
+                             f"{res['step_launches'][:2]}...")
+    per_plot = {"chol_inverse": 3, "fused_kernel_stats": 0,
+                "gp_sufficient_stats": 0}
+    plots = res["pictures"]
+    if [p["step"] for p in plots] != [50, 100] or \
+            any(p["launches"] != per_plot for p in plots):
+        raise AssertionError(f"{tag}: picture passes "
+                             f"{[(p['step'], p['launches']) for p in plots]}")
+    if launches["chol_inverse"] != 100 + 2 + 3 * 2:
+        raise AssertionError(f"{tag}: the run launched {launches}")
+    r32 = _ball_probes_cpu(tag, res, base_dir, torch.float32)
+    r64 = _ball_probes_cpu(tag, res, base_dir, torch.float64)
+    for kind, got in plots[-1]["probes"].items():
+        scale = np.abs(r64[kind]).max()
+        gap = np.abs(r32[kind] - r64[kind]).max()
+        err = np.abs(got - r32[kind]).max()
+        limit = max(CPU_RTOL * scale, RECHECK_FACTOR * gap)
+        log(f"{tag} {kind} probe at step 100: card vs CPU fp32 {err:.3e}, "
+            f"CPU fp32 vs f64 {gap:.3e}, limit {limit:.3e} (max |latent| "
+            f"{scale:.3f})")
+        if not np.isfinite(got).all() or err > limit:
+            raise AssertionError(f"{tag} {kind} probe off the CPU twin")
+    log(f"{tag} with pictures: B1 on {stack} in every step, eval and "
+        f"probe; per picture pass {plots[0]['launches']}; the run "
+        f"{launches}; final MSE {res['mse']:.4f}")
+    return res, launches
+
+
+def jax_picture_names(driver, flags, eval_steps) -> dict:
+    """{name: ((height, width), the text entries it must hold)} of the
+    pics/*.png the JAX driver writes for a run with these flags at these
+    eval steps: MNIST <s>.png, <s>_cgen.png (SVGPVAE, CVAE) and, under
+    --save, <s>_kernels.png (SVGPVAE); SPRITES <s>_recon.png and
+    <s>_cgen.png (SVGPVAE); the ball <s:06d>.png and, with
+    --squares_circles, the two probes (figures without a title)."""
+    grid = ((1000, 1000), ("Title",))
+    names = {}
+    for s in eval_steps:
+        if driver == "mnist":
+            names[f"{s}.png"] = names[f"{s}_cgen.png"] = grid
+            if "--save" in flags:
+                names[f"{s}_kernels.png"] = ((400, 1500), tuple(
+                    f"Panel {k}" for k in range(3)))
+        elif driver == "sprites":
+            names[f"{s}_recon.png"] = names[f"{s}_cgen.png"] = grid
+        else:
+            names[f"{s:06d}.png"] = ((600, 800), ())
+            if "--squares_circles" in flags:
+                for kind in ("circles", "squares"):
+                    names[f"{s:06d}_{kind}.png"] = ((400, 800), ())
+    return names
+
+
+def check_run_pictures(tag, run_dir, want) -> None:
+    """Phase 19(b): run_dir/pics holds exactly `want`'s names, each
+    decoded at its size, not constant, with its text entries."""
+    from svgpvae_tpu_torch.utils.png import read_png
+
+    pics = os.path.join(run_dir, "pics")
+    got = sorted(p for p in os.listdir(pics) if p.endswith(".png"))
+    if got != sorted(want):
+        raise AssertionError(f"{tag}: pics {got}, the JAX driver's "
+                             f"{sorted(want)}")
+    for name in got:
+        rgb, text = read_png(os.path.join(pics, name))
+        size, keys = want[name]
+        if rgb.shape[:2] != size or rgb.min() == rgb.max() or \
+                not all(text.get(k) for k in keys):
+            raise AssertionError(f"{tag} {name}: {rgb.shape}, texts "
+                                 f"{text}")
+    log(f"19(b) {tag}: {len(got)} pictures as the JAX driver names them, "
+        f"decoded at their sizes: {got}")
+
+
+def phase_pictures(base_dir, saved_runs) -> dict:
+    """Phase 19: (a) the ball runs with pictures and probes, (b) every
+    saved run's pics/ against the JAX names, (c) the host ms of each
+    picture kind.  Returns the launch counts of (a)'s runs, summed."""
+    seconds, launches = {}, {}
+    for tag in PICTURE_RUNS:
+        res, counts = phase_picture_ball(tag, base_dir)
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        check_run_pictures(f"19(a) {tag}", res["run_dir"], jax_picture_names(
+            "ball", PICTURE_ARGV, [50, 100]))
+        for p in res["pictures"]:
+            for kind in ("latents", "circles", "squares"):
+                seconds.setdefault(f"ball {kind}", []).append(
+                    p["seconds"][kind])
+    mnist_epoch = MNIST_EPOCH_STEPS
+    mnist_run, mnist_pictures = saved_runs.pop("13(a)")
+    # 13(a): one saved epoch, then one resumed without --save (no metric
+    # rows, so no kernel picture)
+    want = jax_picture_names("mnist", ["--save"], [mnist_epoch])
+    want.update(jax_picture_names("mnist", [], [2 * mnist_epoch]))
+    check_run_pictures("13(a)", mnist_run, want)
+    records = {"13(a)": mnist_pictures}
+    for tag, res in saved_runs.items():
+        driver = "mnist" if "eval_mse" in res["evals"][-1] else "sprites"
+        steps = len(res["step_seconds"])
+        check_run_pictures(tag, res["run_dir"], jax_picture_names(
+            driver, ["--save"], [steps]))
+        records[tag] = res["pictures"]
+    for tag, recs in records.items():
+        driver = "sprites" if tag in ("8", "16(e)") else "mnist"
+        for p in recs:
+            seconds.setdefault(f"{driver} {p['kind']}", []).append(
+                p["seconds"])
+    log("19(c) host ms per picture (copy, draw, PNG write): " + "; ".join(
+        f"{k} " + ", ".join(f"{1e3 * v:.1f}" for v in vs)
+        for k, vs in sorted(seconds.items())))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2560,8 +2760,8 @@ def main() -> int:
         SPRITES_PRETRAIN_STEPS, SPRITES_CAPTURE,
         "sprites titsias train (record flags)", (0, 2))
     timed(12, phase_sprites_cpu_check, sp_titsias_res, SPRITES_TITSIAS_ARGV)
-    mnist_run, resume_launches = timed("13a", phase_mnist_save_resume,
-                                       mnist_data, runs.name, train_res)
+    mnist_run, resume_launches, mnist_pictures = timed(
+        "13a", phase_mnist_save_resume, mnist_data, runs.name, train_res)
     mnist_served, mnist_serve_launches = timed(
         "13b", phase_serve_run, mnist_run, mnist_data, runs.name, "mnist")
     timed("13b", phase_cpu_check, "mnist run", mnist_served,
@@ -2573,13 +2773,16 @@ def main() -> int:
           RUN_FIT_NOISE_FACTOR)
     ball_launches = timed(14, phase_ball, runs.name)
     baseline_launches = timed(15, phase_baselines, mnist_data, corpus)
-    flag_launches = timed(16, phase_driver_flags, mnist_data, corpus,
-                          runs.name, train_launches)
+    flag_launches, flag_runs = timed(16, phase_driver_flags, mnist_data,
+                                     corpus, runs.name, train_launches)
     bf16_launches = timed(17, phase_mixed_precision, corpus, mnist_data,
                           train_res, sprites_res)
     dp_launches = timed(18, phase_data_parallel, mnist_data, train_res,
                         corpus, sprites_res["run_dir"], runs.name,
                         sprites_served)
+    picture_launches = timed(19, phase_pictures, runs.name, {
+        "8": sprites_res, "13(a)": (mnist_run, mnist_pictures),
+        **flag_runs})
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -2588,7 +2791,8 @@ def main() -> int:
              "mnist_resume_train": resume_launches,
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
-             **baseline_launches, **flag_launches, **bf16_launches}
+             **baseline_launches, **flag_launches, **bf16_launches,
+             "pictures": picture_launches}
     # phase 18's paths (every rank's launches, summed) under one key
     paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
                               for k in KERNELS}
@@ -2626,6 +2830,8 @@ def main() -> int:
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             shape=r["dims"], graph_ms=r["graph_ms"],
             **{k: r[k] for k in ("forms", "variants") if k in r}))
+    if "matplotlib" in sys.modules or "PIL" in sys.modules:
+        raise AssertionError("matplotlib or PIL was imported")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,9 +38,20 @@ Run outputs: --save makes the run dir (args.json), every eval appends to
 res/ELBO_results.csv and, for the SVGPVAE, res/GP_params.csv (the JAX
 columns); every --ckpt_every steps and at the end a checkpoint (the
 TrainState, the noise and video generators) under ckpt/ and the eval
-batch's predictions in preds/preds_<step>.p.  --resume_dir <run dir>
-continues from its latest checkpoint.  At every eval the batch-mean
-ELBO goes through utils.check_finite: on NaN/inf the current state goes
+batch's predictions in preds/preds_<step>.p; every --plot_every steps
+the latent pictures, drawn with numpy alone (utils.plots, no
+matplotlib): pics/<step:06d>.png (plot_latents: the eval batch's first
+four videos, true and aligned paths with their covariance ellipses,
+the reconstructions) from one more eval pass, and under
+--squares_circles pics/<step:06d>_circles.png and _squares.png, the
+latent-geometry probes: the probe video (data.make_circles /
+make_squares) tiled to the batch, run through the eval forward (the
+SVGPVAE: one B1 launch each) and its first video's encoder means
+aligned with that eval pass's mse_rotation W.  The pictures are drawn
+on the host after the eval passes, outside the step timings.
+--resume_dir <run dir> continues from its latest checkpoint.  At every
+eval the batch-mean ELBO goes through utils.check_finite: on NaN/inf
+the current state goes
 to <run dir>/ckpt_nan/<step>.pt (a diagnostic, not a resume point) and
 utils.NonFiniteLossError is raised.  --profile_dir DIR writes a
 torch.profiler Chrome trace into DIR of the steps of the JAX driver's
@@ -55,11 +66,9 @@ NP's split) from the run's generators, then takes its contiguous share
 of the videos (JAX pins the generated batch to the data axis); the
 per-video ELBOs are averaged over the global batch (parallel.mean_rows)
 and the gradients summed across ranks, so every rank takes the
-1-process step.  The eval passes run replicated; only rank 0 writes the
-run dir and prints.
-Not ported yet, refused: --show_pics, --squares_circles, and
---plot_every when a run dir would make it draw (pass a --plot_every
-above --steps with --save).
+1-process step.  The eval passes (the pictures' and the probes' too)
+run replicated; only rank 0 writes the run dir, draws and prints.
+--show_pics is accepted and ignored, as by the JAX driver.
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ from svgpvae_tpu_torch import (data, gp as gpm, models, ops, parallel,
                                train, utils)
 from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
 from svgpvae_tpu_torch.nn import BallDecoder, BallEncoder
+from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
 
 BATCH, PX, PY, RADIUS = 35, 32, 32, 3.0
@@ -87,6 +97,7 @@ EVAL_SEED = 99        # the JAX driver's eval key, jax.random.PRNGKey(99)
 EVAL_SPLIT_SEED = 100
 LR = 1e-3
 CLIP_GRAD_VALUE = 1e5
+PROBES = {"circles": data.make_circles, "squares": data.make_squares}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--GP_joint", action="store_true")
     p.add_argument("--ip_joint", action="store_true")
     p.add_argument("--clip_qs", action="store_true")
-    p.add_argument("--show_pics", action="store_true")
+    p.add_argument("--show_pics", action="store_true", help="unused")
     p.add_argument("--save", action="store_true")
     p.add_argument("--squares_circles", action="store_true")
     p.add_argument("--ip_min", type=float, default=1.0)
@@ -143,21 +154,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--params", type=str, default=None,
                    help=".npz of flat JAX ball parameters to start from")
     return p
-
-
-NOT_PORTED = {  # flag -> is it set?
-    "--show_pics": lambda a: a.show_pics,
-    "--squares_circles": lambda a: a.squares_circles,
-    # the latent pictures, drawn into a run dir every --plot_every steps
-    "--plot_every": lambda a: ((a.save or a.resume_dir is not None)
-                               and a.plot_every <= a.steps),
-}
-
-
-def refuse_unported(args) -> None:
-    for flag, is_set in NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag}: not ported yet")
 
 
 def load_test_batches(args) -> list:
@@ -312,7 +308,8 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     "step_p50_ms", "step_p90_ms" (host clock after synchronize, the first
     step left out), "state", "launches" (the run's kernel launches),
     "step_seconds", "metrics", "step_launches" (per step), "evals",
-    "captured", "run_dir", "noise", "video_fn"}.
+    "pictures" (draw_pictures' record of each --plot_every step under
+    --save or --resume_dir), "captured", "run_dir", "noise", "video_fn"}.
 
     `video_fn()` -> (35, T, 32, 32) replaces the video generator,
     `eps_fn(kind, shape)` ("train"/"eval") the noise and
@@ -320,7 +317,6 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     inject the JAX driver's).  `capture_step` keeps a copy of that step's
     videos, parameters before it, draws and gradients."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device")
@@ -391,21 +387,22 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
 
     @torch.no_grad()
     def evaluate(check_step: Optional[int] = None):
-        """The eval batch's outputs, MSE and aligned means and variances;
-        with `check_step` the sentinel sees the ELBO before the
-        alignment."""
+        """The eval batch's outputs and their mse_rotation (aligned means,
+        W, MSE, aligned variances); with `check_step` the sentinel sees
+        the ELBO before the alignment."""
         out = forward(params, td0, "eval", 1.0)
         if check_step is not None:
             utils.check_finite([float(out.elbo.mean())], check_step,
                                lambda: checkpoint_state(state, noise,
                                                         video_fn), run_dir)
-        rp, _, mse, rv = utils.mse_rotation(
+        return out, utils.mse_rotation(
             out.p_m.cpu().numpy().astype(np.float64), tt0,
             out.p_v.cpu().numpy().astype(np.float64))
-        return out, mse, rp, rv
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
-    captured, last_mse = None, float("nan")
+    captured, last_mse, pictures = None, float("nan"), []
+    # every rank runs the pictures' eval passes; rank 0's run_dir draws
+    draws = args.save or args.resume_dir is not None
     start = state.step
     traced = profile_steps(args, start)
     launches0 = ops.launch_counts()
@@ -442,7 +439,7 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
                 before = ops.launch_counts()
                 t0 = time.perf_counter()
                 with utils.annotate("eval_pass"):
-                    out, mse, _, _ = evaluate(check_step=g_s)
+                    out, (_, _, mse, _) = evaluate(check_step=g_s)
                 elbo = float(out.elbo.mean())
                 sync(device)
                 after = ops.launch_counts()
@@ -462,6 +459,12 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
                           f"{ev['ce_term']:.3f}")
                 if savers:
                     write_eval_rows(savers, state, out, ev, args.beta0)
+
+            if draws and g_s % args.plot_every == 0:
+                with utils.annotate("pictures"):
+                    pictures.append(draw_pictures(
+                        args, run_dir, g_s, evaluate, forward, params, tt0,
+                        td0))
 
             if run_dir and g_s % args.ckpt_every == 0:
                 save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
@@ -488,6 +491,7 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
             "launches": {k: end[k] - launches0[k] for k in end},
             "step_seconds": step_seconds, "metrics": step_metrics,
             "step_launches": step_launches, "evals": evals,
+            "pictures": pictures,
             "captured": captured, "run_dir": run_dir, "noise": noise,
             "video_fn": video_fn}
 
@@ -548,12 +552,68 @@ def save(run_dir, state, noise, video_fn, evaluate, tt0, td0,
                           checkpoint_state(state, noise, video_fn),
                           state.step)
     if preds:
-        out, _, rp, rv = evaluate()
+        out, (rp, _, _, rv) = evaluate()
         with open(os.path.join(run_dir, "preds",
                                f"preds_{state.step}.p"), "wb") as f:
             pickle.dump((td0.cpu().numpy(), tt0,
                          out.pred_vid.cpu().numpy(), rp, rv), f)
     print(f"model saved: {run_dir}")
+
+
+@torch.no_grad()
+def probe_latents(forward, params, kind: str, W: np.ndarray, tmax: int,
+                  device, dtype=torch.float32) -> tuple:
+    """The --squares_circles probe `kind`: its path and video
+    (PROBES[kind]), the video tiled to the batch of 35 and run through
+    the eval forward, and the first video's encoder means aligned with W
+    (an eval pass's mse_rotation): (traj (T, 2), vid (1, T, 32, 32),
+    aligned (T, 2) float64)."""
+    traj, vid = PROBES[kind](px=PX, py=PY, r=RADIUS, tmax=tmax)
+    batch = torch.as_tensor(np.tile(vid, (BATCH, 1, 1, 1)), dtype=dtype,
+                            device=device)
+    qm = forward(params, batch, "eval", 1.0).qnet_mu[0]
+    qm = qm.cpu().numpy().astype(np.float64)
+    return traj, vid, np.hstack([qm, np.ones((tmax, 1))]) @ W
+
+
+def draw_pictures(args, run_dir, g_s, evaluate, forward, params, tt0,
+                  td0) -> dict:
+    """The JAX driver's pictures at step g_s: one eval pass drawn by
+    plot_latents into pics/<g_s:06d>.png, and under --squares_circles
+    each probe's aligned latents by plot_geometry_probe into
+    pics/<g_s:06d>_<kind>.png.  The passes run on every rank; a rank
+    without a run dir draws nothing.  Returns {"step", "launches" (of the
+    passes), "probes" ({kind: aligned latents}), "seconds" ({"eval",
+    "probes", and per picture kind the host time to draw and write
+    it})}."""
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out, (rp, W, _, rv) = evaluate()
+    pred_vid = out.pred_vid.cpu().numpy()
+    seconds = {"eval": time.perf_counter() - t0}
+    pics = os.path.join(run_dir, "pics") if run_dir else None
+    if pics:
+        t0 = time.perf_counter()
+        plots.plot_latents(td0.cpu().numpy(), tt0, pred_vid, rp, rv,
+                           save_path=os.path.join(pics, f"{g_s:06d}.png"))
+        seconds["latents"] = time.perf_counter() - t0
+    probes = {}
+    if args.squares_circles:
+        t0 = time.perf_counter()
+        drawn = {kind: probe_latents(forward, params, kind, W, args.tmax,
+                                     td0.device) for kind in PROBES}
+        seconds["probes"] = time.perf_counter() - t0
+        for kind, (traj, vid, aligned) in drawn.items():
+            probes[kind] = aligned
+            if pics:
+                t0 = time.perf_counter()
+                plots.plot_geometry_probe(
+                    traj, aligned, vid, kind, save_path=os.path.join(
+                        pics, f"{g_s:06d}_{kind}.png"))
+                seconds[kind] = time.perf_counter() - t0
+    after = ops.launch_counts()
+    return {"step": g_s, "probes": probes, "seconds": seconds,
+            "launches": {k: after[k] - before[k] for k in after}}
 
 
 def write_eval_rows(savers, state, out, ev, beta0) -> None:

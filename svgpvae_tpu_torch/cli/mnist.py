@@ -81,8 +81,18 @@ samples of the train split's latents to latents_train.p.  --resume_dir
 from the restored step, writing into that run dir (run_svgpvae only:
 the JAX driver's run_svigp and run_casale never read it, and the port
 refuses it there).  The JAX
-driver's pictures (pics/*.png) are not written: the port does without
-matplotlib, and --show_pics is refused.
+driver's pictures, drawn with numpy alone (utils.plots; the card's
+machine has no matplotlib) and written with the titles in their PNG
+text chunks, at every eval pass with a run dir: run_svgpvae's
+pics/<step>.png (8 test images against their reconstructions, "epoch
+E. recon MSE test X"), pics/<step>_cgen.png (SVGPVAE and CVAE: the cgen
+images, "epoch E. CGEN MSE X") and, at an SVGPVAE epoch's metric rows,
+pics/<step>_kernels.png (the view, object and product kernels on the
+first train batch's aux rows, `kernel_matrices`); run_svigp's and
+run_casale's pics/<step>_cgen.png.  They are drawn on the host after the
+eval pass, outside the step timings; each result's "pictures" lists the
+files and the host seconds of each.  --show_pics is accepted and
+ignored, as by the JAX driver.
 
 The sentinel: after every epoch the step metrics go through
 utils.check_finite; on the first NaN/inf it writes the current state (the
@@ -141,13 +151,13 @@ driver's messages: N above the visible devices, a --batch_size that N
 does not divide, and --bias_analysis; and for Casale, which the JAX
 driver runs on one device whatever the flag says.
 
-Not ported yet, refused with an error: --epoch_chunk, --eval_bundle and
---show_pics.
+Not ported yet, refused with an error: --epoch_chunk and --eval_bundle.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import pickle
 import time
@@ -158,7 +168,9 @@ import torch
 
 from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
+from svgpvae_tpu_torch import kernels
 from svgpvae_tpu_torch.nn import MnistCVAE, MnistVAE, SVIGPDecoder
+from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
                                              cvae_params_from_jax,
                                              mnist_params_from_jax,
@@ -198,7 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_model_weights", action="store_true")
     p.add_argument("--dataset", type=str, default="3",
                    choices=["3", "36", "13679"])
-    p.add_argument("--show_pics", action="store_true")
+    p.add_argument("--show_pics", action="store_true", help="unused")
     p.add_argument("--opt_regime", type=str, default=["joint-1000"],
                    nargs="+")
     p.add_argument("--L", type=int, default=16)
@@ -272,7 +284,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 NOT_PORTED = {  # flag -> is it set?
     "--epoch_chunk": lambda a: a.epoch_chunk > 1,
-    "--show_pics": lambda a: a.show_pics,
     "--eval_bundle": lambda a: a.eval_bundle,
 }
 # flag -> (is it set?, the --elbo values whose JAX run never reads it)
@@ -364,6 +375,41 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     """`t` on the host as a numpy array; bf16 (which numpy lacks) as
     fp32."""
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def draw(pictures: list, run_dir: Optional[str], name: str, kind: str,
+         plot: Callable, *args, **kwargs) -> None:
+    """With a run dir, plot(*args, **kwargs) into pics/<name>.png, and
+    {"file", "kind", "seconds" (host time to copy, draw and write)} onto
+    `pictures`; without one nothing.  Tensors among args are copied to
+    the host once (bf16 as fp32)."""
+    if not run_dir:
+        return
+    t0 = time.perf_counter()
+    args = [host_array(a) if isinstance(a, torch.Tensor) else a
+            for a in args]
+    plot(*args, save_path=os.path.join(run_dir, "pics", f"{name}.png"),
+         **kwargs)
+    pictures.append({"file": f"{name}.png", "kind": kind,
+                     "seconds": time.perf_counter() - t0})
+
+
+@torch.no_grad()
+def kernel_matrices(gp, aux: torch.Tensor, normalize: bool) -> tuple:
+    """The JAX driver's kernel pictures' matrices on the aux rows [id,
+    angle, object...]: the view kernel (ExpSinSquared over the angle,
+    period 2 pi), the object kernel (linear over the GPLVM table's rows of
+    the ids, or the aux rows' object columns; cosine-normalised under
+    --object_kernel_normalize) and their product."""
+    view = aux[:, 1:2]
+    obj = (aux[:, 2:] if gp.object_vectors is None
+           else gp.object_vectors[aux[:, 0].long()])
+    k_view = kernels.exp_sin_squared_matrix(view, view, gp.amplitude,
+                                            gp.length_scale, 2.0 * math.pi)
+    k_obj = kernels.linear_matrix(obj, obj)
+    if normalize:
+        k_obj = kernels.cosine_normalize_matrix(k_obj, obj, obj)
+    return k_view, k_obj, k_view * k_obj
 
 
 def build_model(args, splits: dict, N_train: int, device: torch.device):
@@ -848,15 +894,18 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     test_im, test_aux = _to_dev(test_d, device, dtype)
 
     @torch.no_grad()
-    def recon_sum(images, aux, vae_pass):
-        # the JAX driver's "MSE": the summed recon_loss over the split
-        # (under GECO the constraint sum_b(mse_b - kappa^2))
-        return sum(float(vae_forward(params, batch, "eval").recon_loss
-                         if vae_pass else
-                         forward(params, batch, state.geco, args.alpha,
-                                 "eval").recon_loss)
-                   for batch in train.epoch_batches((images, aux),
-                                                    args.batch_size))
+    def recon_sum(images, aux, vae_pass, keep: bool = False):
+        """The JAX driver's "MSE": the summed recon_loss over the split
+        (under GECO the constraint sum_b(mse_b - kappa^2)); with `keep`
+        also the split's recon images (else None)."""
+        total, recon = 0.0, []
+        for batch in train.epoch_batches((images, aux), args.batch_size):
+            out = (vae_forward(params, batch, "eval") if vae_pass else
+                   forward(params, batch, state.geco, args.alpha, "eval"))
+            total += float(out.recon_loss)
+            if keep:
+                recon.append(out.recon_images)
+        return total, torch.cat(recon) if keep else None
 
     @torch.no_grad()
     def encode_train():
@@ -907,7 +956,7 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     parallel.check_replicated(list(train.named_tensors(params).values()))
     rec = StepRecorder(device, noise, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
-    evals, biases = [], []
+    evals, biases, pictures = [], [], []
     cgen_images = None
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
@@ -940,11 +989,11 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   f"{time.perf_counter() - t_epoch:.2f}s")
             t0 = time.perf_counter()
             with utils.annotate("eval_pass"):
-                ev = {"epoch": epoch,
-                      "eval_mse": recon_sum(eval_im, eval_aux, use_vae_pass)
-                      / N_eval,
-                      "test_mse": recon_sum(test_im, test_aux, use_vae_pass)
-                      / N_test}
+                eval_sum, _ = recon_sum(eval_im, eval_aux, use_vae_pass)
+                test_sum, test_recon = recon_sum(
+                    test_im, test_aux, use_vae_pass, keep=bool(run_dir))
+                ev = {"epoch": epoch, "eval_mse": eval_sum / N_eval,
+                      "test_mse": test_sum / N_test}
                 sync(device)
                 t1 = time.perf_counter()
                 ev["cgen_mse"], images = cgen()
@@ -955,8 +1004,14 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             evals.append(ev)
             print(f"  eval MSE: {ev['eval_mse']:.5f}")
             print(f"  test MSE: {ev['test_mse']:.5f}")
+            draw(pictures, run_dir, f"{state.step}", "recon",
+                 plots.plot_image_grid, test_d["images"], test_recon,
+                 f"epoch {epoch + 1}. recon MSE test {ev['test_mse']:.4f}")
             if ev["cgen_mse"] is not None:
                 print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
+                draw(pictures, run_dir, f"{state.step}_cgen", "cgen",
+                     plots.plot_image_grid, test_d["images"], images,
+                     f"epoch {epoch + 1}. CGEN MSE {ev['cgen_mse']:.4f}")
                 if run_dir:
                     with open(os.path.join(run_dir, "pics",
                                            "test_metrics.txt"), "a") as f:
@@ -973,6 +1028,10 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
             elif savers:
                 write_eval_rows(args, savers, run_dir, state, forward,
                                 metrics_batch)
+                draw(pictures, run_dir, f"{state.step}_kernels", "kernels",
+                     plots.plot_kernel_matrices, *kernel_matrices(
+                         gp, train_aux[:args.batch_size],
+                         args.object_kernel_normalize))
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       ckpt_state(), state.step)
@@ -982,7 +1041,8 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     rec.summary(time.perf_counter() - t_start)
     tracer.report()
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
-                  noise=noise, regimes=regime, bias=biases, shuffle=shuffle)
+                  noise=noise, regimes=regime, bias=biases, shuffle=shuffle,
+                  pictures=pictures)
     _best(result, evals)
     _save_cgen_images(run_dir, cgen_images)
     if run_dir and args.save_latents:
@@ -1081,7 +1141,7 @@ def run_svigp(args, splits: dict, device: torch.device,
     parallel.check_replicated(list(train.named_tensors(params).values()))
     rec = StepRecorder(device, None, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
-    evals, cgen_images = [], None
+    evals, cgen_images, pictures = [], None, []
     t_start = time.perf_counter()
     for epoch in range(args.nr_epochs):
         elbos, losses = [], []
@@ -1110,12 +1170,16 @@ def run_svigp(args, splits: dict, device: torch.device,
             evals.append({"epoch": epoch, "cgen_mse": total / N_test,
                           "seconds": {"cgen": time.perf_counter() - t0}})
             print(f"  cgen test MSE: {total / N_test:.5f}")
+            draw(pictures, run_dir, f"{state.step}_cgen", "cgen",
+                 plots.plot_image_grid, test_d["images"], cgen_images,
+                 f"epoch {epoch + 1}. CGEN MSE {total / N_test:.4f}")
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       ckpt_state(), state.step)
     rec.summary(time.perf_counter() - t_start)
     tracer.report()
-    result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir)
+    result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
+                  pictures=pictures)
     _save_cgen_images(run_dir, cgen_images)
     return _best(result, evals)
 
@@ -1258,7 +1322,7 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
 
     rec = StepRecorder(device, noise, capture_step)
     tracer = EpochTracer(args.profile_dir)
-    evals, steps, regimes = [], 0, []
+    evals, steps, regimes, pictures = [], 0, [], []
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         r = regime[epoch]
@@ -1304,7 +1368,7 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
                     noise("eval", (N_train, args.L)), clip_qs=args.clip_qs)
                 V = gpm.v_matrix(gp, consts["angles"], consts["object_ids"],
                                  consts["grid_rows"])
-                _, loss = models.predict_cgen_casale(
+                recon, loss = models.predict_cgen_casale(
                     params["vae"], gp, test_im, test_aux, train_aux, V, Z,
                     noise("eval", (len(test_im), args.L)),
                     noise_override=args.casale_predict_alpha or None)
@@ -1312,13 +1376,17 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
             evals.append({"epoch": epoch, "cgen_mse": float(loss),
                           "seconds": {"cgen": time.perf_counter() - t0}})
             print(f"  cgen test MSE: {float(loss):.5f}")
+            draw(pictures, run_dir, f"{steps}_cgen", "cgen",
+                 plots.plot_image_grid, splits["test"]["images"], recon,
+                 f"epoch {epoch + 1}. CGEN MSE {float(loss):.4f}")
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       ckpt_state(), steps)
     rec.summary(time.perf_counter() - t_start)
     tracer.report()
     result = dict(rec.result(), params=params, states=states, evals=evals,
-                  run_dir=run_dir, noise=noise, regimes=regimes)
+                  run_dir=run_dir, noise=noise, regimes=regimes,
+                  pictures=pictures)
     return _best(result, evals)
 
 

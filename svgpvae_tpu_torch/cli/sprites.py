@@ -77,10 +77,18 @@ at every eval and at the end.  --resume_dir <run dir> skips the
 pretraining, restores the latest checkpoint and runs --opt_regime's
 epochs from the restored step, writing into that run dir; it is refused
 with --basin_retry, whose restarts need the post-pretraining parameters.
-The pictures (pics/*.png) are not written: the port does without
-matplotlib.  After every epoch utils.check_finite: on a NaN/inf ELBO the
-current state goes to <run dir>/ckpt_nan/<step>.pt (a diagnostic, not a
-resume point) and utils.NonFiniteLossError is raised.  --profile_dir DIR
+Every eval pass with a run dir also draws the JAX CLI's pictures, with
+numpy alone (utils.plots; the card's machine has no matplotlib):
+pics/<step>_recon.png, 8 frames of the last test_character batch
+against their reconstructions ("epoch E. recon MSE X"), and for the
+SVGPVAE pics/<step>_cgen.png, that batch's cgen targets against the
+cgen images ("epoch E. CGEN MSE X"), the titles in the PNG text chunks;
+on the host after the eval pass, outside the step timings (the result's
+"pictures": the files and the host seconds of each).  --show_pics is
+accepted and ignored, as by the JAX CLI.  After every epoch
+utils.check_finite: on a NaN/inf ELBO the current state goes to
+<run dir>/ckpt_nan/<step>.pt (a diagnostic, not a resume point) and
+utils.NonFiniteLossError is raised.  --profile_dir DIR
 writes a torch.profiler Chrome trace of epoch 1 (the JAX CLI's choice)
 into DIR, with the ranges "train_step", "gp_block" and "eval_pass".
 
@@ -134,10 +142,11 @@ from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
                                          checkpoint_state, default_eps_fn,
-                                         host_array, open_run_dir,
+                                         draw, host_array, open_run_dir,
                                          restore_shuffle, resume,
                                          shuffle_state, sync)
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
+from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import (params_from_jax,
                                              sprites_train_params_from_jax)
 
@@ -743,14 +752,16 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         t, lc = time.perf_counter(), ops.launch_counts()
         tc_batches = [(tc_frames[lo:lo + batch_tc], tc_action[lo:lo + batch_tc])
                       for lo in range(0, N_test, batch_tc)]
-        recon = sum(float(forward(params, b, state.geco, args.alpha, "eval",
-                                  N_ACTIONS).recon_loss)
-                    for b in tc_batches)
+        recon = 0.0
+        for b in tc_batches:
+            out = forward(params, b, state.geco, args.alpha, "eval",
+                          N_ACTIONS)
+            recon += float(out.recon_loss)
         ev["test_mse"] = recon / N_test
         t, lc = stage("recon", t, lc)
         if not is_svgpvae:
             ev["seconds"], ev["launches"] = secs, launches
-            return ev, None
+            return ev, out.recon_images, None
         enc = []
         for lo, hi in bounds:
             im = train_frames[lo:hi]
@@ -775,10 +786,13 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         ev["cgen_mse"] = cgen / (N_test * (1 - args.N_context / N_ACTIONS))
         stage("cgen", t, lc)
         ev["seconds"], ev["launches"] = secs, launches
-        return ev, (pics, tgts)  # the last test batch's cgen images
+        # the last test batch's recon and cgen images
+        return ev, out.recon_images, (pics, tgts)
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, cgen_history, attempt, epoch = None, [], 0, 0
+    pictures = []
+    tc_last_frames = tc_d["frames"][(N_test - 1) // batch_tc * batch_tc:]
     tracer = EpochTracer(args.profile_dir)
     t_start = time.perf_counter()
     while epoch < nr_epochs:
@@ -827,9 +841,12 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                          gplvm_action=gp.gplvm_action.detach().cpu().numpy(),
                          inducing_points=gp.inducing_points.detach().cpu()
                          .numpy())
-            ev, images = eval_pass(epoch)
+            ev, recon_images, cgen_images = eval_pass(epoch)
             evals.append(ev)
             print(f"  test recon MSE: {ev['test_mse']:.5f}")
+            draw(pictures, run_dir, f"{state.step}_recon", "recon",
+                 plots.plot_image_grid, tc_last_frames, recon_images,
+                 f"epoch {epoch + 1}. recon MSE {ev['test_mse']:.4f}")
             if is_svgpvae:
                 cgen_history.append(ev["cgen_mse"])
                 print(f"  cgen test MSE: {ev['cgen_mse']:.5f}")
@@ -838,8 +855,12 @@ def run_svgpvae(args, splits: dict, device: torch.device,
                            and min(cgen_history) > (1 - args.basin_detect_rel)
                            * cgen_history[0])
                 if run_dir:
-                    write_eval_outputs(run_dir, epoch, ev, *images,
+                    write_eval_outputs(run_dir, epoch, ev, *cgen_images,
                                        ev["cgen_mse"] <= min(cgen_history))
+                pics, tgts = cgen_images
+                draw(pictures, run_dir, f"{state.step}_cgen", "cgen",
+                     plots.plot_image_grid, tgts, pics,
+                     f"epoch {epoch + 1}. CGEN MSE {ev['cgen_mse']:.4f}")
             print("  eval seconds: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in ev["seconds"].items()))
             if run_dir and args.save_model_weights:
@@ -876,7 +897,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         save_checkpoint()
     result = {"state": state, "pretrain": pre, "step_seconds": step_seconds,
               "metrics": step_metrics, "step_launches": step_launches,
-              "evals": evals, "captured": captured, "basin_attempts": attempt,
+              "evals": evals, "pictures": pictures, "captured": captured,
+              "basin_attempts": attempt,
               "cgen_mse": evals[-1].get("cgen_mse") if evals else None,
               "run_dir": run_dir, "noise": noise, "shuffle": shuffle}
     if is_svgpvae and evals:

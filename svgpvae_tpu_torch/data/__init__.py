@@ -1,6 +1,8 @@
 from svgpvae_tpu_torch.data.ball import (  # noqa: F401
     VideoBatchFn,
+    make_circles,
     make_path_batch,
+    make_squares,
     make_test_batches,
     make_video_batch,
     make_video_batch_fn,

@@ -8,8 +8,9 @@
     torch.Generator on the run's device, rasterized by one broadcast
     comparison (the JAX package's jitted `make_video_batch_fn`).
 
-The circles/squares latent probes feed only the pictures, which the port
-does not draw yet.
+  * `make_circles` / `make_squares`: the circles/squares latent-geometry
+    probes (two rings, a 5x5 lattice) as numpy paths and frames, equal to
+    the JAX package's.
 """
 
 from __future__ import annotations
@@ -62,6 +63,42 @@ def make_test_batches(n_batches: int = 10, tmax: int = 30, px: int = 32,
     """The fixed test batches, seeds 0..n_batches-1."""
     return [make_video_batch(tmax=tmax, px=px, py=py, lt=lt, batch=batch,
                              seed=s, r=r) for s in range(n_batches)]
+
+
+def _pixelate_series(traj: np.ndarray, px: int, py: int,
+                     r: float) -> np.ndarray:
+    traj_px = traj * (px / 5.0) + 0.5 * px
+    return _rasterize(traj_px, px, py, r)
+
+
+def make_circles(px: int = 32, py: int = 32, r: float = 3.0,
+                 tmax: int = 30) -> Tuple[np.ndarray, np.ndarray]:
+    """Two concentric rings of latent points (the centre, 8 at radius 1,
+    10 at radius 2, then zeros up to tmax) and their frames:
+    (traj (tmax, 2), vids (1, tmax, px, py))."""
+    n_in, n_out = 8, 10
+    ang_in = 2 * np.pi * np.arange(n_in) / n_in
+    ang_out = 2 * np.pi * np.arange(n_out) / n_out
+    x = np.concatenate([[0], np.sin(ang_in), 2 * np.sin(ang_out)])
+    y = np.concatenate([[0], np.cos(ang_in), 2 * np.cos(ang_out)])
+    traj = np.stack([x, y], axis=1)  # (19, 2)
+    traj = np.vstack([traj, np.zeros((tmax - len(traj), 2))])
+    vids = _pixelate_series(traj, px, py, r)[None]
+    return traj, vids
+
+
+def make_squares(px: int = 32, py: int = 32, r: float = 3.0,
+                 tmax: int = 30) -> Tuple[np.ndarray, np.ndarray]:
+    """A 5x5 lattice of latent points (-2..2, offset by 0.01, row by row,
+    then zeros up to tmax) and their frames: (traj (tmax, 2), vids (1,
+    tmax, px, py))."""
+    base = np.arange(5) - 2
+    sq_x = np.tile(base, 5)
+    sq_y = np.repeat(base, 5)
+    traj = np.stack([sq_x, sq_y], axis=1).astype(float) + 0.01
+    traj = np.vstack([traj, np.zeros((tmax - len(traj), 2))])
+    vids = _pixelate_series(traj, px, py, r)[None]
+    return traj, vids
 
 
 def time_kernel_cholesky(tmax: int, lt: float) -> np.ndarray:

@@ -205,7 +205,8 @@ def sprites_splits() -> dict:
 def summary(res: dict) -> dict:
     """What a driver run is compared on: the per-step metrics, the
     parameters, the GECO state, the eval rows, the captured step's
-    gradients and the run dir."""
+    gradients, the pictures' records (without their times) and the run
+    dir."""
     from svgpvae_tpu_torch import train
     state = res["state"]
     cap = res.get("captured")
@@ -219,6 +220,8 @@ def summary(res: dict) -> dict:
                       for e in res.get("evals", [])],
             "grads": None if cap is None else {
                 k: g.numpy().copy() for k, g in cap["grads"].items()},
+            "pictures": [{k: v for k, v in p.items() if k != "seconds"}
+                         for p in res.get("pictures", [])],
             "run_dir": res.get("run_dir")}
 
 

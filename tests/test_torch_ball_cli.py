@@ -13,8 +13,13 @@
     driver's;
   * --save and --resume_dir: a run cut at a checkpoint and resumed equals
     the uninterrupted run bit for bit (every parameter, Adam's state, the
-    step, the noise and video generators, the eval MSE);
-  * the refusals, and no jax import.
+    step, the noise and video generators, the eval MSE), and both run
+    dirs hold the pictures the JAX driver writes at those steps
+    (pics/<step:06d>.png every --plot_every steps);
+  * the picture flags run: --show_pics is ignored, --squares_circles
+    adds pics/<step:06d>_circles.png and _squares.png, and --save draws
+    at the default cadence's steps (each PNG decoded at its size); the
+    bad configurations are refused, and no jax import.
 
 Tolerances as tests/test_torch_mnist_train.py: gradients within
 GRAD_RTOL = 2e-4 of each tensor's max |entry|; parameters after the
@@ -47,6 +52,7 @@ from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from run_pictures import pictures  # noqa: E402
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 GRAD_RTOL = 2e-4
@@ -205,7 +211,16 @@ def test_main_matches_jax_driver(tmp_path, case):
 
 SAVE = ["--elbo", "SVGPVAE_Hensman", "--clip_qs", "--ip_joint", "--tmax",
         "5", "--m", "4", "--eval_every", "2", "--ckpt_every", "2",
-        "--plot_every", "100", "--device", "cpu", "--seed", "1"]
+        "--plot_every", "2", "--device", "cpu", "--seed", "1"]
+
+
+def _pictures(run_dir) -> list:
+    """The .png names under run_dir/pics, each decoded at the JAX
+    figure's size (plot_latents 800 x 600, the probes 800 x 400)."""
+    got = pictures(run_dir)
+    for name, (h, w, _) in got.items():
+        assert (h, w) == ((400, 800) if "_" in name else (600, 800)), name
+    return list(got)
 
 
 @pytest.mark.parametrize("elbo", ["SVGPVAE_Hensman", "NP"])
@@ -231,6 +246,10 @@ def test_resume_equals_uninterrupted_run(tmp_path, elbo):
         assert torch.equal(whole[k].generator.get_state(),
                            rest[k].generator.get_state()), k
     assert whole["mse"] == rest["mse"]
+    # the JAX driver's pictures, {g_s:06d}.png at every --plot_every step
+    # (the resumed run adds its own into the cut run's dir)
+    for res in (whole, rest):
+        assert _pictures(res["run_dir"]) == ["000002.png", "000004.png"]
     assert [e["mse"] for e in whole["evals"]][-1] == rest["evals"][-1]["mse"]
     # the JAX driver's result files
     for name in ("ELBO_results.csv", "GP_params.csv") if "SVGP" in elbo \
@@ -241,17 +260,26 @@ def test_resume_equals_uninterrupted_run(tmp_path, elbo):
                           else tball.GP_COLUMNS)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--show_pics"], ["--squares_circles"],
-    # the pictures stay refused under --data_parallel, which runs
-    # (tests/test_torch_parallel_drivers.py)
-    ["--profile_dir", "p", "--data_parallel", "5", "--show_pics"],
-    ["--data_parallel", "5", "--squares_circles"],
-    ["--save", "--plot_every", "10"]])
-def test_unported_flags_are_refused(tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tball.main(["--elbo", "VAE", "--steps", "20", "--device", "cpu",
-                    "--base_dir", str(tmp_path)] + flags)
+# the flags refused before the pictures were ported (their
+# --data_parallel cases: tests/test_torch_parallel_drivers.py)
+@pytest.mark.parametrize("flags,names", [
+    (["--show_pics"], None),  # accepted and ignored, as by the JAX driver
+    (["--squares_circles", "--save", "--plot_every", "20"],
+     ["000020.png", "000020_circles.png", "000020_squares.png"]),
+    (["--save", "--plot_every", "10"], ["000010.png", "000020.png"])])
+def test_picture_flags_run_and_draw(tmp_path, flags, names):
+    res = tball.main(["--elbo", "VAE", "--steps", "20", "--device", "cpu",
+                      "--base_dir", str(tmp_path)] + flags)
+    assert res["state"].step == 20
+    if names is None:
+        assert res["run_dir"] is None and res["pictures"] == []
+        return
+    assert _pictures(res["run_dir"]) == names
+    assert [p["step"] for p in res["pictures"]] == sorted(
+        {int(p[:6]) for p in names})
+    if "--squares_circles" in flags:
+        for aligned in res["pictures"][0]["probes"].values():
+            assert aligned.shape == (30, 2) and np.isfinite(aligned).all()
 
 
 def test_bad_configurations_are_refused(tmp_path):

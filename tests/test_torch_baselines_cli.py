@@ -28,6 +28,12 @@ no per-step record):
   * the refusals that name their flag: Casale --data_parallel,
     SVIGP / Casale --resume_dir.
 
+Each port run saves (--save): its run dir's pics/ holds exactly the
+PNG names the JAX driver writes at those steps (svgpvae_tpu/cli/
+mnist.py:762 <step>.png, :805 <step>_cgen.png for the CVAE, :1082 and
+:1369 <step>_cgen.png; cli/sprites.py:741 <step>_recon.png), each
+decoded at 1000 x 1000 with the JAX figure's title in its text.
+
 Tolerances (float32 on both sides, the same math in other orders): each
 step's loss within RTOL_LOSS of the sum of the magnitudes it is the
 difference of; the deep SVIGP's within SVIGP_RTOL_LOSS of its -bK log
@@ -69,6 +75,7 @@ from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from export_jax_params import flatten_params  # noqa: E402
+from run_pictures import pictures  # noqa: E402
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 RTOL_LOSS = 1e-5
@@ -79,6 +86,19 @@ CASALE_CGEN_RTOL = 1e-2
 L, SEED, BS = 6, 0, 101  # two batches of the 202 train rows
 COMMON = ["--dataset", "36", "--L", str(L), "--seed", str(SEED),
           "--device", "cpu"]
+
+
+def _saved(tmp_path) -> list:
+    return ["--save", "--base_dir", str(tmp_path / "runs")]
+
+
+def _assert_pictures(got, want_titles):
+    """The run dir's pictures are exactly {name: Title} of the JAX
+    driver's, each a 1000 x 1000 grid."""
+    pics = pictures(got["run_dir"])
+    assert {k: (h, w) for k, (h, w, _) in pics.items()} == {
+        k: (1000, 1000) for k in want_titles}
+    assert {k: t["Title"] for k, (_, _, t) in pics.items()} == want_titles
 
 
 @pytest.fixture(scope="module")
@@ -213,7 +233,8 @@ def test_vae_and_cvae_match_jax(tmp_path, splits, elbo):
     np.savez(npz, **flatten_params(params))
     got = tmnist.main(["--elbo", elbo, "--nr_epochs", "1", "--eval_every",
                        "1", "--clip_qs", "--batch_size", str(BS), "--params",
-                       npz] + COMMON, splits=splits, eps_fn=_jax_eps(SEED))
+                       npz] + COMMON + _saved(tmp_path), splits=splits,
+                      eps_fn=_jax_eps(SEED))
 
     def loss_vae(params, batch, key, geco, step):
         out = jmodels.forward_pass_vae(net, params["vae"], batch, key,
@@ -250,6 +271,11 @@ def test_vae_and_cvae_match_jax(tmp_path, splits, elbo):
         assert got["best_cgen_mse"] == ev["cgen_mse"]
     else:
         assert ev["cgen_mse"] is None and "best_cgen_mse" not in got
+    # a plain VAE has no cgen picture (svgpvae_tpu/cli/mnist.py:800-816)
+    _assert_pictures(got, {"2.png": f"epoch 1. recon MSE test "
+                                    f"{ev['test_mse']:.4f}", **(
+        {"2_cgen.png": f"epoch 1. CGEN MSE {ev['cgen_mse']:.4f}"}
+        if cvae else {})})
 
 
 # --- deep SVIGP --------------------------------------------------------------
@@ -278,7 +304,10 @@ def test_svigp_matches_jax(tmp_path, splits):
                                rtol=1e-6)
     npz = str(tmp_path / "params.npz")
     np.savez(npz, **flatten_params(params))
-    got = tmnist.main(argv + ["--params", npz], splits=splits)
+    got = tmnist.main(argv + ["--params", npz] + _saved(tmp_path),
+                      splits=splits)
+    _assert_pictures(got, {"2_cgen.png": "epoch 1. CGEN MSE "
+                                         f"{got['cgen_mse']:.4f}"})
 
     def loss_fn(params, batch, key, geco, step):
         out = jmodels.forward_pass_deep_svigp(dec, params["dec"],
@@ -386,8 +415,13 @@ def test_casale_matches_jax(tmp_path, splits, case):
     np.savez(npz, **flatten_params(params))
     nr_epochs, regime = ttrain.parse_opt_regime(args.opt_regime)
     eval_epoch = 4 if nr_epochs >= 5 else None
-    got = tmnist.main(argv + ["--params", npz], splits=splits,
+    got = tmnist.main(argv + ["--params", npz] + _saved(tmp_path),
+                      splits=splits,
                       eps_fn=_casale_eps(SEED, N, K, eval_epoch))
+    # the cgen picture at the eval pass (every 5 epochs), none without one
+    _assert_pictures(got, {} if eval_epoch is None else {
+        f"{len(got['metrics'])}_cgen.png":
+            f"epoch {eval_epoch + 1}. CGEN MSE {got['cgen_mse']:.4f}"})
 
     full = _f32(train_s["images"])
 
@@ -575,8 +609,11 @@ def test_sprites_vae_matches_jax(tmp_path):
             sub = jax.random.PRNGKey(11)
         return torch.from_numpy(np.array(jax.random.normal(sub, shape)))
 
-    got = tsprites.main(argv + ["--device", "cpu", "--params", npz],
-                        splits=corpus, eps_fn=eps_fn)
+    got = tsprites.main(argv + ["--device", "cpu", "--params", npz]
+                        + _saved(tmp_path), splits=corpus, eps_fn=eps_fn)
+    test_mse = got["evals"][0]["test_mse"]
+    _assert_pictures(got, {"2_recon.png": f"epoch 2. recon MSE "
+                                          f"{test_mse:.4f}"})
 
     def loss_fn(params, batch, key, geco, step):
         out = jmodels.forward_pass_vae(vae, params["vae"], batch, key,

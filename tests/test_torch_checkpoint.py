@@ -17,6 +17,7 @@ from svgpvae_tpu_torch import train as ttrain
 from svgpvae_tpu_torch import utils as tutils
 from svgpvae_tpu_torch.cli import mnist as tmnist
 from svgpvae_tpu_torch.cli import sprites as tsprites
+from run_pictures import pictures
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 MNIST_ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
@@ -67,8 +68,9 @@ def test_resumed_run_equals_the_uninterrupted_one(driver, tmp_path,
                           if driver == "mnist" else
                           (tsprites.main, SPRITES_ARGV, corpus))
     full = main(argv + ["--opt_regime", "joint-2"], splits=splits)
+    # --show_pics: accepted and ignored, as by the JAX drivers
     first = main(argv + ["--opt_regime", "joint-1", "--save",
-                         "--save_model_weights", "--base_dir",
+                         "--save_model_weights", "--show_pics", "--base_dir",
                          str(tmp_path)], splits=splits)
     run_dir = first["run_dir"]
     assert run_dir.startswith(str(tmp_path))
@@ -86,6 +88,26 @@ def test_resumed_run_equals_the_uninterrupted_one(driver, tmp_path,
     if rest["evals"]:
         assert rest["evals"][-1]["cgen_mse"] == full["evals"][-1]["cgen_mse"]
     assert tutils.latest_step(os.path.join(run_dir, "ckpt")) == 2 * n
+    # the JAX driver's pictures at each eval pass (MNIST every epoch:
+    # svgpvae_tpu/cli/mnist.py:762, 805 and, with the metric rows that
+    # --save turns on, 878; SPRITES with --eval_every 2 evaluates in
+    # neither run)
+    got = pictures(run_dir)
+    want = ([f"{n}.png", f"{n}_cgen.png", f"{n}_kernels.png",
+             f"{2 * n}.png", f"{2 * n}_cgen.png"] if driver == "mnist"
+            else [])
+    assert sorted(got) == sorted(want)
+    for name, (h, w, text) in got.items():
+        assert (h, w) == ((400, 1500) if "kernels" in name else (1000, 1000))
+        assert ("Title" in text) != ("kernels" in name)
+    if driver == "mnist":
+        ev = rest["evals"][-1]
+        assert got[f"{2 * n}.png"][2]["Title"] == \
+            f"epoch 1. recon MSE test {ev['test_mse']:.4f}"
+        assert got[f"{2 * n}_cgen.png"][2]["Title"] == \
+            f"epoch 1. CGEN MSE {ev['cgen_mse']:.4f}"
+        assert [p["file"] for p in first["pictures"]] == [
+            f"{n}.png", f"{n}_cgen.png", f"{n}_kernels.png"]
 
 
 def test_restore_is_bitwise(tmp_path, mnist_splits):

@@ -371,7 +371,7 @@ def test_value_clip_clips_gradients_before_adam():
 @pytest.mark.parametrize("flag", [
     ["--elbo", "GPVAE_Casale", "--data_parallel", "2"],
     ["--elbo", "SVIGP_Hensman", "--x64"],
-    ["--show_pics"], ["--epoch_chunk", "2"],
+    ["--eval_bundle", "--elbo", "VAE"], ["--epoch_chunk", "2"],
     ["--elbo", "GPVAE_Casale", "--bf16"],
     ["--elbo", "GPVAE_Casale", "--x64"],
     ["--elbo", "GPVAE_Casale_batch", "--data_parallel", "2"],

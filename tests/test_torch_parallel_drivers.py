@@ -17,7 +17,10 @@ On the same data, weights and draws, the 5-rank run must take the
     rank, so that ranks 1 and 3 start inside a character) and a
     replicated tail of one character, fp32, with --save;
   * cli.ball SVGPVAE_Hensman at 5 ranks (the batch of 35 videos, 7 a
-    rank), fp32;
+    rank), fp32; and the picture flags over 5 ranks: --save
+    --squares_circles --plot_every 3 (every rank runs the pictures' and
+    probes' eval passes, rank 0 alone draws into its one run dir) and
+    --profile_dir with --show_pics (ignored; no run dir, no pictures);
   * cli.serve --data_parallel 5 from the SPRITES run dir (350 rows, 70 a
     rank) against the unsharded serve of the same run.
 
@@ -42,6 +45,7 @@ from svgpvae_tpu_torch.cli import ball as tball, mnist as tmnist
 from svgpvae_tpu_torch.cli import serve as tserve, sprites as tsprites
 
 import parallel_cases as pc
+from run_pictures import pictures
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 WORLD = 5
@@ -67,7 +71,7 @@ CAPTURE = 1
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     return {k: str(tmp_path_factory.mktemp(k)) for k in
-            ("mnist", "sprites", "ball", "ranks")}
+            ("mnist", "sprites", "ball", "ball_pics", "ranks")}
 
 
 @pytest.fixture(scope="module")
@@ -88,11 +92,24 @@ def ranks(dirs):
         "ball": ("driver_case", dict(
             driver="ball", capture_step=CAPTURE,
             argv=BALL + DP + ["--base_dir", dirs["ball"]])),
+        **{name: ("driver_case", dict(driver="ball", argv=BALL + DP + flags
+                                      + ["--base_dir", dirs["ball_pics"]]))
+           for name, flags in ball_picture_cases(dirs).items()},
         "serve": ("serve_case", dict(base=dirs["sprites"], argv=[
             "--device", "cpu", "--out",
             os.path.join(dirs["ranks"], "served.npz")] + DP)),
     }
     return pc.Ranks(WORLD, cases, {}, dirs["ranks"])
+
+
+def ball_picture_cases(dirs) -> dict:
+    """The ball's picture flags over the ranks (refused before the
+    pictures were ported)."""
+    return {"squares_circles": ["--squares_circles", "--save",
+                                "--plot_every", "3"],
+            "show_pics": ["--profile_dir",
+                          os.path.join(dirs["ranks"], "trace"),
+                          "--show_pics"]}
 
 
 def _close(got, want, rtol, what=""):
@@ -172,6 +189,24 @@ def test_ball_five_ranks_match_one_process(ranks, dirs):
     want = pc.summary(tball.main(BALL + ["--base_dir", dirs["ball"]],
                                  capture_step=CAPTURE))
     _same_steps(ranks.results()["ball"], want, 1e-5, 2e-4, 2.5e-3)
+
+
+@pytest.mark.parametrize("case", ["squares_circles", "show_pics"])
+def test_ball_picture_flags_over_five_ranks(ranks, dirs, case):
+    got = ranks.results()[case]
+    if case == "show_pics":
+        assert got["run_dir"] is None and got["pictures"] == []
+        return
+    run_dir = got["run_dir"]
+    assert _run_dirs(dirs["ball_pics"]) == [run_dir.rstrip("/")]
+    assert {k: v[:2] for k, v in pictures(run_dir).items()} == {
+        "000003.png": (600, 800), "000003_circles.png": (400, 800),
+        "000003_squares.png": (400, 800)}
+    (record,) = got["pictures"]
+    assert record["step"] == 3 and set(record["probes"]) == {"circles",
+                                                             "squares"}
+    for aligned in record["probes"].values():
+        assert aligned.shape == (30, 2) and np.isfinite(aligned).all()
 
 
 def test_serve_sharded_fit_matches_unsharded(ranks, dirs):

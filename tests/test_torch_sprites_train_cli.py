@@ -5,10 +5,12 @@ the JAX package (the modules: tests/test_torch_sprites_train.py).
     in-memory corpus (pretraining, the main steps with the tail, one eval
     pass), against JAX's CLI run on the same corpus with the same
     weights and noise: test MSE and cgen MSE within rtol 1e-4, and no
-    kernel launch counted on the CPU.  It uses the CLI's default
-    L_action 8 and L_character 16: the CLI makes 72 inducing points,
-    so the small widths would be rank-deficient, where A_hat + jitter
-    loses positive definiteness in fp32 in both packages;
+    kernel launch counted on the CPU.  Both save: the port's run dir
+    holds exactly the PNG names of the JAX CLI's (<step>_recon.png and
+    <step>_cgen.png), each a 1000 x 1000 grid with its title.  It uses
+    the CLI's default L_action 8 and L_character 16: the CLI makes 72
+    inducing points, so the small widths would be rank-deficient, where
+    A_hat + jitter loses positive definiteness in fp32 in both packages;
   * --basin_retry, sprites_pca_init, the batcher, the dispatch cells,
     the refusals, the corpus guard, and that the entry point imports no
     jax.
@@ -17,6 +19,7 @@ the JAX package (the modules: tests/test_torch_sprites_train.py).
 import contextlib
 import functools
 import io
+import os
 import subprocess
 import sys
 
@@ -36,6 +39,7 @@ from svgpvae_tpu_torch.cli import sprites as tsprites
 from test_torch_sprites_train import (FPC, KAPPA, L, L_ACT, L_CHAR,
                                       N_ACTIONS, ROOT, _assert_params,
                                       _flat_port_names, flatten_params)
+from run_pictures import pictures
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 
@@ -92,13 +96,26 @@ def test_main_matches_jax_cli(tmp_path, corpus):
     args = tsprites.build_parser().parse_args(SLICE_ARGV)
     npz = str(tmp_path / "params.npz")
     np.savez(npz, **_jax_cli_init(0, MAIN_CHARS, args))
-    got = tsprites.main(SLICE_ARGV + ["--device", "cpu", "--params", npz],
+    got = tsprites.main(SLICE_ARGV + ["--device", "cpu", "--params", npz,
+                                      "--save", "--base_dir",
+                                      str(tmp_path / "port")],
                         splits=corpus, eps_fn=_jax_eps(0))
 
     jargs = jsprites.build_parser().parse_args(
-        SLICE_ARGV + ["--sprites_data_path", str(tmp_path / "corpus")])
+        SLICE_ARGV + ["--sprites_data_path", str(tmp_path / "corpus"),
+                      "--save", "--base_dir", str(tmp_path / "jax")])
     with contextlib.redirect_stdout(io.StringIO()):
         want = jsprites.run_experiment(jargs)
+    (jax_run,) = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path / "jax")
+                  for d in ds if d == "pics"]
+    pics = pictures(got["run_dir"])
+    assert sorted(pics) == sorted(p for p in os.listdir(jax_run)
+                                  if p.endswith(".png"))
+    ev = got["evals"][0]
+    assert {k: (h, w, t["Title"]) for k, (h, w, t) in pics.items()} == {
+        "2_recon.png": (1000, 1000,
+                        f"epoch 1. recon MSE {ev['test_mse']:.4f}"),
+        "2_cgen.png": (1000, 1000, f"epoch 1. CGEN MSE {ev['cgen_mse']:.4f}")}
     assert len(got["metrics"]) == 2 and got["pretrain"]["steps"] == 2
     np.testing.assert_allclose(got["cgen_mse"], want["best_cgen_mse"],
                                rtol=1e-4)
