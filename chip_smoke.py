@@ -189,6 +189,33 @@ Phases, each of which raises (nonzero exit) on failure:
      size, not constant, its title (the kernel pictures: their three
      panel titles) in its text chunks; (c) the host ms of each picture
      kind on a line of its own, and matplotlib never imported.
+ 20. --epoch_chunk and --eval_bundle, the steps and the eval group
+     replayed from captured CUDA graphs: (a) phase 6's run with
+     --lr_decay 0.1 (each captured step's lr read from the graphs' table),
+     eager and with --epoch_chunk 2 --eval_bundle: graphs of the
+     full-batch step, the tail step and the eval group captured and
+     replayed, B1 once and B2 at least once in every step and the run's
+     launches those of phase 6; its per-step loss and GECO state, final
+     parameters and eval MSEs held to the eager run within RECHECK_FACTOR
+     x the same run's fp32-vs-float64 gap (on the same draws), as phase
+     18(a) holds its run; (b) 10 epochs with --epoch_chunk 5 --eval_every
+     5 --eval_bundle, run unbroken twice, the first traced by
+     torch.profiler from its first eval to its end (its last chunk and
+     eval group, all replays): the B1, B2 and B3 kernels the trace saw
+     equal the launch counters' over the window and each graph's
+     launches (counted at its capture) times its replays, and go into
+     the kernels line under the path "epoch_chunk"; 5 epochs saved with
+     phase 13(a)'s flags, restored (bit for bit, the noise generator
+     included) and resumed for 5 more: the resumed run's per-step
+     metrics, final parameters and eval MSEs held to the unbroken run as
+     in (a), the yardstick the second unbroken run, and its noise
+     generator's state the unbroken run's; (c) phase 11's Titsias run as
+     (a), and phase 15's deep SVIGP run with --epoch_chunk 2 held to its
+     eager run within RECHECK_FACTOR x the gap of the eager run on train
+     pixels nudged by one fp32 ulp (its loss floored at the round-off of
+     the batch's sum of squared errors).  Each run prints its chunks'
+     seconds, the later chunks' p50 per step and its eval groups' seconds
+     beside the eager run's.
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
@@ -197,8 +224,9 @@ and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36), and phase
 (125, 72, 64), B3 and B2 at (25,000, 72, 64).
 
 The line before the last is {"kernels": [...]} (per kernel: launches on
-the main paths of phases 4, 6, 8, 10-19, phase 18's summed over its
-runs and ranks under the path "data_parallel", and the max error and
+the main paths of phases 4, 6, 8, 10-20, phase 18's summed over its
+runs and ranks under the path "data_parallel", phase 20's as its trace
+of the card saw them under "epoch_chunk", and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -2355,15 +2383,15 @@ class ranks_share_card:
         return False
 
 
-def run_values(res, scores) -> dict:
-    """A run's per-step losses and GECO state, its final parameters (one
-    vector) and its last eval's `scores`, as float64 CPU tensors."""
+def run_values(res, scores, series=("loss", "C_ma", "lagrange")) -> dict:
+    """A run's per-step `series` (by default its losses and GECO state),
+    its final parameters (one vector) and its last eval's `scores`, as
+    float64 CPU tensors."""
     import torch
     from svgpvae_tpu_torch import train
-    series = {k: torch.tensor([m[m_k] for m in res["metrics"]],
-                              dtype=torch.float64)
-              for k, m_k in (("loss", "loss"), ("C_ma", "C_ma"),
-                             ("lagrange_mult", "lagrange"))}
+    series = {"lagrange_mult" if k == "lagrange" else k:
+              torch.tensor([m[k] for m in res["metrics"]],
+                           dtype=torch.float64) for k in series}
     params = torch.cat([t.detach().reshape(-1).cpu().double() for t in
                         train.named_tensors(res["state"].params).values()])
     ev = res["evals"][-1]
@@ -2707,6 +2735,268 @@ def phase_pictures(base_dir, saved_runs) -> dict:
     return launches
 
 
+# --- phase 20 ---------------------------------------------------------------
+# --epoch_chunk and --eval_bundle as replayed CUDA graphs.  (a) Phase 6's
+# run under --lr_decay in chunks of 2 epochs with the bundled eval, held
+# to its eager run as phase 18(a) holds its 2-rank run (per-step loss and
+# GECO state, final parameters, eval MSEs within RECHECK_FACTOR x the
+# same run's fp32-vs-float64 gap, on the same draws); B1 and B2 must
+# launch as often as in phase 6.  (b) 10 epochs in chunks of 5 (an eval,
+# and with --save a checkpoint, every 5), the second chunk and eval group
+# of one run traced on the card (ReplayTrace), saved, restored (bit for
+# bit) and resumed for its
+# last 5 epochs, held to the unbroken run as (a) holds its run, the
+# yardstick a second unbroken run (cuDNN's backward does not repeat bit
+# for bit on the card, so no two runs do; without the floors a single
+# rerun's gap is no limit: one in the cgen MSE came out 24x below the
+# resumed run's, and floored, the resumed run is within its limit), the
+# noise generator's state ending equal.  (c) Phase 11's Titsias run and
+# phase 15's deep SVIGP run
+# in chunks of 2, each held to its eager run as (a): Titsias to its
+# float64 gap; deep SVIGP, whose run draws nothing and refuses --x64, to
+# the gap of its eager run on train pixels nudged by one fp32 ulp (a
+# perturbation at round-off's scale, which the run amplifies as it does
+# round-off; reversing each batch's rows would not do: the driver's KDE
+# inducing points are drawn from the rows in their order).  Its loss is
+# itself the sum of a batch's 256 x 784 squared errors (over noise^2, to
+# ~1e6), so its floor is that sum's random-walk round-off, SUM_FLOOR of
+# its magnitude (phase 7's floor of a gradient), not one ulp: the
+# chunked run's per-step losses came 2.875 from the eager run's (24
+# ulps) and the nudged run's 0.44 (on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), both under that floor.
+CHUNK_ARGV = ["--epoch_chunk", "2", "--eval_bundle"]
+# (a) runs phase 6's run with a cosine lr decay: the lr of every captured
+# step comes from the graphs' per-step table
+LR_DECAY_ARGV = ["--lr_decay", "0.1"]
+# The kernels' __global__ functions, as a trace of the card names them:
+# one of them per counted launch (B1 at m <= 80: the warp or the blocked
+# form; B2: its stats kernel, and not the reduce behind it; B3: its build
+# kernel)
+DEVICE_KERNELS = {
+    "chol_inverse": ("gauss_jordan_inverse_warp", "gauss_jordan_blocked"),
+    "gp_sufficient_stats": ("stats_small_kernel", "stats_partial_kernel"),
+    "fused_kernel_stats": ("build_k_kernel",)}
+CHUNK_RESUME_EPOCHS = 5
+CHUNK_RESUME_ARGV = [{"joint-2": f"joint-{CHUNK_RESUME_EPOCHS}",
+                      "2": str(CHUNK_RESUME_EPOCHS)}.get(a, a)
+                     for a in TRAIN_ARGV] + [
+    "--epoch_chunk", str(CHUNK_RESUME_EPOCHS), "--eval_bundle"]
+
+
+def launched(fn, *args, **kwargs) -> tuple:
+    """fn's result and the kernel launches it made."""
+    from svgpvae_tpu_torch import ops
+    before = ops.launch_counts()
+    res = fn(*args, **kwargs)
+    return res, {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+class ReplayTrace:
+    """on_eval hook of a chunked, bundled run: from the end of its first
+    eval (behind it the first chunk's warm-ups and captures and the eval
+    group's warm-up and capture) to `stop()`, a torch.profiler trace of
+    the card and the launch counters.  Every kernel in that window comes
+    from a graph replay."""
+
+    def __init__(self):
+        self.prof = self.before = None
+
+    def __call__(self, ev) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from svgpvae_tpu_torch import ops
+        if self.prof is None:
+            torch.cuda.synchronize()
+            self.before = ops.launch_counts()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+
+    def stop(self) -> tuple:
+        """(the kernels' launches the trace saw, by kernel; the counters'
+        launches over the window)."""
+        import torch
+        from svgpvae_tpu_torch import ops
+        torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        counted = {k: v - self.before[k]
+                   for k, v in ops.launch_counts().items()}
+        seen = dict.fromkeys(DEVICE_KERNELS, 0)
+        for e in self.prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for k, names in DEVICE_KERNELS.items():
+                seen[k] += any(n in e.name for n in names)
+        return seen, counted
+
+
+def check_traced_replays(tag, res, seen, counted, chunk_epochs) -> None:
+    """The traced window of `res` (ReplayTrace: its last chunk of
+    `chunk_epochs` epochs and its last eval group, all replays): the
+    launches the card ran equal the counters' and each graph's launches
+    (counted at its capture) times its replays in the window, and B1 and
+    B2 ran."""
+    per_epoch = len(res["metrics"]) // len(res["chunks"]) // chunk_epochs
+    g = res["graph_launches"]
+    want = {k: chunk_epochs * ((per_epoch - 1) * g["full"][k] + g["tail"][k])
+            + g["eval"][k] for k in seen}
+    if (seen != counted or seen != want or seen["chol_inverse"] < 1
+            or seen["gp_sufficient_stats"] < 1):
+        raise AssertionError(f"{tag}: the trace saw {seen}; the counters "
+                             f"{counted}; the graphs' launches x replays "
+                             f"{want} ({g})")
+
+
+def check_graphs(tag, res, want=("full", "tail", "eval")) -> None:
+    replays = res["graph_replays"]
+    if any(replays.get(k, 0) < 1 for k in want):
+        raise AssertionError(f"{tag}: graph replays {replays}, every one of "
+                             f"{want} must have replayed")
+
+
+def check_chunk_launches(tag, res, counts, eager_counts, steps) -> None:
+    """`steps` steps, B1 once and B2 at least once in each, and the run's
+    launches those of its eager run."""
+    if (len(res["metrics"]) != steps or counts != eager_counts
+            or any(sl["chol_inverse"] != 1 or sl["gp_sufficient_stats"] < 1
+                   for sl in res["step_launches"])):
+        raise AssertionError(f"{tag}: {len(res['metrics'])} steps launching "
+                             f"{res['step_launches'][:3]}...; the run "
+                             f"launched {counts}, its eager run "
+                             f"{eager_counts}")
+
+
+def chunk_timing(tag, res, eager) -> str:
+    """The chunks' seconds, the later chunks' p50 per step, and the eval
+    groups' seconds, beside the eager run's step p50 and eval seconds."""
+    later = [c["seconds"] / c["steps"] for c in res["chunks"][1:]]
+    first = res["chunks"][0]
+    return (f"{tag}: chunks {[round(c['seconds'], 4) for c in res['chunks']]}"
+            f" s (the first, with the warm-up and captures: "
+            f"{1e3 * first['seconds'] / first['steps']:.3f} ms a step)"
+            + (f", later chunks p50 {1e3 * np.percentile(later, 50):.3f} ms "
+               "a step (chunk seconds / steps)" if later else "")
+            + f"; eval seconds {[ev['seconds'] for ev in res['evals']]}; "
+            f"eager run: step p50 "
+            f"{1e3 * np.percentile(eager['step_seconds'][1:], 50):.3f} ms, "
+            f"eval {eager['evals'][-1]['seconds']}")
+
+
+def nudged_images(splits) -> dict:
+    """The splits with every train pixel scaled by 1 + 2^-23: each
+    nonzero one moves by about one fp32 ulp."""
+    tr = splits["train"]
+    images = (tr["images"] * np.float32(1 + 2.0 ** -23)).astype(np.float32)
+    return dict(splits, train=dict(tr, images=images))
+
+
+def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
+    """Phase 20; `phase6` and `phase11` are (result, launches) of those
+    phases' eager runs.  Returns {"epoch_chunk": the kernel launches the
+    trace of 20(b) saw on the card}."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import mnist
+
+    scores = ("eval_mse", "test_mse", "cgen_mse")
+    names = ("chunked", "eager", "eager f64")
+    base = mnist.default_eps_fn(0, torch.device("cuda"))
+
+    def f64(argv):  # the run in float64 on the same draws (plain path)
+        return mnist.main(argv + ["--x64"], splits=splits,
+                          eps_fn=lambda kind, shape: base(kind,
+                                                          shape).double())
+
+    # (a) phase 6's run under --lr_decay, eager, chunked and bundled; (c)
+    # phase 11's
+    decay_argv = TRAIN_ARGV + LR_DECAY_ARGV
+    decay_eager, decay_counts = launched(mnist.main, decay_argv,
+                                         splits=splits)
+    if decay_counts != phase6[1]:
+        raise AssertionError(f"20(a): the eager --lr_decay run launched "
+                             f"{decay_counts}, phase 6 {phase6[1]}")
+    for tag, argv, eager, eager_counts in (
+            ("20(a) mnist --lr_decay", decay_argv, decay_eager, phase6[1]),
+            ("20(c) mnist titsias", TITSIAS_ARGV, *phase11)):
+        res, counts = launched(mnist.main, argv + CHUNK_ARGV, splits=splits)
+        check_graphs(tag, res)
+        check_chunk_launches(tag, res, counts, eager_counts, TRAIN_STEPS)
+        log(chunk_timing(f"{tag} chunked + bundled", res, eager)
+            + f"; launches {counts} (eager {eager_counts}); graph replays "
+            f"{res['graph_replays']}; cgen MSE {res['cgen_mse']:.6f} "
+            f"(eager {eager['cgen_mse']:.6f})")
+        hold_runs(f"{tag} chunked", *(run_values(r, scores) for r in (
+            res, eager, f64(argv))), names, SUM_FLOOR)
+
+    # (b) 10 epochs in chunks of 5: unbroken twice, saved + resumed
+    long_argv = [{f"joint-{CHUNK_RESUME_EPOCHS}":
+                  f"joint-{2 * CHUNK_RESUME_EPOCHS}"}.get(a, a)
+                 for a in CHUNK_RESUME_ARGV]
+    trace = ReplayTrace()
+    ops.reset_launch_counts()
+    runs = [mnist.main(long_argv, splits=splits, on_eval=trace)]
+    seen, counted = trace.stop()
+    check_traced_replays("20(b) traced", runs[0], seen, counted,
+                         CHUNK_RESUME_EPOCHS)
+    log(f"20(b) the last chunk and eval group of the first unbroken run, "
+        f"traced: the card ran {seen} (the counters {counted}; per "
+        f"replay {runs[0]['graph_launches']})")
+    runs.append(mnist.main(long_argv, splits=splits))
+    saved = mnist.main(CHUNK_RESUME_ARGV + SAVE_ARGV + ["--base_dir",
+                                                        base_dir],
+                       splits=splits)
+    restored = mnist.main(
+        [{f"joint-{CHUNK_RESUME_EPOCHS}": "joint-0"}.get(a, a)
+         for a in CHUNK_RESUME_ARGV] + ["--resume_dir", saved["run_dir"]],
+        splits=splits)
+    bad = state_mismatches(restored["state"], saved["state"])
+    same_noise = torch.equal(restored["noise"].generator.get_state(),
+                             saved["noise"].generator.get_state())
+    if bad or not same_noise:
+        raise AssertionError(f"20(b): the restored state differs from the "
+                             f"saved one in {bad[:5]}, noise identical "
+                             f"{same_noise}")
+    resumed = mnist.main(CHUNK_RESUME_ARGV + ["--resume_dir",
+                                              saved["run_dir"],
+                                              "--save_model_weights"],
+                         splits=splits)
+    for tag, r in (("unbroken", runs[0]), ("saved", saved),
+                   ("resumed", resumed)):
+        check_graphs(f"20(b) {tag}", r)
+    if not torch.equal(resumed["noise"].generator.get_state(),
+                       runs[0]["noise"].generator.get_state()):
+        raise AssertionError("20(b): the resumed run's noise generator "
+                             "ends apart from the unbroken run's")
+    half = len(saved["metrics"])
+    hold_runs("20(b) resumed", *(
+        run_values(dict(r, metrics=r["metrics"][-half:]), scores)
+        for r in (resumed, runs[0], runs[1])),
+        ("resumed", "unbroken", "unbroken rerun"), SUM_FLOOR)
+    log(chunk_timing("20(b) mnist 10 epochs in chunks of 5 (the untraced "
+                     "run)", runs[1], phase6[0]))
+
+    # (c) deep SVIGP: held to the gap of its eager run on nudged pixels
+    svigp_argv = _baseline_argv("svigp_train")
+    eager = mnist.main(svigp_argv, splits=splits)
+    nudged = mnist.main(svigp_argv, splits=nudged_images(splits))
+    sres, counts = launched(mnist.main, svigp_argv + ["--epoch_chunk", "2"],
+                            splits=splits)
+    check_graphs("20(c) svigp", sres, ("full", "tail"))
+    if any(counts.values()):
+        raise AssertionError(f"20(c) svigp launched {counts}")
+    log(chunk_timing("20(c) deep svigp chunked", sres, eager)
+        + f"; graph replays {sres['graph_replays']}")
+    got, r32, r64 = (run_values(r, ("cgen_mse",), ("loss",))
+                     for r in (sres, eager, nudged))
+    scale = float(r64["loss"].abs().max())
+    hold_to_cpu_gap("20(c) deep svigp chunked", got, r32, [], r64, scale,
+                    SUM_FLOOR, names=("chunked", "eager",
+                                      "eager, pixels nudged"),
+                    floors={"params": DP_PARAM_FLOOR_STEPS * DP_LR,
+                            "loss": SUM_FLOOR * scale})
+    return {"epoch_chunk": seen}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2783,6 +3073,9 @@ def main() -> int:
     picture_launches = timed(19, phase_pictures, runs.name, {
         "8": sprites_res, "13(a)": (mnist_run, mnist_pictures),
         **flag_runs})
+    chunk_launches = timed(20, phase_epoch_chunk, mnist_data,
+                           (train_res, train_launches),
+                           (titsias_res, titsias_launches), runs.name)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -2792,7 +3085,7 @@ def main() -> int:
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
              **baseline_launches, **flag_launches, **bf16_launches,
-             "pictures": picture_launches}
+             "pictures": picture_launches, **chunk_launches}
     # phase 18's paths (every rank's launches, summed) under one key
     paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
                               for k in KERNELS}

@@ -151,7 +151,36 @@ driver's messages: N above the visible devices, a --batch_size that N
 does not divide, and --bias_analysis; and for Casale, which the JAX
 driver runs on one device whatever the flag says.
 
-Not ported yet, refused with an error: --epoch_chunk and --eval_bundle.
+The JAX driver's one-program flags, with the same numbers as an
+unchunked run and fewer host round trips:
+
+  * --epoch_chunk N (SVGPVAE, deep SVIGP): N whole epochs, tails
+    included, through train.make_multi_epoch_fn, their per-step metrics
+    kept on the device and read once a chunk; evals, CSV rows,
+    checkpoints, pictures and the sentinel run at chunk ends and see the
+    post-epoch state of an unchunked run.  It falls back to unchunked, with
+    the JAX driver's warning, for the reasons of
+    epoch_chunk_fallback_reasons (a VAE phase, --bias_analysis,
+    --profile_dir, a chunk that does not divide --eval_every or the epoch
+    count, VAE and CVAE).  On a CUDA device in a 1-process run the steps
+    replay two captured CUDA graphs, a full-batch step and the tail step
+    (train.capture.GraphSteps: the run's first steps are its warm-ups, Adam
+    turns capturable, so the run sits within round-off of an eager one);
+    on the CPU and under --data_parallel the run takes the unchunked
+    per-epoch loop, which gives the same numbers.  The timer keeps each
+    chunk's seconds after synchronize; the first chunk (warm-up and
+    captures) is left out of the p50, as JAX leaves out the compile;
+  * --eval_bundle (SVGPVAE, outside a VAE-phase epoch): the eval recon,
+    the test recon, the full-train encode and the cgen, tails included,
+    as one function with the sums on the device and one readback per
+    eval; on a CUDA device in a 1-process run it replays one captured
+    CUDA graph (train.capture.CapturedCall).  Its images and per-batch
+    losses equal the unbundled eval's; its MSEs are fp32 sums on the
+    device where the unbundled eval adds Python floats.  Accepted without
+    effect for VAE and CVAE, as by the JAX driver.
+Each driver run prints one line saying whether they are captured.
+Refused where the JAX driver's run never reads them (IGNORED_BY_JAX):
+both for Casale, --eval_bundle for deep SVIGP.
 """
 
 from __future__ import annotations
@@ -170,6 +199,7 @@ from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch import kernels
 from svgpvae_tpu_torch.nn import MnistCVAE, MnistVAE, SVIGPDecoder
+from svgpvae_tpu_torch.train import capture
 from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import (casale_params_from_jax,
                                              cvae_params_from_jax,
@@ -282,12 +312,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = {  # flag -> is it set?
-    "--epoch_chunk": lambda a: a.epoch_chunk > 1,
-    "--eval_bundle": lambda a: a.eval_bundle,
-}
 # flag -> (is it set?, the --elbo values whose JAX run never reads it)
 IGNORED_BY_JAX = {
+    "--epoch_chunk": (lambda a: a.epoch_chunk > 1, CASALE_ELBOS),
+    "--eval_bundle": (lambda a: a.eval_bundle,
+                      (*CASALE_ELBOS, "SVIGP_Hensman")),
     "--reshuffle": (lambda a: a.reshuffle, CASALE_ELBOS),
     "--x64": (lambda a: a.x64, (*CASALE_ELBOS, "SVIGP_Hensman")),
     "--bf16": (lambda a: a.bf16, (*CASALE_ELBOS, "SVIGP_Hensman")),
@@ -301,9 +330,6 @@ def refuse_unported(args) -> None:
         raise SystemExit(f"--data_parallel: not ported for --elbo "
                          f"{args.elbo}, which the JAX driver runs on one "
                          "device whatever the flag says")
-    for flag, is_set in NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag}: not ported yet")
     for flag, (is_set, elbos) in IGNORED_BY_JAX.items():
         if is_set(args) and args.elbo in elbos:
             raise SystemExit(f"{flag}: not ported for --elbo {args.elbo} "
@@ -312,6 +338,133 @@ def refuse_unported(args) -> None:
     if args.save_latents and args.elbo == "CVAE":
         raise SystemExit("--save_latents: not ported for --elbo CVAE (the "
                          "JAX driver's latents pass encodes without angles)")
+
+
+def epoch_chunk_fallback_reasons(chunk: int, eval_every: int,
+                                 nr_epochs: int, svgpvae: bool = True,
+                                 regime=(), bias_analysis: bool = False,
+                                 profile_dir=None) -> list:
+    """Why --epoch_chunk must degrade to unchunked, as user-readable
+    reasons (empty: chunking is valid); the JAX driver's rules and words.
+    A chunk runs `chunk` whole epochs with one readback, so what needs the
+    host between epochs (a VAE-phase regime switch, the per-epoch
+    --bias_analysis pass, a one-epoch --profile_dir trace) or a cadence
+    that does not fall on chunk boundaries would break the guarantee that
+    every eval and saver row sees the post-epoch state of the unchunked
+    loop."""
+    reasons = []
+    if chunk <= 1:
+        return reasons
+    if not svgpvae:
+        reasons.append("SVGPVAE/Titsias (or SVIGP) runners only")
+    if any(r == "VAE" for r in regime):
+        reasons.append("--opt_regime has a VAE phase (regime switches "
+                       "need per-epoch host control)")
+    if bias_analysis:
+        reasons.append("--bias_analysis hooks run per epoch on the host")
+    if profile_dir:
+        reasons.append("--profile_dir traces exactly one epoch program")
+    if eval_every % chunk:
+        reasons.append(f"chunk ({chunk}) must divide --eval_every "
+                       f"({eval_every}) so evals land on chunk boundaries")
+    if nr_epochs % chunk:
+        reasons.append(f"chunk ({chunk}) must divide the epoch count "
+                       f"({nr_epochs})")
+    return reasons
+
+
+def resolve_epoch_chunk(args, nr_epochs: int, **kw) -> int:
+    """--epoch_chunk's chunk after epoch_chunk_fallback_reasons (1:
+    unchunked), with the JAX driver's warning when it falls back."""
+    chunk = max(1, args.epoch_chunk)
+    reasons = epoch_chunk_fallback_reasons(
+        chunk, args.eval_every, nr_epochs, profile_dir=args.profile_dir,
+        **kw)
+    if args.epoch_chunk > 1 and reasons:
+        print(f"warning: --epoch_chunk {chunk} disabled (running "
+              f"unchunked, per-epoch dispatch): {'; '.join(reasons)} "
+              "— see docs/cli.md 'epoch_chunk interaction rules'")
+        return 1
+    return chunk
+
+
+def uncaptured_reason(device: torch.device) -> Optional[str]:
+    """Why --epoch_chunk's steps and --eval_bundle's group run without CUDA
+    graphs here, or None: they are captured on a CUDA device in a
+    1-process run."""
+    if device.type != "cuda":
+        return f"a {device.type} device"
+    if parallel.run_ranks() > 1:
+        return ("--data_parallel: gloo stages its all-reduces through the "
+                "host")
+    return None
+
+
+def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
+                      loss_fn: Callable, batch_size: int, tensors,
+                      shuffle: Optional[train.EpochShuffle],
+                      generator: Optional[torch.Generator],
+                      draws: bool = True) -> Optional["EpochChunks"]:
+    """--epoch_chunk's chunks (`chunk` epochs each) as replayed CUDA graphs
+    (capture.GraphSteps through train.make_multi_epoch_fn), or None where
+    they are not captured (uncaptured_reason): there the run takes the
+    unchunked per-epoch loop, which gives the same numbers.  Prints which.
+    A captured chunk is refused with a capture_step (a graph keeps no
+    step's inputs) and, for a run that `draws` noise, with an eps_fn that
+    exposes no `generator` (its draws would be captured as constants)."""
+    if chunk <= 1:
+        return None
+    why = uncaptured_reason(device)
+    if why is None and rec.capture_step is not None:
+        raise ValueError("capture_step: a captured chunk keeps no step's "
+                         "inputs (run on the CPU)")
+    if why is None and draws and generator is None:
+        raise ValueError("--epoch_chunk on CUDA: the eps_fn exposes no "
+                         "`generator`, so every replay would reuse its "
+                         "captured draws")
+    print(f"--epoch_chunk {chunk}: " + (
+        f"{chunk} epochs a chunk, one readback each; the steps replay "
+        "captured CUDA graphs (a full-batch step and the tail step)"
+        if why is None else "the steps run uncaptured, one epoch at a "
+        f"time as in an unchunked run ({why})"))
+    if why is not None:
+        return None
+    graphs = capture.GraphSteps(loss_fn, batch_size,
+                                [generator] if draws else [])
+    return EpochChunks(train.make_multi_epoch_fn(graphs, shuffle), graphs,
+                       rec, tensors, chunk)
+
+
+class EpochChunks:
+    """A run's epochs in chunks: `epoch(state, e)` -> (epoch e's per-step
+    metrics, the step count at its end, as the JAX driver counts it),
+    running the chunk (StepRecorder.chunk, one readback) at the chunk's
+    first epoch.  `graphs`: the capture.GraphSteps the chunks replay."""
+
+    def __init__(self, multi_fn: Callable, graphs, rec: "StepRecorder",
+                 tensors, chunk: int):
+        self.multi_fn, self.graphs, self.rec = multi_fn, graphs, rec
+        self.tensors, self.chunk, self.steps = tensors, chunk, None
+
+    def epoch(self, state, epoch: int) -> tuple:
+        i = epoch % self.chunk
+        if i == 0:
+            self.steps = self.rec.chunk(self.multi_fn, state, self.tensors,
+                                        self.chunk)
+        steps = self.steps[i]
+        return steps, state.step - (self.chunk - 1 - i) * len(steps)
+
+
+def graph_record(chunks: Optional[EpochChunks], *calls) -> dict:
+    """{"graph_replays", "graph_launches"} of a run's captured CUDA graphs
+    (the chunks' and the captured calls' that ran): each graph's replays,
+    and the kernel launches of one replay."""
+    graphs = dict(chunks.graphs.graphs) if chunks is not None else {}
+    graphs.update((name, call.graph) for name, call in calls
+                  if isinstance(call, capture.CapturedCall)
+                  and call.graph is not None)
+    return {"graph_replays": {k: g.replays for k, g in graphs.items()},
+            "graph_launches": {k: g.launches for k, g in graphs.items()}}
 
 
 def load_splits(args) -> dict:
@@ -567,6 +720,22 @@ class Noise:
         return parallel.local_rows(eps)
 
 
+class StaticDraws:
+    """eps_fn of a captured eval group: the "eval" draws are the same at
+    every call (a generator seeded anew, or the JAX driver's one fixed
+    key), so each shape's is drawn from `noise` once and kept at a fixed
+    address."""
+
+    def __init__(self, noise: Callable):
+        self.noise, self.drawn = noise, {}
+
+    def __call__(self, kind: str, shape) -> torch.Tensor:
+        key = (kind, tuple(shape))
+        if key not in self.drawn:
+            self.drawn[key] = self.noise(kind, shape)
+        return self.drawn[key]
+
+
 def make_forward(args, eps_fn: Callable) -> Callable:
     """forward(params, batch, geco, alpha, kind, bias_analysis=False): the
     SVGPVAE training forward pass with this run's options and
@@ -654,7 +823,7 @@ class StepRecorder:
             capture_step
         self.batch_size = batch_size
         self.seconds, self.metrics, self.launches = [], [], []
-        self.captured = None
+        self.captured, self.chunks = None, []
 
     def step(self, state, batch, loss_fn, trainable: Dict[str, torch.Tensor],
              index: int, **extra) -> dict:
@@ -679,8 +848,41 @@ class StepRecorder:
         self.metrics.append(m)
         return m
 
+    def chunk(self, multi_fn: Callable, state, tensors,
+              n_epochs: int) -> list:
+        """--epoch_chunk: n_epochs epochs through multi_fn
+        (train.make_multi_epoch_fn), their metrics read back at once; per
+        epoch, the list of its steps' metrics.  Each step's seconds are
+        the chunk's over its steps; `chunks` keeps each chunk's seconds
+        (after synchronize), the first (the compile in JAX, here the
+        warm-up and the captures) left out of the p50."""
+        t0 = time.perf_counter()
+        metrics, launches = multi_fn(state, tensors, n_epochs)
+        keys = list(metrics)
+        host = torch.stack([metrics[k] for k in keys]).cpu().tolist()
+        seconds = time.perf_counter() - t0
+        self.chunks.append({"epochs": n_epochs, "steps": len(launches),
+                            "seconds": seconds})
+        self.seconds.extend([seconds / len(launches)] * len(launches))
+        self.launches.extend(launches)
+        epochs = [[dict(zip(keys, vals)) for vals in zip(
+            *(host[i][e] for i in range(len(keys))))]
+            for e in range(n_epochs)]
+        for steps in epochs:
+            self.metrics.extend(steps)
+        return epochs
+
     def summary(self, elapsed: float) -> None:
-        if self.seconds:
+        if self.chunks:
+            first, rest = self.chunks[0], self.chunks[1:]
+            per_step = [c["seconds"] / c["steps"] for c in rest]
+            print(f"total: {len(self.seconds)} steps in {len(self.chunks)} "
+                  f"chunks, {elapsed:.1f}s; the first chunk "
+                  f"{first['seconds']:.2f} s ({first['steps']} steps), "
+                  + (f"then per step (chunk seconds / steps) p50 "
+                     f"{1e3 * float(np.percentile(per_step, 50)):.3f} ms"
+                     if rest else "no later chunk"))
+        elif self.seconds:
             timed = self.seconds[1:] or self.seconds
             print(f"total: {len(self.seconds)} steps, {elapsed:.1f}s; step "
                   f"time first {1e3 * self.seconds[0]:.2f} ms, p50 "
@@ -689,7 +891,8 @@ class StepRecorder:
 
     def result(self) -> dict:
         return {"step_seconds": self.seconds, "metrics": self.metrics,
-                "step_launches": self.launches, "captured": self.captured}
+                "step_launches": self.launches, "captured": self.captured,
+                "chunks": self.chunks}
 
 
 class EpochTracer:
@@ -817,12 +1020,18 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 shuffle: Optional[train.EpochShuffle] = None,
                 on_eval: Optional[Callable[[dict], None]] = None) -> dict:
     """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
-    "step_seconds" (host clock after synchronize, per step), "metrics"
-    (per step), "evals" (per eval pass), "step_launches" (kernel launches
-    inside each step), "captured", "cgen_mse", "best_cgen_mse",
-    "regimes" (per epoch), "bias" (--bias_analysis: per epoch its bias,
-    the epoch's mean of the batch estimates, the full-split mean vectors
-    and the pass's kernel launches)}."""
+    "step_seconds" (host clock after synchronize, per step; under
+    --epoch_chunk its chunk's seconds over its steps), "chunks" (each
+    chunk's epochs, steps and seconds), "metrics" (per step), "evals"
+    (per eval pass), "eval_losses" (per eval pass, each pass's per-batch
+    losses), "test_recon" and "cgen_images" (the last eval pass's, or
+    None), "step_launches" (kernel launches inside each step),
+    "graph_replays" and "graph_launches" (each captured CUDA graph's
+    replays and the kernel launches of one, see graph_record), "captured",
+    "cgen_mse", "best_cgen_mse", "regimes" (per epoch), "bias"
+    (--bias_analysis: per epoch its bias, the epoch's mean of the batch
+    estimates, the full-split mean vectors and the pass's kernel
+    launches)}."""
     is_svgpvae = "SVGPVAE" in args.elbo
     is_cvae = args.elbo == "CVAE"
     dtype = run_dtype(args)
@@ -894,18 +1103,23 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     test_im, test_aux = _to_dev(test_d, device, dtype)
 
     @torch.no_grad()
+    def recon_batches(images, aux, vae_pass, fwd, geco) -> list:
+        """The eval-mode forward outputs of the split's batches, tail
+        included: the VAE's, or `fwd`'s (a make_forward) at `geco`."""
+        return [vae_forward(params, batch, "eval") if vae_pass else
+                fwd(params, batch, geco, args.alpha, "eval")
+                for batch in train.epoch_batches((images, aux),
+                                                 args.batch_size)]
+
+    @torch.no_grad()
     def recon_sum(images, aux, vae_pass, keep: bool = False):
         """The JAX driver's "MSE": the summed recon_loss over the split
-        (under GECO the constraint sum_b(mse_b - kappa^2)); with `keep`
-        also the split's recon images (else None)."""
-        total, recon = 0.0, []
-        for batch in train.epoch_batches((images, aux), args.batch_size):
-            out = (vae_forward(params, batch, "eval") if vae_pass else
-                   forward(params, batch, state.geco, args.alpha, "eval"))
-            total += float(out.recon_loss)
-            if keep:
-                recon.append(out.recon_images)
-        return total, torch.cat(recon) if keep else None
+        (under GECO the constraint sum_b(mse_b - kappa^2)), the per-batch
+        losses, and with `keep` the split's recon images (else None)."""
+        outs = recon_batches(images, aux, vae_pass, forward, state.geco)
+        losses = torch.stack([o.recon_loss for o in outs]).tolist()
+        return (sum(losses), torch.cat([o.recon_images for o in outs])
+                if keep else None, losses)
 
     @torch.no_grad()
     def encode_train():
@@ -916,26 +1130,83 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 torch.cat([e[1] for e in enc]))
 
     @torch.no_grad()
+    def cgen_batches(eps) -> list:
+        """(recon images, loss) of the SVGPVAE cgen of each test batch,
+        tail included, from the full-train encode, with `eps`'s draws."""
+        means, variances = encode_train()
+        return [models.predict_cgen_mnist(
+            vae, gp, batch, means, variances, train_aux,
+            eps("eval", (batch[0].shape[0], args.L)))
+            for batch in train.epoch_batches((test_im, test_aux),
+                                             args.batch_size)]
+
+    @torch.no_grad()
     def cgen():
-        """(the cgen MSE, its images) or (None, None) for the VAE."""
+        """(the cgen MSE, its images, its per-batch losses) or (None,
+        None, None) for the VAE."""
         if is_cvae:
             images, loss = models.predict_cvae(
                 vae, train_im, train_aux, test_im, test_aux,
                 noise("eval", (N_train, args.L)),
                 n_objects=len(splits["pca_ov_init"]))
-            return float(loss), images
+            return float(loss), images, [float(loss)]
         if not is_svgpvae:
-            return None, None
-        means, variances = encode_train()
-        total, images = 0.0, []
-        for batch in train.epoch_batches((test_im, test_aux),
-                                         args.batch_size):
-            recon, loss = models.predict_cgen_mnist(
-                vae, gp, batch, means, variances, train_aux,
-                noise("eval", (batch[0].shape[0], args.L)))
-            total += float(loss)
-            images.append(recon)
-        return total / N_test, torch.cat(images)
+            return None, None, None
+        outs = cgen_batches(noise)
+        losses = torch.stack([loss for _, loss in outs]).tolist()
+        return (sum(losses) / N_test, torch.cat([r for r, _ in outs]),
+                losses)
+
+    @torch.no_grad()
+    def eval_group(eps, geco):
+        """--eval_bundle: the SVGPVAE eval group (eval recon, test recon,
+        the full-train encode, the cgen; tails included) without a host
+        sync, as recon_sum and cgen compute it with the "eval" draws of
+        `eps`: (the per-batch losses of the three passes then their three
+        sums, the test recon images, the cgen images), on the device."""
+        fwd = make_forward(args, eps)
+        ev, te = (recon_batches(*split, False, fwd, geco) for split in
+                  ((eval_im, eval_aux), (test_im, test_aux)))
+        cg = cgen_batches(eps)
+        losses = [torch.stack([o.recon_loss for o in ev]),
+                  torch.stack([o.recon_loss for o in te]),
+                  torch.stack([loss for _, loss in cg])]
+        return (torch.cat(losses + [torch.stack([x.sum() for x in losses])]),
+                torch.cat([o.recon_images for o in te]),
+                torch.cat([recon for recon, _ in cg]))
+
+    bundle = None
+    if args.eval_bundle and not is_svgpvae:
+        print(f"--eval_bundle: no effect with --elbo {args.elbo} (the JAX "
+              "driver bundles the SVGPVAE eval group only)")
+    elif args.eval_bundle:
+        why = uncaptured_reason(device)
+        geco_eval = train.GECOState(state.geco.C_ma.clone(),
+                                    state.geco.lagrange_mult.clone())
+        eps = StaticDraws(noise)
+        group = (lambda: eval_group(eps, geco_eval))  # noqa: E731
+        bundle = (group if why else capture.CapturedCall(group),
+                  geco_eval)
+        print("--eval_bundle: the eval group (eval and test recon, the "
+              "full-train encode, the cgen) with one readback per eval; "
+              + ("it replays one captured CUDA graph" if why is None else
+                 f"uncaptured ({why})"))
+
+    def bundled_eval(epoch):
+        """The eval record, the per-batch losses, the test recon and cgen
+        images of one eval group (see eval_group), read back once."""
+        call, geco_eval = bundle
+        geco_eval.C_ma.copy_(state.geco.C_ma)
+        geco_eval.lagrange_mult.copy_(state.geco.lagrange_mult)
+        vals, recon, images = call()
+        vals = vals.cpu().tolist()
+        n_ev = -(-N_eval // args.batch_size)
+        n_te = -(-N_test // args.batch_size)
+        sums = vals[-3:]
+        return ({"epoch": epoch, "eval_mse": sums[0] / N_eval,
+                 "test_mse": sums[1] / N_test, "cgen_mse": sums[2] / N_test},
+                {"eval": vals[:n_ev], "test": vals[n_ev:n_ev + n_te],
+                 "cgen": vals[n_ev + n_te:-3]}, recon.clone(), images.clone())
 
     @torch.no_grad()
     def bias_pass(epoch):
@@ -956,8 +1227,14 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     parallel.check_replicated(list(train.named_tensors(params).values()))
     rec = StepRecorder(device, noise, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
-    evals, biases, pictures = [], [], []
-    cgen_images = None
+    chunk = resolve_epoch_chunk(args, nr_epochs, svgpvae=is_svgpvae,
+                                regime=regime,
+                                bias_analysis=args.bias_analysis)
+    chunks = make_epoch_chunks(chunk, device, rec, loss_fns.get("joint"),
+                               args.batch_size, (train_im, train_aux),
+                               shuffle, noise.generator)
+    evals, biases, pictures, eval_losses = [], [], [], []
+    cgen_images = test_recon = None
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         use_vae_pass = regime[epoch] == "VAE"
@@ -966,18 +1243,24 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
         loss_fn = loss_fns["VAE" if use_vae_pass else
                            "bias" if bias_epoch else "joint"]
         t_epoch = time.perf_counter()
-        elbos, losses = [], []
-        order = (shuffle.order() if shuffle is not None and not bias_epoch
-                 else None)
-        timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
-        with tracer.epoch(timed):
-            for batch in train.epoch_batches((train_im, train_aux),
-                                             args.batch_size, order):
-                m = rec.step(state, batch, loss_fn, trainable, state.step,
-                             regime=regime[epoch])
-                elbos.append(m["elbo"])
-                losses.append(m["recon"])
-        utils.check_finite(elbos, state.step, ckpt_state, run_dir)
+        if chunks is not None:
+            steps, steps_done = chunks.epoch(state, epoch)
+            elbos = [m["elbo"] for m in steps]
+            losses = [m["recon"] for m in steps]
+        else:
+            elbos, losses = [], []
+            order = (shuffle.order() if shuffle is not None
+                     and not bias_epoch else None)
+            timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
+            with tracer.epoch(timed):
+                for batch in train.epoch_batches((train_im, train_aux),
+                                                 args.batch_size, order):
+                    m = rec.step(state, batch, loss_fn, trainable,
+                                 state.step, regime=regime[epoch])
+                    elbos.append(m["elbo"])
+                    losses.append(m["recon"])
+            steps_done = state.step
+        utils.check_finite(elbos, steps_done, ckpt_state, run_dir)
         if bias_epoch:
             biases.append(bias_pass(epoch))
             batch_mean_vectors.clear()
@@ -988,20 +1271,27 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   f"{np.sum(losses) / N_train:.5f}, epoch time "
                   f"{time.perf_counter() - t_epoch:.2f}s")
             t0 = time.perf_counter()
-            with utils.annotate("eval_pass"):
-                eval_sum, _ = recon_sum(eval_im, eval_aux, use_vae_pass)
-                test_sum, test_recon = recon_sum(
-                    test_im, test_aux, use_vae_pass, keep=bool(run_dir))
-                ev = {"epoch": epoch, "eval_mse": eval_sum / N_eval,
-                      "test_mse": test_sum / N_test}
-                sync(device)
-                t1 = time.perf_counter()
-                ev["cgen_mse"], images = cgen()
-                sync(device)
+            if bundle is not None and not use_vae_pass:
+                ev, batch_losses, test_recon, images = bundled_eval(epoch)
+                ev["seconds"] = {"eval_group": time.perf_counter() - t0}
+            else:
+                with utils.annotate("eval_pass"):
+                    eval_sum, _, ev_l = recon_sum(eval_im, eval_aux,
+                                                  use_vae_pass)
+                    test_sum, test_recon, te_l = recon_sum(
+                        test_im, test_aux, use_vae_pass, keep=bool(run_dir))
+                    ev = {"epoch": epoch, "eval_mse": eval_sum / N_eval,
+                          "test_mse": test_sum / N_test}
+                    sync(device)
+                    t1 = time.perf_counter()
+                    ev["cgen_mse"], images, cg_l = cgen()
+                    sync(device)
+                batch_losses = {"eval": ev_l, "test": te_l, "cgen": cg_l}
+                ev["seconds"] = {"eval_test": t1 - t0,
+                                 "cgen": time.perf_counter() - t1}
             cgen_images = images if images is not None else cgen_images
-            ev["seconds"] = {"eval_test": t1 - t0,
-                             "cgen": time.perf_counter() - t1}
             evals.append(ev)
+            eval_losses.append(batch_losses)
             print(f"  eval MSE: {ev['eval_mse']:.5f}")
             print(f"  test MSE: {ev['test_mse']:.5f}")
             draw(pictures, run_dir, f"{state.step}", "recon",
@@ -1042,7 +1332,9 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     tracer.report()
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
                   noise=noise, regimes=regime, bias=biases, shuffle=shuffle,
-                  pictures=pictures)
+                  pictures=pictures, test_recon=test_recon,
+                  cgen_images=cgen_images, eval_losses=eval_losses,
+                  **graph_record(chunks, ("eval", bundle and bundle[0])))
     _best(result, evals)
     _save_cgen_images(run_dir, cgen_images)
     if run_dir and args.save_latents:
@@ -1115,8 +1407,9 @@ def run_svigp(args, splits: dict, device: torch.device,
     """SVIGP_Hensman: --nr_epochs epochs (every full batch and the tail,
     the full batches reshuffled under --reshuffle), the cgen MSE of the
     test split every --eval_every epochs.  Returns
-    {"state", "step_seconds", "metrics", "step_launches", "captured",
-    "evals", "cgen_mse", "best_cgen_mse"}."""
+    {"state", "step_seconds", "chunks", "metrics", "step_launches",
+    "graph_replays", "graph_launches", "captured", "evals", "cgen_mse",
+    "best_cgen_mse"}."""
     train_d = with_global_index(splits["train"])
     test_d = with_global_index(splits["test"])
     N_train, N_test = len(train_d["images"]), len(test_d["images"])
@@ -1141,18 +1434,29 @@ def run_svigp(args, splits: dict, device: torch.device,
     parallel.check_replicated(list(train.named_tensors(params).values()))
     rec = StepRecorder(device, None, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
+    chunk = resolve_epoch_chunk(args, args.nr_epochs)
+    chunks = make_epoch_chunks(chunk, device, rec, loss_fn, args.batch_size,
+                               (train_im, train_aux), shuffle, None,
+                               draws=False)
     evals, cgen_images, pictures = [], None, []
     t_start = time.perf_counter()
     for epoch in range(args.nr_epochs):
-        elbos, losses = [], []
-        order = shuffle.order() if shuffle is not None else None
-        with tracer.epoch(epoch > 0):
-            for batch in train.epoch_batches((train_im, train_aux),
-                                             args.batch_size, order):
-                m = rec.step(state, batch, loss_fn, trainable, state.step)
-                elbos.append(m["elbo"])
-                losses.append(m["recon"])
-        utils.check_finite(elbos, state.step, ckpt_state, run_dir)
+        if chunks is not None:
+            steps, steps_done = chunks.epoch(state, epoch)
+            elbos = [m["elbo"] for m in steps]
+            losses = [m["recon"] for m in steps]
+        else:
+            elbos, losses = [], []
+            order = shuffle.order() if shuffle is not None else None
+            with tracer.epoch(epoch > 0):
+                for batch in train.epoch_batches((train_im, train_aux),
+                                                 args.batch_size, order):
+                    m = rec.step(state, batch, loss_fn, trainable,
+                                 state.step)
+                    elbos.append(m["elbo"])
+                    losses.append(m["recon"])
+            steps_done = state.step
+        utils.check_finite(elbos, steps_done, ckpt_state, run_dir)
         if (epoch + 1) % args.eval_every == 0:
             print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, "
                   f"train MSE {np.sum(losses) / N_train:.5f}, noise "
@@ -1179,7 +1483,7 @@ def run_svigp(args, splits: dict, device: torch.device,
     rec.summary(time.perf_counter() - t_start)
     tracer.report()
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
-                  pictures=pictures)
+                  pictures=pictures, **graph_record(chunks))
     _save_cgen_images(run_dir, cgen_images)
     return _best(result, evals)
 

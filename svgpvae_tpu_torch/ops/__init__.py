@@ -7,7 +7,9 @@
 
 Import the submodules directly: the function `fused_kernel_stats` shares
 its module's name, so it is not re-exported here.  `launch_counts` reads
-every kernel wrapper's launch counter; `reset_launch_counts` zeroes them.
+every kernel wrapper's launch counter; `reset_launch_counts` zeroes them;
+`add_launch_counts` moves a CUDA graph's counts from its capture to its
+replays.
 `KernelInputRecorder` records the dtype of every tensor the GP modules
 hand to the kernels' wrappers.
 """
@@ -30,6 +32,16 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict, sign: int = 1) -> None:
+    """Add `sign` x counts ({kernel name: launches}) to the wrappers'
+    counters.  A CUDA-graph capture runs the wrappers, which count, but
+    launches nothing; train.capture takes those counts back out at the
+    capture and adds them at every replay, so that `launch_counts` reads
+    what the device ran, as in an eager run."""
+    for name, fn in _wrappers().items():
+        fn.launches += sign * counts.get(name, 0)
 
 
 class KernelInputRecorder:

@@ -1,0 +1,264 @@
+"""CUDA graphs for the chunked training loop and the bundled eval: the
+port's form of the JAX package's one-program --epoch_chunk
+(train.make_multi_epoch_fn) and --eval_bundle (cli/mnist.py's
+eval_group_svgpvae).  On CUDA, "one program, one readback" is a graph
+captured once and replayed; the drivers use these on a CUDA device in a
+1-process run (on the CPU and under --data_parallel a chunked run takes
+the unchunked per-epoch loop, and the eval group runs uncaptured).
+
+  * `Graph`: fn() captured on a side stream and replayed.  The kernel
+    launches the wrappers counted during the capture (which ran nothing)
+    are taken out of ops.launch_counts and added at every replay, so the
+    counters read what the device ran, as in an eager run.  CUDA
+    generators that fn draws from are registered with the graph, so every
+    replay advances them as an eager call would, and a checkpoint's
+    get_state() after N replays resumes the same stream.
+  * `GraphSteps`: the steps of a chunk of epochs (make_multi_epoch_fn's
+    `graphs`).  The run's first WARMUP full-batch steps and its first
+    tail step run eagerly on the side stream: real steps of the run,
+    which load every kernel and allocate Adam's moments before any
+    capture, and which take step 0 (GECO's alpha = 0, a host branch that
+    a graph would bake in).  Then one graph of a full-batch step and one
+    of the tail step are captured, and every later step replays one.
+  * `CapturedCall`: an argument-less function (the eval bundle): the
+    first call runs it once eagerly (its warm-up, whose results and
+    launches are discarded), captures it and replays it; later calls
+    replay it.
+
+What a graph needs that an eager step does not:
+  - inputs at fixed addresses.  A step gathers its batch rows in the
+    graph from the chunk's example orders (a static (n_epochs, n) tensor
+    filled once a chunk) at a device step counter, which the graph
+    advances; reads its learning rate from a per-step table (the cosine
+    decay) into the lr tensor of a capturable Adam (`capturable_adam`:
+    lr and step counts on the device; capturable=True changes Adam's
+    arithmetic order, so a captured run sits within round-off of an eager
+    one, not bit for bit); and copies the GECO state back into two static
+    tensors, which the next step reads;
+  - outputs at fixed addresses: each step writes its metrics into a
+    static (n_epochs x n_batches, k) buffer, read once a chunk;
+  - no host sync and no host memory that outlives the call: the GP
+    blocks factorize with cholesky_ex, and torch's batched cholesky_solve,
+    which by default goes to MAGMA and hands it pointer arrays in pinned
+    host memory freed on return (a replay would read them later), runs
+    with the cusolver backend during warm-ups and captures
+    (`cusolver_linalg`).
+A failed capture raises: the run never goes on eagerly in its place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from svgpvae_tpu_torch import ops
+from svgpvae_tpu_torch.train.state import GECOState, TrainState
+from svgpvae_tpu_torch.train.trainer import apply_step
+
+
+@contextlib.contextmanager
+def cusolver_linalg():
+    """torch.linalg on the cusolver backend (not MAGMA), restored after."""
+    backend = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(backend)
+
+
+@contextlib.contextmanager
+def side_stream(stream: torch.cuda.Stream):
+    """Work on `stream`, ordered after the current stream's and before
+    what the current stream does next."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        yield
+    torch.cuda.current_stream().wait_stream(stream)
+
+
+def launch_delta(before: dict) -> dict:
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+class Graph:
+    """fn() captured once on `stream` (with the cusolver backend) and
+    replayed by `replay()`, which returns fn's outputs: the graph's
+    static tensors, overwritten by the next replay.  `launches`: the
+    kernel launches of one replay; `replays`: how many ran."""
+
+    def __init__(self, fn: Callable, stream: torch.cuda.Stream,
+                 generators: Sequence[torch.Generator] = ()):
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        before = ops.launch_counts()
+        stream.wait_stream(torch.cuda.current_stream())
+        with cusolver_linalg(), torch.cuda.graph(graph, stream=stream):
+            self.out = fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.launches = launch_delta(before)
+        ops.add_launch_counts(self.launches, -1)  # the capture ran nothing
+        self.graph, self.replays = graph, 0
+
+    def replay(self):
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        self.replays += 1
+        return self.out
+
+
+def metric_dtype(metrics: dict) -> torch.dtype:
+    """The widest dtype among a step's metrics (0-d tensors), at least
+    float32: every value widens to it exactly."""
+    dtype = torch.float32
+    for v in metrics.values():
+        dtype = torch.promote_types(dtype, v.dtype)
+    return dtype
+
+
+def capturable_adam(optimizer: torch.optim.Optimizer,
+                    device: torch.device) -> torch.Tensor:
+    """Turn the driver's Adam (one parameter group) capturable in place:
+    its step counts move to `device` and its learning rate becomes a 0-d
+    float32 tensor there, which is returned (TrainState.state_dict writes
+    both back in the eager form, so checkpoints stay portable)."""
+    (group,) = optimizer.param_groups
+    lr = group["lr"]
+    if not isinstance(lr, torch.Tensor):
+        lr = torch.tensor(lr, dtype=torch.float32, device=device)
+    group["lr"], group["capturable"] = lr, True
+    for st in optimizer.state.values():
+        if "step" in st:
+            st["step"] = st["step"].to(device=device, dtype=torch.float32)
+    return lr
+
+
+class GraphSteps:
+    """The steps of each chunk of epochs through two captured CUDA
+    graphs (see the module docstring).  `run(state, tensors, orders)`
+    takes one chunk: `tensors` the train split on the device (the same
+    tensors every chunk), `orders` one example order (or None, the stored
+    order) per epoch of the chunk.  Returns ({metric: (n_epochs,
+    n_batches) tensor on the device}, [launches of each step]).
+    `graphs`: {"full", "tail"} -> Graph, once captured."""
+
+    WARMUP = 2  # eager full-batch steps before the full step's capture
+
+    def __init__(self, loss_fn: Callable, batch_size: int,
+                 generators: Sequence[Optional[torch.Generator]] = ()):
+        self.loss_fn, self.bs = loss_fn, batch_size
+        self.generators = [g for g in generators if g is not None]
+        self.graphs: Dict[str, Graph] = {}
+        self.warm = {"full": 0, "tail": 0}
+        self.tensors = None
+
+    def _setup(self, state: TrainState, tensors, n_epochs: int) -> None:
+        device = tensors[0].device
+        self.tensors, self.n_epochs = tensors, n_epochs
+        self.n = len(tensors[0])
+        n_full, tail = divmod(self.n, self.bs)
+        self.nb = n_full + (tail > 0)
+        self.lr_const = float(state.optimizer.param_groups[0]["lr"])
+        self.lr = capturable_adam(state.optimizer, device)
+        self.stream = torch.cuda.Stream(device)
+        long = dict(dtype=torch.long, device=device)
+        self.orders = torch.empty((n_epochs, self.n), **long)
+        self.lr_table = torch.empty(n_epochs * self.nb, dtype=self.lr.dtype,
+                                    device=device)
+        self.counter = torch.zeros((), **long)
+        self.rows = {"full": torch.arange(self.bs, **long),
+                     "tail": torch.arange(tail, **long)}
+        self.geco = None if state.geco is None else GECOState(
+            state.geco.C_ma.clone(), state.geco.lagrange_mult.clone())
+        self.buf, self.keys = None, None
+
+    def _body(self, state: TrainState, which: str) -> None:
+        """One step, eagerly or under capture: its rows at the counter,
+        its lr from the table, the update, the GECO state back into the
+        static pair, its metrics into the buffer, the counter + 1."""
+        s = self.counter
+        e = torch.div(s, self.nb, rounding_mode="floor")
+        start = e * self.n + (s - e * self.nb) * self.bs
+        order = self.orders.view(-1).index_select(0, start + self.rows[which])
+        batch = tuple(t.index_select(0, order) for t in self.tensors)
+        self.lr.copy_(self.lr_table.index_select(0, s.view(1))[0])
+        m = apply_step(state, batch, self.loss_fn)
+        if self.geco is not None:
+            self.geco.C_ma.copy_(state.geco.C_ma)
+            self.geco.lagrange_mult.copy_(state.geco.lagrange_mult)
+            state.geco = self.geco
+        if self.buf is None:  # the first (eager) step sets the layout
+            self.keys = list(m)
+            self.buf = torch.zeros((self.n_epochs * self.nb, len(m)),
+                                   dtype=metric_dtype(m), device=s.device)
+        vals = torch.stack([m[k].to(self.buf.dtype) for k in self.keys])
+        self.buf.index_copy_(0, s.view(1), vals[None])
+        self.counter.add_(1)
+
+    def _step(self, state: TrainState, which: str) -> dict:
+        before, step = ops.launch_counts(), state.step
+        graph = self.graphs.get(which)
+        if graph is None and self.warm[which] >= (
+                self.WARMUP if which == "full" else 1):
+            graph = self.graphs[which] = Graph(
+                lambda: self._body(state, which), self.stream,
+                self.generators)
+        if graph is None:
+            with cusolver_linalg(), side_stream(self.stream):
+                self._body(state, which)
+            self.warm[which] += 1
+        else:
+            graph.replay()
+        # a capture runs the step's Python (step + 1) but no kernel, a
+        # replay the kernels alone
+        state.step = step + 1
+        return launch_delta(before)
+
+    def run(self, state: TrainState, tensors, orders: List[
+            Optional[torch.Tensor]]):
+        n_epochs = len(orders)
+        if self.tensors is None:
+            self._setup(state, tensors, n_epochs)
+        elif n_epochs != self.n_epochs or any(
+                a is not b for a, b in zip(tensors, self.tensors)):
+            raise ValueError("every chunk must take the same train tensors "
+                             "and epoch count")
+        self.orders.copy_(torch.stack([
+            torch.arange(self.n) if o is None else o for o in orders]))
+        lr_fn = state.lr_fn
+        self.lr_table.copy_(torch.tensor(
+            [self.lr_const if lr_fn is None else lr_fn(state.step + i)
+             for i in range(n_epochs * self.nb)], dtype=self.lr.dtype))
+        self.counter.zero_()
+        tail = self.n % self.bs
+        launches = [self._step(state, "tail" if tail and j == self.nb - 1
+                               else "full")
+                    for _ in range(n_epochs) for j in range(self.nb)]
+        out = self.buf.clone()
+        return ({k: out[:, i].view(n_epochs, self.nb)
+                 for i, k in enumerate(self.keys)}, launches)
+
+
+class CapturedCall:
+    """fn() -> outputs, with no arguments (it reads tensors at fixed
+    addresses): the first call runs fn once eagerly on a side stream (the
+    warm-up: its outputs are dropped and its launches taken out of the
+    counters), captures it and replays it; later calls replay.  Returns
+    the graph's outputs, which the next call overwrites."""
+
+    def __init__(self, fn: Callable):
+        self.fn, self.graph = fn, None
+
+    def __call__(self):
+        if self.graph is None:
+            stream = torch.cuda.Stream()
+            before = ops.launch_counts()
+            with cusolver_linalg(), side_stream(stream):
+                self.fn()
+            ops.add_launch_counts(launch_delta(before), -1)
+            self.graph = Graph(self.fn, stream)
+        return self.graph.replay()

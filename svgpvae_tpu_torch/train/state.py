@@ -31,6 +31,19 @@ def named_tensors(params: dict) -> Dict[str, torch.Tensor]:
     return named
 
 
+def eager_optimizer_state(sd: dict) -> dict:
+    """An optimizer state_dict as an eager (not capturable) Adam holds it:
+    a capturable Adam (train.capture) keeps its lr in a device tensor and
+    its step counts on the device; here they are a float and CPU tensors,
+    so one checkpoint resumes a captured or an eager run alike."""
+    groups = [dict(g, lr=float(g["lr"]), capturable=False)
+              if isinstance(g["lr"], torch.Tensor) else g
+              for g in sd["param_groups"]]
+    state = {i: {k: v.cpu() if k == "step" else v for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return dict(sd, param_groups=groups, state=state)
+
+
 @dataclasses.dataclass
 class GECOState:
     """GECO state: moving average of the constraint and the multiplier."""
@@ -66,13 +79,13 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """Copies of every parameter (by named_tensors name), the names of
-        the trainable ones, the optimizer's state_dict, the GECO state and
-        the step."""
+        the trainable ones, the optimizer's state_dict (always in the eager
+        form: see eager_optimizer_state), the GECO state and the step."""
         return {
             "params": {k: t.detach().clone()
                        for k, t in named_tensors(self.params).items()},
             "trainable": self.trainable_names(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": eager_optimizer_state(self.optimizer.state_dict()),
             "geco": None if self.geco is None else {
                 "C_ma": self.geco.C_ma.detach().clone(),
                 "lagrange_mult": self.geco.lagrange_mult.detach().clone()},

@@ -15,7 +15,9 @@ svgpvae_tpu/train/trainer.py, single device, eager).
     in a data-parallel step (parallel.sharded) the gradients are summed
     across ranks first, so every rank takes the same update;
   * `EpochShuffle` (--reshuffle): each epoch's example order, as JAX's
-    make_epoch_fn(shuffle=True, shuffle_block=...).
+    make_epoch_fn(shuffle=True, shuffle_block=...);
+  * `make_multi_epoch_fn` (--epoch_chunk): a chunk of whole epochs as
+    replayed CUDA graphs (train.capture), the metrics kept on the device.
 """
 
 from __future__ import annotations
@@ -96,10 +98,16 @@ def train_step(state: TrainState, batch, loss_fn):
     the SPRITES pretraining) averages its gradients and GECO state across
     ranks: the ranks' copies agree to round-off, and the average keeps
     their parameters bit for bit alike."""
-    opt = state.optimizer
     if state.lr_fn is not None:
-        for group in opt.param_groups:
+        for group in state.optimizer.param_groups:
             group["lr"] = state.lr_fn(state.step)
+    return apply_step(state, batch, loss_fn)
+
+
+def apply_step(state: TrainState, batch, loss_fn):
+    """`train_step` at the optimizer's current learning rate (a CUDA
+    graph of train.capture sets it from the device first)."""
+    opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss, (geco, metrics) = loss_fn(state.params, batch, state.geco,
                                     state.step)
@@ -176,3 +184,23 @@ def epoch_batches(tensors: Tuple[torch.Tensor, ...], batch_size: int,
         else:
             idx = order[lo:lo + batch_size]
             yield tuple(t[idx] for t in tensors)
+
+
+def make_multi_epoch_fn(graphs, shuffle: Optional[EpochShuffle] = None):
+    """Port of make_multi_epoch_fn (--epoch_chunk): fn(state, tensors,
+    n_epochs) runs `n_epochs` whole epochs of `tensors` (the train split,
+    on the device), each its full batches, in EpochShuffle order under
+    --reshuffle, and then its tail, through `graphs`
+    (train.capture.GraphSteps: the steps replay captured CUDA graphs), and
+    returns ({metric: (n_epochs, n_batches) tensor on the device}, [the
+    kernel launches of each step]).  The n_epochs example orders are drawn
+    first, from the one generator, in the sequence unchunked epochs draw
+    them.  Nothing waits for the device: the caller reads the metrics once
+    a chunk."""
+
+    def multi_fn(state: TrainState, tensors, n_epochs: int):
+        orders = [shuffle.order() if shuffle is not None else None
+                  for _ in range(n_epochs)]
+        return graphs.run(state, tensors, orders)
+
+    return multi_fn

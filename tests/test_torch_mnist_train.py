@@ -371,13 +371,15 @@ def test_value_clip_clips_gradients_before_adam():
 @pytest.mark.parametrize("flag", [
     ["--elbo", "GPVAE_Casale", "--data_parallel", "2"],
     ["--elbo", "SVIGP_Hensman", "--x64"],
-    ["--eval_bundle", "--elbo", "VAE"], ["--epoch_chunk", "2"],
+    ["--elbo", "GPVAE_Casale", "--epoch_chunk", "2"],
+    ["--elbo", "GPVAE_Casale_batch", "--eval_bundle"],
     ["--elbo", "GPVAE_Casale", "--bf16"],
     ["--elbo", "GPVAE_Casale", "--x64"],
     ["--elbo", "GPVAE_Casale_batch", "--data_parallel", "2"],
     ["--elbo", "GPVAE_Casale", "--reshuffle"],
     ["--elbo", "SVIGP_Hensman", "--resume_dir", "x"],
-    ["--eval_bundle"], ["--elbo", "SVIGP_Hensman", "--bf16"]])
+    ["--elbo", "SVIGP_Hensman", "--eval_bundle"],
+    ["--elbo", "SVIGP_Hensman", "--bf16"]])
 def test_unported_flags_are_refused(flag, tiny_splits):
     argv = SLICE_ARGV + ["--device", "cpu"] + flag
     with pytest.raises(SystemExit, match="not ported"):

@@ -2,7 +2,7 @@
 
     PYTHONPATH=. python3 tools/profile_torch_mnist_step.py [--steps 20] \
         [--elbo SVGPVAE_Hensman|VAE|CVAE|SVIGP_Hensman|GPVAE_Casale] \
-        [--precision fp32|bf16]
+        [--precision fp32|bf16] [--captured]
 
 The north-star step of `svgpvae_tpu_torch.cli.mnist` (Hensman + GECO,
 batch 256, L = 16, m = 32, the 36-digit synthetic set with its 800-object
@@ -21,6 +21,12 @@ then runs --steps more under torch.profiler and prints:
     unprofiled step;
   * kernel launches per step, and the kernels that take the most device
     time (name, calls per step, device ms per step).
+With --captured (SVGPVAE_Hensman) the steps are --epoch_chunk's: whole
+epochs (31 full batches and the tail) replayed from captured CUDA graphs
+by train.capture.GraphSteps, one epoch a chunk, each chunk ended by
+torch.cuda.synchronize; after two chunks (the warm-ups and captures are
+in the first) it times --steps chunks, then profiles --steps more, and a
+step's time is its chunk's seconds over its steps.
 TF32 is off, as in cli/mnist.py.  The card's name and power limit come first.
 """
 
@@ -37,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 from quality_gate import PRECISION_FLAGS
 from svgpvae_tpu_torch import data, models, train
 from svgpvae_tpu_torch.cli import mnist
+from svgpvae_tpu_torch.train import capture
 
 ARGV = ["--elbo", "SVGPVAE_Hensman", "--GECO", "--clip_qs", "--PCA",
         "--ip_joint", "--GP_joint", "--ov_joint", "--dataset", "36",
@@ -52,8 +59,8 @@ BASELINE_ARGV = {  # the flags of tools/baselines_gate.py's runs
 
 
 def build_step(elbo: str, splits: dict, device, extra=()):
-    """(args, params, loss_fn, train split) of one --elbo's training
-    step, with cli.mnist's flags `extra` added."""
+    """(args, params, loss_fn, train split, noise generator) of one
+    --elbo's training step, with cli.mnist's flags `extra` added."""
     if elbo == "SVGPVAE_Hensman":
         args = mnist.build_parser().parse_args(ARGV + list(extra))
         args.gp_block_impl = models.resolve_gp_block_impl(
@@ -67,21 +74,21 @@ def build_step(elbo: str, splits: dict, device, extra=()):
     if elbo == "SVIGP_Hensman":
         return (args, mnist.build_svigp(args, splits, n_train, device),
                 mnist.make_svigp_loss_fn(),
-                mnist.with_global_index(splits["train"]))
+                mnist.with_global_index(splits["train"]), None)
     if elbo == "GPVAE_Casale":
         train_d = mnist.sort_train_data(splits["train"])
         return (args, mnist.build_casale(args, splits, device),
                 mnist.make_casale_loss_fn(
                     args, eps, mnist.casale_constants(train_d, device),
-                    "joint"), train_d)
+                    "joint"), train_d, eps.generator)
     vae, gp = mnist.build_model(args, splits, n_train, device)
     if gp is None:
         return (args, {"vae": vae}, mnist.make_vae_loss_fn(
             mnist.make_vae_forward(args, eps, cvae=elbo == "CVAE")),
-            splits["train"])
+            splits["train"], eps.generator)
     return (args, {"vae": vae, "gp": gp},
             mnist.make_loss_fn(args, mnist.make_forward(args, eps)),
-            splits["train"])
+            splits["train"], eps.generator)
 WARMUP = 10
 
 
@@ -107,7 +114,12 @@ def main() -> None:
     p.add_argument("--elbo", default="SVGPVAE_Hensman",
                    choices=["SVGPVAE_Hensman", *BASELINE_ARGV])
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
+    p.add_argument("--captured", action="store_true",
+                   help="--epoch_chunk's replayed CUDA graphs "
+                        "(SVGPVAE_Hensman)")
     opts = p.parse_args()
+    if opts.captured and opts.elbo != "SVGPVAE_Hensman":
+        p.error("--captured takes --elbo SVGPVAE_Hensman")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -118,7 +130,7 @@ def main() -> None:
     base = data.synthetic_digit_base_images("36", per_digit=400, seed=0)
     splits = data.generate_rotated_mnist(base, None, digits="36", seed=0)
     n_train = len(splits["train"]["images"])
-    args, params, loss_fn, train_d = build_step(
+    args, params, loss_fn, train_d, generator = build_step(
         opts.elbo, splits, device, PRECISION_FLAGS[opts.precision])
     trainable = train.trainable_tensors(params, lambda name: True)
     state = train.TrainState(params=params,
@@ -133,17 +145,27 @@ def main() -> None:
     batches = [(im[i:i + bs], aux[i:i + bs])
                for i in range(0, n_train - bs + 1, bs)]
 
-    for i in range(WARMUP):
-        train.train_step(state, batches[i % len(batches)], loss_fn)
+    graphs = (capture.GraphSteps(loss_fn, bs, [generator]) if opts.captured
+              else None)
+    per_call = -(-n_train // bs) if graphs else 1  # steps per timed call
+
+    def call(i):
+        if graphs:
+            graphs.run(state, (im, aux), [None])
+        else:
+            train.train_step(state, batches[i % len(batches)], loss_fn)
+
+    for i in range(2 if graphs else WARMUP):
+        call(i)
     torch.cuda.synchronize()
 
     def steps(n):
         out = []
         for i in range(n):
             t0 = time.perf_counter()
-            train.train_step(state, batches[i % len(batches)], loss_fn)
+            call(i)
             torch.cuda.synchronize()
-            out.append(1e3 * (time.perf_counter() - t0))
+            out += [1e3 * (time.perf_counter() - t0) / per_call] * per_call
         return out
 
     n = opts.steps
@@ -151,12 +173,14 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled = steps(n)
+    n *= per_call
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     busy = busy_ms(kernels) / n
     p50 = float(np.median(plain))
-    print(f"{opts.elbo} {opts.precision}: {n} steps (batch {bs}, L "
+    print(f"{opts.elbo} {opts.precision}"
+          f"{' captured' if graphs else ''}: {n} steps (batch {bs}, L "
           f"{args.L}, m 32, "
           f"gp_block_impl {args.gp_block_impl}): host step p50 {p50:.3f} "
           f"ms (min "
