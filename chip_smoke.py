@@ -209,13 +209,39 @@ Phases, each of which raises (nonzero exit) on failure:
      included) and resumed for 5 more: the resumed run's per-step
      metrics, final parameters and eval MSEs held to the unbroken run as
      in (a), the yardstick the second unbroken run, and its noise
-     generator's state the unbroken run's; (c) phase 11's Titsias run as
+     generator's state the unbroken run's; then the same four runs under
+     torch.backends.cudnn.deterministic: the two unbroken runs, the
+     saved run against the unbroken run's first half and the resumed run
+     against its second half, all bit for bit; (c) phase 11's Titsias run as
      (a), and phase 15's deep SVIGP run with --epoch_chunk 2 held to its
      eager run within RECHECK_FACTOR x the gap of the eager run on train
      pixels nudged by one fp32 ulp (its loss floored at the round-off of
      the batch's sum of squared errors).  Each run prints its chunks'
      seconds, the later chunks' p50 per step and its eval groups' seconds
-     beside the eager run's.
+     beside the eager run's.  The eager runs of (a) and (c) are the
+     drivers' per-step loops (main(per_step=True)).
+ 21. the default training loops replayed from captured CUDA graphs, each
+     run of a driver's default path (no capture_step), held to the
+     per-step run of the same argv and draws: (a) phases 6 and 11 (MNIST
+     at --epoch_chunk 1, each epoch a full-batch and a tail graph),
+     (b) phase 8 in fp32, 17(a)'s --bf16 run and phase 12's SPRITES
+     Titsias run (the `fused` block), (c) phase 14's ball runs, every
+     --elbo
+     (chunks of 500 steps or fewer, one draw -> step graph).  Each: graph
+     replays, every step's B1/B2 launches, the run's launches equal to
+     the per-step run's by the counters, and a second captured run
+     traced by its --profile_dir (an epoch, or the ball's second chunk),
+     whose B1/B2/B3 kernels the card ran equal the counters' over those
+     steps and the per-step run's over as many; the per-step loss (and
+     GECO state), final parameters and eval scores within
+     RECHECK_FACTOR x their gap in the per-step run with a capturable
+     Adam (the reordering capture brings; MNIST: 20(a)'s float64 run),
+     floored as hold_runs floors.  Each run prints its step ms (a
+     replayed epoch's or chunk's seconds over its steps) beside the
+     per-step p50, and from the trace the ms a step and the card's idle
+     share over a window of replayed steps (DEFAULT_LOOP_TRACES), with
+     the card's name and power limit; (d) a capture with a host read
+     raises from train.capture.Graph, and the card runs on.
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
@@ -226,7 +252,8 @@ and B3 at its m = 288 eval fit (50,000, 288, 64, d = 8 + 36), and phase
 The line before the last is {"kernels": [...]} (per kernel: launches on
 the main paths of phases 4, 6, 8, 10-20, phase 18's summed over its
 runs and ranks under the path "data_parallel", phase 20's as its trace
-of the card saw them under "epoch_chunk", and the max error and
+of the card saw them under "epoch_chunk", phase 21's as its traces saw
+them under "default_loop:<run>", and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -237,6 +264,7 @@ throughout.  Each phase prints its seconds.
 
 from __future__ import annotations
 
+import collections
 import glob
 import json
 import math
@@ -1744,16 +1772,18 @@ def phase_ball_cpu_check(tag, res) -> None:
                     loss_terms, BALL_SUM_FLOOR)
 
 
-def phase_ball(base_dir) -> dict:
+def phase_ball(base_dir) -> tuple:
     """Phase 14: the four ball runs, the B1 check and the CPU recheck of
-    the two SVGPVAE runs; returns each run's launch counts."""
-    launches = {}
+    the two SVGPVAE runs; returns each run's launch counts, and each
+    run's (result, launches) by tag."""
+    launches, runs = {}, {}
     for tag in BALL_RUNS:
         res, launches[tag] = phase_ball_train(tag, base_dir)
+        runs[tag] = (res, launches[tag])
         if BALL_RUNS[tag][2] is not None:
             phase_ball_b1(tag, res)
             phase_ball_cpu_check(tag, res)
-    return launches
+    return launches, runs
 
 
 def _baseline_argv(tag) -> list:
@@ -2322,13 +2352,13 @@ def phase_bf16_cpu_check(res, argv) -> None:
                              "its fp32 ones")
 
 
-def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> dict:
+def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> tuple:
     """Phase 17: the SPRITES run under --bf16 and --bf16_hybrid and the
     MNIST run under --bf16 (see the module doc); returns each run's
-    launch counts."""
+    launch counts and the SPRITES --bf16 run's (result, launches)."""
     import torch
 
-    paths = {}
+    paths, bf16_run = {}, None
     p50 = {"sprites": np.percentile(phase8["step_seconds"][1:], 50),
            "mnist": np.percentile(phase6["step_seconds"][1:], 50)}
     for flag, enc in (("--bf16", torch.bfloat16),
@@ -2345,6 +2375,7 @@ def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> dict:
             f"{1e3 * p50['sprites']:.3f} ms")
         if flag == "--bf16":
             phase_bf16_cpu_check(res, argv)
+            bf16_run = (res, paths["sprites_bf16_train"])
     with RecordedDtypes() as rec:
         res, launches = phase_train(mnist_data, TRAIN_ARGV + ["--bf16"], 32,
                                     TRAIN_STEPS, None, "mnist --bf16")
@@ -2357,7 +2388,7 @@ def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> dict:
     log(f"17(b) mnist --bf16: step p50 "
         f"{1e3 * np.percentile(res['step_seconds'][1:], 50):.3f} ms; fp32 "
         f"(phase 6) p50 {1e3 * p50['mnist']:.3f} ms")
-    return paths
+    return paths, bf16_run
 
 
 # --- phase 18 ---------------------------------------------------------------
@@ -2890,6 +2921,56 @@ def nudged_images(splits) -> dict:
     return dict(splits, train=dict(tr, images=images))
 
 
+def deterministic_resume(splits, long_argv, base_dir, scores) -> None:
+    """20(b) under cuDNN's deterministic algorithms (ROADMAP.md section C
+    12): the unbroken run twice, the saved run and the resumed one.  The
+    reruns must agree bit for bit (else the card is not deterministic
+    here and the check says so), and then the saved run must equal the
+    unbroken run's first half and the resumed run its second half, bit
+    for bit: per-step loss and GECO state, final parameters, eval
+    scores."""
+    import torch
+    from svgpvae_tpu_torch.cli import mnist
+
+    def values(res, lo=0):
+        return {**{k: [m[k] for m in res["metrics"][lo:]]
+                   for k in ("loss", "C_ma", "lagrange")},
+                "scores": [res["evals"][-1][k] for k in scores]}
+
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = [mnist.main(long_argv, splits=splits) for _ in range(2)]
+        saved = mnist.main(CHUNK_RESUME_ARGV + SAVE_ARGV + [
+            "--base_dir", os.path.join(base_dir, "deterministic")],
+            splits=splits)
+        resumed = mnist.main(CHUNK_RESUME_ARGV + ["--resume_dir",
+                                                  saved["run_dir"]],
+                             splits=splits)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    half = len(saved["metrics"])
+    checks = {
+        "rerun": (values(runs[1]), values(runs[0]), runs[1], runs[0]),
+        "saved": ({k: v for k, v in values(saved).items() if k != "scores"},
+                  {k: v[:half] for k, v in values(runs[0]).items()
+                   if k != "scores"}, None, None),
+        "resumed": (values(resumed), values(runs[0], half), resumed,
+                    runs[0])}
+    bad = [tag for tag, (a, b, ra, rb) in checks.items() if a != b or (
+        ra is not None and state_mismatches(ra["state"], rb["state"]))]
+    if bad:
+        raise AssertionError(f"20(b) deterministic: {bad} differ bit for "
+                             "bit from the unbroken run")
+    log(f"20(b) under cudnn.deterministic: the unbroken run, its rerun, the "
+        f"saved run ({half} steps) and the resumed one agree bit for bit "
+        f"(per-step loss and GECO state, the final state, the eval scores; "
+        f"cgen MSE {runs[0]['evals'][-1]['cgen_mse']:.9f})")
+
+
 def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
     """Phase 20; `phase6` and `phase11` are (result, launches) of those
     phases' eager runs.  Returns {"epoch_chunk": the kernel launches the
@@ -2911,7 +2992,7 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
     # phase 11's
     decay_argv = TRAIN_ARGV + LR_DECAY_ARGV
     decay_eager, decay_counts = launched(mnist.main, decay_argv,
-                                         splits=splits)
+                                         splits=splits, per_step=True)
     if decay_counts != phase6[1]:
         raise AssertionError(f"20(a): the eager --lr_decay run launched "
                              f"{decay_counts}, phase 6 {phase6[1]}")
@@ -2972,13 +3053,15 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
         run_values(dict(r, metrics=r["metrics"][-half:]), scores)
         for r in (resumed, runs[0], runs[1])),
         ("resumed", "unbroken", "unbroken rerun"), SUM_FLOOR)
+    deterministic_resume(splits, long_argv, base_dir, scores)
     log(chunk_timing("20(b) mnist 10 epochs in chunks of 5 (the untraced "
                      "run)", runs[1], phase6[0]))
 
     # (c) deep SVIGP: held to the gap of its eager run on nudged pixels
     svigp_argv = _baseline_argv("svigp_train")
-    eager = mnist.main(svigp_argv, splits=splits)
-    nudged = mnist.main(svigp_argv, splits=nudged_images(splits))
+    eager = mnist.main(svigp_argv, splits=splits, per_step=True)
+    nudged = mnist.main(svigp_argv, splits=nudged_images(splits),
+                        per_step=True)
     sres, counts = launched(mnist.main, svigp_argv + ["--epoch_chunk", "2"],
                             splits=splits)
     check_graphs("20(c) svigp", sres, ("full", "tail"))
@@ -2995,6 +3078,289 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
                     floors={"params": DP_PARAM_FLOOR_STEPS * DP_LR,
                             "loss": SUM_FLOOR * scale})
     return {"epoch_chunk": seen}
+
+
+# --- phase 21 ---------------------------------------------------------------
+# The default training loops (--epoch_chunk 1 on MNIST, the SPRITES
+# epochs, the ball's chunks) replayed from captured CUDA graphs, each held
+# to its driver's per-step run of the same argv and draws (phases 6, 11,
+# 8, 17(a), 12 and 14's runs) as 20(a) holds a chunked run: within
+# RECHECK_FACTOR x a yardstick gap, floored as hold_runs floors.
+# MNIST's yardstick is 20(a)'s, the run in float64 on the same draws.
+# The others' is the per-step run with a capturable Adam (its step
+# counts on the card, its bias corrections there in fp32): the
+# reordering of Adam's arithmetic that capture brings, in an eager run
+# (the ball's steps run no cuDNN: two per-step runs agree bit for bit and
+# would give no gap).  The trace of each: a captured run with
+# --profile_dir, which traces MNIST's and SPRITES's epoch 1 and the
+# ball's second chunk; tag -> (the extra argv: SPRITES runs 2 epochs,
+# the ball's shorter runs chunks of half their steps; the traced steps;
+# as many steps of the per-step run; the window of the trace's graph
+# replays for the idle share: MNIST's before its tail step, which is
+# captured there, and all of the others').
+DEFAULT_LOOP_TRACES = {
+    "mnist": ([], slice(32, 64), slice(32, 64), (0, 31)),
+    "sprites": (["--opt_regime", "joint-2", "--eval_every", "2"],
+                slice(SPRITES_STEPS, 2 * SPRITES_STEPS),
+                slice(0, SPRITES_STEPS), (0, SPRITES_STEPS)),
+    "ball_hensman_train": ([], slice(500, 1000), slice(500, 1000),
+                           (0, 500)),
+    "ball_titsias_train": (["--eval_every", "250"], slice(250, 500),
+                           slice(250, 500), (0, 250)),
+    "ball_pearce_train": (["--eval_every", "50"], slice(50, 100),
+                          slice(50, 100), (0, 50)),
+    "ball_np_train": (["--eval_every", "50"], slice(50, 100),
+                      slice(50, 100), (0, 50))}
+ANNOTATIONS = ("train_step", "gp_block", "eval_pass", "pictures")
+
+
+class reordered_adam:
+    """While open, train.make_optimizer hands out a capturable Adam (the
+    per-step yardstick of phase 21)."""
+
+    def __enter__(self):
+        from svgpvae_tpu_torch import train
+        self.make = make = train.make_optimizer
+
+        def capturable(tensors, lr):
+            opt = make(tensors, lr)
+            opt.param_groups[0]["capturable"] = True
+            return opt
+        train.make_optimizer = capturable
+        return self
+
+    def __exit__(self, *exc):
+        from svgpvae_tpu_torch import train
+        train.make_optimizer = self.make
+        return False
+
+
+def traced_steps(driver, argv, kw, base_dir, steps, window) -> tuple:
+    """driver.main(argv + --profile_dir, **kw), its default loop captured,
+    and its one Chrome trace (MNIST and SPRITES: epoch 1; the ball: its
+    second chunk) read back: (the kernels' launches the trace saw, by
+    DEVICE_KERNELS; the counters' launches over the traced steps, the
+    `steps` slice of the run's step_launches; {"ms_per_step", "idle"}
+    over the trace's graph replays window[0]..window[1] - 1, each one
+    cudaGraphLaunch).  The window runs on the card's clock from the first
+    of its replays' kernels to the end of the last one's (a kernel joins
+    its launch by the trace's correlation id): its ms a step is its
+    length over its replays, its idle share 1 - the union of the card's
+    intervals (kernels, copies, memsets) in it over its length; with
+    "replay_kernels", the card's kernel records of each traced
+    cudaGraphLaunch, in order (see replay_gaps)."""
+    trace_dir = tempfile.mkdtemp(prefix="trace_", dir=base_dir)
+    res = driver.main(argv + ["--profile_dir", trace_dir], **kw)
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    seen = dict.fromkeys(DEVICE_KERNELS, 0)
+    device, launches, kernels = [], [], collections.Counter()
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        corr = e.get("args", {}).get("correlation")
+        ts = e.get("ts", 0.0)
+        if cat == "cuda_runtime" and name.startswith("cudaGraphLaunch"):
+            launches.append((ts, corr))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((ts, ts + e.get("dur", 0.0), corr))
+            kernels[corr] += cat == "kernel"
+            for k, names in DEVICE_KERNELS.items():
+                seen[k] += cat == "kernel" and any(n in name for n in names)
+    # B3 runs B2's stats kernel on the K it builds: one more a B3 launch
+    seen["gp_sufficient_stats"] -= seen["fused_kernel_stats"]
+    counted = {k: sum(sl[k] for sl in res["step_launches"][steps])
+               for k in seen}
+    lo, hi = window
+    launches.sort()
+    if len(launches) < hi:
+        raise AssertionError(f"{path}: {len(launches)} graph replays traced,"
+                             f" the window needs {hi}")
+    chosen = {c for _, c in launches[lo:hi]}
+    mine = [(a, b) for a, b, c in device if c in chosen]
+    t0, t1 = min(a for a, _ in mine), max(b for _, b in mine)
+    busy, end = 0.0, t0
+    for a, b, _ in sorted(device):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    return seen, counted, {"ms_per_step": (t1 - t0) / 1e3 / (hi - lo),
+                           "idle": 1.0 - busy / (t1 - t0),
+                           "replay_kernels": [kernels[c]
+                                              for _, c in launches]}
+
+
+def replay_gaps(replay_kernels: list) -> list:
+    """(position, kernel records) of the traced graph replays whose
+    record count is not the most common one."""
+    if not replay_kernels:
+        return []
+    mode = collections.Counter(replay_kernels).most_common(1)[0][0]
+    return [(i, n) for i, n in enumerate(replay_kernels) if n != mode]
+
+
+def default_loop(tag, driver, argv, eager, eager_counts, traced, kw,
+                 base_dir, check_steps, scores, sum_floor,
+                 series=("loss", "C_ma", "lagrange"), unit="epochs",
+                 yardstick=None) -> dict:
+    """Phase 21 for one run: `driver.main(argv, **kw)` with its default
+    loop, captured, against `eager` (its per-step run, launching
+    `eager_counts`): graph replays, `check_steps(res)` (each step's
+    launches), the run's launches those of the per-step run; the run
+    held as 20(a) holds a chunked one, the yardstick `yardstick()` (name,
+    result), by default the per-step run with a capturable Adam.
+    `traced` = (extra argv, the traced steps, the per-step run's steps of
+    the same count, the window): a captured run of argv + extra traced by
+    its --profile_dir,
+    whose kernels the card ran equal the counters' over the traced steps
+    and the per-step run's over as many steps.  Returns the launches the
+    trace saw."""
+    from svgpvae_tpu_torch import ops
+    ops.reset_launch_counts()
+    res, counts = launched(driver.main, argv, **kw)
+    replays = res["graph_replays"]
+    if not replays or any(v < 1 for v in replays.values()):
+        raise AssertionError(f"{tag}: graph replays {replays}")
+    check_steps(res)
+    extra, steps, eager_steps, window = traced
+    seen, counted, win = traced_steps(driver, argv + extra,
+                                      kw, base_dir, steps,
+                                      window)
+    eager_window = {k: sum(sl[k] for sl in eager["step_launches"]
+                           [eager_steps]) for k in seen}
+    if not (counts == eager_counts and seen == counted == eager_window):
+        raise AssertionError(
+            f"{tag}: the captured run launched {counts}, the per-step run "
+            f"{eager_counts}; over the traced steps the card ran {seen}, "
+            f"the counters {counted}, the per-step run's as many steps "
+            f"{eager_window}; the traced replays' kernel records "
+            f"{len(win['replay_kernels'])} replays, off the most common "
+            f"count (position, records) {replay_gaps(win['replay_kernels'])}")
+    if yardstick is None:
+        with reordered_adam():
+            yard = ("per-step, Adam capturable",
+                    driver.main(argv, per_step=True, **kw))
+    else:
+        yard = yardstick()
+    eager_ms = 1e3 * np.percentile(eager["step_seconds"][1:], 50)
+    later = res["chunks"]
+    per_step = [c["seconds"] / c["steps"] for c in later[1:]] or [
+        later[0]["seconds"] / later[0]["steps"]]
+    log(f"{tag}: captured, {len(res['metrics'])} steps, graph replays "
+        f"{replays}, launches {counts} (per-step run {eager_counts}); the "
+        f"traced steps: the card ran {seen}; step "
+        f"{1e3 * np.percentile(per_step, 50):.3f} ms (seconds of its "
+        f"{'later ' if len(later) > 1 else ''}{unit} / steps) against the "
+        f"per-step p50 {eager_ms:.3f} ms; traced replays "
+        f"{win['ms_per_step']:.3f} ms a step, idle share "
+        f"{win['idle']:.3f}; {gpu_name_and_power()}")
+    hold_runs(f"{tag} captured", *(run_values(r, scores, series) for r in (
+        res, eager, yard[1])), ("captured", "per-step", yard[0]), sum_floor)
+    return seen
+
+
+def phase_default_loops(mnist_data, corpus, phase6, phase11, phase8,
+                        phase17, phase12, phase14, base_dir) -> dict:
+    """Phase 21; phase6, phase11, phase8, phase17 (17(a)'s --bf16 run)
+    and phase12 are (result, launches) of those phases' per-step runs,
+    phase14 {tag: (result, launches)} of its runs.  Returns each run's
+    launches as the trace saw them."""
+    import torch
+    from svgpvae_tpu_torch.cli import ball, mnist, sprites
+
+    paths = {}
+
+    def mnist_steps(tag, b2):
+        def check(res):
+            for i, sl in enumerate(res["step_launches"]):
+                if sl["chol_inverse"] != 1 or sl["gp_sufficient_stats"] != b2:
+                    raise AssertionError(f"{tag} step {i} launched {sl}")
+            if len(res["metrics"]) != TRAIN_STEPS:
+                raise AssertionError(f"{tag}: {len(res['metrics'])} steps")
+        return check
+
+    scores = ("eval_mse", "test_mse", "cgen_mse")
+    base = mnist.default_eps_fn(0, torch.device("cuda"))
+    for tag, argv, (eager, counts), b2 in (
+            ("21(a) mnist", TRAIN_ARGV, phase6, 1),
+            ("21(a) mnist titsias", TITSIAS_ARGV, phase11, 2)):
+        def f64(argv=argv):  # 20(a)'s yardstick: float64 on the same draws
+            return ("per-step f64", mnist.main(
+                argv + ["--x64"], splits=mnist_data,
+                eps_fn=lambda kind, shape: base(kind, shape).double()))
+        paths[tag] = default_loop(
+            tag, mnist, argv, eager, counts, DEFAULT_LOOP_TRACES["mnist"],
+            {"splits": mnist_data}, base_dir, mnist_steps(tag, b2), scores,
+            SUM_FLOOR, yardstick=f64)
+
+    def sprites_steps(tag, per_step):
+        def check(res):
+            if len(res["metrics"]) != SPRITES_STEPS or any(
+                    (sl["chol_inverse"], sl["gp_sufficient_stats"],
+                     sl["fused_kernel_stats"]) != per_step
+                    for sl in res["step_launches"]):
+                raise AssertionError(f"{tag}: steps launched "
+                                     f"{res['step_launches'][:3]}...")
+        return check
+
+    # (b) SPRITES fp32 (phase 8's run, saved into a run dir of its own),
+    # --bf16 (phase 17(a)'s) and the Titsias record flags (phase 12's
+    # run: the `fused` block, B2 twice a step, its Cholesky solves on
+    # cusolver under capture)
+    sp_argv = SPRITES_ARGV + SAVE_ARGV + ["--base_dir", base_dir]
+    runs = [("21(b) sprites", sp_argv, phase8, (2, 1, 0)),
+            ("21(b) sprites --bf16", SPRITES_ARGV + ["--bf16"], phase17,
+             (2, 1, 0)),
+            ("21(b) sprites titsias", SPRITES_TITSIAS_ARGV, phase12,
+             (0, 2, 0))]
+    for tag, argv, eager, per_step in runs:
+        paths[tag] = default_loop(
+            tag, sprites, argv, *eager, DEFAULT_LOOP_TRACES["sprites"],
+            {"splits": corpus}, base_dir, sprites_steps(tag, per_step),
+            ("test_mse", "cgen_mse"), SPRITES_SUM_FLOOR)
+
+    # (c) the ball, every --elbo (phase 14's runs)
+    for name, (eager, counts) in phase14.items():
+        argv, steps, _ = BALL_RUNS[name]
+        full = argv + ["--steps", str(steps), "--eval_every", str(steps),
+                       "--base_dir", base_dir, "--device", "cuda", "--seed",
+                       "0"]
+        tag = f"21(c) {name}"
+
+        def check(res, tag=tag, steps=steps,
+                  b1=int(BALL_RUNS[name][2] is not None)):
+            want = {"chol_inverse": b1, "fused_kernel_stats": 0,
+                    "gp_sufficient_stats": 0}
+            if len(res["metrics"]) != steps or any(
+                    sl != want for sl in res["step_launches"]):
+                raise AssertionError(f"{tag}: steps launched "
+                                     f"{res['step_launches'][:3]}...")
+        paths[tag] = default_loop(
+            tag, ball, full, eager, counts, DEFAULT_LOOP_TRACES[name], {},
+            base_dir, check, ("mse", "elbo"), BALL_SUM_FLOOR, ("loss",),
+            "chunks")
+    capture_failure_raises()
+    torch.cuda.empty_cache()
+    return {f"default_loop:{k.split(' ', 1)[1]}": v for k, v in paths.items()}
+
+
+def capture_failure_raises() -> None:
+    """21(d): a capture that a graph cannot hold (a host read of a device
+    value inside it) raises from train.capture.Graph, and the card runs
+    on after it."""
+    import torch
+    from svgpvae_tpu_torch.train import capture
+    x = torch.ones(8, device="cuda")
+    try:
+        capture.Graph(lambda: float(x.sum()), torch.cuda.Stream())
+    except RuntimeError as e:
+        why = str(e).splitlines()[0]
+    else:
+        raise AssertionError("21(d): a capture with a host sync ran")
+    if float((x * 2).sum()) != 16.0:
+        raise AssertionError("21(d): the card is off after a failed capture")
+    log(f"21(d) a failed capture raised: {why}")
 
 
 def main() -> int:
@@ -3061,12 +3427,12 @@ def main() -> int:
         "sprites")
     timed("13c", phase_cpu_check, "sprites run", sprites_served,
           RUN_FIT_NOISE_FACTOR)
-    ball_launches = timed(14, phase_ball, runs.name)
+    ball_launches, ball_runs = timed(14, phase_ball, runs.name)
     baseline_launches = timed(15, phase_baselines, mnist_data, corpus)
     flag_launches, flag_runs = timed(16, phase_driver_flags, mnist_data,
                                      corpus, runs.name, train_launches)
-    bf16_launches = timed(17, phase_mixed_precision, corpus, mnist_data,
-                          train_res, sprites_res)
+    bf16_launches, bf16_run = timed(17, phase_mixed_precision, corpus,
+                                    mnist_data, train_res, sprites_res)
     dp_launches = timed(18, phase_data_parallel, mnist_data, train_res,
                         corpus, sprites_res["run_dir"], runs.name,
                         sprites_served)
@@ -3076,6 +3442,12 @@ def main() -> int:
     chunk_launches = timed(20, phase_epoch_chunk, mnist_data,
                            (train_res, train_launches),
                            (titsias_res, titsias_launches), runs.name)
+    default_launches = timed(21, phase_default_loops, mnist_data, corpus,
+                             (train_res, train_launches),
+                             (titsias_res, titsias_launches),
+                             (sprites_res, sprites_launches), bf16_run,
+                             (sp_titsias_res, sp_titsias_launches),
+                             ball_runs, runs.name)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -3085,7 +3457,8 @@ def main() -> int:
              "mnist_serve_run": mnist_serve_launches,
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
              **baseline_launches, **flag_launches, **bf16_launches,
-             "pictures": picture_launches, **chunk_launches}
+             "pictures": picture_launches, **chunk_launches,
+             **default_launches}
     # phase 18's paths (every rank's launches, summed) under one key
     paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
                               for k in KERNELS}

@@ -53,12 +53,26 @@ on the host after the eval passes, outside the step timings.
 eval the batch-mean ELBO goes through utils.check_finite: on NaN/inf
 the current state goes
 to <run dir>/ckpt_nan/<step>.pt (a diagnostic, not a resume point) and
-utils.NonFiniteLossError is raised.  --profile_dir DIR writes a
-torch.profiler Chrome trace into DIR of the steps of the JAX driver's
-second chunk: with chunk the largest divisor of gcd(--eval_every,
---plot_every, --ckpt_every) up to 500, the steps from start + chunk to
-start + 2 chunk, when they are all to run (the port has no chunk
-programs; the trace holds those steps one by one, "train_step" ranges).
+utils.NonFiniteLossError is raised.
+
+The loop runs the JAX driver's chunks: `chunk_steps`, the largest
+divisor of gcd(--eval_every, --plot_every, --ckpt_every) up to 500,
+steps at a time (the last chunk may be shorter), and the evals, pictures
+and checkpoints at chunk ends.  On a CUDA device in a 1-process run a
+chunk replays one captured CUDA graph of draw -> step per step
+(train.make_generative_chunk_fn, train.capture.GenerativeSteps: the
+videos, the noise and the NP's split drawn on the card from generators
+registered with the graph; the first two steps of the run eager, Adam
+capturable, so the run sits within round-off of a per-step one), with one
+readback a chunk; a step's seconds are its chunk's over its steps, and
+the first chunk is left out of the p50, as the JAX driver leaves out its
+compile.  Elsewhere the steps run one by one, and the run prints why:
+the CPU, --data_parallel, a capture_step, an injected eps_fn, video_fn
+or NP np_split_fn without a generator, or main(per_step=True).
+--profile_dir DIR writes a torch.profiler Chrome trace into DIR of the
+JAX driver's second chunk (steps start + chunk to start + 2 chunk, when
+they are all to run): its replays, or its steps, in "train_step"
+ranges.
 --data_parallel N (0 off, -1 every visible device; N must divide the
 batch of 35 videos): N ranks, one process each.  Every rank generates
 the whole batch of videos and draws the global batch's noise (and the
@@ -74,7 +88,6 @@ run replicated; only rank 0 writes the run dir, draws and prints.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import math
 import os
@@ -87,8 +100,10 @@ import torch
 
 from svgpvae_tpu_torch import (data, gp as gpm, models, ops, parallel,
                                train, utils)
-from svgpvae_tpu_torch.cli.mnist import Noise, default_eps_fn, sync
+from svgpvae_tpu_torch.cli.mnist import (Noise, default_eps_fn, sync,
+                                         uncaptured_reason)
 from svgpvae_tpu_torch.nn import BallDecoder, BallEncoder
+from svgpvae_tpu_torch.train import capture
 from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import ball_params_from_jax
 
@@ -303,11 +318,15 @@ GP_COLUMNS = ["step", "length_scale", "ip_norm", "inducing_points"]
 def main(argv=None, video_fn: Optional[Callable] = None,
          eps_fn: Optional[Callable] = None,
          np_split_fn: Optional[Callable] = None,
-         capture_step: Optional[int] = None) -> dict:
+         capture_step: Optional[int] = None,
+         per_step: bool = False) -> dict:
     """Train; returns {"mse" (the last eval's), "steps_per_sec",
     "step_p50_ms", "step_p90_ms" (host clock after synchronize, the first
-    step left out), "state", "launches" (the run's kernel launches),
-    "step_seconds", "metrics", "step_launches" (per step), "evals",
+    step, or with graphs the first chunk, left out), "state", "launches"
+    (the run's kernel launches), "step_seconds", "metrics",
+    "step_launches" (per step), "chunks" (each chunk's steps and
+    seconds), "graph_replays", "graph_launches" (the captured graph's
+    replays and the launches of one), "evals",
     "pictures" (draw_pictures' record of each --plot_every step under
     --save or --resume_dir), "captured", "run_dir", "noise", "video_fn"}.
 
@@ -315,7 +334,9 @@ def main(argv=None, video_fn: Optional[Callable] = None,
     `eps_fn(kind, shape)` ("train"/"eval") the noise and
     `np_split_fn(kind, batch, T)` -> (n_ctx, perm) the NP's draws (tests
     inject the JAX driver's).  `capture_step` keeps a copy of that step's
-    videos, parameters before it, draws and gradients."""
+    videos, parameters before it, draws and gradients.  `per_step` runs
+    the chunks one step at a time where they would replay a captured
+    CUDA graph (the card's eager yardstick)."""
     args = build_parser().parse_args(argv)
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
@@ -332,10 +353,11 @@ def main(argv=None, video_fn: Optional[Callable] = None,
         device = parallel.device(args.device)
         parallel.announce(device)
         return _main(args, device, video_fn, eps_fn, np_split_fn,
-                     capture_step)
+                     capture_step, per_step)
 
 
-def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
+def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step,
+          per_step=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
@@ -362,6 +384,7 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
                                                args.steps),
         clip_grad_value=CLIP_GRAD_VALUE if args.clip_grad else None)
     noise = Noise(eps_fn or default_eps_fn(seed, device, EVAL_SEED))
+    injected_split = np_split_fn is not None
     np_split_fn = np_split_fn or default_np_split_fn(noise, device)
     video_fn = video_fn or data.make_video_batch_fn(
         tmax=args.tmax, px=PX, py=PY, lt=args.vidlt, batch=BATCH, r=RADIUS,
@@ -400,81 +423,114 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
             out.p_v.cpu().numpy().astype(np.float64))
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
-    captured, last_mse, pictures = None, float("nan"), []
+    captured, last_mse, pictures, chunks = None, float("nan"), [], []
     # every rank runs the pictures' eval passes; rank 0's run_dir draws
     draws = args.save or args.resume_dir is not None
     start = state.step
+    chunk = chunk_steps(args)
     traced = profile_steps(args, start)
+    why = per_step_reason(args, device, per_step, capture_step, noise,
+                          video_fn, injected_split)
+    print(f"training loop: chunks of {chunk} steps, each " + (
+        f"step by step ({why})" if why else "replaying a captured CUDA "
+        "graph of draw -> step, one readback a chunk"))
+    graphs = chunk_fn = None
+    if why is None:
+        graphs = capture.GenerativeSteps(
+            loss_fn, video_fn, chunk, [noise.generator,
+                                       _generator(video_fn)])
+        chunk_fn = train.make_generative_chunk_fn(graphs, chunk)
+
+    def one_step():
+        """A step of the per-step loop, timed after synchronize; the
+        metrics as floats."""
+        nonlocal captured
+        snap = (_snapshot(state) if state.step == capture_step else None)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        # every rank generates the batch and takes its share of videos
+        with utils.annotate("train_step"), parallel.sharded():
+            vids = video_fn()
+            m = train.train_step(state, parallel.local_rows(vids), loss_fn)
+            sync(device)
+        step_seconds.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        step_launches.append({k: after[k] - before[k] for k in after})
+        if snap is not None:
+            captured = dict(snap, vids=vids.clone(), eps=noise.last.clone(),
+                            loss=m["loss"],
+                            grads={k: t.grad.detach().clone()
+                                   for k, t in trainable.items()})
+        step_metrics.append({k: float(v) for k, v in m.items()})
+
     launches0 = ops.launch_counts()
     t_start = time.perf_counter()
-    with contextlib.ExitStack() as trace:  # --profile_dir's range
-        while state.step < args.steps:
-            if traced and state.step == traced[0]:
-                trace.enter_context(utils.trace_if(args.profile_dir))
-            snap = (_snapshot(state) if state.step == capture_step else None)
+    g_s = start
+    while g_s < args.steps:  # the JAX driver's chunks: evals, pictures and
+        n = min(chunk, args.steps - g_s)  # checkpoints at their ends
+        t0 = time.perf_counter()
+        with utils.trace_if(args.profile_dir, enabled=bool(traced)
+                            and g_s == traced[0]):
+            if chunk_fn is None:
+                for _ in range(n):
+                    one_step()
+            else:
+                ms, launches = chunk_fn(state, n)
+                keys = list(ms)
+                host = torch.stack([ms[k] for k in keys]).cpu().tolist()
+                seconds = time.perf_counter() - t0
+                step_seconds.extend([seconds / n] * n)
+                step_launches.extend(launches)
+                step_metrics.extend(dict(zip(keys, v)) for v in zip(*host))
+        chunks.append({"steps": n, "seconds": time.perf_counter() - t0})
+        g_s = state.step
+        if traced and g_s == traced[1]:
+            print(f"profiler trace written to {args.profile_dir} (steps "
+                  f"{traced[0]}..{traced[1] - 1})")
+
+        if g_s % args.eval_every == 0:
             before = ops.launch_counts()
             t0 = time.perf_counter()
-            # every rank generates the batch and takes its share of videos
-            with utils.annotate("train_step"), parallel.sharded():
-                vids = video_fn()
-                m = train.train_step(state, parallel.local_rows(vids),
-                                     loss_fn)
-                sync(device)
-            step_seconds.append(time.perf_counter() - t0)
+            with utils.annotate("eval_pass"):
+                out, (_, _, mse, _) = evaluate(check_step=g_s)
+            elbo = float(out.elbo.mean())
+            sync(device)
             after = ops.launch_counts()
-            step_launches.append({k: after[k] - before[k] for k in after})
-            if snap is not None:
-                captured = dict(snap, vids=vids.clone(),
-                                eps=noise.last.clone(), loss=m["loss"],
-                                grads={k: t.grad.detach().clone()
-                                       for k, t in trainable.items()})
-            step_metrics.append({k: float(v) for k, v in m.items()})
-            g_s = state.step
-            if traced and g_s == traced[1]:
-                trace.close()
-                print(f"profiler trace written to {args.profile_dir} (steps "
-                      f"{traced[0]}..{traced[1] - 1})")
+            last_mse = mse
+            ev = {"step": g_s, "mse": mse, "elbo": elbo,
+                  "recon": float(out.recon.mean()),
+                  "prior_kl": float(out.prior_kl.mean()),
+                  "inside_elbo": float(out.inside_elbo.mean()),
+                  "ce_term": float(out.ce_term.mean()),
+                  "seconds": time.perf_counter() - t0,
+                  "launches": {k: after[k] - before[k] for k in after}}
+            evals.append(ev)
+            print(f"{g_s}: elbo {elbo:.3f} recon {ev['recon']:.3f} "
+                  f"priorKL {ev['prior_kl']:.3f} MSE {mse:.4f}")
+            if "SVGPVAE" in args.elbo:
+                print(f"   inside-ELBO {ev['inside_elbo']:.3f} CE "
+                      f"{ev['ce_term']:.3f}")
+            if savers:
+                write_eval_rows(savers, state, out, ev, args.beta0)
 
-            if g_s % args.eval_every == 0:
-                before = ops.launch_counts()
-                t0 = time.perf_counter()
-                with utils.annotate("eval_pass"):
-                    out, (_, _, mse, _) = evaluate(check_step=g_s)
-                elbo = float(out.elbo.mean())
-                sync(device)
-                after = ops.launch_counts()
-                last_mse = mse
-                ev = {"step": g_s, "mse": mse, "elbo": elbo,
-                      "recon": float(out.recon.mean()),
-                      "prior_kl": float(out.prior_kl.mean()),
-                      "inside_elbo": float(out.inside_elbo.mean()),
-                      "ce_term": float(out.ce_term.mean()),
-                      "seconds": time.perf_counter() - t0,
-                      "launches": {k: after[k] - before[k] for k in after}}
-                evals.append(ev)
-                print(f"{g_s}: elbo {elbo:.3f} recon {ev['recon']:.3f} "
-                      f"priorKL {ev['prior_kl']:.3f} MSE {mse:.4f}")
-                if "SVGPVAE" in args.elbo:
-                    print(f"   inside-ELBO {ev['inside_elbo']:.3f} CE "
-                          f"{ev['ce_term']:.3f}")
-                if savers:
-                    write_eval_rows(savers, state, out, ev, args.beta0)
+        if draws and g_s % args.plot_every == 0:
+            with utils.annotate("pictures"):
+                pictures.append(draw_pictures(
+                    args, run_dir, g_s, evaluate, forward, params, tt0,
+                    td0))
 
-            if draws and g_s % args.plot_every == 0:
-                with utils.annotate("pictures"):
-                    pictures.append(draw_pictures(
-                        args, run_dir, g_s, evaluate, forward, params, tt0,
-                        td0))
-
-            if run_dir and g_s % args.ckpt_every == 0:
-                save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
+        if run_dir and g_s % args.ckpt_every == 0:
+            save(run_dir, state, noise, video_fn, evaluate, tt0, td0)
 
     if args.profile_dir and not traced:
         print("warning: --profile_dir set but no chunk was traced (needs "
               "two whole chunks of steps)")
     elapsed = time.perf_counter() - t_start
     steps_done = state.step - start
-    timed = np.asarray(step_seconds[1:] or step_seconds)
+    # the first step, or with graphs the first chunk (its warm-ups and
+    # capture: the JAX driver's compile), left out
+    skip = 1 if chunk_fn is None else chunks[0]["steps"] if chunks else 0
+    timed = np.asarray(step_seconds[skip:] or step_seconds)
     p50 = 1e3 * float(np.percentile(timed, 50)) if timed.size else None
     p90 = 1e3 * float(np.percentile(timed, 90)) if timed.size else None
     print(f"trained {steps_done} steps in {elapsed:.1f}s "
@@ -491,23 +547,56 @@ def _main(args, device, video_fn, eps_fn, np_split_fn, capture_step):
             "launches": {k: end[k] - launches0[k] for k in end},
             "step_seconds": step_seconds, "metrics": step_metrics,
             "step_launches": step_launches, "evals": evals,
-            "pictures": pictures,
+            "pictures": pictures, "chunks": chunks,
             "captured": captured, "run_dir": run_dir, "noise": noise,
-            "video_fn": video_fn}
+            "video_fn": video_fn,
+            "graph_replays": {} if graphs is None else {
+                k: g.replays for k, g in graphs.graphs.items()},
+            "graph_launches": {} if graphs is None else {
+                k: g.launches for k, g in graphs.graphs.items()}}
+
+
+def chunk_steps(args) -> int:
+    """The JAX driver's chunk: the largest divisor of gcd(--eval_every,
+    --plot_every, --ckpt_every) up to 500."""
+    gcd = math.gcd(args.eval_every, math.gcd(args.plot_every,
+                                             args.ckpt_every))
+    return max(d for d in range(1, min(gcd, 500) + 1) if gcd % d == 0)
 
 
 def profile_steps(args, start: int) -> Optional[tuple]:
     """--profile_dir's step range [first, end): the JAX driver's second
-    chunk of `chunk` steps from `start` (chunk: the largest divisor of
-    gcd(--eval_every, --plot_every, --ckpt_every) up to 500), or None
-    without the flag or when that chunk would not run whole."""
+    chunk (chunk_steps) from `start`, or None without the flag or when
+    that chunk would not run whole."""
     if not args.profile_dir:
         return None
-    gcd = math.gcd(args.eval_every, math.gcd(args.plot_every,
-                                             args.ckpt_every))
-    chunk = max(d for d in range(1, min(gcd, 500) + 1) if gcd % d == 0)
+    chunk = chunk_steps(args)
     first = start + chunk
     return (first, first + chunk) if first + chunk <= args.steps else None
+
+
+def per_step_reason(args, device, per_step: bool, capture_step,
+                    noise: Noise, video_fn, injected_split: bool
+                    ) -> Optional[str]:
+    """Why this run's chunks take their steps one by one, or None: each
+    chunk replays a captured CUDA graph of draw -> step, as the JAX driver
+    runs each chunk as one program (make_generative_chunk_fn)."""
+    if per_step:
+        return "main(per_step=True)"
+    why = uncaptured_reason(device)
+    if why is not None:
+        return why
+    if capture_step is not None:
+        return "capture_step keeps one step's inputs"
+    for what, gen in (("eps_fn", noise.generator),
+                      ("video_fn", _generator(video_fn))):
+        if gen is None:
+            return (f"the {what} exposes no `generator`, so every replay "
+                    "would reuse its captured draws")
+    if injected_split and args.elbo == "NP":
+        return ("an injected np_split_fn: its draws would be captured "
+                "as constants")
+    return None
 
 
 def _generator(fn) -> Optional[torch.Generator]:

@@ -10,8 +10,11 @@ The three run functions of svgpvae_tpu/cli/mnist.py, dispatched on
 --elbo as there:
 
   * `run_svgpvae` (SVGPVAE_Hensman, SVGPVAE_Titsias, VAE, CVAE): the
-    dataset (pickles under --mnist_data_path, generated there from the
-    seven-segment stand-in glyphs with --synthetic_digits when absent),
+    dataset (pickles under --mnist_data_path; when absent, generated
+    there as the JAX driver's ensure_dataset does: from a keras-layout
+    <mnist_data_path>/mnist.npz, for --dataset 3 from the reference's
+    eval pickle, or from the seven-segment stand-in glyphs with
+    --synthetic_digits),
     the GP initialisation (KDE inducing points, PCA object vectors), then
     per epoch every full batch and the tail batch through one training
     step each, and every --eval_every epochs the eval MSE, the test MSE
@@ -151,6 +154,19 @@ driver's messages: N above the visible devices, a --batch_size that N
 does not divide, and --bias_analysis; and for Casale, which the JAX
 driver runs on one device whatever the flag says.
 
+The default loop (--epoch_chunk 1) is the JAX driver's one program an
+epoch (train.make_epoch_fn): on a CUDA device in a 1-process run each
+epoch of the SVGPVAE (either bound) and of the deep SVIGP replays two
+captured CUDA graphs, a full-batch step and the tail step
+(make_epoch_chunks with a chunk of one epoch), and its metrics are read
+back once; elsewhere its steps run one by one, and the run prints why
+(per_step_reason): the CPU, --data_parallel, --bias_analysis (per step
+in the JAX driver too), a VAE phase of --opt_regime, VAE, CVAE and
+Casale, --x64, a capture_step, an injected eps_fn without a generator,
+or main(per_step=True).  A replayed epoch's steps are timed as its
+seconds over its steps; the first epoch (warm-ups and captures) is left
+out of the p50.
+
 The JAX driver's one-program flags, with the same numbers as an
 unchunked run and fewer host round trips:
 
@@ -210,6 +226,10 @@ EVAL_SEED = 7  # the JAX driver's eval key, jax.random.PRNGKey(7)
 CASALE_EVAL_EVERY = 5  # run_casale's fixed eval cadence (epochs)
 CASALE_VAE_LR = 0.001  # the Casale VAE regime's Adam lr
 CASALE_ELBOS = ("GPVAE_Casale", "GPVAE_Casale_batch")
+# the reference repository's digit-3 eval pickle ("MNIST data/eval_data3.p"
+# there), looked for under --mnist_data_path by this name: the JAX driver
+# reads it from a fixed absolute path, outside any checkout
+REF_EVAL_PICKLE = "reference_eval_data3.p"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -400,33 +420,72 @@ def uncaptured_reason(device: torch.device) -> Optional[str]:
     return None
 
 
+def per_step_reason(args, device: torch.device, per_step: bool,
+                    capture_step: Optional[int], generator,
+                    draws: bool = True, svgpvae: bool = True,
+                    regime=()) -> Optional[str]:
+    """Why this run's default loop (--epoch_chunk 1) takes its steps one
+    by one, or None: each epoch replays captured CUDA graphs, as the JAX
+    driver runs each epoch as one program (train.make_epoch_fn)."""
+    if per_step:
+        return "main(per_step=True)"
+    why = uncaptured_reason(device)
+    if why is not None:
+        return why
+    if not svgpvae:
+        return f"--elbo {args.elbo} is not captured"
+    if any(r == "VAE" for r in regime):
+        return "--opt_regime has a VAE phase"
+    if getattr(args, "bias_analysis", False):
+        return "--bias_analysis runs per step, as in the JAX driver"
+    if getattr(args, "x64", False):
+        return "--x64"
+    if capture_step is not None:
+        return "capture_step keeps one step's inputs"
+    if draws and generator is None:
+        return ("the eps_fn exposes no `generator`, so every replay would "
+                "reuse its captured draws")
+    return None
+
+
 def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
                       loss_fn: Callable, batch_size: int, tensors,
                       shuffle: Optional[train.EpochShuffle],
                       generator: Optional[torch.Generator],
-                      draws: bool = True) -> Optional["EpochChunks"]:
-    """--epoch_chunk's chunks (`chunk` epochs each) as replayed CUDA graphs
-    (capture.GraphSteps through train.make_multi_epoch_fn), or None where
-    they are not captured (uncaptured_reason): there the run takes the
-    unchunked per-epoch loop, which gives the same numbers.  Prints which.
-    A captured chunk is refused with a capture_step (a graph keeps no
-    step's inputs) and, for a run that `draws` noise, with an eps_fn that
-    exposes no `generator` (its draws would be captured as constants)."""
+                      draws: bool = True,
+                      per_step_why: Optional[str] = None
+                      ) -> Optional["EpochChunks"]:
+    """The run's epochs as replayed CUDA graphs (capture.GraphSteps), in
+    chunks of `chunk` epochs (--epoch_chunk, train.make_multi_epoch_fn),
+    by default chunks of one epoch (the JAX driver's make_epoch_fn), or
+    None
+    where they are not captured: a chunked run where uncaptured_reason
+    says so, a default run where `per_step_why` (per_step_reason) does;
+    there the run takes the per-step loop, which gives the same numbers.
+    Prints which.  A captured chunk is refused with a capture_step (a
+    graph keeps no step's inputs) and, for a run that `draws` noise, with
+    an eps_fn that exposes no `generator` (its draws would be captured as
+    constants)."""
     if chunk <= 1:
-        return None
-    why = uncaptured_reason(device)
-    if why is None and rec.capture_step is not None:
-        raise ValueError("capture_step: a captured chunk keeps no step's "
-                         "inputs (run on the CPU)")
-    if why is None and draws and generator is None:
-        raise ValueError("--epoch_chunk on CUDA: the eps_fn exposes no "
-                         "`generator`, so every replay would reuse its "
-                         "captured draws")
-    print(f"--epoch_chunk {chunk}: " + (
-        f"{chunk} epochs a chunk, one readback each; the steps replay "
-        "captured CUDA graphs (a full-batch step and the tail step)"
-        if why is None else "the steps run uncaptured, one epoch at a "
-        f"time as in an unchunked run ({why})"))
+        why = per_step_why
+        print("training loop: " + (
+            f"per step ({why})" if why else "each epoch replays captured "
+            "CUDA graphs (a full-batch step and the tail step), one "
+            "readback an epoch"))
+    else:
+        why = uncaptured_reason(device)
+        if why is None and rec.capture_step is not None:
+            raise ValueError("capture_step: a captured chunk keeps no "
+                             "step's inputs (run on the CPU)")
+        if why is None and draws and generator is None:
+            raise ValueError("--epoch_chunk on CUDA: the eps_fn exposes no "
+                             "`generator`, so every replay would reuse its "
+                             "captured draws")
+        print(f"--epoch_chunk {chunk}: " + (
+            f"{chunk} epochs a chunk, one readback each; the steps replay "
+            "captured CUDA graphs (a full-batch step and the tail step)"
+            if why is None else "the steps run uncaptured, one epoch at a "
+            f"time as in an unchunked run ({why})"))
     if why is not None:
         return None
     graphs = capture.GraphSteps(loss_fn, batch_size,
@@ -469,23 +528,10 @@ def graph_record(chunks: Optional[EpochChunks], *calls) -> dict:
 
 def load_splits(args) -> dict:
     """{"train", "eval", "test", "pca_ov_init"} from the pickles under
-    --mnist_data_path, generating them first with --synthetic_digits."""
+    --mnist_data_path, generated there first when absent (ensure_dataset)."""
+    ensure_dataset(args)
     suffix = "" if args.M == 8 else f"_{args.M}"
     path = args.mnist_data_path
-    if not os.path.exists(os.path.join(
-            path, f"train_data{args.dataset}{suffix}.p")):
-        if not args.synthetic_digits:
-            raise SystemExit(
-                f"no dataset pickles for '{args.dataset}' at {path}: "
-                "generate them (svgpvae_tpu_torch.data.generate_rotated_mnist"
-                " with real base images) or pass --synthetic_digits")
-        print(f"dataset not found at {path}; generating synthetic stand-in "
-              f"glyphs for digits '{args.dataset}' (--synthetic_digits)")
-        base = data.synthetic_digit_base_images(args.dataset, per_digit=400,
-                                                seed=args.seed)
-        data.generate_rotated_mnist(base, path, digits=args.dataset,
-                                    latent_dim_object_vector=args.M,
-                                    seed=args.seed)
     train_d, eval_d, test_d = data.load_rotated_mnist(
         path, digits=args.dataset, M=args.M, N_t=args.N_t)
     with open(os.path.join(path, f"pca_ov_init{args.dataset}{suffix}.p"),
@@ -493,6 +539,55 @@ def load_splits(args) -> dict:
         pca = pickle.load(f)
     return {"train": train_d, "eval": eval_d, "test": test_d,
             "pca_ov_init": pca}
+
+
+def ensure_dataset(args) -> None:
+    """The JAX driver's ensure_dataset: when --mnist_data_path holds no
+    pickles for --dataset, generate them from the base images of, in this
+    order, a keras-layout <mnist_data_path>/mnist.npz (any digits), the
+    eval pickle <mnist_data_path>/REF_EVAL_PICKLE (--dataset 3), or the
+    seven-segment glyphs (--synthetic_digits); otherwise refuse with the
+    JAX driver's words.  Two deliberate divergences: the JAX driver reads
+    the eval pickle from a fixed path outside the data directory, and
+    requires it to exist before it will take --synthetic_digits."""
+    suffix = "" if args.M == 8 else f"_{args.M}"
+    path = args.mnist_data_path
+    train_p = os.path.join(path, f"train_data{args.dataset}{suffix}.p")
+    if os.path.exists(train_p):
+        return
+    keras_npz = os.path.join(path, "mnist.npz")
+    eval_pickle = os.path.join(path, REF_EVAL_PICKLE)
+    have_eval = os.path.exists(eval_pickle)
+    if os.path.exists(keras_npz):
+        print(f"dataset not found at {train_p}; bootstrapping from the "
+              f"real MNIST archive {keras_npz}")
+        base = data.load_keras_mnist_npz(keras_npz, digits=args.dataset,
+                                         per_digit=400, seed=args.seed)
+    elif args.dataset == "3" and have_eval:
+        print(f"dataset not found at {train_p}; deriving base images from "
+              "the shipped eval pickle and generating the rotated-MNIST "
+              "pickles")
+        base = data.derive_base_images_from_eval(eval_pickle,
+                                                 n_target=400, seed=args.seed)
+    elif args.synthetic_digits:
+        print(f"dataset not found at {train_p}; generating synthetic "
+              f"stand-in glyphs for digits '{args.dataset}' "
+              "(--synthetic_digits)")
+        base = data.synthetic_digit_base_images(args.dataset, per_digit=400,
+                                                seed=args.seed)
+    elif not have_eval:
+        raise SystemExit("no dataset pickles and no shipped eval pickle to "
+                         "derive from")
+    else:
+        raise SystemExit(
+            f"cannot derive dataset '{args.dataset}' from the shipped "
+            "digit-3 eval pickle; provide pre-generated pickles at "
+            f"{path} (data.generate_rotated_mnist with "
+            "real multi-digit base images), or pass --synthetic_digits "
+            "for seven-segment stand-in glyphs")
+    data.generate_rotated_mnist(base, path, digits=args.dataset,
+                                latent_dim_object_vector=args.M,
+                                seed=args.seed)
 
 
 def object_vectors_init(args, splits: dict) -> Optional[np.ndarray]:
@@ -941,7 +1036,8 @@ def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
          capture_step: Optional[int] = None,
          perm_fn: Optional[Callable] = None,
-         on_eval: Optional[Callable[[dict], None]] = None) -> dict:
+         on_eval: Optional[Callable[[dict], None]] = None,
+         per_step: bool = False) -> dict:
     """Train; returns a dict (see `run_svgpvae`, `run_svigp`,
     `run_casale`).
 
@@ -953,7 +1049,9 @@ def main(argv=None, splits: Optional[dict] = None,
     it, noise and gradients.  `perm_fn(n)` gives --reshuffle's
     permutations of n examples in place of the seeded generator's.
     `on_eval(ev)` is called after each eval pass of `run_svgpvae` (and its
-    checkpoint) with its record."""
+    checkpoint) with its record.  `per_step` runs the default loop
+    (--epoch_chunk 1) one step at a time where it would replay captured
+    CUDA graphs (the card's eager yardstick)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if torch.device(args.device).type == "cuda" and \
@@ -972,10 +1070,11 @@ def main(argv=None, splits: Optional[dict] = None,
             ranks, args.device)
     with parallel.active(ranks):
         return _main(args, parallel.device(args.device), splits, eps_fn,
-                     capture_step, perm_fn, on_eval)
+                     capture_step, perm_fn, on_eval, per_step)
 
 
-def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval):
+def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval,
+          per_step=False):
     parallel.announce(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1004,9 +1103,10 @@ def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval):
     if args.elbo in CASALE_ELBOS:
         return run_casale(args, splits, device, eps_fn, capture_step)
     if args.elbo == "SVIGP_Hensman":
-        return run_svigp(args, splits, device, capture_step, shuffle)
+        return run_svigp(args, splits, device, capture_step, shuffle,
+                         per_step)
     return run_svgpvae(args, splits, device, eps_fn, capture_step, shuffle,
-                       on_eval)
+                       on_eval, per_step)
 
 
 def _to_dev(split: dict, device: torch.device,
@@ -1018,7 +1118,8 @@ def _to_dev(split: dict, device: torch.device,
 def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 capture_step: Optional[int],
                 shuffle: Optional[train.EpochShuffle] = None,
-                on_eval: Optional[Callable[[dict], None]] = None) -> dict:
+                on_eval: Optional[Callable[[dict], None]] = None,
+                per_step: bool = False) -> dict:
     """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
     "step_seconds" (host clock after synchronize, per step; under
     --epoch_chunk its chunk's seconds over its steps), "chunks" (each
@@ -1230,9 +1331,12 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     chunk = resolve_epoch_chunk(args, nr_epochs, svgpvae=is_svgpvae,
                                 regime=regime,
                                 bias_analysis=args.bias_analysis)
-    chunks = make_epoch_chunks(chunk, device, rec, loss_fns.get("joint"),
-                               args.batch_size, (train_im, train_aux),
-                               shuffle, noise.generator)
+    chunks = make_epoch_chunks(
+        chunk, device, rec, loss_fns.get("joint"), args.batch_size,
+        (train_im, train_aux), shuffle, noise.generator,
+        per_step_why=per_step_reason(args, device, per_step, capture_step,
+                                     noise.generator, svgpvae=is_svgpvae,
+                                     regime=regime))
     evals, biases, pictures, eval_losses = [], [], [], []
     cgen_images = test_recon = None
     t_start = time.perf_counter()
@@ -1243,15 +1347,16 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
         loss_fn = loss_fns["VAE" if use_vae_pass else
                            "bias" if bias_epoch else "joint"]
         t_epoch = time.perf_counter()
+        timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
         if chunks is not None:
-            steps, steps_done = chunks.epoch(state, epoch)
+            with tracer.epoch(timed and chunks.chunk == 1):
+                steps, steps_done = chunks.epoch(state, epoch)
             elbos = [m["elbo"] for m in steps]
             losses = [m["recon"] for m in steps]
         else:
             elbos, losses = [], []
             order = (shuffle.order() if shuffle is not None
                      and not bias_epoch else None)
-            timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
             with tracer.epoch(timed):
                 for batch in train.epoch_batches((train_im, train_aux),
                                                  args.batch_size, order):
@@ -1403,7 +1508,8 @@ def make_svigp_loss_fn() -> Callable:
 
 def run_svigp(args, splits: dict, device: torch.device,
               capture_step: Optional[int],
-              shuffle: Optional[train.EpochShuffle] = None) -> dict:
+              shuffle: Optional[train.EpochShuffle] = None,
+              per_step: bool = False) -> dict:
     """SVIGP_Hensman: --nr_epochs epochs (every full batch and the tail,
     the full batches reshuffled under --reshuffle), the cgen MSE of the
     test split every --eval_every epochs.  Returns
@@ -1435,14 +1541,17 @@ def run_svigp(args, splits: dict, device: torch.device,
     rec = StepRecorder(device, None, capture_step, args.batch_size)
     tracer = EpochTracer(args.profile_dir)
     chunk = resolve_epoch_chunk(args, args.nr_epochs)
-    chunks = make_epoch_chunks(chunk, device, rec, loss_fn, args.batch_size,
-                               (train_im, train_aux), shuffle, None,
-                               draws=False)
+    chunks = make_epoch_chunks(
+        chunk, device, rec, loss_fn, args.batch_size, (train_im, train_aux),
+        shuffle, None, draws=False,
+        per_step_why=per_step_reason(args, device, per_step, capture_step,
+                                     None, draws=False))
     evals, cgen_images, pictures = [], None, []
     t_start = time.perf_counter()
     for epoch in range(args.nr_epochs):
         if chunks is not None:
-            steps, steps_done = chunks.epoch(state, epoch)
+            with tracer.epoch(epoch > 0 and chunks.chunk == 1):
+                steps, steps_done = chunks.epoch(state, epoch)
             elbos = [m["elbo"] for m in steps]
             losses = [m["recon"] for m in steps]
         else:

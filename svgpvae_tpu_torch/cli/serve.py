@@ -35,7 +35,7 @@ Without --run_dir (SPRITES only): encode every train frame and build the
 character auxiliary data -> `serving.fit` -> one request per unseen
 character. Prints the cgen MSE. Weights come from `--params` (an .npz of
 the JAX parameters written by tools/export_jax_params.py) or, without it,
-from flax's initialisation drawn from a torch.Generator seeded by `--seed`;
+flax's initialisation, drawn from a torch.Generator seeded by `--seed`;
 the GP parameters are then drawn from RandomState(seed) exactly as the JAX
 serve entry point draws them. TF32 is switched off for matmuls and cuDNN:
 the GP math and the encodings it conditions on need IEEE fp32.

@@ -92,6 +92,21 @@ utils.NonFiniteLossError is raised.  --profile_dir DIR
 writes a torch.profiler Chrome trace of epoch 1 (the JAX CLI's choice)
 into DIR, with the ranges "train_step", "gp_block" and "eval_pass".
 
+The main loop's epochs are the JAX CLI's epoch program
+(train.make_epoch_fn): on a CUDA device in a 1-process run each epoch
+replays captured CUDA graphs of a full-batch step and of the tail step
+(train.capture.GraphSteps: the batch rows gathered on the card in the
+epoch's --reshuffle order, the lr of --lr_decay from a per-step table,
+the GECO state in static tensors, the first two steps of the run eager,
+Adam capturable, so a run sits within round-off of a per-step one), its
+metrics read back once for the epoch's row, check_finite and the
+--basin_retry plateau test; a --basin_retry restart captures anew (a new
+optimizer, a new noise stream).  The epoch's seconds over its steps are
+each step's.  Elsewhere the steps run one by one and the run prints why:
+the CPU, --data_parallel, a capture_step, an injected eps_fn without a
+generator, or main(per_step=True).  The pretraining and the eval passes
+run eagerly.
+
 --elbo VAE (the JAX CLI's default) trains the SpritesVAE alone on the
 plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
 pretraining, no GP; its eval pass is the test_character reconstruction
@@ -143,8 +158,9 @@ from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
                                          checkpoint_state, default_eps_fn,
                                          draw, host_array, open_run_dir,
-                                         restore_shuffle, resume,
-                                         shuffle_state, sync)
+                                         per_step_reason, restore_shuffle,
+                                         resume, shuffle_state, sync)
+from svgpvae_tpu_torch.train import capture
 from svgpvae_tpu_torch.nn import ClassificationHead, SpritesReprNet, SpritesVAE
 from svgpvae_tpu_torch.utils import plots
 from svgpvae_tpu_torch.utils.convert import (params_from_jax,
@@ -504,7 +520,8 @@ def main(argv=None, splits: Optional[dict] = None,
          eps_fn: Optional[Callable] = None,
          capture_step: Optional[int] = None,
          on_eval: Optional[Callable[[dict], None]] = None,
-         perm_fn: Optional[Callable] = None) -> dict:
+         perm_fn: Optional[Callable] = None,
+         per_step: bool = False) -> dict:
     """Train; returns a dict (see `run_svgpvae`).
 
     `splits` ({"train", "test_action", "test_character"}, as
@@ -515,7 +532,9 @@ def main(argv=None, splits: Optional[dict] = None,
     parameters before it, noise and gradients.  `on_eval(ev)` is called
     after each eval pass (and its checkpoint) with its record.
     `perm_fn(n)` gives --reshuffle's permutations of the n characters of
-    the full batches (tests inject JAX's)."""
+    the full batches (tests inject JAX's).  `per_step` runs the main loop
+    one step at a time where its epochs would replay captured CUDA graphs
+    (the card's eager yardstick)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if torch.device(args.device).type == "cuda" and \
@@ -541,10 +560,11 @@ def main(argv=None, splits: Optional[dict] = None,
         device = parallel.device(args.device)
         parallel.announce(device)
         return _main(args, device, splits, eps_fn, capture_step, on_eval,
-                     perm_fn)
+                     perm_fn, per_step)
 
 
-def _main(args, device, splits, eps_fn, capture_step, on_eval, perm_fn):
+def _main(args, device, splits, eps_fn, capture_step, on_eval, perm_fn,
+          per_step=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
@@ -555,7 +575,7 @@ def _main(args, device, splits, eps_fn, capture_step, on_eval, perm_fn):
               + "; their parameters, Adam and the GP math (and every "
               "kernel) stay fp32")
     return run_svgpvae(args, splits, device, eps_fn, capture_step, on_eval,
-                       perm_fn)
+                       perm_fn, per_step)
 
 
 def _stream_seed(args, attempt: int) -> int:
@@ -624,14 +644,17 @@ def pretrain(args, params: dict, head, train_frames, train_chars,
 def run_svgpvae(args, splits: dict, device: torch.device,
                 eps_fn: Optional[Callable], capture_step: Optional[int],
                 on_eval: Optional[Callable[[dict], None]] = None,
-                perm_fn: Optional[Callable] = None) -> dict:
+                perm_fn: Optional[Callable] = None,
+                per_step: bool = False) -> dict:
     """Returns {"state", "pretrain", "step_seconds" (host clock after
-    synchronize, per main step), "metrics" (per step), "step_launches"
-    (kernel launches inside each step), "evals" (per eval pass: MSEs, the
-    seconds and launches of its stages), "captured", "cgen_mse",
-    "best_cgen_mse", "basin_attempts"}.  --elbo VAE: no pretraining, no
-    GP; --nr_epochs epochs, and the eval pass is the test_character
-    reconstruction alone."""
+    synchronize, per main step; for a replayed epoch its seconds over its
+    steps), "metrics" (per step), "step_launches" (kernel launches inside
+    each step), "evals" (per eval pass: MSEs, the seconds and launches of
+    its stages), "captured", "cgen_mse", "best_cgen_mse",
+    "basin_attempts", "chunks" (each replayed epoch's steps and seconds,
+    as cli.mnist's), "graph_replays", "graph_launches" (graph_record)}.
+    --elbo VAE: no pretraining, no GP; --nr_epochs epochs, and the eval
+    pass is the test_character reconstruction alone."""
     is_svgpvae = "SVGPVAE" in args.elbo
     if is_svgpvae:
         args.gp_block_impl = models.resolve_gp_block_impl(
@@ -791,39 +814,73 @@ def run_svgpvae(args, splits: dict, device: torch.device,
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, cgen_history, attempt, epoch = None, [], 0, 0
-    pictures = []
+    pictures, chunks = [], []
     tc_last_frames = tc_d["frames"][(N_test - 1) // batch_tc * batch_tc:]
     tracer = EpochTracer(args.profile_dir)
+    why = per_step_reason(args, device, per_step, capture_step,
+                          noise.generator)
+    print("training loop: " + (
+        f"per step ({why})" if why else "each epoch replays captured CUDA "
+        "graphs (a full-batch step and the tail step), one readback an "
+        "epoch"))
+
+    def epoch_graphs():
+        """The default loop's graphs and epoch function (captured anew
+        for a --basin_retry restart: a new optimizer, a new noise
+        generator), or (None, None) for the per-step loop."""
+        if why:
+            return None, None
+        graphs = capture.GraphSteps(loss_fn, batch_size, [noise.generator])
+        return graphs, train.make_epoch_fn(graphs, shuffle)
+
+    graphs, epoch_fn = epoch_graphs()
+    retired = graph_record([])  # the replays of the attempts before a restart
+    tensors = (train_frames, train_action)
     t_start = time.perf_counter()
     while epoch < nr_epochs:
         t_epoch = time.perf_counter()
         elbos, losses = [], []
-        order = shuffle.order() if shuffle is not None else None
-        with tracer.epoch(epoch == 1):
-            for batch in train.epoch_batches((train_frames, train_action),
-                                             batch_size, order):
-                snap = (_snapshot(state, batch) if len(step_seconds) ==
-                        capture_step else None)
-                before = ops.launch_counts()
-                t0 = time.perf_counter()
-                # a full batch takes this rank's frames (data-parallel)
-                with utils.annotate("train_step"), \
-                        parallel.sharded(len(batch[0]) == batch_size):
-                    m = train.train_step(
-                        state, tuple(parallel.local_rows(t) for t in batch),
-                        loss_fn)
-                    sync(device)
-                step_seconds.append(time.perf_counter() - t0)
-                after = ops.launch_counts()
-                step_launches.append({k: after[k] - before[k]
-                                      for k in after})
-                if snap is not None:
-                    captured = _finish_capture(snap, state, trainable, m,
-                                               noise.last)
-                m = {k: float(v) for k, v in m.items()}
+        if epoch_fn is not None:
+            with tracer.epoch(epoch == 1):
+                ms, launches = epoch_fn(state, tensors)
+                keys = list(ms)
+                host = torch.stack([ms[k] for k in keys]).cpu().tolist()
+            seconds = time.perf_counter() - t_epoch
+            chunks.append({"epochs": 1, "steps": len(launches),
+                           "seconds": seconds})
+            step_seconds.extend([seconds / len(launches)] * len(launches))
+            step_launches.extend(launches)
+            for vals in zip(*host):
+                m = dict(zip(keys, vals))
                 step_metrics.append(m)
                 elbos.append(m["elbo"])
                 losses.append(m["recon"])
+        else:
+            order = shuffle.order() if shuffle is not None else None
+            with tracer.epoch(epoch == 1):
+                for batch in train.epoch_batches(tensors, batch_size, order):
+                    snap = (_snapshot(state, batch) if len(step_seconds) ==
+                            capture_step else None)
+                    before = ops.launch_counts()
+                    t0 = time.perf_counter()
+                    # a full batch takes this rank's frames (data-parallel)
+                    with utils.annotate("train_step"), \
+                            parallel.sharded(len(batch[0]) == batch_size):
+                        m = train.train_step(
+                            state, tuple(parallel.local_rows(t)
+                                         for t in batch), loss_fn)
+                        sync(device)
+                    step_seconds.append(time.perf_counter() - t0)
+                    after = ops.launch_counts()
+                    step_launches.append({k: after[k] - before[k]
+                                          for k in after})
+                    if snap is not None:
+                        captured = _finish_capture(snap, state, trainable,
+                                                   m, noise.last)
+                    m = {k: float(v) for k, v in m.items()}
+                    step_metrics.append(m)
+                    elbos.append(m["elbo"])
+                    losses.append(m["recon"])
         utils.check_finite(elbos, state.step, ckpt_state, run_dir)
         print(f"epoch {epoch}: mean ELBO/batch {np.mean(elbos):.3f}, train "
               f"MSE {np.sum(losses) / N_train:.5f}, "
@@ -884,9 +941,23 @@ def run_svgpvae(args, splits: dict, device: torch.device,
             if shuffle is not None:
                 shuffle.generator.manual_seed(_stream_seed(args, attempt))
             cgen_history, epoch = [], 0
+            if graphs is not None:  # the graphs hold the old optimizer
+                # keep their counts, free their memory pool
+                retired = graph_record([graphs], retired)
+                graphs = epoch_fn = None
+                graphs, epoch_fn = epoch_graphs()
 
     elapsed = time.perf_counter() - t_start
-    if step_seconds:
+    if chunks:
+        later = [e["seconds"] / e["steps"] for e in chunks[1:]]
+        first = chunks[0]
+        print(f"total: {len(step_seconds)} steps in {len(chunks)} "
+              f"replayed epochs, {elapsed:.1f}s; the first epoch "
+              f"{first['seconds']:.2f} s ({first['steps']} steps), "
+              + (f"then per step (epoch seconds / steps) p50 "
+                 f"{1e3 * float(np.percentile(later, 50)):.3f} ms"
+                 if later else "no later epoch"))
+    elif step_seconds:
         timed = step_seconds[1:] or step_seconds
         print(f"total: {len(step_seconds)} steps, {elapsed:.1f}s; step time "
               f"first {1e3 * step_seconds[0]:.2f} ms, p50 "
@@ -900,7 +971,9 @@ def run_svgpvae(args, splits: dict, device: torch.device,
               "evals": evals, "pictures": pictures, "captured": captured,
               "basin_attempts": attempt,
               "cgen_mse": evals[-1].get("cgen_mse") if evals else None,
-              "run_dir": run_dir, "noise": noise, "shuffle": shuffle}
+              "run_dir": run_dir, "noise": noise, "shuffle": shuffle,
+              "chunks": chunks,
+              **graph_record([graphs], retired)}
     if is_svgpvae and evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "
@@ -915,6 +988,20 @@ ELBO_COLUMNS = ["step", "ELBO", "recon_loss", "KL_term", "min_qm", "max_qm",
                 "max_pv", "C_ma", "lagrange_mult"]
 GP_COLUMNS = ["step", "gplvm_norm", "ip_norm", "l_action", "sigma_action",
               "l_character", "sigma_character"]
+
+
+def graph_record(steps: list, before: Optional[dict] = None) -> dict:
+    """{"graph_replays", "graph_launches"} of the runs' GraphSteps (None
+    for a per-step loop), added to the record `before` of the earlier
+    --basin_retry attempts: each graph's replays (summed over the
+    attempts) and the kernel launches of one replay."""
+    replays = dict(before["graph_replays"]) if before else {}
+    launches = dict(before["graph_launches"]) if before else {}
+    for st in steps:
+        for k, g in (st.graphs.items() if st is not None else ()):
+            replays[k] = replays.get(k, 0) + g.replays
+            launches[k] = g.launches
+    return {"graph_replays": replays, "graph_launches": launches}
 
 
 @torch.no_grad()

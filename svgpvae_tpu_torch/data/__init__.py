@@ -8,8 +8,10 @@ from svgpvae_tpu_torch.data.ball import (  # noqa: F401
     make_video_batch_fn,
 )
 from svgpvae_tpu_torch.data.mnist import (  # noqa: F401
+    derive_base_images_from_eval,
     generate_init_inducing_points,
     generate_rotated_mnist,
+    load_keras_mnist_npz,
     load_rotated_mnist,
     pca_embeddings,
     pca_embeddings_gram,

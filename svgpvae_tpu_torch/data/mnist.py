@@ -7,10 +7,10 @@ with aux rows [image_id, angle_radians, pca_0..pca_{M-1}].
 
 The one change: the PCA object-vector embeddings come from a numpy SVD
 (`pca_embeddings`) instead of sklearn, which the port does not depend on.
-Everything else (the seven-segment stand-in glyphs, the rotations, the
-splits and their `random`/numpy seeding, the KDE inducing-point
-initializer) is the JAX package's code, so a seed gives the same images,
-ids and angles.
+Everything else (the seven-segment stand-in glyphs, the base images of
+a keras-layout mnist.npz or an eval pickle, the rotations, the splits and
+their `random`/numpy seeding, the KDE inducing-point initializer) is the
+JAX package's code, so a seed gives the same images, ids and angles.
 """
 
 from __future__ import annotations
@@ -77,6 +77,56 @@ _DIGIT_SEGMENTS = {
     "0": "ABCDEF", "1": "BC", "2": "ABGED", "3": "ABGCD", "4": "FGBC",
     "5": "AFGCD", "6": "AFGECD", "7": "ABC", "8": "ABCDEFG", "9": "ABCDFG",
 }
+
+
+def derive_base_images_from_eval(eval_pickle_path: str,
+                                 n_target: int = 400,
+                                 seed: int = 0) -> np.ndarray:
+    """Base (unrotated) digit images recovered from an eval pickle (its
+    angle == 0 rows) and augmented to `n_target` images by small random
+    rotations (scipy.ndimage.rotate) and shifts from RandomState(seed):
+    (n_target, 28, 28)."""
+    with open(eval_pickle_path, "rb") as f:
+        data = pickle.load(f)
+    aux = data["aux_data"]
+    base = data["images"][aux[:, 1] == 0.0][..., 0]  # (n_base, 28, 28)
+
+    rng = np.random.RandomState(seed)
+    out = [base]
+    while sum(len(x) for x in out) < n_target:
+        ang = rng.uniform(-12, 12)
+        shift = rng.randint(-2, 3, size=2)
+        aug = ndimage.rotate(base, ang, axes=(1, 2), reshape=False)
+        aug = np.roll(aug, shift, axis=(1, 2))
+        out.append(np.clip(aug, 0.0, 1.0))
+    return np.concatenate(out)[:n_target]
+
+
+def load_keras_mnist_npz(npz_path: str, digits: str = "3",
+                         per_digit: int = 400,
+                         seed: int = 0) -> np.ndarray:
+    """Base images from a real MNIST archive in keras's layout
+    (`mnist.npz`: uint8 x_train (N, 28, 28), y_train, x_test, y_test):
+    `per_digit` train images of each digit, drawn with random.seed(seed)
+    + random.sample, in digit-block order, as floats in [0, 1]:
+    (len(digits) * per_digit, 28, 28)."""
+    with np.load(npz_path) as z:
+        x_train = z["x_train"]
+        y_train = z["y_train"]
+    if x_train.dtype != np.uint8 or x_train.shape[1:] != (28, 28):
+        raise ValueError(f"{npz_path}: x_train is {x_train.dtype} "
+                         f"{x_train.shape}, keras's layout is uint8 "
+                         "(N, 28, 28)")
+    x_train = x_train.astype(np.float64) / 255.0
+
+    random.seed(seed)
+    blocks = []
+    for d in digits:
+        x_digit = x_train[y_train == int(d)]
+        print(f"Number of images with digit {d}: {len(x_digit)}")
+        idx = random.sample(list(range(x_digit.shape[0])), per_digit)
+        blocks.append(x_digit[idx])
+    return np.concatenate(blocks)
 
 
 def synthetic_digit_base_images(digits: str, per_digit: int = 400,

@@ -216,7 +216,8 @@ def pearce_elbo(encoder, decoder, vids: Tensor, beta, eps: Tensor,
         def gather(a):
             return torch.gather(a, 1, perm)
 
-        big = torch.tensor(NP_MASK_NOISE, dtype=dtype, device=vids.device)
+        # filled on the device: no host copy, which a CUDA graph forbids
+        big = torch.full((), NP_MASK_NOISE, dtype=dtype, device=vids.device)
         ctx = [gp_regression_1d(gather(batch_t), gather(qnet_mu[:, :, c]),
                                 torch.where(ctx_mask,
                                             gather(qnet_var[:, :, c]), big),

@@ -4,6 +4,8 @@ from svgpvae_tpu_torch.train.trainer import (  # noqa: F401
     EpochShuffle,
     epoch_batches,
     cosine_decay_lr,
+    make_epoch_fn,
+    make_generative_chunk_fn,
     make_multi_epoch_fn,
     make_optimizer,
     named_tensors,

@@ -1,10 +1,11 @@
-"""CUDA graphs for the chunked training loop and the bundled eval: the
-port's form of the JAX package's one-program --epoch_chunk
-(train.make_multi_epoch_fn) and --eval_bundle (cli/mnist.py's
-eval_group_svgpvae).  On CUDA, "one program, one readback" is a graph
-captured once and replayed; the drivers use these on a CUDA device in a
-1-process run (on the CPU and under --data_parallel a chunked run takes
-the unchunked per-epoch loop, and the eval group runs uncaptured).
+"""CUDA graphs for the training loops and the bundled eval: the port's
+form of the JAX package's one-program loops (train.make_epoch_fn,
+make_multi_epoch_fn and make_generative_chunk_fn: the drivers' default
+epoch, MNIST's --epoch_chunk, the ball's sample -> step chunks) and of
+--eval_bundle (cli/mnist.py's eval_group_svgpvae).  On CUDA, "one
+program, one readback" is a graph captured once and replayed; the
+drivers use these on a CUDA device in a 1-process run, and say why
+their steps run one by one elsewhere (the CPU, --data_parallel, ...).
 
   * `Graph`: fn() captured on a side stream and replayed.  The kernel
     launches the wrappers counted during the capture (which ran nothing)
@@ -13,13 +14,19 @@ the unchunked per-epoch loop, and the eval group runs uncaptured).
     generators that fn draws from are registered with the graph, so every
     replay advances them as an eager call would, and a checkpoint's
     get_state() after N replays resumes the same stream.
-  * `GraphSteps`: the steps of a chunk of epochs (make_multi_epoch_fn's
-    `graphs`).  The run's first WARMUP full-batch steps and its first
-    tail step run eagerly on the side stream: real steps of the run,
-    which load every kernel and allocate Adam's moments before any
-    capture, and which take step 0 (GECO's alpha = 0, a host branch that
-    a graph would bake in).  Then one graph of a full-batch step and one
-    of the tail step are captured, and every later step replays one.
+  * `StepGraphs`: the machinery of a loop's steps.  The run's first
+    WARMUP steps of a kind and its first tail step run eagerly on the
+    side stream: real steps of the run, which load every kernel and
+    allocate Adam's moments before any capture, and which take step 0
+    (GECO's alpha = 0, a host branch that a graph would bake in).  Then
+    the step is captured once and every later one replays it; a loop's
+    graphs share one memory pool.
+  * `GraphSteps`: the steps of an epoch, or of a chunk of epochs
+    (make_epoch_fn's and make_multi_epoch_fn's `graphs`): one graph of a
+    full-batch step, one of the tail step.
+  * `GenerativeSteps`: make_generative_chunk_fn's `graphs`, one graph of
+    a step that draws its own batch on the device (the ball's videos),
+    then its noise, and trains.
   * `CapturedCall`: an argument-less function (the eval bundle): the
     first call runs it once eagerly (its warm-up, whose results and
     launches are discarded), captures it and replays it; later calls
@@ -29,14 +36,15 @@ What a graph needs that an eager step does not:
   - inputs at fixed addresses.  A step gathers its batch rows in the
     graph from the chunk's example orders (a static (n_epochs, n) tensor
     filled once a chunk) at a device step counter, which the graph
-    advances; reads its learning rate from a per-step table (the cosine
-    decay) into the lr tensor of a capturable Adam (`capturable_adam`:
+    advances, or draws them there from a registered generator; reads its
+    learning rate from a per-step table (the cosine decay) into the lr
+    tensor of a capturable Adam (`capturable_adam`:
     lr and step counts on the device; capturable=True changes Adam's
     arithmetic order, so a captured run sits within round-off of an eager
     one, not bit for bit); and copies the GECO state back into two static
     tensors, which the next step reads;
   - outputs at fixed addresses: each step writes its metrics into a
-    static (n_epochs x n_batches, k) buffer, read once a chunk;
+    static (steps, k) buffer, read once a call;
   - no host sync and no host memory that outlives the call: the GP
     blocks factorize with cholesky_ex, and torch's batched cholesky_solve,
     which by default goes to MAGMA and hands it pointer arrays in pinned
@@ -53,8 +61,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from svgpvae_tpu_torch import ops
-from svgpvae_tpu_torch.train.state import GECOState, TrainState
+from svgpvae_tpu_torch import ops, utils
+from svgpvae_tpu_torch.train.state import GECOState, TrainState, named_tensors
 from svgpvae_tpu_torch.train.trainer import apply_step
 
 
@@ -85,24 +93,27 @@ def launch_delta(before: dict) -> dict:
 
 
 class Graph:
-    """fn() captured once on `stream` (with the cusolver backend) and
-    replayed by `replay()`, which returns fn's outputs: the graph's
-    static tensors, overwritten by the next replay.  `launches`: the
-    kernel launches of one replay; `replays`: how many ran."""
+    """fn() captured once on `stream` (with the cusolver backend; in the
+    memory pool `pool` when given, see torch.cuda.graph) and replayed by
+    `replay()`, which returns fn's outputs: the graph's static tensors,
+    overwritten by the next replay.  `launches`: the kernel launches of
+    one replay; `replays`: how many ran."""
 
     def __init__(self, fn: Callable, stream: torch.cuda.Stream,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), pool=None):
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
         before = ops.launch_counts()
         stream.wait_stream(torch.cuda.current_stream())
-        with cusolver_linalg(), torch.cuda.graph(graph, stream=stream):
+        with cusolver_linalg(), torch.cuda.graph(graph, pool=pool,
+                                                 stream=stream):
             self.out = fn()
         torch.cuda.current_stream().wait_stream(stream)
         self.launches = launch_delta(before)
         ops.add_launch_counts(self.launches, -1)  # the capture ran nothing
         self.graph, self.replays = graph, 0
+        self.pool = graph.pool()  # for the captures that share it
 
     def replay(self):
         self.graph.replay()
@@ -137,54 +148,62 @@ def capturable_adam(optimizer: torch.optim.Optimizer,
     return lr
 
 
-class GraphSteps:
-    """The steps of each chunk of epochs through two captured CUDA
-    graphs (see the module docstring).  `run(state, tensors, orders)`
-    takes one chunk: `tensors` the train split on the device (the same
-    tensors every chunk), `orders` one example order (or None, the stored
-    order) per epoch of the chunk.  Returns ({metric: (n_epochs,
-    n_batches) tensor on the device}, [launches of each step]).
-    `graphs`: {"full", "tail"} -> Graph, once captured."""
+class StepGraphs:
+    """Training steps through captured CUDA graphs, one per step kind
+    (`which`): the first WARMUP steps of a kind (1 for any kind but
+    "full") run eagerly on the side stream, the next is captured and
+    replayed, every later one replayed.  The steps of a call read their
+    learning rates from a per-step table at a device step counter, which
+    each step advances, keep the GECO state in two static tensors and
+    write their metrics into a static buffer, read back once a call.  All
+    graphs share one memory pool: they never run concurrently, and what
+    one graph leaves for the next (the parameters, Adam's moments, the
+    counter, the GECO pair, the buffer) was allocated before any capture.
+    Subclasses give `batch(which)`, the step's inputs (read or drawn on
+    the device).  `graphs`: {which: Graph}, once captured."""
 
     WARMUP = 2  # eager full-batch steps before the full step's capture
 
-    def __init__(self, loss_fn: Callable, batch_size: int,
+    def __init__(self, loss_fn: Callable,
                  generators: Sequence[Optional[torch.Generator]] = ()):
-        self.loss_fn, self.bs = loss_fn, batch_size
+        self.loss_fn = loss_fn
         self.generators = [g for g in generators if g is not None]
         self.graphs: Dict[str, Graph] = {}
-        self.warm = {"full": 0, "tail": 0}
-        self.tensors = None
+        self.warm: Dict[str, int] = {}
+        self.pool = None
 
-    def _setup(self, state: TrainState, tensors, n_epochs: int) -> None:
-        device = tensors[0].device
-        self.tensors, self.n_epochs = tensors, n_epochs
-        self.n = len(tensors[0])
-        n_full, tail = divmod(self.n, self.bs)
-        self.nb = n_full + (tail > 0)
+    def _prepare(self, state: TrainState, device: torch.device,
+                 n_steps: int) -> None:
+        """Turn Adam capturable and allocate the static tensors of up to
+        `n_steps` steps a call."""
         self.lr_const = float(state.optimizer.param_groups[0]["lr"])
         self.lr = capturable_adam(state.optimizer, device)
         self.stream = torch.cuda.Stream(device)
-        long = dict(dtype=torch.long, device=device)
-        self.orders = torch.empty((n_epochs, self.n), **long)
-        self.lr_table = torch.empty(n_epochs * self.nb, dtype=self.lr.dtype,
+        self.lr_table = torch.empty(n_steps, dtype=self.lr.dtype,
                                     device=device)
-        self.counter = torch.zeros((), **long)
-        self.rows = {"full": torch.arange(self.bs, **long),
-                     "tail": torch.arange(tail, **long)}
+        self.counter = torch.zeros((), dtype=torch.long, device=device)
         self.geco = None if state.geco is None else GECOState(
             state.geco.C_ma.clone(), state.geco.lagrange_mult.clone())
-        self.buf, self.keys = None, None
+        self.n_steps, self.buf, self.keys = n_steps, None, None
+
+    def _begin(self, state: TrainState, n: int) -> None:
+        """A call of `n` steps from state.step: their learning rates into
+        the table, the counter to 0."""
+        lr_fn = state.lr_fn
+        self.lr_table[:n].copy_(torch.tensor(
+            [self.lr_const if lr_fn is None else lr_fn(state.step + i)
+             for i in range(n)], dtype=self.lr.dtype))
+        self.counter.zero_()
+
+    def batch(self, which: str):
+        raise NotImplementedError
 
     def _body(self, state: TrainState, which: str) -> None:
-        """One step, eagerly or under capture: its rows at the counter,
-        its lr from the table, the update, the GECO state back into the
-        static pair, its metrics into the buffer, the counter + 1."""
+        """One step, eagerly or under capture: its inputs, its lr from the
+        table, the update, the GECO state back into the static pair, its
+        metrics into the buffer, the counter + 1."""
         s = self.counter
-        e = torch.div(s, self.nb, rounding_mode="floor")
-        start = e * self.n + (s - e * self.nb) * self.bs
-        order = self.orders.view(-1).index_select(0, start + self.rows[which])
-        batch = tuple(t.index_select(0, order) for t in self.tensors)
+        batch = self.batch(which)
         self.lr.copy_(self.lr_table.index_select(0, s.view(1))[0])
         m = apply_step(state, batch, self.loss_fn)
         if self.geco is not None:
@@ -193,7 +212,7 @@ class GraphSteps:
             state.geco = self.geco
         if self.buf is None:  # the first (eager) step sets the layout
             self.keys = list(m)
-            self.buf = torch.zeros((self.n_epochs * self.nb, len(m)),
+            self.buf = torch.zeros((self.n_steps, len(m)),
                                    dtype=metric_dtype(m), device=s.device)
         vals = torch.stack([m[k].to(self.buf.dtype) for k in self.keys])
         self.buf.index_copy_(0, s.view(1), vals[None])
@@ -202,21 +221,68 @@ class GraphSteps:
     def _step(self, state: TrainState, which: str) -> dict:
         before, step = ops.launch_counts(), state.step
         graph = self.graphs.get(which)
-        if graph is None and self.warm[which] >= (
-                self.WARMUP if which == "full" else 1):
-            graph = self.graphs[which] = Graph(
-                lambda: self._body(state, which), self.stream,
-                self.generators)
-        if graph is None:
-            with cusolver_linalg(), side_stream(self.stream):
-                self._body(state, which)
-            self.warm[which] += 1
-        else:
-            graph.replay()
+        warm = self.warm.setdefault(which, 0)
+        with utils.annotate("train_step"):
+            if graph is None and warm >= (
+                    self.WARMUP if which == "full" else 1):
+                kw = {} if self.pool is None else {"pool": self.pool}
+                graph = self.graphs[which] = Graph(
+                    lambda: self._body(state, which), self.stream,
+                    self.generators, **kw)
+                self.pool = getattr(graph, "pool", None)
+            if graph is None:
+                with cusolver_linalg(), side_stream(self.stream):
+                    self._body(state, which)
+                self.warm[which] += 1
+            else:
+                graph.replay()
         # a capture runs the step's Python (step + 1) but no kernel, a
         # replay the kernels alone
         state.step = step + 1
         return launch_delta(before)
+
+    def _readback(self, rows: int) -> Dict[str, torch.Tensor]:
+        """The metrics of the call's `rows` steps, {metric: (rows,)}, as
+        copies on the device."""
+        out = self.buf[:rows].clone()
+        return {k: out[:, i] for i, k in enumerate(self.keys)}
+
+
+class GraphSteps(StepGraphs):
+    """The steps of each chunk of epochs (make_epoch_fn's and
+    make_multi_epoch_fn's `graphs`): a graph of a full-batch step
+    ("full") and one of the tail step ("tail"), each gathering its batch
+    rows from the chunk's example orders (a static (n_epochs, n) tensor
+    filled once a chunk) at the step counter.  `run(state, tensors,
+    orders)` takes one chunk: `tensors` the train split on the device
+    (the same tensors every chunk), `orders` one example order (or None,
+    the stored order) per epoch of the chunk.  Returns ({metric:
+    (n_epochs, n_batches) tensor on the device}, [launches of each
+    step])."""
+
+    def __init__(self, loss_fn: Callable, batch_size: int,
+                 generators: Sequence[Optional[torch.Generator]] = ()):
+        super().__init__(loss_fn, generators)
+        self.bs, self.tensors = batch_size, None
+
+    def _setup(self, state: TrainState, tensors, n_epochs: int) -> None:
+        device = tensors[0].device
+        self.tensors, self.n_epochs = tensors, n_epochs
+        self.n = len(tensors[0])
+        n_full, tail = divmod(self.n, self.bs)
+        self.nb = n_full + (tail > 0)
+        self._prepare(state, device, n_epochs * self.nb)
+        long = dict(dtype=torch.long, device=device)
+        self.orders = torch.empty((n_epochs, self.n), **long)
+        self.rows = {"full": torch.arange(self.bs, **long),
+                     "tail": torch.arange(tail, **long)}
+
+    def batch(self, which: str):
+        s = self.counter
+        e = torch.div(s, self.nb, rounding_mode="floor")
+        start = e * self.n + (s - e * self.nb) * self.bs
+        order = self.orders.view(-1).index_select(0, start + self.rows[which])
+        return tuple(t.index_select(0, order) for t in self.tensors)
 
     def run(self, state: TrainState, tensors, orders: List[
             Optional[torch.Tensor]]):
@@ -229,18 +295,43 @@ class GraphSteps:
                              "and epoch count")
         self.orders.copy_(torch.stack([
             torch.arange(self.n) if o is None else o for o in orders]))
-        lr_fn = state.lr_fn
-        self.lr_table.copy_(torch.tensor(
-            [self.lr_const if lr_fn is None else lr_fn(state.step + i)
-             for i in range(n_epochs * self.nb)], dtype=self.lr.dtype))
-        self.counter.zero_()
+        self._begin(state, n_epochs * self.nb)
         tail = self.n % self.bs
         launches = [self._step(state, "tail" if tail and j == self.nb - 1
                                else "full")
                     for _ in range(n_epochs) for j in range(self.nb)]
-        out = self.buf.clone()
-        return ({k: out[:, i].view(n_epochs, self.nb)
-                 for i, k in enumerate(self.keys)}, launches)
+        return ({k: v.view(n_epochs, self.nb) for k, v in
+                 self._readback(n_epochs * self.nb).items()}, launches)
+
+
+class GenerativeSteps(StepGraphs):
+    """The steps of make_generative_chunk_fn: each draws its batch on the
+    device (`sample_fn()`, the ball's videos) and takes the step, whose
+    loss draws its noise (and the NP's split) in turn; one graph ("full")
+    of that draw -> step.  Every generator these draws come from is
+    registered with the graph, so a replay advances it as an eager step
+    would.  `run(state, n)` takes n <= `chunk` steps (a short tail is n
+    replays, not a new capture) and returns ({metric: (n,) tensor on the
+    device}, [launches of each step])."""
+
+    def __init__(self, loss_fn: Callable, sample_fn: Callable, chunk: int,
+                 generators: Sequence[Optional[torch.Generator]] = ()):
+        super().__init__(loss_fn, generators)
+        self.sample_fn, self.chunk, self.ready = sample_fn, chunk, False
+
+    def batch(self, which: str):
+        return self.sample_fn()
+
+    def run(self, state: TrainState, n: int):
+        if not 0 < n <= self.chunk:
+            raise ValueError(f"{n} steps: a call takes 1..{self.chunk}")
+        if not self.ready:
+            device = next(iter(named_tensors(state.params).values())).device
+            self._prepare(state, device, self.chunk)
+            self.ready = True
+        self._begin(state, n)
+        launches = [self._step(state, "full") for _ in range(n)]
+        return self._readback(n), launches
 
 
 class CapturedCall:

@@ -16,8 +16,11 @@ svgpvae_tpu/train/trainer.py, single device, eager).
     across ranks first, so every rank takes the same update;
   * `EpochShuffle` (--reshuffle): each epoch's example order, as JAX's
     make_epoch_fn(shuffle=True, shuffle_block=...);
-  * `make_multi_epoch_fn` (--epoch_chunk): a chunk of whole epochs as
-    replayed CUDA graphs (train.capture), the metrics kept on the device.
+  * `make_epoch_fn` (the drivers' default loop), `make_multi_epoch_fn`
+    (--epoch_chunk): an epoch, or a chunk of whole epochs, as replayed
+    CUDA graphs (train.capture.GraphSteps), the metrics kept on the
+    device; `make_generative_chunk_fn` (the ball): `chunk` steps that
+    each draw their batch on the device (train.capture.GenerativeSteps).
 """
 
 from __future__ import annotations
@@ -204,3 +207,35 @@ def make_multi_epoch_fn(graphs, shuffle: Optional[EpochShuffle] = None):
         return graphs.run(state, tensors, orders)
 
     return multi_fn
+
+
+def make_epoch_fn(graphs, shuffle: Optional[EpochShuffle] = None):
+    """Port of make_epoch_fn (the default loop of the MNIST and SPRITES
+    drivers): fn(state, tensors) runs one epoch of `tensors` (the train
+    split, on the device), its full batches in EpochShuffle order under
+    --reshuffle (the order drawn first, as a per-step epoch draws it),
+    then its tail as a step of its own, through `graphs` (GraphSteps),
+    and returns ({metric: (n_batches,) tensor on the device}, [the kernel
+    launches of each step]).  Nothing waits for the device."""
+    multi_fn = make_multi_epoch_fn(graphs, shuffle)
+
+    def epoch_fn(state: TrainState, tensors):
+        metrics, launches = multi_fn(state, tensors, 1)
+        return {k: v[0] for k, v in metrics.items()}, launches
+
+    return epoch_fn
+
+
+def make_generative_chunk_fn(graphs, chunk: int):
+    """Port of make_generative_chunk_fn (the ball): fn(state, n=chunk)
+    runs n <= `chunk` steps, each drawing its batch on the device and
+    training on it, through `graphs` (GenerativeSteps, whose graph holds
+    the draws), and returns ({metric: (n,) tensor on the device}, [the
+    kernel launches of each step]).  A short last chunk is n steps of the
+    same graph (the JAX driver compiles a one-off program of length n).
+    Nothing waits for the device."""
+
+    def chunk_fn(state: TrainState, n: int = chunk):
+        return graphs.run(state, n)
+
+    return chunk_fn

@@ -198,8 +198,9 @@ def _convs(p, names, prefix: str) -> dict:
 
 def mnist_decoder_state(p: Dict[str, Dict[str, np.ndarray]],
                         prefix: str = "decoder/") -> dict:
-    """dec_in / dec_convs of the MNIST decoder (nn.nets.mnist_decoder_layers)
-    from flax's MnistDecoder params under `prefix` (Dense_0, Conv_0..2).
+    """dec_in / dec_convs of the MNIST decoder (nn.nets.mnist_decoder_layers),
+    converted from flax's MnistDecoder params under `prefix` (Dense_0,
+    Conv_0..2).
     The decoder reshapes its Dense output to (4, 4, 8) NHWC; torch
     reshapes (c, h, w), so the Dense columns are permuted."""
     f = p[prefix + "Conv_0"]["bias"].shape[0]

@@ -7,8 +7,12 @@
 activities when a CUDA device is present) and exports one Chrome trace,
 <dir>/trace_<pid>_<ms>.json, which chrome://tracing or Perfetto open;
 `annotate(name)` is `torch.profiler.record_function`, a named range in
-that trace (the drivers mark "train_step", "gp_block" and "eval_pass").
-The drivers keep their own per-step timing (`step_seconds`), so the JAX
+that trace (the drivers mark "train_step", "gp_block" and "eval_pass";
+where the steps replay captured CUDA graphs, train.capture puts each
+step's replay, or its eager warm-up or capture, in a "train_step"
+range).  The drivers keep their own per-step timing (`step_seconds`: a
+step's seconds after synchronize, or a replayed epoch's or chunk's
+seconds over its steps, the JAX StepTimer's blocks), so the JAX
 package's StepTimer has no counterpart here.
 """
 
@@ -31,14 +35,31 @@ def trace_if(trace_dir: str, enabled: bool = True):
         return
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_{os.getpid()}_"
                                    f"{int(time.time() * 1e3)}.json")
     with profile(activities=activities) as prof:
+        _pad(cuda)
         yield path
+        _pad(cuda)
     prof.export_chrome_trace(path)
+
+
+# Host seconds of idle card at each end of a CUDA trace.  The profiler
+# keeps only the card's records that lie inside its window on the host's
+# clock; without a margin the window's first or last kernels, which run
+# against its edges, were sometimes left out (up to 421 of a replayed
+# SPRITES step's 744 kernel records; tools/replay_trace_probe.py).
+TRACE_PAD_S = 0.1
+
+
+def _pad(cuda: bool) -> None:
+    if cuda:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
 
 
 def annotate(name: str):
