@@ -156,16 +156,20 @@ driver runs on one device whatever the flag says.
 
 The default loop (--epoch_chunk 1) is the JAX driver's one program an
 epoch (train.make_epoch_fn): on a CUDA device in a 1-process run each
-epoch of the SVGPVAE (either bound) and of the deep SVIGP replays two
-captured CUDA graphs, a full-batch step and the tail step
-(make_epoch_chunks with a chunk of one epoch), and its metrics are read
-back once; elsewhere its steps run one by one, and the run prints why
-(per_step_reason): the CPU, --data_parallel, --bias_analysis (per step
-in the JAX driver too), a VAE phase of --opt_regime, VAE, CVAE and
-Casale, --x64, a capture_step, an injected eps_fn without a generator,
-or main(per_step=True).  A replayed epoch's steps are timed as its
-seconds over its steps; the first epoch (warm-ups and captures) is left
-out of the p50.
+epoch of every runner replays captured CUDA graphs, a full-batch step
+and the tail step (make_epoch_chunks with a chunk of one epoch), and its
+metrics are read back once.  The SVGPVAE's VAE phases of --opt_regime
+replay graphs of the VAE loss that step the same optimizer, step counter
+and GECO state as the joint graphs (one capture.GraphSteps over both
+losses); each Casale regime replays its own graphs, and under
+--casale_taylor_every K > 1 the refresh of the held full-train sample is
+a graph of its own ahead of every K-th step.  Elsewhere the steps run
+one by one, and the run prints why (per_step_reason): the CPU,
+--data_parallel, --bias_analysis (per step in the JAX driver too),
+--x64, a capture_step, an injected eps_fn without a generator, or
+main(per_step=True).  A replayed epoch's steps are timed as its seconds
+over its steps; the first epoch, and the first after each regime switch
+(warm-ups and captures), are left out of the p50.
 
 The JAX driver's one-program flags, with the same numbers as an
 unchunked run and fewer host round trips:
@@ -422,21 +426,17 @@ def uncaptured_reason(device: torch.device) -> Optional[str]:
 
 def per_step_reason(args, device: torch.device, per_step: bool,
                     capture_step: Optional[int], generator,
-                    draws: bool = True, svgpvae: bool = True,
-                    regime=()) -> Optional[str]:
+                    draws: bool = True) -> Optional[str]:
     """Why this run's default loop (--epoch_chunk 1) takes its steps one
     by one, or None: each epoch replays captured CUDA graphs, as the JAX
-    driver runs each epoch as one program (train.make_epoch_fn)."""
+    driver runs each epoch as one program (train.make_epoch_fn).  `draws`:
+    whether the loop draws noise (from `generator`)."""
     if per_step:
         return "main(per_step=True)"
     why = uncaptured_reason(device)
     if why is not None:
         return why
-    if not svgpvae:
-        return f"--elbo {args.elbo} is not captured"
-    if any(r == "VAE" for r in regime):
-        return "--opt_regime has a VAE phase"
-    if getattr(args, "bias_analysis", False):
+    if getattr(args, "bias_analysis", False) and "SVGPVAE" in args.elbo:
         return "--bias_analysis runs per step, as in the JAX driver"
     if getattr(args, "x64", False):
         return "--x64"
@@ -449,7 +449,7 @@ def per_step_reason(args, device: torch.device, per_step: bool,
 
 
 def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
-                      loss_fn: Callable, batch_size: int, tensors,
+                      loss_fn, batch_size: int, tensors,
                       shuffle: Optional[train.EpochShuffle],
                       generator: Optional[torch.Generator],
                       draws: bool = True,
@@ -462,6 +462,8 @@ def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
     where they are not captured: a chunked run where uncaptured_reason
     says so, a default run where `per_step_why` (per_step_reason) does;
     there the run takes the per-step loop, which gives the same numbers.
+    `loss_fn`: one loss, or {kind: loss} (capture.StepGraphs; the VAE
+    epochs of an --opt_regime with VAE phases step the kind "VAE").
     Prints which.  A captured chunk is refused with a capture_step (a
     graph keeps no step's inputs) and, for a run that `draws` noise, with
     an eps_fn that exposes no `generator` (its draws would be captured as
@@ -495,21 +497,24 @@ def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
 
 
 class EpochChunks:
-    """A run's epochs in chunks: `epoch(state, e)` -> (epoch e's per-step
-    metrics, the step count at its end, as the JAX driver counts it),
-    running the chunk (StepRecorder.chunk, one readback) at the chunk's
-    first epoch.  `graphs`: the capture.GraphSteps the chunks replay."""
+    """A run's epochs in chunks: `epoch(state, e, kind, timed)` -> (epoch
+    e's per-step metrics, the step count at its end, as the JAX driver
+    counts it), running the chunk of the loss `kind` (StepRecorder.chunk,
+    one readback; `timed`: whether its seconds join the p50) at the
+    chunk's first epoch.  `graphs`: the capture.GraphSteps the chunks
+    replay."""
 
     def __init__(self, multi_fn: Callable, graphs, rec: "StepRecorder",
                  tensors, chunk: int):
         self.multi_fn, self.graphs, self.rec = multi_fn, graphs, rec
         self.tensors, self.chunk, self.steps = tensors, chunk, None
 
-    def epoch(self, state, epoch: int) -> tuple:
+    def epoch(self, state, epoch: int, kind: Optional[str] = None,
+              timed: bool = True) -> tuple:
         i = epoch % self.chunk
         if i == 0:
             self.steps = self.rec.chunk(self.multi_fn, state, self.tensors,
-                                        self.chunk)
+                                        self.chunk, timed=timed, kind=kind)
         steps = self.steps[i]
         return steps, state.step - (self.chunk - 1 - i) * len(steps)
 
@@ -943,21 +948,23 @@ class StepRecorder:
         self.metrics.append(m)
         return m
 
-    def chunk(self, multi_fn: Callable, state, tensors,
-              n_epochs: int) -> list:
-        """--epoch_chunk: n_epochs epochs through multi_fn
-        (train.make_multi_epoch_fn), their metrics read back at once; per
-        epoch, the list of its steps' metrics.  Each step's seconds are
-        the chunk's over its steps; `chunks` keeps each chunk's seconds
-        (after synchronize), the first (the compile in JAX, here the
-        warm-up and the captures) left out of the p50."""
+    def chunk(self, multi_fn: Callable, state, tensors, n_epochs: int,
+              timed: bool = True, **kw) -> list:
+        """n_epochs epochs through multi_fn (train.make_multi_epoch_fn,
+        `kw` passed on), their metrics read back at once; per epoch, the
+        list of its steps' metrics.  Each step's seconds are the chunk's
+        over its steps; `chunks` keeps each chunk's seconds (after
+        synchronize) and whether it is `timed`: the first chunk, and in the
+        default loop the first epoch after a regime switch (the compiles
+        in JAX, here warm-ups and captures), are left out of the p50."""
         t0 = time.perf_counter()
-        metrics, launches = multi_fn(state, tensors, n_epochs)
+        metrics, launches = multi_fn(state, tensors, n_epochs, **kw)
         keys = list(metrics)
         host = torch.stack([metrics[k] for k in keys]).cpu().tolist()
         seconds = time.perf_counter() - t0
         self.chunks.append({"epochs": n_epochs, "steps": len(launches),
-                            "seconds": seconds})
+                            "seconds": seconds,
+                            "timed": timed and bool(self.chunks)})
         self.seconds.extend([seconds / len(launches)] * len(launches))
         self.launches.extend(launches)
         epochs = [[dict(zip(keys, vals)) for vals in zip(
@@ -969,14 +976,16 @@ class StepRecorder:
 
     def summary(self, elapsed: float) -> None:
         if self.chunks:
-            first, rest = self.chunks[0], self.chunks[1:]
-            per_step = [c["seconds"] / c["steps"] for c in rest]
+            first = self.chunks[0]
+            per_step = [c["seconds"] / c["steps"] for c in self.chunks
+                        if c["timed"]]
             print(f"total: {len(self.seconds)} steps in {len(self.chunks)} "
                   f"chunks, {elapsed:.1f}s; the first chunk "
                   f"{first['seconds']:.2f} s ({first['steps']} steps), "
-                  + (f"then per step (chunk seconds / steps) p50 "
+                  + (f"then per step (chunk seconds / steps, the chunks "
+                     f"after a regime switch left out) p50 "
                      f"{1e3 * float(np.percentile(per_step, 50)):.3f} ms"
-                     if rest else "no later chunk"))
+                     if per_step else "no timed chunk"))
         elif self.seconds:
             timed = self.seconds[1:] or self.seconds
             print(f"total: {len(self.seconds)} steps, {elapsed:.1f}s; step "
@@ -1101,7 +1110,8 @@ def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval,
             len(splits["train"]["images"]), args.batch_size, seed=args.seed,
             perm_fn=perm_fn)
     if args.elbo in CASALE_ELBOS:
-        return run_casale(args, splits, device, eps_fn, capture_step)
+        return run_casale(args, splits, device, eps_fn, capture_step,
+                          per_step)
     if args.elbo == "SVIGP_Hensman":
         return run_svigp(args, splits, device, capture_step, shuffle,
                          per_step)
@@ -1331,12 +1341,15 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     chunk = resolve_epoch_chunk(args, nr_epochs, svgpvae=is_svgpvae,
                                 regime=regime,
                                 bias_analysis=args.bias_analysis)
+    # the graphs step the SVGPVAE loss, and the VAE loss of the VAE epochs
+    # (an SVGPVAE run's VAE phases: the kind "VAE"), over one TrainState
+    graph_losses = ({None: loss_fns["joint"], "VAE": loss_fns["VAE"]}
+                    if is_svgpvae else loss_fns["VAE"])
     chunks = make_epoch_chunks(
-        chunk, device, rec, loss_fns.get("joint"), args.batch_size,
+        chunk, device, rec, graph_losses, args.batch_size,
         (train_im, train_aux), shuffle, noise.generator,
         per_step_why=per_step_reason(args, device, per_step, capture_step,
-                                     noise.generator, svgpvae=is_svgpvae,
-                                     regime=regime))
+                                     noise.generator))
     evals, biases, pictures, eval_losses = [], [], [], []
     cgen_images = test_recon = None
     t_start = time.perf_counter()
@@ -1350,7 +1363,9 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
         timed = epoch > 0 and regime[epoch] == regime[epoch - 1]
         if chunks is not None:
             with tracer.epoch(timed and chunks.chunk == 1):
-                steps, steps_done = chunks.epoch(state, epoch)
+                steps, steps_done = chunks.epoch(
+                    state, epoch, "VAE" if is_svgpvae and use_vae_pass
+                    else None, timed)
             elbos = [m["elbo"] for m in steps]
             losses = [m["recon"] for m in steps]
         else:
@@ -1700,12 +1715,19 @@ def make_casale_loss_fn(args, eps_fn: Callable, consts: dict, regime: str,
 
 
 def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
-               capture_step: Optional[int]) -> dict:
+               capture_step: Optional[int], per_step: bool = False) -> dict:
     """GPVAE_Casale: --opt_regime's epochs, each stepping its regime's own
-    Adam; the cgen MSE every CASALE_EVAL_EVERY epochs.  Returns
-    {"params", "states" (per regime), "step_seconds", "metrics",
-    "step_launches", "captured", "evals", "cgen_mse", "best_cgen_mse",
-    "regimes" (per step)}."""
+    Adam; the cgen MSE every CASALE_EVAL_EVERY epochs.  On a CUDA device in
+    a 1-process run each epoch replays its regime's captured CUDA graphs
+    (a capture.GraphSteps per regime, whose Adam it turns capturable: a
+    full-batch step and the tail step, and under --casale_taylor_every
+    K > 1 the refresh of the held sample, a graph of its own that the host
+    replays ahead of every K-th step), one readback an epoch; elsewhere
+    the steps run one by one (per_step_reason).  Returns {"params",
+    "states" (per regime), "step_seconds", "metrics", "step_launches",
+    "captured", "evals", "cgen_mse", "best_cgen_mse", "regimes" (per
+    step), "chunks", "graph_replays" and "graph_launches" (named
+    "<regime>/<graph>")}."""
     train_d = sort_train_data(splits["train"])
     N_train = len(train_d["images"])
     consts = casale_constants(train_d, device)
@@ -1728,39 +1750,78 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
     noise = Noise(eps_fn)
     nr_epochs, regime = train.parse_opt_regime(list(args.opt_regime))
     taylor_every = max(1, args.casale_taylor_every)
-    held_Z, age = None, 0
+    # --casale_taylor_every K > 1: the held full-train sample, written in
+    # place by every K-th step's refresh and read by the losses (a static
+    # address for the graphs)
+    held_Z = (torch.zeros((N_train, args.L), device=device)
+              if taylor_every > 1 else None)
+    age = 0
+    loss_fns = {r: make_casale_loss_fn(args, noise, consts, r,
+                                       None if r == "VAE" else held_Z)
+                for r in subsets}
+
+    @torch.no_grad()
+    def refresh(r):
+        held_Z.copy_(models.encode_full_casale(
+            params["vae"], consts["images"],
+            noise(f"train/{r}", (N_train, args.L)), clip_qs=args.clip_qs))
+
+    def before_cadenced_step(r):
+        """Every K-th cadenced step refreshes held_Z first (a graph of its
+        own when the regime's steps replay graphs)."""
+        nonlocal age
+        if age % taylor_every == 0:
+            if graphs:
+                graphs[r].call("refresh", lambda: refresh(r))
+            else:
+                refresh(r)
+        age += 1
 
     def ckpt_state():
         return {"regimes": {k: st.state_dict() for k, st in states.items()}}
 
     rec = StepRecorder(device, noise, capture_step)
     tracer = EpochTracer(args.profile_dir)
+    why = per_step_reason(args, device, per_step, capture_step,
+                          noise.generator)
+    print("training loop: " + (
+        f"per step ({why})" if why else "each epoch replays its regime's "
+        "captured CUDA graphs (a full-batch step and the tail step"
+        + (f"; the held sample's refresh every {taylor_every} steps"
+           if held_Z is not None else "") + "), one readback an epoch"))
+    graphs = {} if why else {r: capture.GraphSteps(
+        loss_fns[r], args.batch_size, [noise.generator]) for r in subsets}
+    epoch_fns = {r: train.make_multi_epoch_fn(g) for r, g in graphs.items()}
+    tensors = (consts["images"], train_aux)
     evals, steps, regimes, pictures = [], 0, [], []
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
         r = regime[epoch]
-        cadenced = taylor_every > 1 and r != "VAE"
-        elbos, losses = [], []
-        with tracer.epoch(epoch > 0 and r == regime[epoch - 1]):
-            for batch in train.epoch_batches((consts["images"], train_aux),
-                                             args.batch_size):
-                if cadenced:
-                    if age % taylor_every == 0:
-                        with torch.no_grad():
-                            held_Z = models.encode_full_casale(
-                                params["vae"], consts["images"],
-                                noise(f"train/{r}", (N_train, args.L)),
-                                clip_qs=args.clip_qs)
-                    age += 1
-                loss_fn = make_casale_loss_fn(args, noise, consts, r,
-                                              held_Z if cadenced else None)
-                m = rec.step(states[r], batch, loss_fn, subsets[r][0],
-                             steps, regime=r,
-                             held_Z=held_Z if cadenced else None)
-                steps += 1
-                regimes.append(r)
-                elbos.append(m["elbo"])
-                losses.append(m["recon"])
+        cadenced = held_Z is not None and r != "VAE"
+        timed = epoch > 0 and r == regime[epoch - 1]
+        with tracer.epoch(timed):
+            if graphs:
+                # the regimes' graphs never run at once: one memory pool
+                graphs[r].pool = graphs[r].pool or next(
+                    (g.pool for g in graphs.values() if g.pool), None)
+                (ms,) = rec.chunk(
+                    epoch_fns[r], states[r], tensors, 1, timed=timed,
+                    before=(lambda j: before_cadenced_step(r)) if cadenced
+                    else None)
+            else:
+                ms = []
+                for j, batch in enumerate(train.epoch_batches(
+                        tensors, args.batch_size)):
+                    if cadenced:
+                        before_cadenced_step(r)
+                    ms.append(rec.step(
+                        states[r], batch, loss_fns[r], subsets[r][0],
+                        steps + j, regime=r,
+                        held_Z=held_Z.clone() if cadenced else None))
+        steps += len(ms)
+        regimes.extend([r] * len(ms))
+        elbos = [m["elbo"] for m in ms]
+        losses = [m["recon"] for m in ms]
         utils.check_finite(elbos, steps, ckpt_state, run_dir)
 
         if (epoch + 1) % CASALE_EVAL_EVERY == 0:
@@ -1799,7 +1860,11 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
     tracer.report()
     result = dict(rec.result(), params=params, states=states, evals=evals,
                   run_dir=run_dir, noise=noise, regimes=regimes,
-                  pictures=pictures)
+                  pictures=pictures, graph_replays={
+                      f"{r}/{k}": g.replays for r, st in graphs.items()
+                      for k, g in st.graphs.items()}, graph_launches={
+                      f"{r}/{k}": g.launches for r, st in graphs.items()
+                      for k, g in st.graphs.items()})
     return _best(result, evals)
 
 

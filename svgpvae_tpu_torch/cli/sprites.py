@@ -104,8 +104,17 @@ metrics read back once for the epoch's row, check_finite and the
 optimizer, a new noise stream).  The epoch's seconds over its steps are
 each step's.  Elsewhere the steps run one by one and the run prints why:
 the CPU, --data_parallel, a capture_step, an injected eps_fn without a
-generator, or main(per_step=True).  The pretraining and the eval passes
-run eagerly.
+generator, or main(per_step=True).  The pretraining epochs replay a
+captured graph of their step likewise (make_epoch_fn; no tail, no GECO,
+a constant lr; the metrics read back once an epoch), and the eval pass is
+JAX's three programs and its fit as four captured calls
+(capture.CapturedCall): the test_character recon (its loss summed on the
+device; B1 and B2 inside), the full-train encode, the fit (B3, or B2
+under --K_SE) and the cgen (summed on the device), each read back once;
+their draws are static (cli.mnist.StaticDraws) and the forward reads a
+static GECO pair copied in before each pass.  Both say why they run
+uncaptured where the main loop would (but for the eps_fn: they draw
+nothing from the training stream).
 
 --elbo VAE (the JAX CLI's default) trains the SpritesVAE alone on the
 plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
@@ -155,7 +164,7 @@ import torch.nn.functional as F
 
 from svgpvae_tpu_torch import data, models, ops, parallel, train, utils
 from svgpvae_tpu_torch import gp as gpm
-from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise,
+from svgpvae_tpu_torch.cli.mnist import (EpochTracer, Noise, StaticDraws,
                                          checkpoint_state, default_eps_fn,
                                          draw, host_array, open_run_dir,
                                          per_step_reason, restore_shuffle,
@@ -589,12 +598,19 @@ def _stream_seed(args, attempt: int) -> int:
 
 
 def pretrain(args, params: dict, head, train_frames, train_chars,
-             ta_frames, ta_chars) -> dict:
-    """The repr-net pretraining; updates params["repr"] in place.  Returns
+             ta_frames, ta_chars, why: Optional[str] = None) -> dict:
+    """The repr-net pretraining; updates params["repr"] in place.  Each
+    epoch takes the full batches of the first (N // bs) * bs rows in
+    stored order, no tail (the JAX CLI's device_batches).  Without a
+    reason `why` to step one by one, each epoch replays a captured CUDA
+    graph of the step (train.make_epoch_fn over a capture.GraphSteps;
+    Adam turns capturable) and its metrics are read back once.  Returns
     its seconds, steps and per-epoch metrics (with the test_action loss
-    and accuracy every PRETRAIN_EVAL_EVERY epochs)."""
+    and accuracy every PRETRAIN_EVAL_EVERY epochs, per batch as in JAX),
+    "graph_replays" and "graph_launches" (see cli.mnist.graph_record)."""
     N = len(train_frames)
     bs = min(args.batch_size_repr_nn, N)
+    n_full = (N // bs) * bs
     pre = {"repr": params["repr"], "head": head}
     state = train.TrainState(
         params=pre, geco=None, optimizer=train.make_optimizer(
@@ -618,16 +634,26 @@ def pretrain(args, params: dict, head, train_frames, train_chars,
 
     t0 = time.perf_counter()
     print(f"pretraining representation net ({args.nr_epochs_repr_nn} "
-          f"epochs, batch {bs})")
+          f"epochs, batch {bs}): " + (
+              f"per step ({why})" if why else "each epoch replays a "
+              "captured CUDA graph of the step, one readback an epoch"))
+    # the same tensors every epoch (GraphSteps gathers its rows from them)
+    tensors = (train_frames[:n_full], train_chars[:n_full])
+    graphs = None if why else capture.GraphSteps(pretrain_loss, bs)
+    epoch_fn = None if graphs is None else train.make_epoch_fn(graphs)
     epochs = []
     for epoch in range(args.nr_epochs_repr_nn):
-        ms = [train.train_step(state, (train_frames[lo:lo + bs],
-                                       train_chars[lo:lo + bs]),
-                               pretrain_loss)
-              for lo in range(0, (N // bs) * bs, bs)]
-        ep = {"epoch": epoch,
-              "loss": float(np.mean([float(m["loss"]) for m in ms])),
-              "acc": float(np.mean([float(m["acc"]) for m in ms]))}
+        if epoch_fn:
+            ms, _ = epoch_fn(state, tensors)
+            host = torch.stack([ms["loss"], ms["acc"]]).cpu().tolist()
+        else:
+            ms = [train.train_step(state, tuple(t[lo:lo + bs]
+                                                for t in tensors),
+                                   pretrain_loss)
+                  for lo in range(0, n_full, bs)]
+            host = [[float(m[k]) for m in ms] for k in ("loss", "acc")]
+        ep = {"epoch": epoch, "loss": float(np.mean(host[0])),
+              "acc": float(np.mean(host[1]))}
         if epoch % PRETRAIN_EVAL_EVERY == 0:
             ep["test_action_loss"], ep["test_action_acc"] = \
                 eval_test_action()
@@ -638,7 +664,8 @@ def pretrain(args, params: dict, head, train_frames, train_chars,
         epochs.append(ep)
     seconds = time.perf_counter() - t0
     print(f"pretraining done in {seconds:.1f}s")
-    return {"seconds": seconds, "steps": state.step, "epochs": epochs}
+    return {"seconds": seconds, "steps": state.step, "epochs": epochs,
+            **graph_record([graphs])}
 
 
 def run_svgpvae(args, splits: dict, device: torch.device,
@@ -652,9 +679,13 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     each step), "evals" (per eval pass: MSEs, the seconds and launches of
     its stages), "captured", "cgen_mse", "best_cgen_mse",
     "basin_attempts", "chunks" (each replayed epoch's steps and seconds,
-    as cli.mnist's), "graph_replays", "graph_launches" (graph_record)}.
-    --elbo VAE: no pretraining, no GP; --nr_epochs epochs, and the eval
-    pass is the test_character reconstruction alone."""
+    as cli.mnist's), "graph_replays", "graph_launches" (graph_record),
+    "eval_graph_replays", "eval_graph_launches" (the eval calls' graphs,
+    by call), "test_recon" and "cgen_images" (the last eval's last test
+    batch: its recon images; its cgen images and targets)}; "pretrain"
+    holds its own graphs' record.  --elbo VAE: no pretraining, no GP;
+    --nr_epochs epochs, and the eval pass is the test_character
+    reconstruction alone."""
     is_svgpvae = "SVGPVAE" in args.elbo
     if is_svgpvae:
         args.gp_block_impl = models.resolve_gp_block_impl(
@@ -682,12 +713,17 @@ def run_svgpvae(args, splits: dict, device: torch.device,
     tc_frames = to_dev(tc_d["frames"])
     tc_action = to_dev(tc_d["aux_data"][:, 1])
 
+    # why the pretraining and the eval calls, which draw nothing from the
+    # training stream, run uncaptured (None: they replay CUDA graphs)
+    side_why = per_step_reason(args, device, per_step, capture_step, None,
+                               draws=False)
     pre = None
     if is_svgpvae and "yes" in args.repr_nn_pretrain and not args.resume_dir:
         ta_d = splits["test_action"]
         pre = pretrain(args, params, head, train_frames,
                        to_dev(train_d["aux_data"][:, 0]),
-                       to_dev(ta_d["frames"]), to_dev(ta_d["aux_data"][:, 0]))
+                       to_dev(ta_d["frames"]), to_dev(ta_d["aux_data"][:, 0]),
+                       side_why)
 
     trainable = train.trainable_tensors(params, trainable_predicate(args))
     print(f"parameters: {utils.count_params(params)}, trainable: "
@@ -760,7 +796,71 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         ((train_frames[:batch_size], train_action[:batch_size]),
          FRAMES_PER_CHAR))
 
+    # The eval pass: four calls (JAX's three lax.map programs and the fit),
+    # each replaying a captured CUDA graph (capture.CapturedCall) unless
+    # side_why says why not, each read back once.  Their draws are static
+    # (every eval batch draws the same fixed noise), and the forward reads a
+    # static GECO pair, copied in before each pass; what a call returns is
+    # its graph's output, overwritten by the next replay.
+    eps_eval = StaticDraws(noise)
+    eval_forward = (make_forward if is_svgpvae else make_vae_forward)(
+        args, eps_eval)
+    geco_eval = train.GECOState(state.geco.C_ma.clone(),
+                                state.geco.lagrange_mult.clone())
+    tc_batches = [(tc_frames[lo:lo + batch_tc], tc_action[lo:lo + batch_tc])
+                  for lo in range(0, N_test, batch_tc)]
+    n_tgt = batch_tc // N_ACTIONS * (N_ACTIONS - args.N_context)
+    fed = {}  # the encode call's outputs (the fit's inputs), the fit's
+
     @torch.no_grad()
+    def recon_call():
+        """The test_character forward of every batch: (the summed recon
+        loss, the last batch's recon images)."""
+        outs = [eval_forward(params, b, geco_eval, args.alpha, "eval",
+                             N_ACTIONS) for b in tc_batches]
+        return (torch.stack([o.recon_loss for o in outs]).sum(),
+                outs[-1].recon_images)
+
+    @torch.no_grad()
+    def encode_call():
+        """The encodings and aux data of the whole train split."""
+        enc = []
+        for lo, hi in bounds:
+            im = train_frames[lo:hi]
+            mu, var = models.batching_encode_svgpvae(params["vae"], im,
+                                                     clip_qs=args.clip_qs)
+            enc.append((mu, var, models.sprites_aux_data(
+                params["repr"], im, train_action[lo:hi], FRAMES_PER_CHAR)
+                .to(mu.dtype)))  # the fit (B3) takes fp32
+        return tuple(torch.cat(x) for x in zip(*enc))
+
+    @torch.no_grad()
+    def fit_call():
+        return models.precompute_gp_params(params["gp"], *fed["encode"])
+
+    @torch.no_grad()
+    def cgen_call():
+        """The cgen of every test batch: (the summed loss, the last
+        batch's cgen images and targets)."""
+        outs = [models.predict_cgen_sprites(
+            params["vae"], params["gp"], params["repr"], im, aid,
+            *fed["fit"], n_context=args.N_context,
+            n_actions_total=N_ACTIONS, eps=eps_eval("eval", (n_tgt, args.L)))
+            for im, aid in tc_batches]
+        return (torch.stack([loss for _, _, loss in outs]).sum(),
+                *outs[-1][:2])
+
+    eval_calls = {"recon": recon_call}
+    if is_svgpvae:
+        eval_calls.update(encode=encode_call, fit=fit_call, cgen=cgen_call)
+    if not side_why:
+        eval_calls = {k: capture.CapturedCall(f)
+                      for k, f in eval_calls.items()}
+    print("eval pass: " + (f"uncaptured ({side_why})" if side_why else
+                           f"{len(eval_calls)} calls ("
+                           + ", ".join(eval_calls) + "), each replaying a "
+                           "captured CUDA graph, each read back once"))
+
     @utils.annotate("eval_pass")
     def eval_pass(epoch):
         ev, secs, launches = {"epoch": epoch}, {}, {}
@@ -773,48 +873,32 @@ def run_svgpvae(args, splits: dict, device: torch.device,
             return time.perf_counter(), after
 
         t, lc = time.perf_counter(), ops.launch_counts()
-        tc_batches = [(tc_frames[lo:lo + batch_tc], tc_action[lo:lo + batch_tc])
-                      for lo in range(0, N_test, batch_tc)]
-        recon = 0.0
-        for b in tc_batches:
-            out = forward(params, b, state.geco, args.alpha, "eval",
-                          N_ACTIONS)
-            recon += float(out.recon_loss)
-        ev["test_mse"] = recon / N_test
+        geco_eval.C_ma.copy_(state.geco.C_ma)
+        geco_eval.lagrange_mult.copy_(state.geco.lagrange_mult)
+        recon, recon_images = eval_calls["recon"]()
+        ev["test_mse"] = float(recon) / N_test
+        recon_images = recon_images.clone()  # before the next replay
         t, lc = stage("recon", t, lc)
         if not is_svgpvae:
             ev["seconds"], ev["launches"] = secs, launches
-            return ev, out.recon_images, None
-        enc = []
-        for lo, hi in bounds:
-            im = train_frames[lo:hi]
-            mu, var = models.batching_encode_svgpvae(params["vae"], im,
-                                                     clip_qs=args.clip_qs)
-            enc.append((mu, var, models.sprites_aux_data(
-                params["repr"], im, train_action[lo:hi], FRAMES_PER_CHAR)
-                .to(mu.dtype)))  # the fit (B3) takes fp32
-        means, variances, aux = (torch.cat(x) for x in zip(*enc))
+            return ev, recon_images, None
+        fed["encode"] = eval_calls["encode"]()
         t, lc = stage("encode", t, lc)
-        terms = models.precompute_gp_params(params["gp"], means, variances,
-                                            aux)
+        fed["fit"] = eval_calls["fit"]()
         t, lc = stage("fit", t, lc)
-        n_tgt = batch_tc // N_ACTIONS * (N_ACTIONS - args.N_context)
-        cgen = 0.0
-        for im, aid in tc_batches:
-            pics, tgts, loss = models.predict_cgen_sprites(
-                params["vae"], params["gp"], params["repr"], im, aid, *terms,
-                n_context=args.N_context, n_actions_total=N_ACTIONS,
-                eps=noise("eval", (n_tgt, args.L)))
-            cgen += float(loss)
-        ev["cgen_mse"] = cgen / (N_test * (1 - args.N_context / N_ACTIONS))
+        cgen, pics, tgts = eval_calls["cgen"]()
+        ev["cgen_mse"] = float(cgen) / (N_test * (1 - args.N_context
+                                                  / N_ACTIONS))
+        pics, tgts = pics.clone(), tgts.clone()
         stage("cgen", t, lc)
         ev["seconds"], ev["launches"] = secs, launches
         # the last test batch's recon and cgen images
-        return ev, out.recon_images, (pics, tgts)
+        return ev, recon_images, (pics, tgts)
 
     step_seconds, step_metrics, step_launches, evals = [], [], [], []
     captured, cgen_history, attempt, epoch = None, [], 0, 0
     pictures, chunks = [], []
+    recon_images = cgen_images = None
     tc_last_frames = tc_d["frames"][(N_test - 1) // batch_tc * batch_tc:]
     tracer = EpochTracer(args.profile_dir)
     why = per_step_reason(args, device, per_step, capture_step,
@@ -972,8 +1056,16 @@ def run_svgpvae(args, splits: dict, device: torch.device,
               "basin_attempts": attempt,
               "cgen_mse": evals[-1].get("cgen_mse") if evals else None,
               "run_dir": run_dir, "noise": noise, "shuffle": shuffle,
-              "chunks": chunks,
+              "chunks": chunks, "test_recon": recon_images,
+              "cgen_images": cgen_images,
               **graph_record([graphs], retired)}
+    # the eval calls' graphs: each one's replays, the launches of one
+    eval_graphs = {k: c.graph for k, c in eval_calls.items()
+                   if isinstance(c, capture.CapturedCall) and c.graph}
+    result["eval_graph_replays"] = {k: g.replays
+                                    for k, g in eval_graphs.items()}
+    result["eval_graph_launches"] = {k: g.launches
+                                     for k, g in eval_graphs.items()}
     if is_svgpvae and evals:
         best = min(evals, key=lambda e: e["cgen_mse"])
         print(f"best cgen MSE {best['cgen_mse']:.5f} at epoch "

@@ -1,11 +1,13 @@
-"""CUDA graphs for the training loops and the bundled eval: the port's
+"""CUDA graphs for the training loops and the eval calls: the port's
 form of the JAX package's one-program loops (train.make_epoch_fn,
 make_multi_epoch_fn and make_generative_chunk_fn: the drivers' default
-epoch, MNIST's --epoch_chunk, the ball's sample -> step chunks) and of
---eval_bundle (cli/mnist.py's eval_group_svgpvae).  On CUDA, "one
-program, one readback" is a graph captured once and replayed; the
-drivers use these on a CUDA device in a 1-process run, and say why
-their steps run one by one elsewhere (the CPU, --data_parallel, ...).
+epochs, every MNIST runner's among them, the SPRITES pretraining epochs,
+MNIST's --epoch_chunk, the ball's sample -> step chunks) and of its
+eval programs (MNIST's --eval_bundle, the SPRITES eval pass's recon,
+encode, fit and cgen).  On CUDA, "one program, one readback" is a graph
+captured once and replayed; the drivers use these on a CUDA device in a
+1-process run, and say why their steps run one by one elsewhere (the
+CPU, --data_parallel, ...).
 
   * `Graph`: fn() captured on a side stream and replayed.  The kernel
     launches the wrappers counted during the capture (which ran nothing)
@@ -20,17 +22,24 @@ their steps run one by one elsewhere (the CPU, --data_parallel, ...).
     allocate Adam's moments before any capture, and which take step 0
     (GECO's alpha = 0, a host branch that a graph would bake in).  Then
     the step is captured once and every later one replays it; a loop's
-    graphs share one memory pool.
+    graphs share one memory pool.  One StepGraphs may step several losses
+    over one TrainState (the MNIST --opt_regime's VAE and joint phases):
+    their graphs read one set of static tensors (Adam's lr and step
+    counts, the step counter, the GECO pair), so a graph of one loss
+    replayed after steps of another reads the state those left; each loss
+    keeps its own metric buffer.  `call(name, fn)` runs a function of the
+    loop's own between steps (Casale's refresh of its held full-train
+    sample) the same way: once eagerly, then captured and replayed.
   * `GraphSteps`: the steps of an epoch, or of a chunk of epochs
     (make_epoch_fn's and make_multi_epoch_fn's `graphs`): one graph of a
     full-batch step, one of the tail step.
   * `GenerativeSteps`: make_generative_chunk_fn's `graphs`, one graph of
     a step that draws its own batch on the device (the ball's videos),
     then its noise, and trains.
-  * `CapturedCall`: an argument-less function (the eval bundle): the
-    first call runs it once eagerly (its warm-up, whose results and
-    launches are discarded), captures it and replays it; later calls
-    replay it.
+  * `CapturedCall`: an argument-less function (the eval bundle, a
+    SPRITES eval call): the first call runs it once eagerly (its
+    warm-up, whose results and launches are discarded), captures it and
+    replays it; later calls replay it.
 
 What a graph needs that an eager step does not:
   - inputs at fixed addresses.  A step gathers its batch rows in the
@@ -158,19 +167,29 @@ class StepGraphs:
     write their metrics into a static buffer, read back once a call.  All
     graphs share one memory pool: they never run concurrently, and what
     one graph leaves for the next (the parameters, Adam's moments, the
-    counter, the GECO pair, the buffer) was allocated before any capture.
-    Subclasses give `batch(which)`, the step's inputs (read or drawn on
-    the device).  `graphs`: {which: Graph}, once captured."""
+    counter, the GECO pair, the buffers) was allocated before any capture.
+    `loss_fn` is one loss, or {kind: loss} of several over the one
+    TrainState (a call steps one kind; the graphs of kind k are named
+    "k/<which>", those of the kind None "<which>").  Subclasses give
+    `batch(which)`, the step's inputs (read or drawn on the device).
+    `graphs`: {name: Graph}, once captured."""
 
     WARMUP = 2  # eager full-batch steps before the full step's capture
 
-    def __init__(self, loss_fn: Callable,
+    def __init__(self, loss_fn,
                  generators: Sequence[Optional[torch.Generator]] = ()):
-        self.loss_fn = loss_fn
+        self.loss_fns = loss_fn if isinstance(loss_fn, dict) else {
+            None: loss_fn}
         self.generators = [g for g in generators if g is not None]
         self.graphs: Dict[str, Graph] = {}
         self.warm: Dict[str, int] = {}
+        self.bufs: Dict[Optional[str], torch.Tensor] = {}
+        self.keys: Dict[Optional[str], List[str]] = {}
         self.pool = None
+
+    @staticmethod
+    def name(kind: Optional[str], which: str) -> str:
+        return which if kind is None else f"{kind}/{which}"
 
     def _prepare(self, state: TrainState, device: torch.device,
                  n_steps: int) -> None:
@@ -184,7 +203,7 @@ class StepGraphs:
         self.counter = torch.zeros((), dtype=torch.long, device=device)
         self.geco = None if state.geco is None else GECOState(
             state.geco.C_ma.clone(), state.geco.lagrange_mult.clone())
-        self.n_steps, self.buf, self.keys = n_steps, None, None
+        self.n_steps = n_steps
 
     def _begin(self, state: TrainState, n: int) -> None:
         """A call of `n` steps from state.step: their learning rates into
@@ -198,54 +217,71 @@ class StepGraphs:
     def batch(self, which: str):
         raise NotImplementedError
 
-    def _body(self, state: TrainState, which: str) -> None:
+    def _body(self, state: TrainState, which: str,
+              kind: Optional[str]) -> None:
         """One step, eagerly or under capture: its inputs, its lr from the
-        table, the update, the GECO state back into the static pair, its
-        metrics into the buffer, the counter + 1."""
+        table, the update with the loss of `kind`, the GECO state back
+        into the static pair, its metrics into the kind's buffer, the
+        counter + 1."""
         s = self.counter
         batch = self.batch(which)
         self.lr.copy_(self.lr_table.index_select(0, s.view(1))[0])
-        m = apply_step(state, batch, self.loss_fn)
-        if self.geco is not None:
+        m = apply_step(state, batch, self.loss_fns[kind])
+        if self.geco is not None and state.geco is not self.geco:
             self.geco.C_ma.copy_(state.geco.C_ma)
             self.geco.lagrange_mult.copy_(state.geco.lagrange_mult)
             state.geco = self.geco
-        if self.buf is None:  # the first (eager) step sets the layout
-            self.keys = list(m)
-            self.buf = torch.zeros((self.n_steps, len(m)),
-                                   dtype=metric_dtype(m), device=s.device)
-        vals = torch.stack([m[k].to(self.buf.dtype) for k in self.keys])
-        self.buf.index_copy_(0, s.view(1), vals[None])
+        if kind not in self.bufs:  # the kind's first (eager) step: layout
+            self.keys[kind] = list(m)
+            self.bufs[kind] = torch.zeros((self.n_steps, len(m)),
+                                          dtype=metric_dtype(m),
+                                          device=s.device)
+        buf = self.bufs[kind]
+        vals = torch.stack([m[k].to(buf.dtype) for k in self.keys[kind]])
+        buf.index_copy_(0, s.view(1), vals[None])
         self.counter.add_(1)
 
-    def _step(self, state: TrainState, which: str) -> dict:
+    def _launch(self, name: str, body: Callable, warmup: int) -> None:
+        """body() eagerly on the side stream for its first `warmup` calls,
+        then captured as the graph `name` and replayed."""
+        graph = self.graphs.get(name)
+        if graph is None and self.warm.get(name, 0) >= warmup:
+            kw = {} if self.pool is None else {"pool": self.pool}
+            graph = self.graphs[name] = Graph(body, self.stream,
+                                              self.generators, **kw)
+            self.pool = getattr(graph, "pool", None)
+        if graph is None:
+            with cusolver_linalg(), side_stream(self.stream):
+                body()
+            self.warm[name] = self.warm.get(name, 0) + 1
+        else:
+            graph.replay()
+
+    def call(self, name: str, fn: Callable) -> None:
+        """fn(), a function of the loop's own between two steps (it reads
+        and writes tensors at fixed addresses, and may draw from the
+        registered generators): its first call eager, then captured as
+        the graph `name` and replayed, as a step is."""
+        self._launch(name, fn, 1)
+
+    def _step(self, state: TrainState, which: str,
+              kind: Optional[str] = None) -> dict:
         before, step = ops.launch_counts(), state.step
-        graph = self.graphs.get(which)
-        warm = self.warm.setdefault(which, 0)
         with utils.annotate("train_step"):
-            if graph is None and warm >= (
-                    self.WARMUP if which == "full" else 1):
-                kw = {} if self.pool is None else {"pool": self.pool}
-                graph = self.graphs[which] = Graph(
-                    lambda: self._body(state, which), self.stream,
-                    self.generators, **kw)
-                self.pool = getattr(graph, "pool", None)
-            if graph is None:
-                with cusolver_linalg(), side_stream(self.stream):
-                    self._body(state, which)
-                self.warm[which] += 1
-            else:
-                graph.replay()
+            self._launch(self.name(kind, which),
+                         lambda: self._body(state, which, kind),
+                         self.WARMUP if which == "full" else 1)
         # a capture runs the step's Python (step + 1) but no kernel, a
         # replay the kernels alone
         state.step = step + 1
         return launch_delta(before)
 
-    def _readback(self, rows: int) -> Dict[str, torch.Tensor]:
-        """The metrics of the call's `rows` steps, {metric: (rows,)}, as
-        copies on the device."""
-        out = self.buf[:rows].clone()
-        return {k: out[:, i] for i, k in enumerate(self.keys)}
+    def _readback(self, rows: int, kind: Optional[str] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """The metrics of the call's `rows` steps of `kind`, {metric:
+        (rows,)}, as copies on the device."""
+        out = self.bufs[kind][:rows].clone()
+        return {k: out[:, i] for i, k in enumerate(self.keys[kind])}
 
 
 class GraphSteps(StepGraphs):
@@ -254,13 +290,15 @@ class GraphSteps(StepGraphs):
     ("full") and one of the tail step ("tail"), each gathering its batch
     rows from the chunk's example orders (a static (n_epochs, n) tensor
     filled once a chunk) at the step counter.  `run(state, tensors,
-    orders)` takes one chunk: `tensors` the train split on the device
-    (the same tensors every chunk), `orders` one example order (or None,
-    the stored order) per epoch of the chunk.  Returns ({metric:
+    orders, kind=None, before=None)` takes one chunk of the loss `kind`:
+    `tensors` the train split on the device (the same tensors every
+    chunk), `orders` one example order (or None, the stored order) per
+    epoch of the chunk; before(j), when given, runs ahead of the chunk's
+    step j (on the host, which may launch a `call`).  Returns ({metric:
     (n_epochs, n_batches) tensor on the device}, [launches of each
     step])."""
 
-    def __init__(self, loss_fn: Callable, batch_size: int,
+    def __init__(self, loss_fn, batch_size: int,
                  generators: Sequence[Optional[torch.Generator]] = ()):
         super().__init__(loss_fn, generators)
         self.bs, self.tensors = batch_size, None
@@ -285,7 +323,8 @@ class GraphSteps(StepGraphs):
         return tuple(t.index_select(0, order) for t in self.tensors)
 
     def run(self, state: TrainState, tensors, orders: List[
-            Optional[torch.Tensor]]):
+            Optional[torch.Tensor]], kind: Optional[str] = None,
+            before: Optional[Callable[[int], None]] = None):
         n_epochs = len(orders)
         if self.tensors is None:
             self._setup(state, tensors, n_epochs)
@@ -297,11 +336,15 @@ class GraphSteps(StepGraphs):
             torch.arange(self.n) if o is None else o for o in orders]))
         self._begin(state, n_epochs * self.nb)
         tail = self.n % self.bs
-        launches = [self._step(state, "tail" if tail and j == self.nb - 1
-                               else "full")
-                    for _ in range(n_epochs) for j in range(self.nb)]
+        launches = []
+        for j in range(n_epochs * self.nb):
+            if before is not None:
+                before(j)
+            launches.append(self._step(
+                state, "tail" if tail and j % self.nb == self.nb - 1
+                else "full", kind))
         return ({k: v.view(n_epochs, self.nb) for k, v in
-                 self._readback(n_epochs * self.nb).items()}, launches)
+                 self._readback(n_epochs * self.nb, kind).items()}, launches)
 
 
 class GenerativeSteps(StepGraphs):

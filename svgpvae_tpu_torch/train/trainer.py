@@ -198,13 +198,15 @@ def make_multi_epoch_fn(graphs, shuffle: Optional[EpochShuffle] = None):
     returns ({metric: (n_epochs, n_batches) tensor on the device}, [the
     kernel launches of each step]).  The n_epochs example orders are drawn
     first, from the one generator, in the sequence unchunked epochs draw
-    them.  Nothing waits for the device: the caller reads the metrics once
-    a chunk."""
+    them.  `kw` go to graphs.run: the loss `kind` of a GraphSteps over
+    several losses (the --opt_regime's VAE phases), a `before(j)` hook ahead
+    of step j (Casale's refresh of its held sample).  Nothing waits for the
+    device: the caller reads the metrics once a chunk."""
 
-    def multi_fn(state: TrainState, tensors, n_epochs: int):
+    def multi_fn(state: TrainState, tensors, n_epochs: int, **kw):
         orders = [shuffle.order() if shuffle is not None else None
                   for _ in range(n_epochs)]
-        return graphs.run(state, tensors, orders)
+        return graphs.run(state, tensors, orders, **kw)
 
     return multi_fn
 
@@ -216,11 +218,12 @@ def make_epoch_fn(graphs, shuffle: Optional[EpochShuffle] = None):
     --reshuffle (the order drawn first, as a per-step epoch draws it),
     then its tail as a step of its own, through `graphs` (GraphSteps),
     and returns ({metric: (n_batches,) tensor on the device}, [the kernel
-    launches of each step]).  Nothing waits for the device."""
+    launches of each step]); `kw` as make_multi_epoch_fn's.  Nothing
+    waits for the device."""
     multi_fn = make_multi_epoch_fn(graphs, shuffle)
 
-    def epoch_fn(state: TrainState, tensors):
-        metrics, launches = multi_fn(state, tensors, 1)
+    def epoch_fn(state: TrainState, tensors, **kw):
+        metrics, launches = multi_fn(state, tensors, 1, **kw)
         return {k: v[0] for k, v in metrics.items()}, launches
 
     return epoch_fn
