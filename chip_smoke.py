@@ -208,8 +208,9 @@ Phases, each of which raises (nonzero exit) on failure:
      phase 13(a)'s flags, restored (bit for bit, the noise generator
      included) and resumed for 5 more: the resumed run's per-step
      metrics, final parameters and eval MSEs held to the unbroken run as
-     in (a), the yardstick the second unbroken run, and its noise
-     generator's state the unbroken run's; then the same four runs under
+     in (a), the yardstick the largest gap among YARD_RUNS unbroken
+     runs (hold_to_yard), and its noise generator's state the unbroken
+     run's; then the same four runs under
      torch.backends.cudnn.deterministic: the two unbroken runs, the
      saved run against the unbroken run's first half and the resumed run
      against its second half, all bit for bit; (c) phase 11's Titsias run as
@@ -235,8 +236,9 @@ Phases, each of which raises (nonzero exit) on failure:
      steps and the per-step run's over as many; the per-step loss (and
      GECO state), final parameters and eval scores within
      RECHECK_FACTOR x their gap in the per-step run with a capturable
-     Adam (the reordering capture brings; MNIST: 20(a)'s float64 run),
-     floored as hold_runs floors.  Each run prints its step ms (a
+     Adam (the reordering capture brings; MNIST: 20(a)'s float64 run;
+     SPRITES: the largest pairwise gap of the per-step run and
+     YARD_RUNS - 1 such runs), floored as hold_runs floors.  Each run prints its step ms (a
      replayed epoch's or chunk's seconds over its steps) beside the
      per-step p50, and from the trace the ms a step and the card's idle
      share over a window of replayed steps (DEFAULT_LOOP_TRACES), with
@@ -258,9 +260,23 @@ Phases, each of which raises (nonzero exit) on failure:
      step's launches, the run's launches, a trace of its first timed
      epoch whose kernels equal the counters', the per-step loss, final
      parameters and eval scores within RECHECK_FACTOR x the gap of the
-     per-step run with a capturable Adam, floored); each prints its
+     per-step run with a capturable Adam, Casale's the largest pairwise
+     gap of it and YARD_RUNS - 1 such runs, floored); each prints its
      replayed ms a step, idle share and memory peak beside the per-step
      p50.
+ 23. --data_parallel over NCCL, one rank a card, when the machine has 2
+     cards or more (on one card a line says that it did not run and how
+     many cards it saw): the MNIST, Titsias, deep SVIGP and SPRITES runs
+     of NCCL_RUNS per step over 2 and 4 cards, each held to its 1-process
+     run within RECHECK_FACTOR x the largest gap among YARD_RUNS
+     1-process runs, then on their default loops (CUDA graphs with the
+     all-reduces inside) held to their per-step runs, MNIST also with
+     --epoch_chunk 3 --eval_bundle; every rank's launches alike; traces
+     of MNIST's and SPRITES's epoch 1 whose B1/B2 kernels equal the
+     counters' and whose NCCL all-reduce kernels equal the captured
+     graphs' all-reduces over those steps; the serve's fit sharded over 2
+     and 4 cards (the comment above NCCL_RUNS says it all; paths
+     "nccl:<run>:<cards>:<loop>", "nccl:serve:<cards>").
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
@@ -275,7 +291,8 @@ of the card saw them under "epoch_chunk", phase 21's as its traces saw
 them under "default_loop:<run>" and the SPRITES eval calls' under
 "sprites_eval_graph", phase 22's as its traces saw them under
 "captured:<run>" and the VAE-phase run's by the counters under
-"vae_phase_graph", and the max error and
+"vae_phase_graph", phase 23's (on 2 cards or more) summed over the ranks
+under "nccl:...", and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -291,6 +308,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -594,7 +612,7 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    return out[0]
+    return " | ".join(out)  # one line a card
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -1161,24 +1179,35 @@ def hold_to_cpu_gap(tag, got, r32, r32_more, r64, loss_terms,
     `r32_more`), floored (see RECHECK_FACTOR).  Phase 18 holds whole runs
     the same way (`names` label the three, `floors` sets a key's floor
     outright)."""
+    gaps = {k: max(float((r[k] - r64[k]).abs().max())
+                   for r in [r32] + r32_more) for k in got}
+    hold_within(tag, got, r32, r64, gaps, loss_terms, sum_floor, names,
+                floors)
+
+
+def hold_within(tag, got, ref, other, gaps, loss_terms, sum_floor, names,
+                floors=None) -> None:
+    """`got` against `ref`, each value within RECHECK_FACTOR x its
+    yardstick `gaps[k]`, floored (see RECHECK_FACTOR) at FP32_ULP (the
+    loss and GECO state) or `sum_floor` of its scale: `loss_terms` for the
+    loss, max|other[k]| else, where `other` is a yardstick run, printed
+    beside (`floors` sets a key's floor outright)."""
     rows = []
     floors = floors or {}
     a, b, c = names
     for k, g in got.items():
         g = g.detach().cpu().double()
-        scale = loss_terms if k == "loss" else float(r64[k].abs().max())
-        err = float((g - r32[k]).abs().max())
-        gap = max(float((r[k] - r64[k]).abs().max())
-                  for r in [r32] + r32_more)
+        scale = loss_terms if k == "loss" else float(other[k].abs().max())
+        err = float((g - ref[k]).abs().max())
         floor = floors.get(k, (FP32_ULP if k in ("loss", "C_ma",
                                                  "lagrange_mult")
                                else sum_floor) * scale)
-        limit = RECHECK_FACTOR * max(gap, floor)
+        limit = RECHECK_FACTOR * max(gaps[k], floor)
         rows.append((k, err, limit))
         log(f"{tag} {k}: {a} vs {b} {err:.3e}, {b} "
-            f"vs {c} {gap:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
-            + (f"; {a} {float(g):.9g}, {b} {float(r32[k]):.9g}, "
-               f"{c} {float(r64[k]):.12g}" if g.numel() == 1 else ""))
+            f"vs {c} {gaps[k]:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
+            + (f"; {a} {float(g):.9g}, {b} {float(ref[k]):.9g}, "
+               f"{c} {float(other[k]):.12g}" if g.numel() == 1 else ""))
     bad = [k for k, err, limit in rows if not err <= limit]
     if bad:
         raise AssertionError(f"{tag}: the {a} disagrees with the {b} "
@@ -2422,7 +2451,7 @@ def phase_mixed_precision(corpus, mnist_data, phase6, phase8) -> tuple:
 
 class ranks_share_card:
     """Context: up to `n` ranks of a data-parallel run on each card
-    (gloo), restored after."""
+    (gloo; 1: NCCL, a card a rank), restored after."""
 
     def __init__(self, n: int):
         from svgpvae_tpu_torch.parallel import mesh
@@ -2457,15 +2486,49 @@ def run_values(res, scores, series=("loss", "C_ma", "lagrange")) -> dict:
         k: torch.tensor(float(ev[k]), dtype=torch.float64) for k in scores})
 
 
-def hold_runs(tag, got, r32, r64, names, sum_floor, more=()) -> None:
+def hold_runs(tag, got, r32, r64, names, sum_floor) -> None:
     """A data-parallel run (`got`) against the 1-process run (`r32`),
     each value within RECHECK_FACTOR x its gap to `r64` (another order or
-    precision of the same run; with `more` runs like `r32`, the largest of
-    their gaps to `r64`), floored as hold_to_cpu_gap floors; the
+    precision of the same run), floored as hold_to_cpu_gap floors; the
     parameters at DP_PARAM_FLOOR_STEPS Adam steps."""
-    hold_to_cpu_gap(tag, got, r32, list(more), r64,
+    hold_to_cpu_gap(tag, got, r32, [], r64,
                     float(r64["loss"].abs().max()), sum_floor, names=names,
                     floors={"params": DP_PARAM_FLOOR_STEPS * DP_LR})
+
+
+# Runs on the card do not repeat bit for bit (cuDNN's backward sums in an
+# order of its own), and one rerun's gap is no measure of that spread:
+# 20(b) held a resumed --epoch_chunk 5 --eval_bundle run to one unbroken
+# rerun and once failed it on the eval MSE, 6.169e-6 against a floored
+# limit of 3.506e-6 (an NVIDIA H100 80GB HBM3 at 700 W), where the same
+# runs agree bit for bit under cudnn.deterministic (ROADMAP.md section
+# C 12).  So a run that is held to reruns of its reference is held to the
+# largest gap between any two of YARD_RUNS of them (hold_to_yard): 20(b),
+# the captured SPRITES runs of 21(b), Casale's captured runs (phase 22)
+# and phase 23's NCCL runs.  Three were too few: in one full run of phase
+# 23 three MNIST reruns' cgen MSEs fell within 9.7e-7 of each other, where
+# the captured 1-process run sat 6.7e-6 from the first and the 2-card run
+# 1.45e-5 (against a floored limit of 1.37e-5; on NVIDIA H100 80GB HBM3,
+# 700 W).
+YARD_RUNS = 5
+
+
+def hold_to_yard(tag, got, ref, yard, names, sum_floor, floors=None) -> None:
+    """`got` (run_values of a run) against `ref` (those of the run it is
+    held to), each value within RECHECK_FACTOR x the largest gap between
+    two of the yardstick runs `yard` (run_values of YARD_RUNS or more
+    reruns of the reference), floored as hold_runs floors (`floors` adds
+    or overrides a key's floor)."""
+    if len(yard) < YARD_RUNS:
+        raise ValueError(f"{tag}: a yardstick of {len(yard)} runs, "
+                         f"{YARD_RUNS} at least")
+    gaps = {k: max(float((a[k] - b[k]).abs().max())
+                   for i, a in enumerate(yard) for b in yard[i + 1:])
+            for k in got}
+    hold_within(tag, got, ref, yard[1],
+                gaps, float(yard[1]["loss"].abs().max()) if "loss" in yard[1]
+                else 0.0, sum_floor, names,
+                {"params": DP_PARAM_FLOOR_STEPS * DP_LR, **(floors or {})})
 
 
 def check_step_launches(tag, res, steps, want) -> None:
@@ -2803,13 +2866,11 @@ def phase_pictures(base_dir, saved_runs) -> dict:
 # launch as often as in phase 6.  (b) 10 epochs in chunks of 5 (an eval,
 # and with --save a checkpoint, every 5), the second chunk and eval group
 # of one run traced on the card (ReplayTrace), saved, restored (bit for
-# bit) and resumed for its
-# last 5 epochs, held to the unbroken run as (a) holds its run, the
-# yardstick a second unbroken run (cuDNN's backward does not repeat bit
-# for bit on the card, so no two runs do; without the floors a single
-# rerun's gap is no limit: one in the cgen MSE came out 24x below the
-# resumed run's, and floored, the resumed run is within its limit), the
-# noise generator's state ending equal.  (c) Phase 11's Titsias run and
+# bit) and resumed for its last 5 epochs, held to the unbroken run as (a)
+# holds its run, the yardstick the largest gap among YARD_RUNS unbroken
+# runs (cuDNN's backward does not repeat bit for bit on the card, so no
+# two runs do, and one rerun's gap is no limit: see YARD_RUNS), the noise
+# generator's state ending equal.  (c) Phase 11's Titsias run and
 # phase 15's deep SVIGP run
 # in chunks of 2, each held to its eager run as (a): Titsias to its
 # float64 gap; deep SVIGP, whose run draws nothing and refuses --x64, to
@@ -3052,7 +3113,8 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
     log(f"20(b) the last chunk and eval group of the first unbroken run, "
         f"traced: the card ran {seen} (the counters {counted}; per "
         f"replay {runs[0]['graph_launches']})")
-    runs.append(mnist.main(long_argv, splits=splits))
+    runs += [mnist.main(long_argv, splits=splits)
+             for _ in range(YARD_RUNS - 1)]
     saved = mnist.main(CHUNK_RESUME_ARGV + SAVE_ARGV + ["--base_dir",
                                                         base_dir],
                        splits=splits)
@@ -3079,10 +3141,11 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
         raise AssertionError("20(b): the resumed run's noise generator "
                              "ends apart from the unbroken run's")
     half = len(saved["metrics"])
-    hold_runs("20(b) resumed", *(
-        run_values(dict(r, metrics=r["metrics"][-half:]), scores)
-        for r in (resumed, runs[0], runs[1])),
-        ("resumed", "unbroken", "unbroken rerun"), SUM_FLOOR)
+    got, *yard = (run_values(dict(r, metrics=r["metrics"][-half:]), scores)
+                  for r in [resumed] + runs)
+    hold_to_yard("20(b) resumed", got, yard[0], yard,
+                 ("resumed", "unbroken", f"unbroken reruns (x{len(yard)})"),
+                 SUM_FLOOR)
     deterministic_resume(splits, long_argv, base_dir, scores)
     log(chunk_timing("20(b) mnist 10 epochs in chunks of 5 (the untraced "
                      "run)", runs[1], phase6[0]))
@@ -3142,6 +3205,10 @@ DEFAULT_LOOP_TRACES = {
     "ball_np_train": (["--eval_every", "50"], slice(50, 100),
                       slice(50, 100), (0, 50))}
 ANNOTATIONS = ("train_step", "gp_block", "eval_pass", "pictures")
+# NCCL's all-reduce kernels, as a trace of the card names them
+# (ncclDevKernel_AllReduce_Sum_f32_RING_LL and the like): both words,
+# lower-cased
+NCCL_ALL_REDUCE = ("nccl", "allreduce")
 
 
 class reordered_adam:
@@ -3170,24 +3237,38 @@ def traced_steps(driver, argv, kw, base_dir, steps, window) -> tuple:
     and its one Chrome trace (MNIST and SPRITES: epoch 1; the ball: its
     second chunk) read back: (the kernels' launches the trace saw, by
     DEVICE_KERNELS; the counters' launches over the traced steps, the
-    `steps` slice of the run's step_launches; {"ms_per_step", "idle"}
-    over the trace's graph replays window[0]..window[1] - 1, each one
-    cudaGraphLaunch; a third entry of `window`, when there is one, is the
-    count of training steps among those replays, else all are steps).
-    The window runs on the card's clock from the first of its replays'
-    kernels to the end of the last one's (a kernel joins its launch by
-    the trace's correlation id): its ms a step is its length over its
-    steps, its idle share 1 - the union of the card's
-    intervals (kernels, copies, memsets) in it over its length; with
-    "replay_kernels", the card's kernel records of each traced
-    cudaGraphLaunch, in order (see replay_gaps)."""
+    `steps` slice of the run's step_launches; read_trace's record over
+    `window` with "ms_per_step" added: its ms over its steps, a third
+    entry of `window` when there is one, else its replays)."""
     trace_dir = tempfile.mkdtemp(prefix="trace_", dir=base_dir)
     res = driver.main(argv + ["--profile_dir", trace_dir], **kw)
     (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    seen, win = read_trace(path, window)
+    counted = {k: sum(sl[k] for sl in res["step_launches"][steps])
+               for k in seen}
+    lo, hi, *n_steps = window
+    win["ms_per_step"] = win["ms"] / (n_steps[0] if n_steps else hi - lo)
+    return seen, counted, win
+
+
+def read_trace(path, window=None) -> tuple:
+    """A Chrome trace of the card: (the kernels' launches it saw, by
+    DEVICE_KERNELS; {"ms", "idle", "replay_kernels", "nccl",
+    "nccl_in_replays", "nccl_ms", "replays"}).  "ms" and "idle" are over
+    the graph replays window[0]..window[1] - 1 (each one cudaGraphLaunch),
+    or with `window` None over every record of the card: the window runs
+    on the card's clock from the first of its replays' kernels to the end
+    of the last one's (a kernel joins its launch by the trace's
+    correlation id), its idle share 1 - the union of the card's intervals
+    (kernels, copies, memsets) in it over its length; "replay_kernels" the
+    card's kernel records of each traced cudaGraphLaunch, in order (see
+    replay_gaps); "nccl" the NCCL all-reduce kernels, "nccl_in_replays"
+    those of graph replays, "nccl_ms" their device ms."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     seen = dict.fromkeys(DEVICE_KERNELS, 0)
     device, launches, kernels = [], [], collections.Counter()
+    nccl = []
     for e in events:
         cat, name = e.get("cat"), e.get("name", "")
         corr = e.get("args", {}).get("correlation")
@@ -3199,29 +3280,35 @@ def traced_steps(driver, argv, kw, base_dir, steps, window) -> tuple:
             kernels[corr] += cat == "kernel"
             for k, names in DEVICE_KERNELS.items():
                 seen[k] += cat == "kernel" and any(n in name for n in names)
+            if cat == "kernel" and all(w in name.lower()
+                                       for w in NCCL_ALL_REDUCE):
+                nccl.append((corr, e.get("dur", 0.0)))
     # B3 runs B2's stats kernel on the K it builds: one more a B3 launch
     seen["gp_sufficient_stats"] -= seen["fused_kernel_stats"]
-    counted = {k: sum(sl[k] for sl in res["step_launches"][steps])
-               for k in seen}
-    lo, hi, *n_steps = window
     launches.sort()
-    if len(launches) < hi:
-        raise AssertionError(f"{path}: {len(launches)} graph replays traced,"
-                             f" the window needs {hi}")
-    chosen = {c for _, c in launches[lo:hi]}
-    mine = [(a, b) for a, b, c in device if c in chosen]
-    t0, t1 = min(a for a, _ in mine), max(b for _, b in mine)
+    if window is None:
+        t0 = min(a for a, _, _ in device)
+        t1 = max(b for _, b, _ in device)
+    else:
+        lo, hi, *_ = window
+        if len(launches) < hi:
+            raise AssertionError(f"{path}: {len(launches)} graph replays "
+                                 f"traced, the window needs {hi}")
+        chosen = {c for _, c in launches[lo:hi]}
+        mine = [(a, b) for a, b, c in device if c in chosen]
+        t0, t1 = min(a for a, _ in mine), max(b for _, b in mine)
     busy, end = 0.0, t0
     for a, b, _ in sorted(device):
         a, b = max(a, end), min(b, t1)
         if b > a:
             busy += b - a
             end = b
-    n_steps = n_steps[0] if n_steps else hi - lo
-    return seen, counted, {"ms_per_step": (t1 - t0) / 1e3 / n_steps,
-                           "idle": 1.0 - busy / (t1 - t0),
-                           "replay_kernels": [kernels[c]
-                                              for _, c in launches]}
+    replays = {c for _, c in launches}
+    return seen, {"ms": (t1 - t0) / 1e3, "idle": 1.0 - busy / (t1 - t0),
+                  "replay_kernels": [kernels[c] for _, c in launches],
+                  "replays": len(launches), "nccl": len(nccl),
+                  "nccl_in_replays": sum(c in replays for c, _ in nccl),
+                  "nccl_ms": sum(d for _, d in nccl) / 1e3}
 
 
 def replay_gaps(replay_kernels: list) -> list:
@@ -3236,7 +3323,7 @@ def replay_gaps(replay_kernels: list) -> list:
 def default_loop(tag, driver, argv, eager, eager_counts, traced, kw,
                  base_dir, check_steps, scores, sum_floor,
                  series=("loss", "C_ma", "lagrange"), unit="epochs",
-                 yardstick=None, extra_hold=None, yard_runs=1) -> tuple:
+                 yardstick=None, extra_hold=None, pairwise=False) -> tuple:
     """Phase 21 for one run: `driver.main(argv, **kw)` with its default
     loop, captured, against `eager` (its per-step run, launching
     `eager_counts`): graph replays, `check_steps(res)` (each step's
@@ -3247,9 +3334,10 @@ def default_loop(tag, driver, argv, eager, eager_counts, traced, kw,
     the same count, the window): a captured run of argv + extra traced by
     its --profile_dir,
     whose kernels the card ran equal the counters' over the traced steps
-    and the per-step run's over as many steps.  With `yard_runs` > 1 the
-    default yardstick runs that many times and the gap is the largest of
-    the per-step run's and the others' to the first.  `extra_hold(tag,
+    and the per-step run's over as many steps.  With `pairwise` the
+    run is held to the per-step run within the largest gap between any
+    two of it and YARD_RUNS - 1 capturable-Adam reruns (hold_to_yard).
+    `extra_hold(tag,
     res, eager, yard)`, when given, holds more of the run (SPRITES: its
     pretraining).  Returns the launches the trace saw and the captured
     run's by the counters."""
@@ -3277,13 +3365,11 @@ def default_loop(tag, driver, argv, eager, eager_counts, traced, kw,
             f"{eager_window}; the traced replays' kernel records "
             f"{len(win['replay_kernels'])} replays, off the most common "
             f"count (position, records) {replay_gaps(win['replay_kernels'])}")
-    more = []
     if yardstick is None:
         with reordered_adam():
-            yard, *more = [driver.main(argv, per_step=True, **kw)
-                           for _ in range(yard_runs)]
-        yard = ("per-step, Adam capturable"
-                + (f" (x{yard_runs})" if more else ""), yard)
+            reruns = [driver.main(argv, per_step=True, **kw)
+                      for _ in range(YARD_RUNS - 1 if pairwise else 1)]
+        yard = ("per-step, Adam capturable", reruns[0])
     else:
         yard = yardstick()
     eager_ms = 1e3 * np.percentile(eager["step_seconds"][1:], 50)
@@ -3303,9 +3389,16 @@ def default_loop(tag, driver, argv, eager, eager_counts, traced, kw,
         f"{win['ms_per_step']:.3f} ms a step, idle share "
         f"{win['idle']:.3f}; max_memory_allocated of the captured run "
         f"{peak / 2**20:.1f} MiB; {gpu_name_and_power()}")
-    hold_runs(f"{tag} captured", *(run_values(r, scores, series) for r in (
-        res, eager, yard[1])), ("captured", "per-step", yard[0]), sum_floor,
-        [run_values(r, scores, series) for r in more])
+    if pairwise:
+        ref = run_values(eager, scores, series)
+        hold_to_yard(f"{tag} captured", run_values(res, scores, series), ref,
+                     [ref] + [run_values(r, scores, series) for r in reruns],
+                     ("captured", "per-step", f"per-step and {yard[0]} "
+                      f"(x{YARD_RUNS})"), sum_floor)
+    else:
+        hold_runs(f"{tag} captured", *(run_values(r, scores, series)
+                                       for r in (res, eager, yard[1])),
+                  ("captured", "per-step", yard[0]), sum_floor)
     if extra_hold is not None:
         extra_hold(tag, res, eager, yard)
     return seen, counts
@@ -3352,8 +3445,12 @@ def sprites_default_loop(tag, argv, eager, per_step, corpus,
                          base_dir) -> dict:
     """21(b) for one SPRITES run: default_loop against `eager` ((result,
     launches) of its per-step run), each step launching (B1, B2, B3)
-    `per_step` times, its pretraining held too; returns what its trace
-    saw."""
+    `per_step` times, its pretraining held too, the yardstick pairwise
+    (over five runs of this phase on an NVIDIA H100 80GB HBM3 at 700 W,
+    one capturable-Adam rerun's test-MSE gap to the per-step run ranged
+    1.9e-6 to 7.7e-5, the captured run's 3.2e-6 to 5.9e-5, and the
+    smallest draw failed a captured run 2.9e-5 away);
+    returns what its trace saw."""
     from svgpvae_tpu_torch.cli import sprites
 
     def check(res):
@@ -3367,7 +3464,8 @@ def sprites_default_loop(tag, argv, eager, per_step, corpus,
     return default_loop(
         tag, sprites, argv, *eager, DEFAULT_LOOP_TRACES["sprites"],
         {"splits": corpus}, base_dir, check, ("test_mse", "cgen_mse"),
-        SPRITES_SUM_FLOOR, extra_hold=hold_sprites_pretraining)[0]
+        SPRITES_SUM_FLOOR, extra_hold=hold_sprites_pretraining,
+        pairwise=True)[0]
 
 
 def sprites_eval_trace(corpus) -> dict:
@@ -3547,9 +3645,7 @@ CASALE_SUM_FLOOR = math.sqrt(8_100 * 28 * 28) * 2.0 ** -24
 # moved 1.6e-4 in one yardstick draw and 2.7e-3 in another (of ~0.067;
 # the captured runs' 2.4e-3 and 1.6e-4 from the per-step run's, on an
 # NVIDIA H100 80GB HBM3 at 700.00 W).  One draw is no measure of that
-# spread, so its yardstick is the largest gap of the per-step run and two
-# more capturable-Adam runs to a first.
-CASALE_YARD_RUNS = 3
+# spread, so its yardstick is pairwise (default_loop's `pairwise`).
 
 
 def captured_rest_argv(tag) -> list:
@@ -3595,11 +3691,379 @@ def phase_captured_rest(mnist_data, phase15, base_dir) -> dict:
             (extra, steps, eager_steps, window), {"splits": mnist_data},
             base_dir, check, scores,
             CASALE_SUM_FLOOR if casale else SUM_FLOOR, ("loss",),
-            yard_runs=CASALE_YARD_RUNS if casale else 1)
+            pairwise=casale)
         paths[f"captured:{tag}"] = seen
         if tag == "mnist_vae_phase_train":
             paths["vae_phase_graph"] = counts
     torch.cuda.empty_cache()
+    return paths
+
+
+# --- phase 23 ---------------------------------------------------------------
+# --data_parallel over NCCL, one rank a card (2 cards or more; on one card
+# the phase prints that it did not run).  (a) Each run per step (the
+# drivers' per-step loops, main(per_step=True)) over 2 and 4 cards, held to
+# the 1-process run on the same data and draws within RECHECK_FACTOR x the
+# largest gap among YARD_RUNS 1-process runs (hold_to_yard), every rank's
+# launches equal and each step's as in the 1-process run; (b) the same run
+# on its default loop, which replays CUDA graphs with the all-reduces
+# inside, held to its per-step data-parallel run against the same
+# yardstick, its launches those of the per-step run; (c) the serve with
+# its fit sharded.  The runs: the north-star MNIST run (phase 6's flags)
+# over 6 epochs (2 and 4 cards), and over 2 cards with --epoch_chunk 3
+# --eval_bundle; phase 11's Titsias run and phase 15's deep SVIGP run (2
+# cards; deep SVIGP's yardstick adds its run on nudged pixels, 20(c)'s,
+# since its runs draw nothing); phase 8's SPRITES run over 4 epochs (2 and
+# 4 cards) on phase 4's corpus, which every rank reads from shards on
+# disk; the serve of phase 4 with random weights (2 and 4 cards), whose
+# yardstick adds the 1-process fit on its rows reversed.  MNIST's and
+# SPRITES's 1-process, per-step and captured runs trace their epoch 1
+# (--profile_dir, rank 0): the kernels the card ran in it equal the
+# counters' over its steps, and its NCCL all-reduce kernels (inside the
+# replays, for a captured run) equal the all-reduces of the captured
+# run's graphs over those steps; their step p50/p90 come from the
+# untraced epochs (a captured run's: epoch seconds / steps, its first
+# epoch left out).
+NCCL_MNIST_ARGV = [{"joint-2": "joint-6", "2": "6"}.get(a, a)
+                   for a in TRAIN_ARGV]
+NCCL_SPRITES_ARGV = [{"joint-1": "joint-4", "1": "4"}.get(a, a)
+                     for a in SPRITES_ARGV]
+# tag -> (driver, argv, cards, each step's (B1, B2, B3), the scores held,
+# the per-step series held, the traced epoch's steps and the window of
+# its graph replays in a captured run (MNIST's before its tail, whose
+# graph is captured there), or None: untraced)
+NCCL_RUNS = {
+    "mnist": ("mnist", NCCL_MNIST_ARGV, (2, 4), (1, 1, 0),
+              ("eval_mse", "test_mse", "cgen_mse"),
+              ("loss", "C_ma", "lagrange"), (slice(32, 64), (0, 31))),
+    "mnist_titsias": ("mnist", TITSIAS_ARGV, (2,), (1, 2, 0),
+                      ("eval_mse", "test_mse", "cgen_mse"),
+                      ("loss", "C_ma", "lagrange"), None),
+    "svigp": ("mnist", _baseline_argv("svigp_train"), (2,), (0, 0, 0),
+              ("cgen_mse",), ("loss",), None),
+    "sprites": ("sprites", NCCL_SPRITES_ARGV, (2, 4), (2, 1, 0),
+                ("test_mse", "cgen_mse"), ("loss", "C_ma", "lagrange"),
+                (slice(SPRITES_STEPS, 2 * SPRITES_STEPS),
+                 (0, SPRITES_STEPS)))}
+NCCL_CHUNK_ARGV = ["--epoch_chunk", "3", "--eval_bundle"]
+SERVE_SUM_FLOOR = math.sqrt(50 * SERVE_CHARS) * 2.0 ** -24
+
+
+def nccl_timing(res, epoch_steps, traced) -> dict:
+    """Step p50/p90 (ms) of a run's untraced epochs: a per-step run's step
+    seconds but its first step's, a captured run's epoch seconds / steps
+    but its first epoch's (warm-ups and captures)."""
+    if res["chunks"]:
+        per = [c["seconds"] / c["steps"] for i, c in enumerate(res["chunks"])
+               if i > 0 and not (traced and i == 1)]
+    else:
+        per = [t for i, t in enumerate(res["step_seconds"])
+               if i > 0 and not (traced and i // epoch_steps == 1)]
+    return {"step_p50_ms": 1e3 * float(np.percentile(per, 50)),
+            "step_p90_ms": 1e3 * float(np.percentile(per, 90))}
+
+
+def nccl_run(tag, ranks, captured, extra=(), trace=None, **kw) -> tuple:
+    """One run of NCCL_RUNS[tag] + `extra` argv on `ranks` cards (1: no
+    group), per step or captured, with `trace` (its traced steps and the
+    captured window) its epoch 1 traced: (result, {timing, trace,
+    launches})."""
+    import importlib
+    from svgpvae_tpu_torch import ops
+    name, argv, *_ = NCCL_RUNS[tag]
+    driver = importlib.import_module(f"svgpvae_tpu_torch.cli.{name}")
+    argv = argv + list(extra) + (["--data_parallel", str(ranks)]
+                                 if ranks > 1 else [])
+    epochs = (int(argv[argv.index("--opt_regime") + 1].rsplit("-")[1])
+              if "--opt_regime" in argv
+              else int(argv[argv.index("--nr_epochs") + 1]))
+    trace_dir = tempfile.mkdtemp(prefix="trace_") if trace else None
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = driver.main(argv + (["--profile_dir", trace_dir] if trace else []),
+                      per_step=not captured, **kw)
+    seconds = time.perf_counter() - t0
+    epoch_steps = len(res["metrics"]) // epochs
+    rec = {"tag": tag, "cards": ranks, "loop": "captured" if captured
+           else "per step",
+           "flags": " ".join(NCCL_CHUNK_ARGV) if set(NCCL_CHUNK_ARGV) <= set(
+               extra) else "",
+           "steps": len(res["metrics"]),
+           "seconds": seconds, **nccl_timing(res, epoch_steps, bool(trace)),
+           "launches": ops.launch_counts(),
+           "rank_launches": res.get("rank_launches")}
+    if trace:
+        steps, window = trace
+        (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+        seen, win = read_trace(path, window if captured else None)
+        shutil.rmtree(trace_dir)
+        n = steps.stop - steps.start
+        n_window = window[1] - window[0] if captured else n
+        rec.update(seen=seen, counted={
+            k: sum(sl[k] for sl in res["step_launches"][steps])
+            for k in seen}, traced_steps=n,
+            trace_ms_per_step=win["ms"] / n_window, idle=win["idle"],
+            nccl=win["nccl"], nccl_in_replays=win["nccl_in_replays"],
+            nccl_per_step=win["nccl"] / n,
+            nccl_ms_per_step=win["nccl_ms"] / n, replays=win["replays"])
+    log(f"23 {tag} on {ranks} card(s), {rec['loop']}: " + json.dumps(
+        {k: v for k, v in rec.items() if k not in ("tag", "cards", "loop")}))
+    return res, rec
+
+
+def nccl_check_launches(tag, res, rec, per_step, ranks) -> None:
+    """Each step's launches on rank 0 are `per_step` (B1, B2, B3); every
+    rank launched alike, at least `per_step` x steps, and B3 once an eval
+    fit (SPRITES) or never (MNIST)."""
+    keys = ("chol_inverse", "gp_sufficient_stats", "fused_kernel_stats")
+    steps = len(res["metrics"])
+    check_step_launches(f"23 {tag}", res, steps,
+                        lambda sl: tuple(sl[k] for k in keys) == per_step)
+    b3 = len(res["evals"]) if per_step[0] == 2 else 0
+
+    def want(c):
+        return (c["chol_inverse"] >= per_step[0] * steps
+                and c["gp_sufficient_stats"] >= per_step[1] * steps
+                and c["fused_kernel_stats"] == b3)
+    if ranks > 1:
+        check_rank_launches(f"23 {tag} on {ranks} cards", res, ranks, want)
+    elif not want(rec["launches"]):
+        raise AssertionError(f"23 {tag}: launched {rec['launches']}")
+
+
+def nccl_check_trace(tag, rec, graphs) -> None:
+    """A traced run's epoch 1: the card's B1/B2/B3 kernels equal the
+    counters', and its NCCL all-reduce kernels (all inside the replays for
+    a captured run) those of the captured run's graphs over its steps
+    (`graphs`: its graph_all_reduces; every traced step a full step but
+    MNIST's last, its tail)."""
+    n = rec["traced_steps"]
+    tail = graphs.get("tail", 0) if tag == "mnist" else graphs["full"]
+    want = (n - 1) * graphs["full"] + tail
+    replayed = rec["nccl_in_replays"] if rec["loop"] == "captured" \
+        else rec["nccl"]
+    if rec["seen"] != rec["counted"] or rec["nccl"] != want \
+            or replayed != want or rec["seen"]["chol_inverse"] < n:
+        raise AssertionError(
+            f"23 {tag} on {rec['cards']} card(s), {rec['loop']}: the trace "
+            f"saw {rec['seen']} and {rec['nccl']} NCCL all-reduces "
+            f"({rec['nccl_in_replays']} in replays); the counters "
+            f"{rec['counted']}, the graphs' all-reduces {want} ({graphs})")
+
+
+def nccl_floors(tag, yard) -> dict:
+    """Phase 23's floors beyond hold_runs' (`yard`: run_values of a
+    1-process run): GECO's lagrange multiplier is the running product of
+    one exp(C_ma) a step, so its round-off walks sqrt(steps) fp32 ulps of
+    its size, where the default floor is one ulp (a four-card run of the
+    phase held the lagrange of MNIST over 4 cards 0.195 from the 1-process
+    run's, 25 ulps at its cap of 1e5 after 192 steps, against a 3-rerun gap
+    of 1 ulp and a floored limit of 0.119); deep SVIGP's loss is a sum of
+    a batch's squared errors, floored as 20(c) floors it."""
+    floors = {}
+    if "lagrange_mult" in yard:
+        floors["lagrange_mult"] = (math.sqrt(len(yard["lagrange_mult"]))
+                                   * FP32_ULP
+                                   * float(yard["lagrange_mult"].abs().max()))
+    if tag == "svigp":
+        floors["loss"] = SUM_FLOOR * float(yard["loss"].abs().max())
+    return floors
+
+
+def nccl_cards(cards) -> tuple:
+    """The card counts of `cards` that the machine has."""
+    import torch
+    return tuple(c for c in cards if c <= torch.cuda.device_count())
+
+
+def nccl_config(tag, kw, extra=()) -> tuple:
+    """Phase 23(a, b) for one entry of NCCL_RUNS (`extra` argv added to
+    every run); returns ({path: launches summed over the ranks}, [run
+    records])."""
+    import torch
+    _, _, cards, per_step, scores, series, trace = NCCL_RUNS[tag]
+
+    def values(res):
+        return run_values(res, scores, series)
+
+    yard_res = [nccl_run(tag, 1, False, extra,
+                         trace=trace if i == 0 else None, **kw)
+                for i in range(YARD_RUNS)]
+    records = [r for _, r in yard_res[:1]]
+    for res, rec in yard_res[:1]:
+        nccl_check_launches(tag, res, rec, per_step, 1)
+    yard = [values(r) for r, _ in yard_res]
+    if tag == "svigp":  # its runs draw nothing: 20(c)'s nudged pixels too
+        yard.append(values(nccl_run(tag, 1, False, extra,
+                                    splits=nudged_images(kw["splits"]))[0]))
+    ref = yard[0]
+    floors = nccl_floors(tag, yard[1])
+    del yard_res
+    paths, graphs, pending = {}, None, []
+    if trace:
+        one, rec = nccl_run(tag, 1, True, extra, trace=trace, **kw)
+        nccl_check_launches(tag, one, rec, per_step, 1)
+        hold_to_yard(f"23 {tag} on 1 card captured", values(one), ref, yard,
+                     ("captured", "1 process", f"reruns (x{len(yard)})"),
+                     SUM_FLOOR, floors)
+        records.append(rec)
+        pending += [records[0], rec]
+        del one
+    per_step_runs = {}  # (a) before (b): a failed capture leaves them run
+    for ranks in nccl_cards(cards):
+        dp, rec = nccl_run(tag, ranks, False, extra, trace=trace, **kw)
+        nccl_check_launches(tag, dp, rec, per_step, ranks)
+        per_step_runs[ranks] = (values(dp), dp["rank_launches"])
+        hold_to_yard(f"23 {tag} on {ranks} cards per step", values(dp), ref,
+                     yard, (f"{ranks} cards", "1 process",
+                            f"1-process reruns (x{len(yard)})"),
+                     SUM_FLOOR, floors)
+        records.append(rec)
+        pending += [rec] if trace else []
+        paths[f"nccl:{tag}:{ranks}:per_step"] = {
+            k: sum(c[k] for c in dp["rank_launches"]) for k in KERNELS}
+        del dp
+    for ranks, (dp, dp_launches) in per_step_runs.items():
+        cap, rec = nccl_run(tag, ranks, True, extra, trace=trace, **kw)
+        nccl_check_launches(tag, cap, rec, per_step, ranks)
+        if not cap["graph_replays"] or cap["rank_launches"] != dp_launches:
+            raise AssertionError(
+                f"23 {tag} on {ranks} cards captured: graph replays "
+                f"{cap['graph_replays']}, rank launches "
+                f"{cap['rank_launches']} (per step {dp_launches})")
+        hold_to_yard(f"23 {tag} on {ranks} cards captured", values(cap), dp,
+                     yard, ("captured", f"{ranks} cards per step",
+                            f"1-process reruns (x{len(yard)})"),
+                     SUM_FLOOR, floors)
+        graphs = cap["graph_all_reduces"]
+        log(f"23 {tag} on {ranks} cards: graph replays "
+            f"{cap['graph_replays']}, all-reduces per replay {graphs}")
+        records.append(rec)
+        pending += [rec] if trace else []
+        paths[f"nccl:{tag}:{ranks}:captured"] = {
+            k: sum(c[k] for c in cap["rank_launches"]) for k in KERNELS}
+        del cap
+        if tag == "mnist" and ranks == 2:
+            chunked, chrec = nccl_run(tag, ranks, True,
+                                      list(extra) + NCCL_CHUNK_ARGV, **kw)
+            nccl_check_launches(tag, chunked, chrec, per_step, ranks)
+            if chunked["graph_replays"].get("eval", 0) < 1:
+                raise AssertionError(f"23 mnist --epoch_chunk: graph "
+                                     f"replays {chunked['graph_replays']}")
+            hold_to_yard("23 mnist on 2 cards --epoch_chunk 3 --eval_bundle",
+                         values(chunked), dp, yard,
+                         ("chunked", "2 cards per step",
+                          f"1-process reruns (x{len(yard)})"), SUM_FLOOR,
+                         floors)
+            records.append(chrec)
+            paths["nccl:mnist_chunk:2:captured"] = {
+                k: sum(c[k] for c in chunked["rank_launches"])
+                for k in KERNELS}
+            del chunked
+        torch.cuda.empty_cache()
+    for rec in pending:
+        nccl_check_trace(tag, rec, graphs if rec["cards"] > 1
+                         else dict.fromkeys(graphs, 0))
+    return paths, records
+
+
+def nccl_serve(corpus, base_dir) -> tuple:
+    """Phase 23(c): the serve (phase 4's corpus, random weights) with its
+    fit sharded over 2 and 4 cards, every rank generating the corpus
+    itself; p_m and p_v of its request held to the 1-process serve's within
+    RECHECK_FACTOR x the largest gap of a 1-process rerun and the
+    1-process fit on the rows reversed, floored at the random-walk
+    round-off of the fit's sums over N rows."""
+    import torch
+    from svgpvae_tpu_torch import gp as gpm, ops, serving
+    from svgpvae_tpu_torch.cli import serve
+    argv = ["--synthetic", "--synthetic_chars", str(SERVE_CHARS),
+            "--n_requests", "1", "--device", "cuda", "--seed", "0", "--out",
+            os.path.join(base_dir, "nccl_serve.npz")]
+
+    def values(req):
+        return {k: req[k].detach().double().cpu() for k in ("p_m", "p_v")}
+
+    ones = [serve.main(argv, splits=corpus) for _ in range(YARD_RUNS - 1)]
+    st = ones[0]["state"]
+    req = st["served"][0]
+    pred = st["predictor"]
+    flip = serving.fit(pred.gp_params, *(st[k].flip(0) for k in (
+        "means", "variances", "aux")))
+    with torch.no_grad():
+        p_m, p_v = gpm.posterior_from_precomputed(
+            pred.gp_params, req["aux_query"], flip.mean_terms,
+            flip.sigma_inv, flip.kmm_inv)
+    yard = [values(o["state"]["served"][0]) for o in ones] + [
+        {"p_m": p_m.double().cpu(),
+         "p_v": torch.clamp(p_v, *serving.PVAR_CLIP).double().cpu()}]
+    want = {"chol_inverse": 0, "fused_kernel_stats": 1,
+            "gp_sufficient_stats": 0}
+    paths, records = {}, []
+    for ranks in nccl_cards((2, 4)):
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        res = serve.main(argv + ["--data_parallel", str(ranks)])
+        hold_to_yard(f"23 serve on {ranks} cards", values(
+            res["state"]["served"][0]), yard[0], yard,
+            (f"fit on {ranks} cards", "1 process",
+             "1-process reruns and reversed rows"), SERVE_SUM_FLOOR)
+        launches = check_rank_launches(f"23 serve on {ranks} cards", res,
+                                       ranks, lambda c: c == want)
+        if res["fit_launches"] != want:
+            raise AssertionError(f"23 serve on {ranks} cards: the fit "
+                                 f"launched {res['fit_launches']}")
+        rec = {"tag": "serve", "cards": ranks, "seconds":
+               time.perf_counter() - t0, "fit_s": res["seconds"]["fit"],
+               "fit_s_1_process": ones[0]["seconds"]["fit"],
+               "rank_launches": res["rank_launches"]}
+        log(f"23 serve on {ranks} cards: " + json.dumps(rec))
+        records.append(rec)
+        paths[f"nccl:serve:{ranks}"] = launches
+    return paths, records
+
+
+def phase_nccl(mnist_data, corpus, base_dir, records=None,
+               parts=None) -> dict:
+    """Phase 23 on the visible cards (2 or more; the 4-card runs need 4):
+    NCCL_RUNS and the serve (or those of them named in `parts`); returns
+    {path: launches summed over the ranks}, and appends every run's record
+    to `records` when given.  Every part runs, and the phase then fails if
+    any part did."""
+    import traceback
+    import torch
+    from svgpvae_tpu_torch import data
+    from svgpvae_tpu_torch.parallel import mesh
+    sprites_dir = tempfile.mkdtemp(prefix="sprites_", dir=base_dir)
+    if parts is None or "sprites" in parts:
+        data.save_sprites_shards(corpus, sprites_dir)
+    # the SPRITES ranks read phase 4's corpus from disk, each its own copy
+    kws = {"sprites": ({}, ["--sprites_data_path", sprites_dir]),
+           "mnist": ({"splits": mnist_data}, [])}
+    paths, failed = {}, []
+    records = [] if records is None else records
+    todo = [(tag, nccl_config, (tag, *kws[NCCL_RUNS[tag][0]]))
+            for tag in NCCL_RUNS] + [("serve", nccl_serve,
+                                      (corpus, base_dir))]
+    with ranks_share_card(1):
+        for tag, fn, args in todo:
+            if parts is not None and tag not in parts:
+                continue
+            t0 = time.perf_counter()
+            try:
+                p, r = fn(*args)
+            except Exception:  # every part runs; the phase fails below
+                log(f"23 {tag} FAILED:\n{traceback.format_exc()}")
+                failed.append(tag)
+                continue
+            finally:
+                log(f"[23 {tag}: {time.perf_counter() - t0:.1f} s]")
+                torch.cuda.empty_cache()
+            paths.update(p)
+            records += r
+    shutil.rmtree(sprites_dir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"phase 23 failed in {failed}")
     return paths
 
 
@@ -3691,6 +4155,14 @@ def main() -> int:
                              ball_runs, runs.name)
     rest_launches = timed(22, phase_captured_rest, mnist_data, phase15,
                           runs.name)
+    cards = torch.cuda.device_count()
+    nccl_launches = {}
+    if cards >= 2:
+        nccl_launches = timed(23, phase_nccl, mnist_data, corpus,
+                              runs.name)
+    else:
+        log(f"[phase 23: not run: --data_parallel over NCCL needs 2 cards or "
+            f"more, this machine has {cards}]")
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -3701,7 +4173,7 @@ def main() -> int:
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
              **baseline_launches, **flag_launches, **bf16_launches,
              "pictures": picture_launches, **chunk_launches,
-             **default_launches, **rest_launches}
+             **default_launches, **rest_launches, **nccl_launches}
     # phase 18's paths (every rank's launches, summed) under one key
     paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
                               for k in KERNELS}

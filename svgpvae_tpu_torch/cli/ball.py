@@ -67,8 +67,11 @@ capturable, so the run sits within round-off of a per-step one), with one
 readback a chunk; a step's seconds are its chunk's over its steps, and
 the first chunk is left out of the p50, as the JAX driver leaves out its
 compile.  Elsewhere the steps run one by one, and the run prints why:
-the CPU, --data_parallel, a capture_step, an injected eps_fn, video_fn
-or NP np_split_fn without a generator, or main(per_step=True).
+the CPU, --data_parallel (over gloo, which stages its all-reduces
+through the host; over NCCL because the ball's batch of 35 videos tiles
+5 or 7 ranks, so its graphs across ranks have no check on 2 or 4 cards),
+a capture_step, an injected eps_fn, video_fn or NP np_split_fn without a
+generator, or main(per_step=True).
 --profile_dir DIR writes a torch.profiler Chrome trace into DIR of the
 JAX driver's second chunk (steps start + chunk to start + 2 chunk, when
 they are all to run): its replays, or its steps, in "train_step"
@@ -586,6 +589,10 @@ def per_step_reason(args, device, per_step: bool, capture_step,
     why = uncaptured_reason(device)
     if why is not None:
         return why
+    if parallel.run_ranks() > 1:
+        return ("--data_parallel: the ball's graphs have no check over "
+                "NCCL (its batch of 35 videos tiles 5 or 7 ranks, not the "
+                "2 or 4 cards they could be checked on)")
     if capture_step is not None:
         return "capture_step keeps one step's inputs"
     for what, gen in (("eps_fn", noise.generator),

@@ -149,27 +149,36 @@ rank's Adam takes the same step.  The tail batch runs replicated on every
 rank, as the eval passes do, but for the cgen's full-train fit, which
 each rank runs on its share of the train rows (B2) before the sums are
 added.  Only rank 0 writes the run dir, its CSVs and checkpoints and
-prints; --resume_dir restores on every rank.  Refused, with the JAX
-driver's messages: N above the visible devices, a --batch_size that N
-does not divide, and --bias_analysis; and for Casale, which the JAX
-driver runs on one device whatever the flag says.
+prints; --resume_dir restores on every rank.  With a card per rank the
+ranks talk over NCCL and the training loops replay CUDA graphs with the
+all-reduces inside (below); ranks sharing a card talk over gloo and step
+one by one.  Refused, with the JAX driver's messages: N above the
+visible devices, a --batch_size that N does not divide, and
+--bias_analysis; and for Casale, which the JAX driver runs on one device
+whatever the flag says.
 
 The default loop (--epoch_chunk 1) is the JAX driver's one program an
-epoch (train.make_epoch_fn): on a CUDA device in a 1-process run each
-epoch of every runner replays captured CUDA graphs, a full-batch step
-and the tail step (make_epoch_chunks with a chunk of one epoch), and its
-metrics are read back once.  The SVGPVAE's VAE phases of --opt_regime
-replay graphs of the VAE loss that step the same optimizer, step counter
-and GECO state as the joint graphs (one capture.GraphSteps over both
-losses); each Casale regime replays its own graphs, and under
---casale_taylor_every K > 1 the refresh of the held full-train sample is
-a graph of its own ahead of every K-th step.  Elsewhere the steps run
-one by one, and the run prints why (per_step_reason): the CPU,
---data_parallel, --bias_analysis (per step in the JAX driver too),
---x64, a capture_step, an injected eps_fn without a generator, or
-main(per_step=True).  A replayed epoch's steps are timed as its seconds
-over its steps; the first epoch, and the first after each regime switch
-(warm-ups and captures), are left out of the p50.
+epoch (train.make_epoch_fn): on a CUDA device, in a 1-process run or
+under --data_parallel over NCCL, each epoch of every runner replays
+captured CUDA graphs, a full-batch step and the tail step
+(make_epoch_chunks with a chunk of one epoch), and its metrics are read
+back once.  Over NCCL each rank replays the same graphs in the same
+order: the full-batch step's graph takes the rank's rows and holds the
+step's all-reduces (the GP statistics' psums, their backward, the
+gradients'), the tail step's the replicated step's mean all-reduces.
+The SVGPVAE's VAE phases of --opt_regime replay graphs of the VAE loss
+that step the same optimizer, step counter and GECO state as the joint
+graphs (one capture.GraphSteps over both losses); each Casale regime
+replays its own graphs, and under --casale_taylor_every K > 1 the
+refresh of the held full-train sample is a graph of its own ahead of
+every K-th step.  Elsewhere the steps run one by one, and the run prints
+why (per_step_reason): the CPU, --data_parallel over gloo (ranks sharing
+a card: gloo stages each all-reduce through the host), --bias_analysis
+(per step in the JAX driver too), --x64, a capture_step, an injected
+eps_fn without a generator, or main(per_step=True).  A replayed epoch's
+steps are timed as its seconds over its steps; the first epoch, and the
+first after each regime switch (warm-ups and captures), are left out of
+the p50.
 
 The JAX driver's one-program flags, with the same numbers as an
 unchunked run and fewer host round trips:
@@ -185,16 +194,18 @@ unchunked run and fewer host round trips:
     count, VAE and CVAE).  On a CUDA device in a 1-process run the steps
     replay two captured CUDA graphs, a full-batch step and the tail step
     (train.capture.GraphSteps: the run's first steps are its warm-ups, Adam
-    turns capturable, so the run sits within round-off of an eager one);
-    on the CPU and under --data_parallel the run takes the unchunked
-    per-epoch loop, which gives the same numbers.  The timer keeps each
-    chunk's seconds after synchronize; the first chunk (warm-up and
-    captures) is left out of the p50, as JAX leaves out the compile;
+    turns capturable, so the run sits within round-off of an eager one),
+    also under --data_parallel over NCCL; on the CPU and under gloo the
+    run takes the unchunked per-epoch loop, which gives the same
+    numbers.  The timer keeps each chunk's seconds after synchronize;
+    the first chunk (warm-up and captures) is left out of the p50, as
+    JAX leaves out the compile;
   * --eval_bundle (SVGPVAE, outside a VAE-phase epoch): the eval recon,
     the test recon, the full-train encode and the cgen, tails included,
     as one function with the sums on the device and one readback per
-    eval; on a CUDA device in a 1-process run it replays one captured
-    CUDA graph (train.capture.CapturedCall).  Its images and per-batch
+    eval; on a CUDA device, in a 1-process run or over NCCL (the cgen's
+    sharded fit and its all-reduce inside), it replays one captured CUDA
+    graph (train.capture.CapturedCall).  Its images and per-batch
     losses equal the unbundled eval's; its MSEs are fp32 sums on the
     device where the unbundled eval adds Python floats.  Accepted without
     effect for VAE and CVAE, as by the JAX driver.
@@ -414,11 +425,13 @@ def resolve_epoch_chunk(args, nr_epochs: int, **kw) -> int:
 
 def uncaptured_reason(device: torch.device) -> Optional[str]:
     """Why --epoch_chunk's steps and --eval_bundle's group run without CUDA
-    graphs here, or None: they are captured on a CUDA device in a
-    1-process run."""
+    graphs here, or None: they are captured on a CUDA device, in a
+    1-process run or over NCCL (the all-reduces captured with the
+    steps)."""
     if device.type != "cuda":
         return f"a {device.type} device"
-    if parallel.run_ranks() > 1:
+    if parallel.run_ranks() > 1 and \
+            getattr(parallel.group(), "backend", None) != "nccl":
         return ("--data_parallel: gloo stages its all-reduces through the "
                 "host")
     return None
@@ -491,7 +504,7 @@ def make_epoch_chunks(chunk: int, device: torch.device, rec: "StepRecorder",
     if why is not None:
         return None
     graphs = capture.GraphSteps(loss_fn, batch_size,
-                                [generator] if draws else [])
+                                [generator] if draws else [], shard=True)
     return EpochChunks(train.make_multi_epoch_fn(graphs, shuffle), graphs,
                        rec, tensors, chunk)
 
@@ -520,15 +533,18 @@ class EpochChunks:
 
 
 def graph_record(chunks: Optional[EpochChunks], *calls) -> dict:
-    """{"graph_replays", "graph_launches"} of a run's captured CUDA graphs
-    (the chunks' and the captured calls' that ran): each graph's replays,
-    and the kernel launches of one replay."""
+    """{"graph_replays", "graph_launches", "graph_all_reduces"} of a run's
+    captured CUDA graphs (the chunks' and the captured calls' that ran):
+    each graph's replays, and the kernel launches and all-reduces of one
+    replay."""
     graphs = dict(chunks.graphs.graphs) if chunks is not None else {}
     graphs.update((name, call.graph) for name, call in calls
                   if isinstance(call, capture.CapturedCall)
                   and call.graph is not None)
     return {"graph_replays": {k: g.replays for k, g in graphs.items()},
-            "graph_launches": {k: g.launches for k, g in graphs.items()}}
+            "graph_launches": {k: g.launches for k, g in graphs.items()},
+            "graph_all_reduces": {k: g.all_reduces
+                                  for k, g in graphs.items()}}
 
 
 def load_splits(args) -> dict:
@@ -1002,16 +1018,18 @@ class StepRecorder:
 class EpochTracer:
     """--profile_dir: `epoch(timed)` is a utils.trace_if context that
     traces the first epoch it is given with timed=True (the JAX drivers'
-    first timed epoch) and no other; `report()` says where the trace went,
-    or warns when no epoch was traced."""
+    first timed epoch) and no other, in a data-parallel run on rank 0
+    alone, which writes the run's files; `report()` says where the trace
+    went, or warns when no epoch was traced."""
 
     def __init__(self, profile_dir: Optional[str]):
         self.dir, self.traced = profile_dir, False
 
     def epoch(self, timed: bool):
-        enabled = bool(self.dir) and timed and not self.traced
-        self.traced = self.traced or enabled
-        return utils.trace_if(self.dir, enabled=enabled)
+        chosen = bool(self.dir) and timed and not self.traced
+        self.traced = self.traced or chosen
+        return utils.trace_if(self.dir,
+                              enabled=chosen and parallel.is_writer())
 
     def report(self) -> None:
         if not self.dir:
@@ -1058,9 +1076,10 @@ def main(argv=None, splits: Optional[dict] = None,
     it, noise and gradients.  `perm_fn(n)` gives --reshuffle's
     permutations of n examples in place of the seeded generator's.
     `on_eval(ev)` is called after each eval pass of `run_svgpvae` (and its
-    checkpoint) with its record.  `per_step` runs the default loop
-    (--epoch_chunk 1) one step at a time where it would replay captured
-    CUDA graphs (the card's eager yardstick)."""
+    checkpoint) with its record (in a data-parallel run on rank 0).
+    `per_step` runs the default loop (--epoch_chunk 1) one step at a time
+    where it would replay captured CUDA graphs (the card's eager
+    yardstick)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if torch.device(args.device).type == "cuda" and \
@@ -1072,11 +1091,14 @@ def main(argv=None, splits: Optional[dict] = None,
         raise SystemExit("--data_parallel does not support "
                          "--bias_analysis (per-step host loop)")
     if parallel.needs_launch(ranks):
+        kw = {k: v for k, v in dict(
+            splits=splits, eps_fn=eps_fn, capture_step=capture_step,
+            perm_fn=perm_fn, per_step=per_step or None).items()
+            if v is not None}
+        # on_eval runs on rank 0 alone, which returns the run's result
         return parallel.launch(
-            "svgpvae_tpu_torch.cli.mnist", argv, {k: v for k, v in dict(
-                splits=splits, eps_fn=eps_fn, capture_step=capture_step,
-                perm_fn=perm_fn, on_eval=on_eval).items() if v is not None},
-            ranks, args.device)
+            "svgpvae_tpu_torch.cli.mnist", argv, kw, ranks, args.device,
+            rank0_kwargs=dict(kw, on_eval=on_eval))
     with parallel.active(ranks):
         return _main(args, parallel.device(args.device), splits, eps_fn,
                      capture_step, perm_fn, on_eval, per_step)

@@ -93,28 +93,30 @@ writes a torch.profiler Chrome trace of epoch 1 (the JAX CLI's choice)
 into DIR, with the ranges "train_step", "gp_block" and "eval_pass".
 
 The main loop's epochs are the JAX CLI's epoch program
-(train.make_epoch_fn): on a CUDA device in a 1-process run each epoch
-replays captured CUDA graphs of a full-batch step and of the tail step
-(train.capture.GraphSteps: the batch rows gathered on the card in the
-epoch's --reshuffle order, the lr of --lr_decay from a per-step table,
-the GECO state in static tensors, the first two steps of the run eager,
-Adam capturable, so a run sits within round-off of a per-step one), its
-metrics read back once for the epoch's row, check_finite and the
---basin_retry plateau test; a --basin_retry restart captures anew (a new
-optimizer, a new noise stream).  The epoch's seconds over its steps are
-each step's.  Elsewhere the steps run one by one and the run prints why:
-the CPU, --data_parallel, a capture_step, an injected eps_fn without a
-generator, or main(per_step=True).  The pretraining epochs replay a
-captured graph of their step likewise (make_epoch_fn; no tail, no GECO,
-a constant lr; the metrics read back once an epoch), and the eval pass is
-JAX's three programs and its fit as four captured calls
-(capture.CapturedCall): the test_character recon (its loss summed on the
-device; B1 and B2 inside), the full-train encode, the fit (B3, or B2
-under --K_SE) and the cgen (summed on the device), each read back once;
-their draws are static (cli.mnist.StaticDraws) and the forward reads a
-static GECO pair copied in before each pass.  Both say why they run
-uncaptured where the main loop would (but for the eps_fn: they draw
-nothing from the training stream).
+(train.make_epoch_fn): on a CUDA device, in a 1-process run or under
+--data_parallel over NCCL, each epoch replays captured CUDA graphs of a
+full-batch step (over NCCL on the rank's frames, its all-reduces inside)
+and of the tail step (train.capture.GraphSteps: the batch rows gathered
+on the card in the epoch's --reshuffle order, the lr of --lr_decay from
+a per-step table, the GECO state in static tensors, the first two steps
+of the run eager, Adam capturable, so a run sits within round-off of a
+per-step one), its metrics read back once for the epoch's row,
+check_finite and the --basin_retry plateau test; a --basin_retry restart
+captures anew (a new optimizer, a new noise stream).  The epoch's seconds
+over its steps are each step's.  Elsewhere the steps run one by one and
+the run prints why: the CPU, --data_parallel over gloo (ranks sharing a
+card), a capture_step, an injected eps_fn without a generator, or
+main(per_step=True).  The pretraining epochs replay a captured graph of
+their step likewise (make_epoch_fn; no tail, no GECO, a constant lr; the
+metrics read back once an epoch), and the eval pass is JAX's three
+programs and its fit as four captured calls (capture.CapturedCall): the
+test_character recon (its loss summed on the device; B1 and B2 inside),
+the full-train encode, the fit (B3, or B2 under --K_SE) and the cgen
+(summed on the device), each read back once; their draws are static
+(cli.mnist.StaticDraws) and the forward reads a static GECO pair copied
+in before each pass.  Both say why they run uncaptured where the main
+loop would (but for the eps_fn: they draw nothing from the training
+stream).
 
 --elbo VAE (the JAX CLI's default) trains the SpritesVAE alone on the
 plain VAE ELBO (models.vae) for --nr_epochs epochs: no repr net, no
@@ -138,10 +140,13 @@ need not align with the 50-frame characters: the character means add
 per-character sums across ranks), the GP statistics and every sum over
 the batch are added across ranks, and the tail batch and the eval passes
 run replicated, but for the full-train fit (B3), which each rank runs on
-its share of the train rows.  A --basin_retry restart re-replicates the
-post-pretraining parameters on every rank.  Only rank 0 writes the run
-dir and prints.  Refused as in JAX: N above the visible devices, or a
-batch that N does not divide.
+its share of the train rows.  Over NCCL (a card per rank) the
+pretraining, the main epochs and the four eval calls replay CUDA graphs
+on every rank in the same order, their all-reduces inside (the eval's
+in the fit); over gloo (ranks sharing a card) they run one by one.  A
+--basin_retry restart re-replicates the post-pretraining parameters on
+every rank.  Only rank 0 writes the run dir and prints.  Refused as in
+JAX: N above the visible devices, or a batch that N does not divide.
 
 --s2d64 and --fused_upsample are TPU rewrites that the port does not
 carry, refused with an error (the JAX CLI turns --s2d64 off under bf16
@@ -539,7 +544,8 @@ def main(argv=None, splits: Optional[dict] = None,
     (tests inject the JAX draws; a --basin_retry restart keeps drawing
     from it).  `capture_step` keeps a copy of that main step's inputs,
     parameters before it, noise and gradients.  `on_eval(ev)` is called
-    after each eval pass (and its checkpoint) with its record.
+    after each eval pass (and its checkpoint) with its record (in a
+    data-parallel run on rank 0).
     `perm_fn(n)` gives --reshuffle's permutations of the n characters of
     the full batches (tests inject JAX's).  `per_step` runs the main loop
     one step at a time where its epochs would replay captured CUDA graphs
@@ -559,12 +565,13 @@ def main(argv=None, splits: Optional[dict] = None,
     if parallel.needs_launch(ranks):
         # the other ranks load the corpus that rank 0 made sure of
         kw = {k: v for k, v in dict(
-            eps_fn=eps_fn, capture_step=capture_step, on_eval=on_eval,
-            perm_fn=perm_fn).items() if v is not None}
+            eps_fn=eps_fn, capture_step=capture_step, perm_fn=perm_fn,
+            per_step=per_step or None).items() if v is not None}
+        # on_eval runs on rank 0 alone, which returns the run's result
         return parallel.launch(
             "svgpvae_tpu_torch.cli.sprites", argv,
             kw if loaded else dict(kw, splits=splits), ranks, args.device,
-            rank0_kwargs=dict(kw, splits=splits))
+            rank0_kwargs=dict(kw, splits=splits, on_eval=on_eval))
     with parallel.active(ranks):
         device = parallel.device(args.device)
         parallel.announce(device)
@@ -914,7 +921,8 @@ def run_svgpvae(args, splits: dict, device: torch.device,
         generator), or (None, None) for the per-step loop."""
         if why:
             return None, None
-        graphs = capture.GraphSteps(loss_fn, batch_size, [noise.generator])
+        graphs = capture.GraphSteps(loss_fn, batch_size, [noise.generator],
+                                    shard=True)
         return graphs, train.make_epoch_fn(graphs, shuffle)
 
     graphs, epoch_fn = epoch_graphs()
@@ -1083,17 +1091,20 @@ GP_COLUMNS = ["step", "gplvm_norm", "ip_norm", "l_action", "sigma_action",
 
 
 def graph_record(steps: list, before: Optional[dict] = None) -> dict:
-    """{"graph_replays", "graph_launches"} of the runs' GraphSteps (None
-    for a per-step loop), added to the record `before` of the earlier
-    --basin_retry attempts: each graph's replays (summed over the
-    attempts) and the kernel launches of one replay."""
-    replays = dict(before["graph_replays"]) if before else {}
-    launches = dict(before["graph_launches"]) if before else {}
+    """{"graph_replays", "graph_launches", "graph_all_reduces"} of the
+    runs' GraphSteps (None for a per-step loop), added to the record
+    `before` of the earlier --basin_retry attempts: each graph's replays
+    (summed over the attempts), and the kernel launches and all-reduces
+    of one replay."""
+    keys = ("graph_replays", "graph_launches", "graph_all_reduces")
+    replays, launches, reduces = (dict(before[k]) if before else {}
+                                  for k in keys)
     for st in steps:
         for k, g in (st.graphs.items() if st is not None else ()):
             replays[k] = replays.get(k, 0) + g.replays
             launches[k] = g.launches
-    return {"graph_replays": replays, "graph_launches": launches}
+            reduces[k] = g.all_reduces
+    return dict(zip(keys, (replays, launches, reduces)))
 
 
 @torch.no_grad()

@@ -18,7 +18,14 @@ batch, and writes the sums out where the math reduces over the batch:
     ranks share a card (SVGPVAE_RANKS_PER_DEVICE > 1 lets that many ranks
     onto each visible card) and on the CPU.  Gloo on CUDA tensors offers
     broadcast, all-reduce and barrier only, so every collective here is
-    one of those.  The device stays the card under either backend;
+    one of those.  The device stays the card under either backend.  Under
+    NCCL the rank's card is set before the group exists and bound to it
+    (`device_id`), so the communicator is made at once, outside any CUDA
+    graph capture (one made lazily inside a capture fails), and barriers
+    name that card.  The drivers' training loops capture their steps,
+    all-reduces included, into CUDA graphs under NCCL; gloo stages its
+    all-reduces through the host, so under gloo they step one by one
+    (train.capture, cli.mnist.uncaptured_reason);
   * `sharded(on)`: the context of one data-parallel step.  Inside it
     `world()` is the rank count, `local_rows` cuts this rank's share of a
     global batch and `psum` adds tensors across ranks.  Outside it (the
@@ -40,7 +47,11 @@ batch, and writes the sums out where the math reduces over the batch:
     replicated m-sized solves; unsharded when no group is up or the ranks
     do not divide N;
   * `check_replicated`: the start-up check that every rank holds the
-    same parameters.
+    same parameters;
+  * `all_reduce_count`: the all-reduces issued so far (train.capture
+    counts a graph's once at its capture and adds them at each replay,
+    as it does kernel launches), which a trace of the card's NCCL kernels
+    is held to.
 
 JAX's model axis (`make_mesh(model=...)`) has no driver flag and is not
 ported.
@@ -74,6 +85,7 @@ class Group:
 _GROUP: Optional[Group] = None
 _ACTIVE = False   # the current run trains over the group (`active`)
 _SHARDED = False  # inside one data-parallel step (`sharded`)
+_ALL_REDUCES = 0  # all-reduces issued by this process (`all_reduce_count`)
 
 
 def ranks_per_device() -> int:
@@ -128,7 +140,8 @@ def backend_for(device="cuda") -> str:
 
 def init(rank: int, world: int, init_method: str, device="cuda") -> Group:
     """Join the process group as `rank` of `world` and make this module
-    use it."""
+    use it.  Under NCCL the group is bound to the rank's card, which makes
+    its communicator now."""
     global _GROUP
     import torch.distributed as dist
     dev = rank_device(rank, device)
@@ -137,7 +150,8 @@ def init(rank: int, world: int, init_method: str, device="cuda") -> Group:
     backend = backend_for(device)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world,
-                            timeout=datetime.timedelta(minutes=10))
+                            timeout=datetime.timedelta(minutes=10),
+                            device_id=dev if backend == "nccl" else None)
     _GROUP = Group(rank=rank, world=world, backend=backend, device=dev)
     return _GROUP
 
@@ -204,10 +218,31 @@ def run_ranks() -> int:
 
 
 def barrier() -> None:
-    """Wait for every rank of a data-parallel run (no-op otherwise)."""
+    """Wait for every rank of a data-parallel run (no-op otherwise); under
+    NCCL on the rank's own card."""
     if _active():
         import torch.distributed as dist
-        dist.barrier()
+        dist.barrier(device_ids=[_GROUP.device.index]
+                     if _GROUP.backend == "nccl" else None)
+
+
+def all_reduce_count() -> int:
+    """The all-reduces this process has issued (a CUDA graph's counted at
+    each replay, see train.capture)."""
+    return _ALL_REDUCES
+
+
+def add_all_reduces(n: int) -> None:
+    global _ALL_REDUCES
+    _ALL_REDUCES += n
+
+
+def _all_reduce(t: Tensor) -> None:
+    """Sum `t` across the ranks in place (contiguous, on the rank's
+    device), counted."""
+    import torch.distributed as dist
+    dist.all_reduce(t)
+    add_all_reduces(1)
 
 
 def world() -> int:
@@ -257,16 +292,14 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        import torch.distributed as dist
-        out = x.clone()
-        dist.all_reduce(out)
+        out = x.contiguous().clone()
+        _all_reduce(out)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        import torch.distributed as dist
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        _all_reduce(grad)
         return grad
 
 
@@ -309,12 +342,11 @@ def gather_rows(*tensors: Tensor):
 def all_reduce_grads(params: Sequence[Tensor], mean: bool = False) -> None:
     """Sum (or with `mean` average) the .grad of every tensor across the
     ranks of a data-parallel run, in place (one all-reduce)."""
-    import torch.distributed as dist
     grads = [p.grad for p in params]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    _all_reduce(flat)
     if mean:
         flat /= _GROUP.world
     offset = 0
@@ -326,9 +358,8 @@ def all_reduce_grads(params: Sequence[Tensor], mean: bool = False) -> None:
 def all_reduce_mean(*tensors: Tensor) -> tuple:
     """Each tensor averaged across the ranks of a data-parallel run (no
     autograd)."""
-    import torch.distributed as dist
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    _all_reduce(flat)
     flat /= _GROUP.world
     return tuple(p.view(t.shape).to(t.dtype) for p, t in zip(
         torch.split(flat, [t.numel() for t in tensors]), tensors))
@@ -347,7 +378,7 @@ def check_replicated(tensors: Sequence[Tensor], what: str = "parameters"
     dist.broadcast(ref, src=0)
     bad = torch.tensor([float((mine != ref).sum())],
                        dtype=torch.float64, device=mine.device)
-    dist.all_reduce(bad)
+    _all_reduce(bad)
     if bad.item():
         raise RuntimeError(f"--data_parallel: the ranks start from different "
                            f"{what} ({int(bad.item())} values differ from "
@@ -357,13 +388,12 @@ def check_replicated(tensors: Sequence[Tensor], what: str = "parameters"
 def gather_counts(counts: dict) -> list:
     """[rank 0's counts, rank 1's, ...] of a {name: int} dict that every
     rank holds with the same keys."""
-    import torch.distributed as dist
     keys = sorted(counts)
     table = torch.zeros((_GROUP.world, len(keys)), dtype=torch.float64,
                         device=_GROUP.device)
     table[_GROUP.rank] = torch.tensor([float(counts[k]) for k in keys],
                                       dtype=torch.float64)
-    dist.all_reduce(table)
+    _all_reduce(table)
     return [{k: int(v) for k, v in zip(keys, row.tolist())} for row in table]
 
 
@@ -413,7 +443,18 @@ def _rank_entry(index: int, world: int, init_method: str, module: str,
         importlib.import_module(module).main(argv, **kwargs)
         _rank_launch_counts()
     finally:
+        _release_graphs()
         shutdown()
+
+
+def _release_graphs() -> None:
+    """Free the run's CUDA graphs, which hold its NCCL collectives, before
+    the group's communicator goes (the graphs may sit in reference
+    cycles)."""
+    import gc
+    gc.collect()
+    if _GROUP is not None and _GROUP.device.type == "cuda":
+        torch.cuda.synchronize(_GROUP.device)
 
 
 def _rank_launch_counts() -> list:
@@ -450,6 +491,7 @@ def launch(module: str, argv: Optional[list], kwargs: dict, world: int,
                 argv, **(kwargs if rank0_kwargs is None else rank0_kwargs))
             rank_launches = _rank_launch_counts()
         finally:
+            _release_graphs()
             shutdown()
         while not ctx.join():
             pass

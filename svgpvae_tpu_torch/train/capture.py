@@ -5,14 +5,18 @@ epochs, every MNIST runner's among them, the SPRITES pretraining epochs,
 MNIST's --epoch_chunk, the ball's sample -> step chunks) and of its
 eval programs (MNIST's --eval_bundle, the SPRITES eval pass's recon,
 encode, fit and cgen).  On CUDA, "one program, one readback" is a graph
-captured once and replayed; the drivers use these on a CUDA device in a
-1-process run, and say why their steps run one by one elsewhere (the
-CPU, --data_parallel, ...).
+captured once and replayed; the drivers use these on a CUDA device, in a
+1-process run or a data-parallel run over NCCL (the all-reduces inside
+the graphs), and say why their steps run one by one elsewhere (the CPU,
+--data_parallel over gloo, ...).
 
   * `Graph`: fn() captured on a side stream and replayed.  The kernel
     launches the wrappers counted during the capture (which ran nothing)
     are taken out of ops.launch_counts and added at every replay, so the
-    counters read what the device ran, as in an eager run.  CUDA
+    counters read what the device ran, as in an eager run; so are the
+    all-reduces (parallel.all_reduce_count).  In a data-parallel run the
+    capture is thread-local (capture_error_mode): NCCL's watchdog thread
+    polls its events while a rank captures.  CUDA
     generators that fn draws from are registered with the graph, so every
     replay advances them as an eager call would, and a checkpoint's
     get_state() after N replays resumes the same stream.
@@ -32,7 +36,9 @@ CPU, --data_parallel, ...).
     sample) the same way: once eagerly, then captured and replayed.
   * `GraphSteps`: the steps of an epoch, or of a chunk of epochs
     (make_epoch_fn's and make_multi_epoch_fn's `graphs`): one graph of a
-    full-batch step, one of the tail step.
+    full-batch step, one of the tail step.  With `shard` a full-batch step
+    of a data-parallel run takes this rank's rows (parallel.sharded), as
+    the drivers' per-step loops do; the tail step runs replicated.
   * `GenerativeSteps`: make_generative_chunk_fn's `graphs`, one graph of
     a step that draws its own batch on the device (the ball's videos),
     then its noise, and trains.
@@ -70,7 +76,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from svgpvae_tpu_torch import ops, utils
+from svgpvae_tpu_torch import ops, parallel, utils
 from svgpvae_tpu_torch.train.state import GECOState, TrainState, named_tensors
 from svgpvae_tpu_torch.train.trainer import apply_step
 
@@ -114,19 +120,24 @@ class Graph:
         for gen in generators:
             graph.register_generator_state(gen)
         before = ops.launch_counts()
+        reduces = parallel.all_reduce_count()
+        mode = "thread_local" if parallel.run_ranks() > 1 else "global"
         stream.wait_stream(torch.cuda.current_stream())
-        with cusolver_linalg(), torch.cuda.graph(graph, pool=pool,
-                                                 stream=stream):
+        with cusolver_linalg(), torch.cuda.graph(
+                graph, pool=pool, stream=stream, capture_error_mode=mode):
             self.out = fn()
         torch.cuda.current_stream().wait_stream(stream)
         self.launches = launch_delta(before)
+        self.all_reduces = parallel.all_reduce_count() - reduces
         ops.add_launch_counts(self.launches, -1)  # the capture ran nothing
+        parallel.add_all_reduces(-self.all_reduces)
         self.graph, self.replays = graph, 0
         self.pool = graph.pool()  # for the captures that share it
 
     def replay(self):
         self.graph.replay()
         ops.add_launch_counts(self.launches)
+        parallel.add_all_reduces(self.all_reduces)
         self.replays += 1
         return self.out
 
@@ -176,6 +187,8 @@ class StepGraphs:
 
     WARMUP = 2  # eager full-batch steps before the full step's capture
 
+    shard = False  # a full-batch step takes this rank's rows (GraphSteps)
+
     def __init__(self, loss_fn,
                  generators: Sequence[Optional[torch.Generator]] = ()):
         self.loss_fns = loss_fn if isinstance(loss_fn, dict) else {
@@ -224,9 +237,9 @@ class StepGraphs:
         into the static pair, its metrics into the kind's buffer, the
         counter + 1."""
         s = self.counter
-        batch = self.batch(which)
         self.lr.copy_(self.lr_table.index_select(0, s.view(1))[0])
-        m = apply_step(state, batch, self.loss_fns[kind])
+        with parallel.sharded(self.shard and which == "full"):
+            m = apply_step(state, self.batch(which), self.loss_fns[kind])
         if self.geco is not None and state.geco is not self.geco:
             self.geco.C_ma.copy_(state.geco.C_ma)
             self.geco.lagrange_mult.copy_(state.geco.lagrange_mult)
@@ -296,12 +309,15 @@ class GraphSteps(StepGraphs):
     epoch of the chunk; before(j), when given, runs ahead of the chunk's
     step j (on the host, which may launch a `call`).  Returns ({metric:
     (n_epochs, n_batches) tensor on the device}, [launches of each
-    step])."""
+    step]).  `shard`: in a data-parallel run a full-batch step takes this
+    rank's share of the batch's rows (the drivers' main loops); without
+    it every step runs replicated (the SPRITES pretraining)."""
 
     def __init__(self, loss_fn, batch_size: int,
-                 generators: Sequence[Optional[torch.Generator]] = ()):
+                 generators: Sequence[Optional[torch.Generator]] = (),
+                 shard: bool = False):
         super().__init__(loss_fn, generators)
-        self.bs, self.tensors = batch_size, None
+        self.bs, self.tensors, self.shard = batch_size, None, shard
 
     def _setup(self, state: TrainState, tensors, n_epochs: int) -> None:
         device = tensors[0].device
@@ -320,6 +336,8 @@ class GraphSteps(StepGraphs):
         e = torch.div(s, self.nb, rounding_mode="floor")
         start = e * self.n + (s - e * self.nb) * self.bs
         order = self.orders.view(-1).index_select(0, start + self.rows[which])
+        # this rank's share of the rows inside a sharded step, else all
+        order = parallel.local_rows(order)
         return tuple(t.index_select(0, order) for t in self.tensors)
 
     def run(self, state: TrainState, tensors, orders: List[

@@ -14,6 +14,7 @@ name.  Stdout of the ranks is dropped.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -194,11 +195,12 @@ def mnist_splits(n_eval: int = 100) -> dict:
     return out
 
 
-def sprites_splits() -> dict:
-    """7 train characters (350 frames: two full batches of 150 and a tail
-    of 50 at --batch_size 150) and 2 unseen ones."""
+def sprites_splits(n_train_chars: int = 7, n_test_chars: int = 2) -> dict:
+    """By default 7 train characters (350 frames: two full batches of 150
+    and a tail of 50 at --batch_size 150) and 2 unseen ones."""
     from svgpvae_tpu_torch import data as tdata
-    return tdata.generate_synthetic_sprites(n_train_chars=7, n_test_chars=2,
+    return tdata.generate_synthetic_sprites(n_train_chars=n_train_chars,
+                                            n_test_chars=n_test_chars,
                                             n_frames_train=50, seed=0)
 
 
@@ -267,3 +269,59 @@ def serve_case(inputs, base, argv):
     return {"p_m": served["p_m"].numpy().copy(),
             "p_v": served["p_v"].numpy().copy(),
             "fit_launches": res["fit_launches"]}
+
+
+# --- the data-parallel graph paths (tests/test_torch_parallel_graphs.py) ----
+
+
+def replayed_eps(draws: dict):
+    """eps_fn handing out a recorded run's draws ({kind: [(shape, array),
+    ...]} in the order that run drew them), with a `generator`, so the
+    drivers' graph paths take it (the stand-in graphs call it anew at
+    every replay, so it hands out the next draw each time)."""
+    queues = {k: list(v) for k, v in draws.items()}
+
+    def eps_fn(kind, shape):
+        want, a = queues[kind].pop(0)
+        assert tuple(shape) == tuple(want), (kind, shape, want)
+        return torch.from_numpy(np.array(a))
+
+    eps_fn.generator = torch.Generator()
+    return eps_fn
+
+
+def _run_driver(driver, argv, data, draws, inputs, graphs: bool) -> dict:
+    """cli.<driver>.main(argv) on `data`'s splits ("mnist", or "sprites"
+    with sprites_splits' arguments) and `draws`' recorded noise (a key of
+    `inputs`), on the drivers' graph path with the CPU stand-in graphs
+    (tests/graph_standins.py) or, under gloo, per step; its summary, the
+    all-reduces it issued and its graphs' replays."""
+    import importlib
+    import graph_standins
+    from svgpvae_tpu_torch import parallel
+    mod = importlib.import_module(f"svgpvae_tpu_torch.cli.{driver}")
+    kind, *args = data
+    kw = {"splits": mnist_splits() if kind == "mnist"
+          else sprites_splits(*args)}
+    if draws is not None:
+        kw["eps_fn"] = replayed_eps(inputs[draws])
+    before = parallel.all_reduce_count()
+    with graph_standins.patched() if graphs else contextlib.nullcontext():
+        res = mod.main(argv, **kw)
+    return dict(summary(res), all_reduces=parallel.all_reduce_count()
+                - before, graph_replays=res.get("graph_replays"),
+                steps=len(res["metrics"]))
+
+
+def graph_pair_case(inputs, driver, argv, data, draws=None) -> dict:
+    """The driver's data-parallel run (argv holds --data_parallel N) per
+    step, as gloo runs it, then on its graph path: {"per_step",
+    "graphs"}."""
+    return {"per_step": _run_driver(driver, argv, data, draws, inputs,
+                                    False),
+            "graphs": _run_driver(driver, argv, data, draws, inputs, True)}
+
+
+def graph_case(inputs, driver, argv, data, draws=None) -> dict:
+    """The driver's data-parallel run on its graph path alone."""
+    return _run_driver(driver, argv, data, draws, inputs, True)

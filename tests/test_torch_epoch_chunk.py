@@ -40,7 +40,6 @@ references compile at XLA's lowest optimisation level
 the JAX training steps compile as the JAX driver compiles them.
 """
 
-import contextlib
 import itertools
 import os
 
@@ -55,13 +54,13 @@ from svgpvae_tpu.cli import mnist as jmnist
 from svgpvae_tpu_torch import data as tdata
 from svgpvae_tpu_torch import train as ttrain
 from svgpvae_tpu_torch.cli import mnist as tmnist
-from svgpvae_tpu_torch.train import capture
 from svgpvae_tpu_torch.utils.convert import mnist_params_from_jax
 from test_torch_flags_mnist import RTOL64, JaxKeys, _close64, _jax_params
 from test_torch_mnist_train import (KAPPA, SLICE_ARGV, _assert_loss,
                                     _jax_loss_fn)
 from test_torch_sprites_train import quick_jit
 from export_jax_params import flatten_params  # noqa: E402
+import graph_standins
 from torch_threads import _torch_threads  # noqa: E402,F401
 
 BS, L = 128, 6
@@ -99,37 +98,10 @@ def _csv(run_dir, name):
         return f.read()
 
 
-class EagerGraph:
-    """A stand-in for capture.Graph on the CPU: replaying runs eagerly
-    what the graph would have captured."""
-
-    def __init__(self, fn, stream, generators=()):
-        self.fn, self.replays, self.launches = fn, 0, {}
-
-    def replay(self):
-        self.replays += 1
-        return self.fn()
-
-
-def _tensor_lr_adam(optimizer, device):
-    """capture.capturable_adam on the CPU: Adam's lr a float64 tensor,
-    which the steps fill from the lr table (torch takes a tensor lr on the
-    CPU in its single-tensor form, which gives the float lr's bits)."""
-    (group,) = optimizer.param_groups
-    group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float64)
-    group["foreach"] = False
-    return group["lr"]
-
-
 def _patch_eager_graphs(mp):
     """cli.mnist's chunks and bundle take the graph path on the CPU, with
     EagerGraph for the graphs and no stream or cusolver backend."""
-    mp.setattr(capture, "Graph", EagerGraph)
-    mp.setattr(capture, "capturable_adam", _tensor_lr_adam)
-    mp.setattr(capture, "cusolver_linalg", contextlib.nullcontext)
-    mp.setattr(capture, "side_stream", lambda stream: contextlib.nullcontext())
-    mp.setattr(torch.cuda, "Stream", lambda *a, **k: None)
-    mp.setattr(tmnist, "uncaptured_reason", lambda device: None)
+    graph_standins.patch(mp.setattr)
 
 
 @pytest.fixture
