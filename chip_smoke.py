@@ -46,9 +46,11 @@ Phases, each of which raises (nonzero exit) on failure:
      once;
   7. one mid-run training step (its parameters, GECO state, batch and
      noise, copied from the card) redone on the CPU with the twins, in
-     fp32 and in f64: the card's loss, GECO state and every gradient
-     against the CPU fp32 twin, within a stated multiple of the CPU's own
-     fp32-vs-f64 gap;
+     fp32 (the batch in its order, reversed and in BASELINE_PERMUTATIONS
+     seeded orders, each with B1's Cholesky twin and with plain
+     Gauss-Jordan, the kernel's method) and in f64: the card's loss, GECO
+     state and every gradient against the CPU fp32 twin, within a stated
+     multiple of the CPU's own fp32-vs-f64 gap;
   8. the SPRITES training run, through svgpvae_tpu_torch.cli.sprites.main
      at the JAX CLI's widths: phase 4's 1000-character corpus in
      memory (N_train = 50,000, batch 500 = 10 characters x 50 frames,
@@ -164,15 +166,16 @@ Phases, each of which raises (nonzero exit) on failure:
      of the run and must agree across ranks): (a) phase 6's run over 2
      ranks, held to phase 6's 1-process run (per-step loss and GECO
      state, final parameters, eval rows) within RECHECK_FACTOR x the
-     same run's fp32-vs-float64 gap (--x64 on the same draws), and its
-     captured step rechecked on the CPU as phase 7; (b) phase 8's widths
-     and flags over 4 ranks at batch 500 (125 frames a rank, shares
-     starting inside characters) on a DP_SPRITES_CHARS-character corpus,
-     beside the same run in 1 process and over 2 ranks, held to the
-     1-process run within RECHECK_FACTOR x its gap to the 2-rank run,
-     and its captured step rechecked on the CPU as phase 9(b); (c) phase
-     13(c)'s serve with the fit over 2 ranks (B3 once a rank), held to
-     the CPU twin as phase 13 holds it.
+     same run's fp32-vs-float64 gap (--x64 on the same draws; the float64
+     run 21(a) holds its run to), and its captured step rechecked on the
+     CPU as phase 7; (b) phase 8's widths and flags over 4 ranks at batch
+     500 (125 frames a rank, shares starting inside characters) on a
+     DP_SPRITES_CHARS-character corpus, beside YARD_RUNS runs in 1
+     process, held to the first within RECHECK_FACTOR x the largest gap
+     between two of them, and its captured step rechecked on the CPU as
+     phase 9(b); (c) phase 13(c)'s serve on that corpus with the fit over
+     2 ranks (B3 once a rank), held to the CPU twin as phase 13 holds it.
+     Each part prints its seconds.
  19. the pictures, drawn with numpy alone (no matplotlib on the card's
      machine): (a) the ball, Hensman then Titsias, at phase 14's widths
      with --save --squares_circles --eval_every 50 --plot_every 50 for
@@ -238,20 +241,24 @@ Phases, each of which raises (nonzero exit) on failure:
      RECHECK_FACTOR x their gap in the per-step run with a capturable
      Adam (the reordering capture brings; MNIST: 20(a)'s float64 run;
      SPRITES: the largest pairwise gap of the per-step run and
-     YARD_RUNS - 1 such runs), floored as hold_runs floors.  Each run prints its step ms (a
-     replayed epoch's or chunk's seconds over its steps) beside the
-     per-step p50, and from the trace the ms a step and the card's idle
-     share over a window of replayed steps (DEFAULT_LOOP_TRACES), with
-     the card's name and power limit.  The SPRITES runs of (b) also
-     capture their pretraining epochs (a graph of the step) and their eval
-     pass (four captured calls: recon, encode, fit, cgen): the graphs
-     must have replayed, and the pretraining's per-epoch loss and accuracy
-     are held to phase 8's (and its peers') eager ones as the run is; then
+     YARD_RUNS - 1 such runs), floored as hold_runs floors.  The SPRITES
+     runs of (b) take DEFAULT_LOOP_CHARS characters (25 steps an
+     epoch), each beside its own per-step run there
+     (main(per_step=True)).  Each run prints its step ms (a replayed
+     epoch's or chunk's seconds over its steps) beside the per-step p50,
+     and from the trace the ms a step and the card's idle share over a
+     window of replayed steps (DEFAULT_LOOP_TRACES), with the card's name
+     and power limit.  The SPRITES runs of (b) also capture their
+     pretraining epochs (a graph of the step) and their eval pass (four
+     captured calls: recon, encode, fit, cgen): the graphs must have
+     replayed, and the pretraining's per-epoch loss and accuracy are held
+     to the per-step run's (and its peers') eager ones as the run is; then
      phase 8's run for 2 epochs, its second eval pass and epoch 1 traced
      by torch.profiler: the B1, B2 and B3 kernels of the eval calls equal
      the counters' and each call's launches (the path
      "sprites_eval_graph"); (d) a capture with a host read raises from
-     train.capture.Graph, and the card runs on.
+     train.capture.Graph, and the card runs on.  Each run prints its
+     seconds.
  22. the MNIST driver's last loops replayed from captured CUDA graphs:
      phase 15's VAE, CVAE, Casale (--casale_taylor_every 1) and --opt_regime
      VAE-1 joint-1 runs without a capture_step, and Casale at
@@ -266,7 +273,8 @@ Phases, each of which raises (nonzero exit) on failure:
      p50.
  23. --data_parallel over NCCL, one rank a card, when the machine has 2
      cards or more (on one card a line says that it did not run and how
-     many cards it saw): the MNIST, Titsias, deep SVIGP and SPRITES runs
+     many cards it saw): the MNIST, Titsias, deep SVIGP, SPRITES and
+     MNIST VAE runs
      of NCCL_RUNS per step over 2 and 4 cards, each held to its 1-process
      run within RECHECK_FACTOR x the largest gap among YARD_RUNS
      1-process runs, then on their default loops (CUDA graphs with the
@@ -277,6 +285,19 @@ Phases, each of which raises (nonzero exit) on failure:
      graphs' all-reduces over those steps; the serve's fit sharded over 2
      and 4 cards (the comment above NCCL_RUNS says it all; paths
      "nccl:<run>:<cards>:<loop>", "nccl:serve:<cards>").
+ 24. the JAX package's last one-program calls replayed from captured
+     CUDA graphs, each held to its eager form on the same state (the
+     comment above CAPTURED_EVAL_ARGV says it all): (a) phase 6's run with
+     --eval_every 1, its unbundled eval passes (eval and test recon, the
+     encode -> cgen) beside their eager twins, then traced: the B1/B2
+     kernels the card ran in the second eval's graphs equal the counters'
+     and the graphs' launches (the path "captured_eval"); (b) Casale's
+     cgen graph, two cgens beside their eager twins; (c) phase 4's corpus
+     serve and (d) phase 13(a)'s MNIST --run_dir serve, each eager,
+     captured (a graph per encode chunk shape and per request shape) and
+     eager again, held, traced (no host-to-device copy inside a replay),
+     the request p50 captured beside eager (paths "serve_graph",
+     "mnist_serve_graph": their fits' B3).
 
 Phase 3 also times B2 at the m = 256 and 288 training shapes of phase 10
 ((256, 256, 16) and (8,100, 256, 16); (500, 288, 64) and (360, 288, 64))
@@ -292,7 +313,8 @@ them under "default_loop:<run>" and the SPRITES eval calls' under
 "sprites_eval_graph", phase 22's as its traces saw them under
 "captured:<run>" and the VAE-phase run's by the counters under
 "vae_phase_graph", phase 23's (on 2 cards or more) summed over the ranks
-under "nccl:...", and the max error and
+under "nccl:...", phase 24's under "captured_eval" (the trace) and
+"serve_graph" / "mnist_serve_graph" (the counters), and the max error and
 times measured in phase 3 at the shape named in the entry, with the bound
 computed from that shape; B1's entry lists every phase-3 shape under
 "forms", B3's its other timed shapes under "variants"); the last line is
@@ -408,15 +430,23 @@ TRAIN_STEPS = 64       # 2 epochs x (31 full batches + the tail of 164)
 CAPTURE_STEP = 40      # the mid-run step rechecked on the CPU (phase 7)
 # Card (kernels, cuDNN, cuBLAS) vs CPU (twins) on one step, both fp32:
 # each is off the exact answer by fp32 round-off, so the card is held to
-# 10x the CPU's own fp32-vs-f64 gap (the larger of two: the batch in its
-# order and reversed).  One sample of a gap can come out far below the
-# round-off the card's summation order gives (measured: 1.7e-7 on the last
-# decoder bias, whose gradient sums 256 x 28 x 28 = 200,704 terms, against
-# a card-vs-CPU 6.6e-6), so each gap is floored: a gradient's at the
-# random-walk round-off of the step's longest sum, sqrt(200,704) x 2^-24 =
-# 2.7e-5 of its max |entry|; the GECO state's and the loss's at one fp32
-# ulp of their scale (for the loss, the magnitudes it is the difference
-# of: |inside-ELBO| + |CE term| + |loss|, ~1.7e4 against a loss of ~40).
+# 10x the CPU's own fp32-vs-f64 gap (the largest of the CPU's fp32 runs:
+# the batch in its order and reversed, and for the MNIST step
+# (train_cpu_steps) in BASELINE_PERMUTATIONS seeded orders, each order
+# also with B1 taken by the kernel's own method, plain Gauss-Jordan,
+# beside the Cholesky twin, as phase 9(a) holds B1.  On the Titsias step
+# the card's inside-ELBO and CE sat a median 4x, up to 40x, further from
+# f64 than the twin's, and its loss, through the decoded images, up to
+# 1.4e-4 of ~35 against a CPU gap as low as 1.2e-6 over two orders:
+# tools/train_recheck_probe.py).  One sample of a gap can come out far
+# below the round-off the card's summation order gives (measured: 1.7e-7
+# on the last decoder bias, whose gradient sums 256 x 28 x 28 = 200,704
+# terms, against a card-vs-CPU 6.6e-6), so each gap is floored: a
+# gradient's at the random-walk round-off of the step's longest sum,
+# sqrt(200,704) x 2^-24 = 2.7e-5 of its max |entry|; the GECO state's and
+# the loss's at one fp32 ulp of their scale (for the loss, the
+# magnitudes it is the difference of: |inside-ELBO| + |CE term| + |loss|,
+# ~1.7e4 against a loss of ~40).
 RECHECK_FACTOR = 10.0
 # Phase 15's rechecks sample the CPU's fp32 round-off in four more batch
 # orders (seeded permutations) beside those two: the Casale step's loss
@@ -588,15 +618,19 @@ VAE_PHASE_ARGV = [x for a in TRAIN_ARGV
 # (b) Phase 8's widths and flags over 4 ranks at batch 500 (125 frames a
 # rank: ranks 1-3 start inside a character) on a DP_SPRITES_CHARS-
 # character corpus (4 steps, then the eval pass with its fit sharded),
-# against the same run in 1 process; the yardstick is the same run over 2
-# ranks, another summation order.  Each run's captured step (the global
-# batch and draws, the gradients summed across ranks) is also redone on
-# the CPU as phases 7 and 9(b) do.  (c) Phase 13(c)'s serve of phase 8's
-# run dir over 2 ranks (25,000 train rows a rank), held to the CPU twin
-# under phase 13's rule.  The runs' per-step losses, GECO state, final
-# parameters and eval rows are held as hold_to_cpu_gap holds a step, with
-# the parameters' floor at two Adam steps (DP_PARAM_FLOOR_STEPS x lr): an
-# entry whose gradient is round-off may step either way.
+# against the same run in 1 process; the yardstick is the largest gap
+# between two of YARD_RUNS 1-process runs (hold_to_yard), which cost less
+# than a run over 2 ranks (~25 s of spawned ranks).  The 4-rank run's
+# captured step (the global batch and draws, the gradients summed across
+# ranks) is also redone on the CPU as phases 7 and 9(b) do, as is 18(a)'s.
+# (c) Phase 13(c)'s serve of phase 8's run dir on that corpus over 2 ranks
+# (1,000 train rows a rank: phase 4's 2.4 GB of frames would take most of
+# the part's time to reach the spawned rank), held to the CPU twin under
+# phase 13's rule and printed beside the 1-process serve.
+# The runs' per-step losses, GECO state, final parameters and eval rows
+# are held as hold_to_cpu_gap holds a step, with the parameters' floor at
+# two Adam steps (DP_PARAM_FLOOR_STEPS x lr): an entry whose gradient is
+# round-off may step either way.
 DP_SPRITES_CHARS = 40
 DP_SPRITES_CAPTURE = 2
 DP_PARAM_FLOOR_STEPS = 2
@@ -1111,63 +1145,110 @@ def loss_magnitudes(out, loss, args) -> float:
     return recon + args.beta / args.L * (inside + ce) + loss
 
 
-def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
-    """Redo the captured step of the run made with `argv` on the CPU with
-    the twins: in fp32 with the batch in its order and reversed (the
-    step's sums are order-invariant, so the two differ by fp32 round-off
-    alone), and in f64."""
+def mnist_recheck_args(argv):
+    """The parsed `argv` of an MNIST run on the card, its `auto` block
+    resolved as the card resolved it."""
     import torch
-    from svgpvae_tpu_torch import gp as gpm, models, train
+    from svgpvae_tpu_torch import models
     from svgpvae_tpu_torch.cli import mnist
-    from svgpvae_tpu_torch.nn import MnistVAE
-
-    cap = res["captured"]
-    card_gp = res["state"].params["gp"]
     args = mnist.build_parser().parse_args(argv)
     args.gp_block_impl = models.resolve_gp_block_impl(
         args.gp_block_impl, titsias=args.elbo == "SVGPVAE_Titsias",
         device=torch.device("cuda"))
-    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
-           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
+    return args
 
-    def cpu_step(dtype, reverse):
-        def cpu(t):
-            return t.detach().to("cpu", dtype)
-        vae = MnistVAE(L=args.L)
-        vae.load_state_dict({k: cpu(v) for k, v in cap["vae"].items()})
-        gp = gpm.MnistSVGP(config=card_gp.config,
-                           **{k: cpu(v) for k, v in cap["gp"].items()})
-        params = {"vae": vae.to(dtype), "gp": gp}
-        trainable = train.trainable_tensors(params, lambda name: True)
-        def cpu_b(t):  # a batch-axis tensor, in its order or reversed
-            return cpu(t).flip(0) if reverse else cpu(t)
-        batch = tuple(cpu_b(x) for x in cap["batch"])
-        eps = cpu_b(cap["eps"])
-        forward, outs = mnist.make_forward(args, lambda kind, shape: eps), []
 
-        def recording(*a, **kw):
-            outs.append(forward(*a, **kw))
-            return outs[-1]
+def redo_mnist_step(res, args, dtype, order=None, device="cpu",
+                    b1=None) -> tuple:
+    """The captured step of the MNIST run `res` redone eagerly on `device`
+    (the CPU: the twins) in `dtype`, the batch in its order or in `order`,
+    B1's (M^-1, log det M) taken from `b1` in place of its route (None:
+    the kernel on the card, the Cholesky twin on the CPU).  Returns its
+    loss, GECO state and gradients (float64, on the CPU), the forward
+    pass's outputs, and the loss's magnitudes."""
+    import torch
+    from svgpvae_tpu_torch import gp as gpm, train
+    from svgpvae_tpu_torch.cli import mnist
+    from svgpvae_tpu_torch.nn import MnistVAE
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
 
+    cap = res["captured"]
+
+    def put(t):
+        return t.detach().to(device, dtype)
+    vae = MnistVAE(L=args.L)
+    vae.load_state_dict({k: put(v) for k, v in cap["vae"].items()})
+    gp = gpm.MnistSVGP(config=res["state"].params["gp"].config,
+                       **{k: put(v) for k, v in cap["gp"].items()})
+    params = {"vae": vae.to(device, dtype), "gp": gp}
+    trainable = train.trainable_tensors(params, lambda name: True)
+    def put_b(t):  # a batch-axis tensor, in its order or `order`
+        return put(t) if order is None else put(t)[order.to(device)]
+    batch = tuple(put_b(x) for x in cap["batch"])
+    eps = put_b(cap["eps"])
+    forward, outs = mnist.make_forward(args, lambda kind, shape: eps), []
+
+    def recording(*a, **kw):
+        outs.append(forward(*a, **kw))
+        return outs[-1]
+
+    route = ci.chol_inverse_kernel
+    ci.chol_inverse_kernel = b1 or route
+    try:
         loss, (geco, _) = mnist.make_loss_fn(args, recording)(
             params, batch, train.GECOState(
-                C_ma=cpu(cap["geco"].C_ma),
-                lagrange_mult=cpu(cap["geco"].lagrange_mult)), cap["step"])
+                C_ma=put(cap["geco"].C_ma),
+                lagrange_mult=put(cap["geco"].lagrange_mult)), cap["step"])
         grads = torch.autograd.grad(loss, list(trainable.values()))
-        out = {"loss": loss.detach(), "C_ma": geco.C_ma,
-               "lagrange_mult": geco.lagrange_mult,
-               **dict(zip(trainable, grads))}
-        terms = loss_magnitudes(outs[-1], loss, args)
-        return {k: v.detach().double() for k, v in out.items()}, terms
+    finally:
+        ci.chol_inverse_kernel = route
+    out = {"loss": loss.detach(), "C_ma": geco.C_ma,
+           "lagrange_mult": geco.lagrange_mult,
+           **dict(zip(trainable, grads))}
+    return ({k: v.detach().cpu().double() for k, v in out.items()},
+            outs[-1], loss_magnitudes(outs[-1], loss, args))
 
+
+def train_cpu_steps(res, argv=TRAIN_ARGV) -> tuple:
+    """Redo the captured step of the MNIST run made with `argv` on the CPU
+    with the twins: in fp32 with the batch in its order, reversed and in
+    BASELINE_PERMUTATIONS seeded orders (the step's sums are
+    order-invariant, so these differ by fp32 round-off alone), then in
+    each of those orders again with B1's Cholesky twin replaced by the
+    kernel's own method (plain Gauss-Jordan; see RECHECK_FACTOR), and in
+    f64.  Returns (the card's values, the fp32 run in order, the other
+    fp32 runs by name, the f64 run, the loss's magnitudes)."""
+    import torch
+    from svgpvae_tpu_torch.ops import chol_inverse as ci
+    cap = res["captured"]
+    args = mnist_recheck_args(argv)
+    got = {"loss": cap["loss"], "C_ma": cap["geco_after"].C_ma,
+           "lagrange_mult": cap["geco_after"].lagrange_mult, **cap["grads"]}
+    b = cap["batch"][0].shape[0]
+    gen = torch.Generator().manual_seed(0)
+    orders = {"in order": None, "reversed": torch.arange(b - 1, -1, -1),
+              **{f"order {i + 1}": torch.randperm(b, generator=gen)
+                 for i in range(BASELINE_PERMUTATIONS)}}
+    runs = {**{k: (o, None) for k, o in orders.items() if o is not None},
+            **{f"Gauss-Jordan {k}": (o, ci.gauss_jordan_reference)
+               for k, o in orders.items()}}
     t0 = time.perf_counter()
-    r32, _ = cpu_step(torch.float32, reverse=False)
-    r32_rev, _ = cpu_step(torch.float32, reverse=True)
-    r64, loss_terms = cpu_step(torch.float64, reverse=False)
-    log(f"cpu step {cap['step']} (fp32 twice, f64): "
+    r32 = redo_mnist_step(res, args, torch.float32)[0]
+    r32_more = {name: redo_mnist_step(res, args, torch.float32, o,
+                                      b1=b1)[0]
+                for name, (o, b1) in runs.items()}
+    r64, _, loss_terms = redo_mnist_step(res, args, torch.float64)
+    log(f"cpu step {cap['step']} (fp32 {1 + len(runs)} times, f64): "
         f"{time.perf_counter() - t0:.2f} s")
-    hold_to_cpu_gap(f"step {cap['step']}", got, r32, [r32_rev], r64,
-                    loss_terms, SUM_FLOOR)
+    return got, r32, r32_more, r64, loss_terms
+
+
+def phase_train_cpu_check(res, argv=TRAIN_ARGV) -> None:
+    """Phase 7: the card's captured step held to train_cpu_steps' CPU
+    runs (hold_to_cpu_gap)."""
+    got, r32, r32_more, r64, loss_terms = train_cpu_steps(res, argv)
+    hold_to_cpu_gap(f"step {res['captured']['step']}", got, r32,
+                    list(r32_more.values()), r64, loss_terms, SUM_FLOOR)
 
 
 def hold_to_cpu_gap(tag, got, r32, r32_more, r64, loss_terms,
@@ -1185,6 +1266,16 @@ def hold_to_cpu_gap(tag, got, r32, r32_more, r64, loss_terms,
                 floors)
 
 
+def hold_limit(k, gap, scale, sum_floor, floors=None) -> float:
+    """hold_within's limit for the value `k`: RECHECK_FACTOR x its
+    yardstick `gap`, floored at FP32_ULP (the loss and GECO state) or
+    `sum_floor` of its `scale` (`floors` sets a key's floor outright)."""
+    floor = (floors or {}).get(k, (FP32_ULP if k in ("loss", "C_ma",
+                                                     "lagrange_mult")
+                                   else sum_floor) * scale)
+    return RECHECK_FACTOR * max(gap, floor)
+
+
 def hold_within(tag, got, ref, other, gaps, loss_terms, sum_floor, names,
                 floors=None) -> None:
     """`got` against `ref`, each value within RECHECK_FACTOR x its
@@ -1193,16 +1284,12 @@ def hold_within(tag, got, ref, other, gaps, loss_terms, sum_floor, names,
     loss, max|other[k]| else, where `other` is a yardstick run, printed
     beside (`floors` sets a key's floor outright)."""
     rows = []
-    floors = floors or {}
     a, b, c = names
     for k, g in got.items():
         g = g.detach().cpu().double()
         scale = loss_terms if k == "loss" else float(other[k].abs().max())
         err = float((g - ref[k]).abs().max())
-        floor = floors.get(k, (FP32_ULP if k in ("loss", "C_ma",
-                                                 "lagrange_mult")
-                               else sum_floor) * scale)
-        limit = RECHECK_FACTOR * max(gaps[k], floor)
+        limit = hold_limit(k, gaps[k], scale, sum_floor, floors)
         rows.append((k, err, limit))
         log(f"{tag} {k}: {a} vs {b} {err:.3e}, {b} "
             f"vs {c} {gaps[k]:.3e}, max|.| {scale:.3e}, limit {limit:.3e}"
@@ -2553,6 +2640,24 @@ def check_rank_launches(tag, res, ranks, want) -> dict:
     return {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
 
 
+_F64_RUNS = {}
+
+
+def mnist_f64_run(argv, mnist_data) -> dict:
+    """argv's MNIST run in float64 (--x64, the plain path) on the fp32
+    default draws (the seed-0 eps_fn's, widened): the yardstick of phases
+    18(a) and 21(a), run once a process for each argv."""
+    import torch
+    from svgpvae_tpu_torch.cli import mnist
+    key = tuple(argv)
+    if key not in _F64_RUNS:
+        base = mnist.default_eps_fn(0, torch.device("cuda"))
+        _F64_RUNS[key] = mnist.main(
+            list(argv) + ["--x64"], splits=mnist_data,
+            eps_fn=lambda kind, shape: base(kind, shape).double())
+    return _F64_RUNS[key]
+
+
 def phase_dp_mnist(mnist_data, phase6) -> dict:
     """Phase 18(a): phase 6's run over 2 ranks sharing the card."""
     import torch
@@ -2572,10 +2677,7 @@ def phase_dp_mnist(mnist_data, phase6) -> dict:
         "mnist over 2 ranks", dp, 2,
         lambda c: c["chol_inverse"] >= TRAIN_STEPS
         and c["gp_sufficient_stats"] > TRAIN_STEPS)
-    base = mnist.default_eps_fn(0, torch.device(
-        TRAIN_ARGV[TRAIN_ARGV.index("--device") + 1]))
-    x64 = mnist.main(TRAIN_ARGV + ["--x64"], splits=mnist_data,
-                     eps_fn=lambda kind, shape: base(kind, shape).double())
+    x64 = mnist_f64_run(TRAIN_ARGV, mnist_data)
     scores = ("eval_mse", "test_mse", "cgen_mse")
     sec = np.asarray(dp["step_seconds"][1:])
     log(f"mnist over 2 ranks (gloo, one card): {TRAIN_STEPS} steps and the "
@@ -2591,18 +2693,15 @@ def phase_dp_mnist(mnist_data, phase6) -> dict:
     return {"data_parallel_mnist": launches}
 
 
-def phase_dp_sprites() -> dict:
-    """Phase 18(b): phase 8's widths over 4 ranks on a small corpus,
-    beside 1 process and 2 ranks."""
-    from svgpvae_tpu_torch import data, ops
+def phase_dp_sprites(corpus) -> dict:
+    """Phase 18(b): phase 8's widths over 4 ranks on the small corpus,
+    beside YARD_RUNS runs in 1 process."""
+    from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import sprites
 
-    corpus = data.generate_synthetic_sprites(
-        n_train_chars=DP_SPRITES_CHARS, n_test_chars=DP_SPRITES_CHARS // 4,
-        n_frames_train=SPRITES_FPC, seed=0)
     steps = DP_SPRITES_CHARS * SPRITES_FPC // 500
-    runs, launches = {}, {}
-    for ranks in (1, 2, 4):
+    runs, launches = [], {}
+    for ranks in [1] * YARD_RUNS + [4]:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with ranks_share_card(4):
@@ -2625,27 +2724,30 @@ def phase_dp_sprites() -> dict:
                 lambda c: c["chol_inverse"] >= 2 * steps
                 and c["gp_sufficient_stats"] >= steps
                 and c["fused_kernel_stats"] == 1)
-        runs[ranks] = res
+        runs.append(res)
     scores = ("test_mse", "cgen_mse")
-    hold_runs("sprites over 4 ranks", *(run_values(runs[r], scores)
-                                        for r in (4, 1, 2)),
-              ("4 ranks", "1 process", "2 ranks"), SPRITES_SUM_FLOOR)
-    phase_sprites_cpu_check(runs[4])
-    return {"data_parallel_sprites": launches[4],
-            "data_parallel_sprites_2": launches[2]}
+    ones = [run_values(r, scores) for r in runs[:-1]]
+    hold_to_yard("sprites over 4 ranks", run_values(runs[-1], scores),
+                 ones[0], ones, ("4 ranks", "1 process",
+                                 f"1-process reruns (x{YARD_RUNS})"),
+                 SPRITES_SUM_FLOOR)
+    phase_sprites_cpu_check(runs[-1])
+    return {"data_parallel_sprites": launches[4]}
 
 
-def phase_dp_serve(run_dir, corpus, out_dir, unsharded) -> dict:
-    """Phase 18(c): phase 13(c)'s serve with its fit over 2 ranks."""
+def phase_dp_serve(run_dir, corpus, out_dir) -> dict:
+    """Phase 18(c): phase 13(c)'s serve on the small corpus with its fit
+    over 2 ranks, beside the same serve in 1 process."""
     from svgpvae_tpu_torch import ops
     from svgpvae_tpu_torch.cli import serve
 
+    argv = ["--run_dir", run_dir, "--device", "cuda", "--out",
+            os.path.join(out_dir, "sprites_dp.npz")]
+    unsharded = serve.main(argv, splits=corpus)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with ranks_share_card(2):
-        res = serve.main(["--run_dir", run_dir, "--device", "cuda", "--out",
-                          os.path.join(out_dir, "sprites_dp.npz"),
-                          "--data_parallel", "2"], splits=corpus)
+        res = serve.main(argv + ["--data_parallel", "2"], splits=corpus)
     want = {"chol_inverse": 0, "fused_kernel_stats": 1,
             "gp_sufficient_stats": 0}
     launches = check_rank_launches("serve over 2 ranks", res, 2,
@@ -2667,13 +2769,24 @@ def phase_dp_serve(run_dir, corpus, out_dir, unsharded) -> dict:
     return {"data_parallel_serve": launches}
 
 
-def phase_data_parallel(mnist_data, phase6, corpus, sprites_run_dir,
-                        out_dir, sprites_served) -> dict:
-    """Phase 18: --data_parallel, every rank's launches counted."""
-    out = phase_dp_mnist(mnist_data, phase6)
-    out.update(phase_dp_sprites())
-    out.update(phase_dp_serve(sprites_run_dir, corpus, out_dir,
-                              sprites_served))
+def phase_data_parallel(mnist_data, phase6, sprites_run_dir,
+                        out_dir) -> dict:
+    """Phase 18: --data_parallel, every rank's launches counted; (b) and
+    (c) on a DP_SPRITES_CHARS-character corpus."""
+    from svgpvae_tpu_torch import data
+    out = {}
+    t0 = time.perf_counter()
+    out.update(phase_dp_mnist(mnist_data, phase6))
+    log(f"[18(a): {time.perf_counter() - t0:.1f} s]")
+    corpus = data.generate_synthetic_sprites(
+        n_train_chars=DP_SPRITES_CHARS, n_test_chars=DP_SPRITES_CHARS // 4,
+        n_frames_train=SPRITES_FPC, seed=0)
+    t0 = time.perf_counter()
+    out.update(phase_dp_sprites(corpus))
+    log(f"[18(b): {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    out.update(phase_dp_serve(sprites_run_dir, corpus, out_dir))
+    log(f"[18(c): {time.perf_counter() - t0:.1f} s]")
     return out
 
 
@@ -3191,11 +3304,18 @@ def phase_epoch_chunk(splits, phase6, phase11, base_dir) -> dict:
 # as many steps of the per-step run; the window of the trace's graph
 # replays for the idle share: MNIST's before its tail step, which is
 # captured there, and all of the others').
+# 21(b)'s SPRITES runs: phase 8's flags on a DEFAULT_LOOP_CHARS-character
+# corpus (25 steps an epoch), each held to its own per-step run there.  The
+# depth is cut from phase 8's 1,000 characters for the time of the phase's
+# 3 x YARD_RUNS per-step runs (ROADMAP.md section C 18), and the trace of
+# an epoch holds a quarter of the replays (section C 16).
+DEFAULT_LOOP_CHARS = 250
+DEFAULT_LOOP_STEPS = DEFAULT_LOOP_CHARS * SPRITES_FPC // 500
 DEFAULT_LOOP_TRACES = {
     "mnist": ([], slice(32, 64), slice(32, 64), (0, 31)),
     "sprites": (["--opt_regime", "joint-2", "--eval_every", "2"],
-                slice(SPRITES_STEPS, 2 * SPRITES_STEPS),
-                slice(0, SPRITES_STEPS), (0, SPRITES_STEPS)),
+                slice(DEFAULT_LOOP_STEPS, 2 * DEFAULT_LOOP_STEPS),
+                slice(0, DEFAULT_LOOP_STEPS), (0, DEFAULT_LOOP_STEPS)),
     "ball_hensman_train": ([], slice(500, 1000), slice(500, 1000),
                            (0, 500)),
     "ball_titsias_train": (["--eval_every", "250"], slice(250, 500),
@@ -3432,7 +3552,7 @@ def hold_sprites_pretraining(tag, res, eager, yard) -> None:
         f"{tag} pretraining", got, r32, [], r64, scale, SPRITES_SUM_FLOOR,
         names=("captured", "per-step", yard[0]), floors={
             "pretrain_loss": math.sqrt(5_000) * 2.0 ** -24 * scale,
-            "pretrain_acc": 1.0 / (SPRITES_FPC * SERVE_CHARS)})
+            "pretrain_acc": 1.0 / (SPRITES_FPC * DEFAULT_LOOP_CHARS)})
     log(f"{tag} pretraining: {pre['steps']} steps, graph replays "
         f"{pre['graph_replays']} in {pre['seconds']:.3f} s (per-step run "
         f"{eager['pretrain']['seconds']:.3f} s); eval calls' seconds "
@@ -3454,7 +3574,7 @@ def sprites_default_loop(tag, argv, eager, per_step, corpus,
     from svgpvae_tpu_torch.cli import sprites
 
     def check(res):
-        if len(res["metrics"]) != SPRITES_STEPS or any(
+        if len(res["metrics"]) != DEFAULT_LOOP_STEPS or any(
                 (sl["chol_inverse"], sl["gp_sufficient_stats"],
                  sl["fused_kernel_stats"]) != per_step
                 for sl in res["step_launches"]):
@@ -3484,8 +3604,8 @@ def sprites_eval_trace(corpus) -> dict:
     trace = ReplayTrace()
     res = sprites.main(argv, splits=corpus, on_eval=trace)
     seen, counted = trace.stop()
-    steps = {k: sum(sl[k] for sl in res["step_launches"][SPRITES_STEPS:])
-             for k in seen}
+    steps = {k: sum(sl[k] for sl in res["step_launches"][
+        DEFAULT_LOOP_STEPS:]) for k in seen}
     in_eval = {k: sum(st[k] for st in res["evals"][-1]["launches"].values())
                for k in seen}
     per_call = {k: sum(g.get(k, 0)
@@ -3510,16 +3630,17 @@ def sprites_eval_trace(corpus) -> dict:
     return eval_seen
 
 
-def phase_default_loops(mnist_data, corpus, phase6, phase11, phase8,
-                        phase17, phase12, phase14, base_dir) -> dict:
-    """Phase 21; phase6, phase11, phase8, phase17 (17(a)'s --bf16 run)
-    and phase12 are (result, launches) of those phases' per-step runs,
-    phase14 {tag: (result, launches)} of its runs.  Returns each run's
-    launches as the trace saw them."""
+def phase_default_loops(mnist_data, phase6, phase11, phase14,
+                        base_dir) -> dict:
+    """Phase 21; phase6 and phase11 are (result, launches) of those
+    phases' per-step runs, phase14 {tag: (result, launches)} of its runs.
+    Returns each run's launches as the trace saw them."""
     import torch
+    from svgpvae_tpu_torch import data
     from svgpvae_tpu_torch.cli import ball, mnist, sprites
 
     paths = {}
+    t0 = time.perf_counter()
 
     def mnist_steps(tag, b2):
         def check(res):
@@ -3531,33 +3652,40 @@ def phase_default_loops(mnist_data, corpus, phase6, phase11, phase8,
         return check
 
     scores = ("eval_mse", "test_mse", "cgen_mse")
-    base = mnist.default_eps_fn(0, torch.device("cuda"))
     for tag, argv, (eager, counts), b2 in (
             ("21(a) mnist", TRAIN_ARGV, phase6, 1),
             ("21(a) mnist titsias", TITSIAS_ARGV, phase11, 2)):
         def f64(argv=argv):  # 20(a)'s yardstick: float64 on the same draws
-            return ("per-step f64", mnist.main(
-                argv + ["--x64"], splits=mnist_data,
-                eps_fn=lambda kind, shape: base(kind, shape).double()))
+            return ("per-step f64", mnist_f64_run(argv, mnist_data))
         paths[tag] = default_loop(
             tag, mnist, argv, eager, counts, DEFAULT_LOOP_TRACES["mnist"],
             {"splits": mnist_data}, base_dir, mnist_steps(tag, b2), scores,
             SUM_FLOOR, yardstick=f64)[0]
+        log(f"[{tag}: {time.perf_counter() - t0:.1f} s]")
+        t0 = time.perf_counter()
 
-    # (b) SPRITES fp32 (phase 8's run, saved into a run dir of its own),
-    # --bf16 (phase 17(a)'s) and the Titsias record flags (phase 12's
-    # run: the `fused` block, B2 twice a step, its Cholesky solves on
-    # cusolver under capture)
+    # (b) SPRITES fp32 (phase 8's flags, saved into a run dir of its own),
+    # --bf16 (phase 17(a)'s) and the Titsias record flags (phase 12's: the
+    # `fused` block, B2 twice a step, its Cholesky solves on cusolver under
+    # capture), each on the small corpus beside its per-step run there
+    t0 = time.perf_counter()
+    small = data.generate_synthetic_sprites(
+        n_train_chars=DEFAULT_LOOP_CHARS,
+        n_test_chars=DEFAULT_LOOP_CHARS // 4, n_frames_train=SPRITES_FPC,
+        seed=0)
     sp_argv = SPRITES_ARGV + SAVE_ARGV + ["--base_dir", base_dir]
-    runs = [("21(b) sprites", sp_argv, phase8, (2, 1, 0)),
-            ("21(b) sprites --bf16", SPRITES_ARGV + ["--bf16"], phase17,
-             (2, 1, 0)),
-            ("21(b) sprites titsias", SPRITES_TITSIAS_ARGV, phase12,
-             (0, 2, 0))]
-    for tag, argv, eager, per_step in runs:
-        paths[tag] = sprites_default_loop(tag, argv, eager, per_step, corpus,
+    runs = [("21(b) sprites", sp_argv, (2, 1, 0)),
+            ("21(b) sprites --bf16", SPRITES_ARGV + ["--bf16"], (2, 1, 0)),
+            ("21(b) sprites titsias", SPRITES_TITSIAS_ARGV, (0, 2, 0))]
+    for tag, argv, per_step in runs:
+        eager = launched(sprites.main, argv, splits=small, per_step=True)
+        paths[tag] = sprites_default_loop(tag, argv, eager, per_step, small,
                                           base_dir)
-    eval_seen = sprites_eval_trace(corpus)
+        log(f"[{tag}: {time.perf_counter() - t0:.1f} s]")
+        t0 = time.perf_counter()
+    eval_seen = sprites_eval_trace(small)
+    log(f"[21(b) sprites eval trace: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
 
     # (c) the ball, every --elbo (phase 14's runs)
     for name, (eager, counts) in phase14.items():
@@ -3579,6 +3707,8 @@ def phase_default_loops(mnist_data, corpus, phase6, phase11, phase8,
             tag, ball, full, eager, counts, DEFAULT_LOOP_TRACES[name], {},
             base_dir, check, ("mse", "elbo"), BALL_SUM_FLOOR, ("loss",),
             "chunks")[0]
+        log(f"[{tag}: {time.perf_counter() - t0:.1f} s]")
+        t0 = time.perf_counter()
     capture_failure_raises()
     torch.cuda.empty_cache()
     return {**{f"default_loop:{k.split(' ', 1)[1]}": v
@@ -3715,9 +3845,14 @@ def phase_captured_rest(mnist_data, phase15, base_dir) -> dict:
 # cards; deep SVIGP's yardstick adds its run on nudged pixels, 20(c)'s,
 # since its runs draw nothing); phase 8's SPRITES run over 4 epochs (2 and
 # 4 cards) on phase 4's corpus, which every rank reads from shards on
-# disk; the serve of phase 4 with random weights (2 and 4 cards), whose
-# yardstick adds the 1-process fit on its rows reversed.  MNIST's and
-# SPRITES's 1-process, per-step and captured runs trace their epoch 1
+# disk; phase 15's MNIST VAE run over 6 epochs (2 and 4 cards); the serve
+# of phase 4 with random weights (2 and 4 cards), whose yardstick adds the
+# 1-process fit on its rows reversed.  The VAE's yardstick adds a per-step
+# run with a capturable Adam, as phase 22's does: its 1-process per-step
+# runs repeat within an ulp of its ~4e8 loss, where the capture's Adam
+# arithmetic moves it by ~16 ulps (816 in a four-card call of this phase
+# on NVIDIA H100 80GB HBM3 at 700 W).  MNIST's, the VAE's and SPRITES's
+# 1-process, per-step and captured runs trace their epoch 1
 # (--profile_dir, rank 0): the kernels the card ran in it equal the
 # counters' over its steps, and its NCCL all-reduce kernels (inside the
 # replays, for a captured run) equal the all-reduces of the captured
@@ -3728,6 +3863,11 @@ NCCL_MNIST_ARGV = [{"joint-2": "joint-6", "2": "6"}.get(a, a)
                    for a in TRAIN_ARGV]
 NCCL_SPRITES_ARGV = [{"joint-1": "joint-4", "1": "4"}.get(a, a)
                      for a in SPRITES_ARGV]
+# phase 15's MNIST VAE run over 6 epochs (its eval every 2)
+NCCL_VAE_ARGV = [x for i, x in enumerate(_baseline_argv("mnist_vae_train"))
+                 if x != "--nr_epochs" and _baseline_argv(
+                     "mnist_vae_train")[i - 1] != "--nr_epochs"] + [
+    "--nr_epochs", "6"]
 # tag -> (driver, argv, cards, each step's (B1, B2, B3), the scores held,
 # the per-step series held, the traced epoch's steps and the window of
 # its graph replays in a captured run (MNIST's before its tail, whose
@@ -3744,7 +3884,9 @@ NCCL_RUNS = {
     "sprites": ("sprites", NCCL_SPRITES_ARGV, (2, 4), (2, 1, 0),
                 ("test_mse", "cgen_mse"), ("loss", "C_ma", "lagrange"),
                 (slice(SPRITES_STEPS, 2 * SPRITES_STEPS),
-                 (0, SPRITES_STEPS)))}
+                 (0, SPRITES_STEPS))),
+    "vae": ("mnist", NCCL_VAE_ARGV, (2, 4), (0, 0, 0),
+            ("eval_mse", "test_mse"), ("loss",), (slice(32, 64), (0, 31)))}
 NCCL_CHUNK_ARGV = ["--epoch_chunk", "3", "--eval_bundle"]
 SERVE_SUM_FLOOR = math.sqrt(50 * SERVE_CHARS) * 2.0 ** -24
 
@@ -3833,17 +3975,20 @@ def nccl_check_launches(tag, res, rec, per_step, ranks) -> None:
 
 def nccl_check_trace(tag, rec, graphs) -> None:
     """A traced run's epoch 1: the card's B1/B2/B3 kernels equal the
-    counters', and its NCCL all-reduce kernels (all inside the replays for
-    a captured run) those of the captured run's graphs over its steps
-    (`graphs`: its graph_all_reduces; every traced step a full step but
-    MNIST's last, its tail)."""
+    counters' (B1 at least once a step where a step launches it), and its
+    NCCL all-reduce kernels (all inside the replays for a captured run)
+    those of the captured run's graphs over its steps (`graphs`: its
+    graph_all_reduces; every traced step a full step but an MNIST
+    epoch's last, its tail)."""
     n = rec["traced_steps"]
-    tail = graphs.get("tail", 0) if tag == "mnist" else graphs["full"]
+    driver, _, _, per_step, *_ = NCCL_RUNS[tag]
+    tail = graphs.get("tail", 0) if driver == "mnist" else graphs["full"]
     want = (n - 1) * graphs["full"] + tail
     replayed = rec["nccl_in_replays"] if rec["loop"] == "captured" \
         else rec["nccl"]
     if rec["seen"] != rec["counted"] or rec["nccl"] != want \
-            or replayed != want or rec["seen"]["chol_inverse"] < n:
+            or replayed != want or \
+            rec["seen"]["chol_inverse"] < per_step[0] * n:
         raise AssertionError(
             f"23 {tag} on {rec['cards']} card(s), {rec['loop']}: the trace "
             f"saw {rec['seen']} and {rec['nccl']} NCCL all-reduces "
@@ -3896,6 +4041,9 @@ def nccl_config(tag, kw, extra=()) -> tuple:
     if tag == "svigp":  # its runs draw nothing: 20(c)'s nudged pixels too
         yard.append(values(nccl_run(tag, 1, False, extra,
                                     splits=nudged_images(kw["splits"]))[0]))
+    if tag == "vae":  # the Adam arithmetic of a capture: phase 22's rule
+        with reordered_adam():
+            yard.append(values(nccl_run(tag, 1, False, extra, **kw)[0]))
     ref = yard[0]
     floors = nccl_floors(tag, yard[1])
     del yard_res
@@ -4067,6 +4215,242 @@ def phase_nccl(mnist_data, corpus, base_dir, records=None,
     return paths
 
 
+# --- phase 24 ---------------------------------------------------------------
+# The JAX package's last one-program calls replayed from captured CUDA
+# graphs, each held to its eager form on the same state: (a) phase 6's run
+# with --eval_every 1 (two evals; the unbundled passes: eval and test
+# recon, the encode -> cgen, one graph each), main(eager_evals=True): each
+# captured pass beside its eager twin at the same state; then the same run
+# traced by torch.profiler from its first eval to its end (ReplayTrace):
+# the B1/B2 kernels the card ran in the second eval's replays equal the
+# counters' and the eval graphs' launches; (b) Casale (phase 15's flags,
+# --opt_regime VAE-1 GP-1 joint-8: cgens after epochs 5 and 10) with its
+# eager twins; (c) phase 4's corpus serve (8 requests) and (d) phase 13's
+# MNIST --run_dir serve (8 requests of its 64 demo queries), each eager
+# (main(eager=True)), captured, and eager again: the encode chunks' and
+# requests' graphs replayed, the encodings and each request's images,
+# p_m and p_v held, the captured serve traced by torch.profiler (no
+# host-to-device copy runs inside a graph replay), the request p50
+# captured beside eager.  The limit of every hold is RECHECK_FACTOR x the
+# larger of a measured gap and a floor: for the eval passes and the cgen
+# the gap between the eager pass and the same eager pass on the cusolver
+# backend (capture.cusolver_linalg: the one arithmetic a graph changes;
+# MAGMA's and cusolver's Cholesky solves agree to round-off, not bit for
+# bit), for the serve (no solve inside its graphs) the gap between the two
+# eager serves; the floor the fp32 round-off of the value's longest sum,
+# sqrt(terms) x 2^-24 of its scale (SUM_FLOOR for an MNIST batch,
+# CASALE_SUM_FLOOR for Casale's full-train sums, SPRITES_SUM_FLOOR).
+CAPTURED_EVAL_ARGV = [x for i, x in enumerate(TRAIN_ARGV)
+                      if TRAIN_ARGV[i - 1] != "--eval_every"
+                      and x != "--eval_every"] + ["--eval_every", "1"]
+CASALE_EVAL_ARGV = [{"joint-3": "joint-8"}.get(a, a)
+                    for a in _baseline_argv("casale_train")]
+EVAL_PASSES = ("eval", "test", "cgen")
+
+
+def hold_twin(tag, got, eager, yard, floor) -> float:
+    """|got - eager| (max over entries) within RECHECK_FACTOR x the larger
+    of |yard - eager| and `floor`; returns err / limit."""
+    import torch
+    got, eager, yard = (torch.as_tensor(x).double().cpu()
+                        for x in (got, eager, yard))
+    err = float((got - eager).abs().max())
+    gap = float((yard - eager).abs().max())
+    limit = RECHECK_FACTOR * max(gap, floor)
+    log(f"{tag}: captured vs eager {err:.3e}, yardstick gap {gap:.3e}, "
+        f"floor {floor:.3e}, limit {limit:.3e}")
+    if not err <= limit:
+        raise AssertionError(f"{tag}: the graph's result is {err:.3e} from "
+                             f"the eager pass's (limit {limit:.3e})")
+    return err / limit
+
+
+def captured_mnist_evals(mnist_data) -> dict:
+    """24(a); returns the B1/B2 launches the trace saw in the second
+    eval's graphs (the kernels line's path "captured_eval")."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import mnist
+    ops.reset_launch_counts()
+    res = mnist.main(CAPTURED_EVAL_ARGV, splits=mnist_data, eager_evals=True)
+    want = dict.fromkeys(EVAL_PASSES, 2)
+    if res["eval_graph_replays"] != want or len(res["evals"]) != 2:
+        raise AssertionError(f"24(a): eval graph replays "
+                             f"{res['eval_graph_replays']}")
+    worst = 0.0
+    for i, (ev, losses) in enumerate(zip(res["evals"], res["eval_losses"])):
+        for name in EVAL_PASSES:
+            twin = ev["eager"][name]
+            scale = max(abs(x) for x in twin["losses"])
+            worst = max(worst, hold_twin(
+                f"24(a) eval {i} {name}: per-batch losses", losses[name],
+                twin["losses"], twin["cusolver"]["losses"],
+                SUM_FLOOR * scale))
+            worst = max(worst, hold_twin(
+                f"24(a) eval {i} {name}: sum", sum(losses[name]),
+                twin["sum"], twin["cusolver"]["sum"],
+                SUM_FLOOR * scale * math.sqrt(len(losses[name]))))
+    twin = res["evals"][-1]["eager"]["cgen"]
+    worst = max(worst, hold_twin(
+        "24(a) cgen images", res["cgen_images"], twin["images"],
+        twin["cusolver"]["images"],
+        SUM_FLOOR * float(twin["images"].abs().max())))
+    sec = [ev["seconds"] for ev in res["evals"]]
+    eager_sec = [{"eval_test": ev["eager"]["eval"]["seconds"]
+                  + ev["eager"]["test"]["seconds"],
+                  "cgen": ev["eager"]["cgen"]["seconds"]}
+                 for ev in res["evals"]]
+    log(f"24(a) mnist eval passes: captured seconds {sec}, eager "
+        f"{eager_sec} (the first captured eval holds the warm-ups and "
+        f"captures); launches per replay {res['eval_graph_launches']}; "
+        f"worst err/limit {worst:.3f}; {gpu_name_and_power()}")
+
+    trace = ReplayTrace()
+    res = mnist.main(CAPTURED_EVAL_ARGV, splits=mnist_data, on_eval=trace)
+    seen, counted = trace.stop()
+    steps = {k: sum(sl[k] for sl in res["step_launches"][
+        MNIST_EPOCH_STEPS:]) for k in seen}
+    per_replay = {k: sum(g.get(k, 0)
+                         for g in res["eval_graph_launches"].values())
+                  for k in seen}
+    in_eval = {k: seen[k] - steps[k] for k in seen}
+    if (seen != counted or in_eval != per_replay
+            or in_eval["chol_inverse"] < 1
+            or in_eval["gp_sufficient_stats"] < 1):
+        raise AssertionError(
+            f"24(a) traced: the card ran {seen}, the counters {counted}; "
+            f"epoch 1's steps {steps}, the eval graphs' launches a replay "
+            f"{per_replay}")
+    log(f"24(a) traced second eval and epoch 1: the card ran {in_eval} in "
+        f"the eval graphs (their launches {per_replay}) and {steps} in the "
+        f"epoch; eval seconds {res['evals'][-1]['seconds']}")
+    torch.cuda.empty_cache()
+    return in_eval
+
+
+def captured_casale_cgen(mnist_data) -> None:
+    """24(b): Casale's cgen graph beside its eager twins."""
+    from svgpvae_tpu_torch.cli import mnist
+    res = mnist.main(CASALE_EVAL_ARGV, splits=mnist_data, eager_evals=True)
+    if res["eval_graph_replays"] != {"cgen": 2} or len(res["evals"]) != 2:
+        raise AssertionError(f"24(b): cgen graph replays "
+                             f"{res['eval_graph_replays']}")
+    worst = 0.0
+    for ev in res["evals"]:
+        twin = ev["eager"]["cgen"]
+        worst = max(worst, hold_twin(
+            f"24(b) casale cgen after epoch {ev['epoch']}", ev["cgen_mse"],
+            twin["loss"], twin["cusolver"]["loss"],
+            CASALE_SUM_FLOOR * abs(twin["loss"])))
+    log(f"24(b) casale cgen: captured seconds "
+        f"{[ev['seconds']['cgen'] for ev in res['evals']]}, eager "
+        f"{[ev['eager']['cgen']['seconds'] for ev in res['evals']]} (the "
+        f"first captured cgen holds its warm-up and capture); worst "
+        f"err/limit {worst:.3f}; {gpu_name_and_power()}")
+
+
+def graph_copies(path) -> tuple:
+    """A Chrome trace of the card: (host-to-device copies inside graph
+    replays, host-to-device copies elsewhere, graph replays)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    replays = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") == "cuda_runtime"
+               and e.get("name", "").startswith("cudaGraphLaunch")}
+    htod = [e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    inside = sum(c in replays for c in htod)
+    return inside, len(htod) - inside, len(replays)
+
+
+def captured_serve(tag, argv, splits, floor, base_dir) -> dict:
+    """24(c)/(d): the serve `argv` eager, captured, eager again and
+    captured under torch.profiler; returns the captured serve's launches
+    by the counters."""
+    import torch
+    from svgpvae_tpu_torch import ops
+    from svgpvae_tpu_torch.cli import serve
+    runs, counts = {}, None
+    for name, eager in (("eager", True), ("captured", False),
+                        ("eager again", True)):
+        ops.reset_launch_counts()
+        runs[name] = serve.main(argv, splits=splits, eager=eager)
+        if name == "captured":
+            counts = ops.launch_counts()
+    cap, ref, yard = runs["captured"], runs["eager"], runs["eager again"]
+    n = len(cap["state"]["served"])
+    replays = cap["graph_replays"]
+    requests = [v for k, v in replays.items() if k.startswith("request")]
+    if (ref["graph_replays"] or not any(k.startswith("encode")
+                                        for k in replays)
+            or requests != [n]
+            or cap["fit_launches"]["fused_kernel_stats"] != 1):
+        raise AssertionError(f"{tag}: graph replays {replays}, eager "
+                             f"{ref['graph_replays']}, fit launches "
+                             f"{cap['fit_launches']}")
+    worst = 0.0
+    st = [r["state"] for r in (cap, ref, yard)]
+    for k in ("means", "variances", "aux"):
+        worst = max(worst, hold_twin(
+            f"{tag} encode {k}", *(s[k] for s in st),
+            floor * float(st[1][k].abs().max())))
+    for i in range(n):
+        for k in ("images", "p_m", "p_v"):
+            worst = max(worst, hold_twin(
+                f"{tag} request {i} {k}", *(s["served"][i][k] for s in st),
+                floor * float(st[1]["served"][i][k].abs().max())))
+    trace_dir = tempfile.mkdtemp(prefix="serve_trace_", dir=base_dir)
+    path = os.path.join(trace_dir, "serve.json")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        serve.main(argv, splits=splits)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    inside, outside, graph_launches = graph_copies(path)
+    shutil.rmtree(trace_dir)
+    if inside or not outside or not graph_launches:
+        raise AssertionError(f"{tag}: {inside} host-to-device copies inside "
+                             f"the {graph_launches} traced graph replays, "
+                             f"{outside} outside")
+    sec = {k: [r["seconds"][x] for x in ("encode", "fit")]
+           for k, r in runs.items()}
+    p50 = {k: 1e3 * float(np.median(r["seconds"]["requests"][1:]))
+           for k, r in runs.items()}
+    p99 = {k: 1e3 * float(np.percentile(r["seconds"]["requests"][1:], 99))
+           for k, r in runs.items()}
+    log(f"{tag}: graph replays {replays}; request p50 captured "
+        f"{p50['captured']:.3f} ms against eager {p50['eager']:.3f} and "
+        f"{p50['eager again']:.3f} ms (p99 {p99}; requests after the "
+        f"first, which captures); encode and fit seconds {sec}; "
+        f"host-to-device copies: {inside} in the {graph_launches} traced "
+        f"replays, {outside} outside; worst err/limit {worst:.3f}; "
+        f"{gpu_name_and_power()}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_captured_eval(mnist_data, corpus, mnist_run, base_dir) -> dict:
+    """Phase 24; mnist_run is phase 13(a)'s run dir.  Returns the launches
+    of its paths: the eval graphs' as the trace saw them, the serves' by
+    the counters (their fits' B3)."""
+    paths = {"captured_eval": captured_mnist_evals(mnist_data)}
+    captured_casale_cgen(mnist_data)
+    paths["serve_graph"] = captured_serve(
+        "24(c) corpus serve", ["--synthetic", "--synthetic_chars",
+                               str(SERVE_CHARS), "--n_requests",
+                               str(SERVE_REQUESTS), "--device", "cuda",
+                               "--seed", "0"], corpus, SPRITES_SUM_FLOOR,
+        base_dir)
+    paths["mnist_serve_graph"] = captured_serve(
+        "24(d) mnist --run_dir serve", [
+            "--run_dir", mnist_run, "--device", "cuda", "--n_requests",
+            str(SERVE_REQUESTS), "--out", os.path.join(base_dir,
+                                                       "mnist_graph.npz")],
+        mnist_data, SUM_FLOOR, base_dir)
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4139,20 +4523,17 @@ def main() -> int:
     bf16_launches, bf16_run = timed(17, phase_mixed_precision, corpus,
                                     mnist_data, train_res, sprites_res)
     dp_launches = timed(18, phase_data_parallel, mnist_data, train_res,
-                        corpus, sprites_res["run_dir"], runs.name,
-                        sprites_served)
+                        sprites_res["run_dir"], runs.name)
     picture_launches = timed(19, phase_pictures, runs.name, {
         "8": sprites_res, "13(a)": (mnist_run, mnist_pictures),
         **flag_runs})
     chunk_launches = timed(20, phase_epoch_chunk, mnist_data,
                            (train_res, train_launches),
                            (titsias_res, titsias_launches), runs.name)
-    default_launches = timed(21, phase_default_loops, mnist_data, corpus,
+    default_launches = timed(21, phase_default_loops, mnist_data,
                              (train_res, train_launches),
-                             (titsias_res, titsias_launches),
-                             (sprites_res, sprites_launches), bf16_run,
-                             (sp_titsias_res, sp_titsias_launches),
-                             ball_runs, runs.name)
+                             (titsias_res, titsias_launches), ball_runs,
+                             runs.name)
     rest_launches = timed(22, phase_captured_rest, mnist_data, phase15,
                           runs.name)
     cards = torch.cuda.device_count()
@@ -4163,6 +4544,8 @@ def main() -> int:
     else:
         log(f"[phase 23: not run: --data_parallel over NCCL needs 2 cards or "
             f"more, this machine has {cards}]")
+    eval_launches = timed(24, phase_captured_eval, mnist_data, corpus,
+                          mnist_run, runs.name)
     runs.cleanup()
     paths = {"serve": serve_launches, "mnist_train": train_launches,
              "sprites_train": sprites_launches, **large_m,
@@ -4173,7 +4556,8 @@ def main() -> int:
              "sprites_serve_run": sprites_serve_launches, **ball_launches,
              **baseline_launches, **flag_launches, **bf16_launches,
              "pictures": picture_launches, **chunk_launches,
-             **default_launches, **rest_launches, **nccl_launches}
+             **default_launches, **rest_launches, **eval_launches,
+             **nccl_launches}
     # phase 18's paths (every rank's launches, summed) under one key
     paths["data_parallel"] = {k: sum(p[k] for p in dp_launches.values())
                               for k in KERNELS}

@@ -205,7 +205,9 @@ unchunked run and fewer host round trips:
     as one function with the sums on the device and one readback per
     eval; on a CUDA device, in a 1-process run or over NCCL (the cgen's
     sharded fit and its all-reduce inside), it replays one captured CUDA
-    graph (train.capture.CapturedCall).  Its images and per-batch
+    graph (train.capture.CapturedCall), as each unbundled eval pass and
+    Casale's cgen do, but under main(per_step=True)
+    (eval_pass_reason).  Its images and per-batch
     losses equal the unbundled eval's; its MSEs are fp32 sums on the
     device where the unbundled eval adds Python floats.  Accepted without
     effect for VAE and CVAE, as by the JAX driver.
@@ -424,7 +426,7 @@ def resolve_epoch_chunk(args, nr_epochs: int, **kw) -> int:
 
 
 def uncaptured_reason(device: torch.device) -> Optional[str]:
-    """Why --epoch_chunk's steps and --eval_bundle's group run without CUDA
+    """Why --epoch_chunk's steps and the eval passes run without CUDA
     graphs here, or None: they are captured on a CUDA device, in a
     1-process run or over NCCL (the all-reduces captured with the
     steps)."""
@@ -435,6 +437,14 @@ def uncaptured_reason(device: torch.device) -> Optional[str]:
         return ("--data_parallel: gloo stages its all-reduces through the "
                 "host")
     return None
+
+
+def eval_pass_reason(device: torch.device, per_step: bool) -> Optional[str]:
+    """Why a run's eval passes (the unbundled passes, --eval_bundle's
+    group, Casale's cgen) run eagerly, or None: each replays a captured
+    CUDA graph.  main(per_step=True) runs them eagerly too, so that the
+    card's per-step yardstick holds no graph."""
+    return "main(per_step=True)" if per_step else uncaptured_reason(device)
 
 
 def per_step_reason(args, device: torch.device, per_step: bool,
@@ -545,6 +555,16 @@ def graph_record(chunks: Optional[EpochChunks], *calls) -> dict:
             "graph_launches": {k: g.launches for k, g in graphs.items()},
             "graph_all_reduces": {k: g.all_reduces
                                   for k, g in graphs.items()}}
+
+
+def pass_record(calls: Dict[str, "capture.CapturedCall"]) -> dict:
+    """{"eval_graph_replays", "eval_graph_launches"} of a run's captured
+    eval passes (run_svgpvae's unbundled passes, Casale's cgen): each
+    graph's replays and the kernel launches of one replay."""
+    graphs = {k: c.graph for k, c in calls.items() if c.graph is not None}
+    return {"eval_graph_replays": {k: g.replays for k, g in graphs.items()},
+            "eval_graph_launches": {k: g.launches
+                                    for k, g in graphs.items()}}
 
 
 def load_splits(args) -> dict:
@@ -1064,7 +1084,7 @@ def main(argv=None, splits: Optional[dict] = None,
          capture_step: Optional[int] = None,
          perm_fn: Optional[Callable] = None,
          on_eval: Optional[Callable[[dict], None]] = None,
-         per_step: bool = False) -> dict:
+         per_step: bool = False, eager_evals: bool = False) -> dict:
     """Train; returns a dict (see `run_svgpvae`, `run_svigp`,
     `run_casale`).
 
@@ -1078,8 +1098,11 @@ def main(argv=None, splits: Optional[dict] = None,
     `on_eval(ev)` is called after each eval pass of `run_svgpvae` (and its
     checkpoint) with its record (in a data-parallel run on rank 0).
     `per_step` runs the default loop (--epoch_chunk 1) one step at a time
-    where it would replay captured CUDA graphs (the card's eager
-    yardstick)."""
+    where it would replay captured CUDA graphs, and the eval passes
+    eagerly (the card's eager yardstick).  `eager_evals` runs each
+    captured eval pass (the unbundled passes, Casale's cgen) eagerly too,
+    right after its replay, into the eval record's "eager" (the card's
+    yardstick of the eval graphs)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if torch.device(args.device).type == "cuda" and \
@@ -1093,7 +1116,8 @@ def main(argv=None, splits: Optional[dict] = None,
     if parallel.needs_launch(ranks):
         kw = {k: v for k, v in dict(
             splits=splits, eps_fn=eps_fn, capture_step=capture_step,
-            perm_fn=perm_fn, per_step=per_step or None).items()
+            perm_fn=perm_fn, per_step=per_step or None,
+            eager_evals=eager_evals or None).items()
             if v is not None}
         # on_eval runs on rank 0 alone, which returns the run's result
         return parallel.launch(
@@ -1101,11 +1125,11 @@ def main(argv=None, splits: Optional[dict] = None,
             rank0_kwargs=dict(kw, on_eval=on_eval))
     with parallel.active(ranks):
         return _main(args, parallel.device(args.device), splits, eps_fn,
-                     capture_step, perm_fn, on_eval, per_step)
+                     capture_step, perm_fn, on_eval, per_step, eager_evals)
 
 
 def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval,
-          per_step=False):
+          per_step=False, eager_evals=False):
     parallel.announce(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1133,12 +1157,12 @@ def _main(args, device, splits, eps_fn, capture_step, perm_fn, on_eval,
             perm_fn=perm_fn)
     if args.elbo in CASALE_ELBOS:
         return run_casale(args, splits, device, eps_fn, capture_step,
-                          per_step)
+                          per_step, eager_evals)
     if args.elbo == "SVIGP_Hensman":
         return run_svigp(args, splits, device, capture_step, shuffle,
                          per_step)
     return run_svgpvae(args, splits, device, eps_fn, capture_step, shuffle,
-                       on_eval, per_step)
+                       on_eval, per_step, eager_evals)
 
 
 def _to_dev(split: dict, device: torch.device,
@@ -1151,7 +1175,7 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 capture_step: Optional[int],
                 shuffle: Optional[train.EpochShuffle] = None,
                 on_eval: Optional[Callable[[dict], None]] = None,
-                per_step: bool = False) -> dict:
+                per_step: bool = False, eager_evals: bool = False) -> dict:
     """SVGPVAE_Hensman, SVGPVAE_Titsias, VAE and CVAE.  Returns {"state",
     "step_seconds" (host clock after synchronize, per step; under
     --epoch_chunk its chunk's seconds over its steps), "chunks" (each
@@ -1160,7 +1184,10 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     losses), "test_recon" and "cgen_images" (the last eval pass's, or
     None), "step_launches" (kernel launches inside each step),
     "graph_replays" and "graph_launches" (each captured CUDA graph's
-    replays and the kernel launches of one, see graph_record), "captured",
+    replays and the kernel launches of one, see graph_record),
+    "eval_graph_replays" and "eval_graph_launches" (the unbundled eval
+    passes' graphs: "eval", "test", "VAE/eval", "VAE/test", "cgen"; see
+    pass_record), "captured",
     "cgen_mse", "best_cgen_mse", "regimes" (per epoch), "bias"
     (--bias_analysis: per epoch its bias, the epoch's mean of the batch
     estimates, the full-split mean vectors and the pass's kernel
@@ -1236,23 +1263,20 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
     test_im, test_aux = _to_dev(test_d, device, dtype)
 
     @torch.no_grad()
-    def recon_batches(images, aux, vae_pass, fwd, geco) -> list:
-        """The eval-mode forward outputs of the split's batches, tail
-        included: the VAE's, or `fwd`'s (a make_forward) at `geco`."""
-        return [vae_forward(params, batch, "eval") if vae_pass else
+    def recon_pass(images, aux, vae_pass, eps, geco, keep: bool = False):
+        """JAX's recon_stack_fn with its tail call: the eval-mode forward
+        of the split's batches, tail included (the VAE's, or the
+        SVGPVAE's at `geco`), with the "eval" draws of `eps`: (the
+        per-batch recon losses, with `keep` the split's recon images,
+        else None), on the device."""
+        fwd = (make_vae_forward(args, eps, cvae=is_cvae) if vae_pass
+               else make_forward(args, eps))
+        outs = [fwd(params, batch, "eval") if vae_pass else
                 fwd(params, batch, geco, args.alpha, "eval")
                 for batch in train.epoch_batches((images, aux),
                                                  args.batch_size)]
-
-    @torch.no_grad()
-    def recon_sum(images, aux, vae_pass, keep: bool = False):
-        """The JAX driver's "MSE": the summed recon_loss over the split
-        (under GECO the constraint sum_b(mse_b - kappa^2)), the per-batch
-        losses, and with `keep` the split's recon images (else None)."""
-        outs = recon_batches(images, aux, vae_pass, forward, state.geco)
-        losses = torch.stack([o.recon_loss for o in outs]).tolist()
-        return (sum(losses), torch.cat([o.recon_images for o in outs])
-                if keep else None, losses)
+        return (torch.stack([o.recon_loss for o in outs]),
+                torch.cat([o.recon_images for o in outs]) if keep else None)
 
     @torch.no_grad()
     def encode_train():
@@ -1263,75 +1287,139 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                 torch.cat([e[1] for e in enc]))
 
     @torch.no_grad()
-    def cgen_batches(eps) -> list:
-        """(recon images, loss) of the SVGPVAE cgen of each test batch,
-        tail included, from the full-train encode, with `eps`'s draws."""
+    def cgen_pass(eps, geco=None):
+        """JAX's encode_stack_fn then cgen_stack_fn, tails included: the
+        full-train encode, then the SVGPVAE cgen of each test batch with
+        `eps`'s "eval" draws: (the per-batch losses, the cgen images), on
+        the device."""
         means, variances = encode_train()
-        return [models.predict_cgen_mnist(
+        outs = [models.predict_cgen_mnist(
             vae, gp, batch, means, variances, train_aux,
             eps("eval", (batch[0].shape[0], args.L)))
             for batch in train.epoch_batches((test_im, test_aux),
                                              args.batch_size)]
-
-    @torch.no_grad()
-    def cgen():
-        """(the cgen MSE, its images, its per-batch losses) or (None,
-        None, None) for the VAE."""
-        if is_cvae:
-            images, loss = models.predict_cvae(
-                vae, train_im, train_aux, test_im, test_aux,
-                noise("eval", (N_train, args.L)),
-                n_objects=len(splits["pca_ov_init"]))
-            return float(loss), images, [float(loss)]
-        if not is_svgpvae:
-            return None, None, None
-        outs = cgen_batches(noise)
-        losses = torch.stack([loss for _, loss in outs]).tolist()
-        return (sum(losses) / N_test, torch.cat([r for r, _ in outs]),
-                losses)
+        return (torch.stack([loss for _, loss in outs]),
+                torch.cat([recon for recon, _ in outs]))
 
     @torch.no_grad()
     def eval_group(eps, geco):
         """--eval_bundle: the SVGPVAE eval group (eval recon, test recon,
         the full-train encode, the cgen; tails included) without a host
-        sync, as recon_sum and cgen compute it with the "eval" draws of
+        sync, as the unbundled passes compute it with the "eval" draws of
         `eps`: (the per-batch losses of the three passes then their three
         sums, the test recon images, the cgen images), on the device."""
-        fwd = make_forward(args, eps)
-        ev, te = (recon_batches(*split, False, fwd, geco) for split in
-                  ((eval_im, eval_aux), (test_im, test_aux)))
-        cg = cgen_batches(eps)
-        losses = [torch.stack([o.recon_loss for o in ev]),
-                  torch.stack([o.recon_loss for o in te]),
-                  torch.stack([loss for _, loss in cg])]
+        (ev, _), (te, recon) = (recon_pass(*split, False, eps, geco, keep)
+                                for split, keep in (
+                                    ((eval_im, eval_aux), False),
+                                    ((test_im, test_aux), True)))
+        cg, images = cgen_pass(eps)
+        losses = [ev, te, cg]
         return (torch.cat(losses + [torch.stack([x.sum() for x in losses])]),
-                torch.cat([o.recon_images for o in te]),
-                torch.cat([recon for recon, _ in cg]))
+                recon, images)
 
-    bundle = None
+    # The unbundled eval passes, as JAX's recon_stack_fn (the eval and
+    # test splits, the VAE's or the SVGPVAE's forward), encode_stack_fn ->
+    # cgen_stack_fn (the SVGPVAE cgen) and their tail calls: on a CUDA
+    # device each (split, pass kind) and the cgen replays a captured CUDA
+    # graph (capture.CapturedCall), read back once; their "eval" draws are
+    # static (StaticDraws: each shape drawn once, as the eval draws are the
+    # same at every call) and their forward reads a static GECO pair,
+    # copied in before each replay.  --eval_bundle's group is one more
+    # such call ("bundle").  Elsewhere (pass_why) they run eagerly with the
+    # run's noise and GECO state.  With `eager_evals` each captured pass
+    # also runs eagerly right after its replay, at the same state, into
+    # the eval record's "eager" (the card's yardstick).
+    pass_why = eval_pass_reason(device, per_step)
+    pass_geco = train.GECOState(state.geco.C_ma.clone(),
+                                state.geco.lagrange_mult.clone())
+    pass_eps = StaticDraws(noise)
+    pass_calls: Dict[str, capture.CapturedCall] = {}
+    pass_splits = {"eval": (eval_im, eval_aux), "test": (test_im, test_aux)}
+    print("eval passes: " + (f"uncaptured ({pass_why})" if pass_why else
+                             "each (the eval and test recon, the encode -> "
+                             "cgen) replays a captured CUDA graph, read back "
+                             "once"))
+
+    def run_pass(name, fn, twin: Optional[dict] = None):
+        """fn(eps, geco): the eval pass `name`, its graph replayed (or
+        eagerly, pass_why); with `twin` also eagerly, into twin[name] =
+        (its outputs, seconds, its outputs on the cusolver backend: the
+        one arithmetic the graph changes, capture.cusolver_linalg; the
+        seconds of both, which the pass's own seconds leave out)."""
+        if pass_why:
+            return fn(noise, state.geco)
+        pass_geco.C_ma.copy_(state.geco.C_ma)
+        pass_geco.lagrange_mult.copy_(state.geco.lagrange_mult)
+        if name not in pass_calls:
+            pass_calls[name] = capture.CapturedCall(
+                lambda: fn(pass_eps, pass_geco))
+        out = pass_calls[name]()
+        if twin is not None:
+            sync(device)  # the replay's end: its own seconds
+            t0 = time.perf_counter()
+            eager = fn(noise, state.geco)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            with capture.cusolver_linalg():
+                cusolver = fn(noise, state.geco)
+            sync(device)
+            twin[name] = (eager, seconds, cusolver,
+                          time.perf_counter() - t0)
+        return out
+
+    def eager_record(twin: dict) -> dict:
+        """{pass: {"losses", "sum", "images", "seconds", "cusolver":
+        {"losses", "sum", "images"}, "twin_seconds"}} of the eager twins
+        of one eval's captured passes (see run_pass)."""
+        def record(out):
+            losses = out[0].tolist()
+            return {"losses": losses, "sum": sum(losses), "images": out[1]}
+        return {name: dict(record(eager), seconds=seconds,
+                           cusolver=record(cusolver), twin_seconds=both)
+                for name, (eager, seconds, cusolver, both)
+                in twin.items()}
+
+    def recon_sum(split, vae_pass, keep: bool = False, twin=None):
+        """The JAX driver's "MSE" of the split "eval" or "test": the
+        summed recon_loss over it (under GECO the constraint
+        sum_b(mse_b - kappa^2)), the per-batch losses, and with `keep` a
+        copy of its recon images (else None); one readback."""
+        name = ("VAE/" if vae_pass else "") + split
+        losses, recon = run_pass(name, lambda eps, geco: recon_pass(
+            *pass_splits[split], vae_pass, eps, geco, keep), twin)
+        losses = losses.tolist()
+        return sum(losses), None if recon is None else recon.clone(), losses
+
+    def cgen(twin=None):
+        """(the cgen MSE, its images, its per-batch losses) or (None,
+        None, None) for the VAE; the SVGPVAE's one readback."""
+        if is_cvae:
+            with torch.no_grad():
+                images, loss = models.predict_cvae(
+                    vae, train_im, train_aux, test_im, test_aux,
+                    noise("eval", (N_train, args.L)),
+                    n_objects=len(splits["pca_ov_init"]))
+            return float(loss), images, [float(loss)]
+        if not is_svgpvae:
+            return None, None, None
+        losses, images = run_pass("cgen", cgen_pass, twin)
+        losses = losses.tolist()
+        return sum(losses) / N_test, images.clone(), losses
+
+    bundled = args.eval_bundle and is_svgpvae
     if args.eval_bundle and not is_svgpvae:
         print(f"--eval_bundle: no effect with --elbo {args.elbo} (the JAX "
               "driver bundles the SVGPVAE eval group only)")
-    elif args.eval_bundle:
-        why = uncaptured_reason(device)
-        geco_eval = train.GECOState(state.geco.C_ma.clone(),
-                                    state.geco.lagrange_mult.clone())
-        eps = StaticDraws(noise)
-        group = (lambda: eval_group(eps, geco_eval))  # noqa: E731
-        bundle = (group if why else capture.CapturedCall(group),
-                  geco_eval)
+    elif bundled:
         print("--eval_bundle: the eval group (eval and test recon, the "
               "full-train encode, the cgen) with one readback per eval; "
-              + ("it replays one captured CUDA graph" if why is None else
-                 f"uncaptured ({why})"))
+              + ("it replays one captured CUDA graph" if pass_why is None
+                 else f"uncaptured ({pass_why})"))
 
     def bundled_eval(epoch):
         """The eval record, the per-batch losses, the test recon and cgen
         images of one eval group (see eval_group), read back once."""
-        call, geco_eval = bundle
-        geco_eval.C_ma.copy_(state.geco.C_ma)
-        geco_eval.lagrange_mult.copy_(state.geco.lagrange_mult)
-        vals, recon, images = call()
+        vals, recon, images = run_pass("bundle", eval_group)
         vals = vals.cpu().tolist()
         n_ev = -(-N_eval // args.batch_size)
         n_te = -(-N_test // args.batch_size)
@@ -1413,24 +1501,32 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
                   f"{np.sum(losses) / N_train:.5f}, epoch time "
                   f"{time.perf_counter() - t_epoch:.2f}s")
             t0 = time.perf_counter()
-            if bundle is not None and not use_vae_pass:
+            if bundled and not use_vae_pass:
                 ev, batch_losses, test_recon, images = bundled_eval(epoch)
                 ev["seconds"] = {"eval_group": time.perf_counter() - t0}
             else:
+                twin = {} if eager_evals and not pass_why else None
                 with utils.annotate("eval_pass"):
-                    eval_sum, _, ev_l = recon_sum(eval_im, eval_aux,
-                                                  use_vae_pass)
+                    eval_sum, _, ev_l = recon_sum("eval", use_vae_pass,
+                                                  twin=twin)
                     test_sum, test_recon, te_l = recon_sum(
-                        test_im, test_aux, use_vae_pass, keep=bool(run_dir))
+                        "test", use_vae_pass, keep=bool(run_dir), twin=twin)
                     ev = {"epoch": epoch, "eval_mse": eval_sum / N_eval,
                           "test_mse": test_sum / N_test}
                     sync(device)
                     t1 = time.perf_counter()
-                    ev["cgen_mse"], images, cg_l = cgen()
+                    ev["cgen_mse"], images, cg_l = cgen(twin)
                     sync(device)
                 batch_losses = {"eval": ev_l, "test": te_l, "cgen": cg_l}
                 ev["seconds"] = {"eval_test": t1 - t0,
                                  "cgen": time.perf_counter() - t1}
+                if twin is not None:
+                    ev["eager"] = eager_record(twin)
+                    # the captured passes' seconds, without their twins'
+                    for k, twin_pass in ev["eager"].items():
+                        ev["seconds"]["cgen" if k == "cgen" else
+                                      "eval_test"] -= twin_pass[
+                                          "twin_seconds"]
             cgen_images = images if images is not None else cgen_images
             evals.append(ev)
             eval_losses.append(batch_losses)
@@ -1472,11 +1568,13 @@ def run_svgpvae(args, splits: dict, device: torch.device, eps_fn: Callable,
 
     rec.summary(time.perf_counter() - t_start)
     tracer.report()
+    bundle_call = pass_calls.pop("bundle", None)
     result = dict(rec.result(), state=state, evals=evals, run_dir=run_dir,
                   noise=noise, regimes=regime, bias=biases, shuffle=shuffle,
                   pictures=pictures, test_recon=test_recon,
                   cgen_images=cgen_images, eval_losses=eval_losses,
-                  **graph_record(chunks, ("eval", bundle and bundle[0])))
+                  **graph_record(chunks, ("eval", bundle_call)),
+                  **pass_record(pass_calls))
     _best(result, evals)
     _save_cgen_images(run_dir, cgen_images)
     if run_dir and args.save_latents:
@@ -1736,8 +1834,31 @@ def make_casale_loss_fn(args, eps_fn: Callable, consts: dict, regime: str,
     return loss_fn
 
 
+@torch.no_grad()
+def casale_cgen(args, params: dict, consts: dict, test: tuple,
+                train_aux: torch.Tensor, eps: Callable,
+                noise_override=None) -> tuple:
+    """JAX's Casale cgen_fn (gp_quantities' full-train encode and V, then
+    the Woodbury cgen of the test split, svgpvae_tpu/cli/mnist.py:1305):
+    the encode of consts["images"] with the "eval" draw eps("eval", (N,
+    L)), V over consts' grid, the cgen of `test` (images, aux) with the
+    draw eps("eval", (x, L)), conditioned on `train_aux`'s rows.
+    `noise_override`: --casale_predict_alpha (None: the trained noise).
+    Returns (recon images, loss) on the device."""
+    vae, gp = params["vae"], params["gp"]
+    Z = models.encode_full_casale(
+        vae, consts["images"], eps("eval", (len(consts["images"]), args.L)),
+        clip_qs=args.clip_qs)
+    V = gpm.v_matrix(gp, consts["angles"], consts["object_ids"],
+                     consts["grid_rows"])
+    return models.predict_cgen_casale(
+        vae, gp, *test, train_aux, V, Z, eps("eval", (len(test[0]), args.L)),
+        noise_override=noise_override)
+
+
 def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
-               capture_step: Optional[int], per_step: bool = False) -> dict:
+               capture_step: Optional[int], per_step: bool = False,
+               eager_evals: bool = False) -> dict:
     """GPVAE_Casale: --opt_regime's epochs, each stepping its regime's own
     Adam; the cgen MSE every CASALE_EVAL_EVERY epochs.  On a CUDA device in
     a 1-process run each epoch replays its regime's captured CUDA graphs
@@ -1745,11 +1866,13 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
     full-batch step and the tail step, and under --casale_taylor_every
     K > 1 the refresh of the held sample, a graph of its own that the host
     replays ahead of every K-th step), one readback an epoch; elsewhere
-    the steps run one by one (per_step_reason).  Returns {"params",
+    the steps run one by one (per_step_reason).  The cgen replays a
+    captured CUDA graph of its own on a CUDA device.  Returns {"params",
     "states" (per regime), "step_seconds", "metrics", "step_launches",
     "captured", "evals", "cgen_mse", "best_cgen_mse", "regimes" (per
     step), "chunks", "graph_replays" and "graph_launches" (named
-    "<regime>/<graph>")}."""
+    "<regime>/<graph>"), "eval_graph_replays" and "eval_graph_launches"
+    (the cgen's graph, "cgen")}."""
     train_d = sort_train_data(splits["train"])
     N_train = len(train_d["images"])
     consts = casale_constants(train_d, device)
@@ -1815,6 +1938,29 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
         loss_fns[r], args.batch_size, [noise.generator]) for r in subsets}
     epoch_fns = {r: train.make_multi_epoch_fn(g) for r, g in graphs.items()}
     tensors = (consts["images"], train_aux)
+
+    # JAX's cgen_fn (gp_quantities -> the Woodbury cgen) as one captured
+    # CUDA graph on a CUDA device (the eager call elsewhere, cgen_why): it
+    # reads the parameters at their fixed addresses (each regime's Adam
+    # steps them in place), its "eval" draws are static (StaticDraws) and
+    # --casale_predict_alpha a device tensor made once.
+    cgen_why = eval_pass_reason(device, per_step)
+    cgen_eps = StaticDraws(noise)
+    predict_alpha = (torch.tensor(args.casale_predict_alpha,
+                                  dtype=torch.float32, device=device)
+                     if args.casale_predict_alpha else None)
+
+    test = (test_im, test_aux)
+
+    def eager_cgen():
+        return casale_cgen(args, params, consts, test, train_aux, noise,
+                           args.casale_predict_alpha or None)
+
+    cgen_call = eager_cgen if cgen_why else capture.CapturedCall(
+        lambda: casale_cgen(args, params, consts, test, train_aux, cgen_eps,
+                            predict_alpha))
+    print("cgen: " + (f"uncaptured ({cgen_why})" if cgen_why else
+                      "replays a captured CUDA graph, read back once"))
     evals, steps, regimes, pictures = [], 0, [], []
     t_start = time.perf_counter()
     for epoch in range(nr_epochs):
@@ -1858,23 +2004,27 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
                       f"noise={gpm.casale_noise(gp).item():.6f} "
                       f"|ov|={ov:.3f}")
             t0 = time.perf_counter()
-            with torch.no_grad():
-                Z = models.encode_full_casale(
-                    params["vae"], consts["images"],
-                    noise("eval", (N_train, args.L)), clip_qs=args.clip_qs)
-                V = gpm.v_matrix(gp, consts["angles"], consts["object_ids"],
-                                 consts["grid_rows"])
-                recon, loss = models.predict_cgen_casale(
-                    params["vae"], gp, test_im, test_aux, train_aux, V, Z,
-                    noise("eval", (len(test_im), args.L)),
-                    noise_override=args.casale_predict_alpha or None)
-            sync(device)
-            evals.append({"epoch": epoch, "cgen_mse": float(loss),
+            recon, loss = cgen_call()
+            loss = float(loss)  # the pass's one readback
+            recon = recon.clone()
+            evals.append({"epoch": epoch, "cgen_mse": loss,
                           "seconds": {"cgen": time.perf_counter() - t0}})
-            print(f"  cgen test MSE: {float(loss):.5f}")
+            if eager_evals and not cgen_why:
+                # the eager twin, and on the cusolver backend (the one
+                # arithmetic the graph changes)
+                t0 = time.perf_counter()
+                twin_recon, twin_loss = eager_cgen()
+                seconds = time.perf_counter() - t0
+                with capture.cusolver_linalg():
+                    cus_recon, cus_loss = eager_cgen()
+                evals[-1]["eager"] = {"cgen": {
+                    "loss": float(twin_loss), "images": twin_recon,
+                    "seconds": seconds, "cusolver": {
+                        "loss": float(cus_loss), "images": cus_recon}}}
+            print(f"  cgen test MSE: {loss:.5f}")
             draw(pictures, run_dir, f"{steps}_cgen", "cgen",
                  plots.plot_image_grid, splits["test"]["images"], recon,
-                 f"epoch {epoch + 1}. CGEN MSE {float(loss):.4f}")
+                 f"epoch {epoch + 1}. CGEN MSE {loss:.4f}")
             if run_dir and args.save_model_weights:
                 utils.save_checkpoint(os.path.join(run_dir, "ckpt"),
                                       ckpt_state(), steps)
@@ -1886,7 +2036,8 @@ def run_casale(args, splits: dict, device: torch.device, eps_fn: Callable,
                       f"{r}/{k}": g.replays for r, st in graphs.items()
                       for k, g in st.graphs.items()}, graph_launches={
                       f"{r}/{k}": g.launches for r, st in graphs.items()
-                      for k, g in st.graphs.items()})
+                      for k, g in st.graphs.items()},
+                  **pass_record({} if cgen_why else {"cgen": cgen_call}))
     return _best(result, evals)
 
 

@@ -39,6 +39,14 @@ flax's initialisation, drawn from a torch.Generator seeded by `--seed`;
 the GP parameters are then drawn from RandomState(seed) exactly as the JAX
 serve entry point draws them. TF32 is switched off for matmuls and cuDNN:
 the GP math and the encodings it conditions on need IEEE fp32.
+
+On a CUDA device the encode chunks and the requests replay captured CUDA
+graphs, one per input shape (JAX jits the chunk encoder and `predict`):
+a chunk's frames and action ids, or a request's context frames and
+target action ids (SPRITES) or aux queries (MNIST, --run_dir), are
+copied into the graph's static buffers before each replay; the request
+graph registers the serve's seeded generator, so each replay draws the
+noise an eager request would.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +64,7 @@ from svgpvae_tpu_torch import (data, models, ops, parallel, serving, train,
                                utils)
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch.nn import SpritesReprNet, SpritesVAE
+from svgpvae_tpu_torch.train import capture
 from svgpvae_tpu_torch.utils.convert import params_from_jax
 
 N_ACTIONS = data.N_ACTIONS
@@ -86,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--K_SE", action="store_true",
                    help="SE x SE GP kernel (fit through gp_sufficient_stats)")
     p.add_argument("--n_requests", type=int, default=1,
-                   help="serve the first N unseen characters")
+                   help="serve the first N unseen characters; with "
+                        "--run_dir, serve the query set N times (--out "
+                        "holds the first)")
     p.add_argument("--mean", action="store_true",
                    help="decode the posterior mean instead of sampling")
     p.add_argument("--device", type=str, default="cuda")
@@ -148,20 +160,45 @@ def build_model(args, device: torch.device):
     return vae.to(device).eval(), repr_net.to(device).eval(), gp.to(device)
 
 
+def uncaptured_reason(device: torch.device) -> Optional[str]:
+    """Why the serve's encode chunks and requests run without CUDA graphs
+    here, or None: on a CUDA device each replays a captured graph, one per
+    input shape (no collective runs inside them, so a data-parallel run
+    captures them as a 1-process run does)."""
+    if device.type != "cuda":
+        return f"a {device.type} device"
+    return None
+
+
 @torch.no_grad()
 def encode_train(vae, repr_net, frames: np.ndarray, action_ids: np.ndarray,
-                 device: torch.device, clip_qs: bool = True):
-    """(means, variances, aux) over the whole train split, in chunks."""
-    means, variances, aux = [], [], []
-    for lo in range(0, len(frames), ENCODE_CHUNK):
-        im = torch.from_numpy(frames[lo:lo + ENCODE_CHUNK]).to(device)
-        ids = torch.from_numpy(action_ids[lo:lo + ENCODE_CHUNK]).to(device)
+                 device: torch.device, clip_qs: bool = True,
+                 captured: bool = False):
+    """(means, variances, aux, the chunks' capture.CallPerShape) over the
+    whole train split, in chunks of ENCODE_CHUNK frames; with `captured`
+    one captured CUDA graph per chunk shape (JAX's one jitted program
+    reused per chunk shape)."""
+    def chunk(im, ids):
         mu, var = models.batching_encode_svgpvae(vae, im, clip_qs=clip_qs)
-        means.append(mu)
-        variances.append(var)
-        aux.append(models.sprites_aux_data(repr_net, im, ids,
-                                           FRAMES_PER_CHAR))
-    return torch.cat(means), torch.cat(variances), torch.cat(aux)
+        return mu, var, models.sprites_aux_data(repr_net, im, ids,
+                                                FRAMES_PER_CHAR)
+
+    call = capture.CallPerShape(chunk, device, captured=captured)
+    outs = [call(frames[lo:lo + ENCODE_CHUNK],
+                 action_ids[lo:lo + ENCODE_CHUNK])
+            for lo in range(0, len(frames), ENCODE_CHUNK)]
+    return (*(torch.cat(x) for x in zip(*outs)), call)
+
+
+def graph_record(**calls) -> dict:
+    """{"graph_replays", "graph_launches"} of the serve's calls (name:
+    capture.CallPerShape), each captured graph named
+    "<name>:<input shapes>"."""
+    graphs = {f"{name}:{[list(s) for s, _ in key]}": g
+              for name, per_shape in calls.items()
+              for key, g in per_shape.graphs.items()}
+    return {"graph_replays": {k: g.replays for k, g in graphs.items()},
+            "graph_launches": {k: g.launches for k, g in graphs.items()}}
 
 
 def _sync(device: torch.device) -> None:
@@ -225,12 +262,15 @@ def _rebuild_args(args) -> argparse.Namespace:
 
 
 def load_mnist_predictor(run_dir: str, device: torch.device,
-                         splits: dict = None) -> dict:
+                         splits: dict = None, captured: bool = False
+                         ) -> dict:
     """Rebuild and restore a cli.mnist SVGPVAE run and fit the predictor
-    on its train split.  `splits` (as data.generate_rotated_mnist returns)
-    skips loading or regenerating the data.  Returns {"predictor", "vae",
-    "test", "args", "step", "means", "variances", "aux", "seconds",
-    "fit_launches"}."""
+    on its train split, encoded in chunks of MNIST_ENCODE_CHUNK images
+    (with `captured` one captured CUDA graph per chunk shape).  `splits`
+    (as data.generate_rotated_mnist returns) skips loading or
+    regenerating the data.  Returns {"predictor", "vae", "test", "args",
+    "step", "means", "variances", "aux", "seconds", "fit_launches",
+    "encode_calls" (the chunks' capture.CallPerShape)}."""
     from svgpvae_tpu_torch.cli import mnist as mnist_cli
 
     args = _load_args(run_dir)
@@ -249,9 +289,11 @@ def load_mnist_predictor(run_dir: str, device: torch.device,
                              device=device)
     aux = torch.as_tensor(train_d["aux_data"], dtype=torch.float32,
                           device=device)
-    enc = [models.batching_encode_svgpvae(
-        vae, images[lo:lo + MNIST_ENCODE_CHUNK], clip_qs=args.clip_qs)
-        for lo in range(0, len(images), MNIST_ENCODE_CHUNK)]
+    call = capture.CallPerShape(
+        torch.no_grad()(lambda im: models.batching_encode_svgpvae(
+            vae, im, clip_qs=args.clip_qs)), device, captured=captured)
+    enc = [call(images[lo:lo + MNIST_ENCODE_CHUNK])
+           for lo in range(0, len(images), MNIST_ENCODE_CHUNK)]
     means = torch.cat([e[0] for e in enc])
     variances = torch.cat([e[1] for e in enc])
     _sync(device)
@@ -262,16 +304,18 @@ def load_mnist_predictor(run_dir: str, device: torch.device,
             "args": args, "step": step, "means": means,
             "variances": variances, "aux": aux,
             "seconds": {"encode": t_encode, "fit": t_fit},
-            "fit_launches": launches}
+            "fit_launches": launches, "encode_calls": call}
 
 
 def load_sprites_predictor(run_dir: str, device: torch.device,
-                           splits: dict = None) -> dict:
+                           splits: dict = None, captured: bool = False
+                           ) -> dict:
     """Rebuild and restore a cli.sprites SVGPVAE run and fit the predictor
-    on its train split.  `splits` (as data.generate_synthetic_sprites
-    returns) skips the corpus on disk.  Returns {"predictor", "vae",
-    "repr_net", "test_character", "args", "step", "means", "variances",
-    "aux", "seconds", "fit_launches"}."""
+    on its train split (encode_train, captured with `captured`).
+    `splits` (as data.generate_synthetic_sprites returns) skips the
+    corpus on disk.  Returns {"predictor", "vae", "repr_net",
+    "test_character", "args", "step", "means", "variances", "aux",
+    "seconds", "fit_launches", "encode_calls"}."""
     from svgpvae_tpu_torch.cli import sprites as sprites_cli
 
     args = _load_args(run_dir)
@@ -286,10 +330,10 @@ def load_sprites_predictor(run_dir: str, device: torch.device,
     vae, repr_net = params["vae"].eval(), params["repr"].eval()
 
     t0 = time.perf_counter()
-    means, variances, aux = encode_train(
+    means, variances, aux, per_shape = encode_train(
         vae, repr_net, train_d["frames"],
         np.ascontiguousarray(train_d["aux_data"][:, 1]), device,
-        clip_qs=args.clip_qs)
+        clip_qs=args.clip_qs, captured=captured)
     _sync(device)
     t_encode = time.perf_counter() - t0
     predictor, t_fit, launches = _timed_fit(params["gp"], means, variances,
@@ -298,33 +342,39 @@ def load_sprites_predictor(run_dir: str, device: torch.device,
             "test_character": splits["test_character"], "args": args,
             "step": step, "means": means, "variances": variances, "aux": aux,
             "seconds": {"encode": t_encode, "fit": t_fit},
-            "fit_launches": launches}
+            "fit_launches": launches, "encode_calls": per_shape}
 
 
 def load_predictor(run_dir: str, device: torch.device,
-                   splits: dict = None) -> dict:
+                   splits: dict = None, captured: bool = False) -> dict:
     """Dispatch on the run's args.json (the SPRITES or the MNIST driver's
     flags)."""
     if hasattr(_load_args(run_dir), "sprites_data_path"):
-        return load_sprites_predictor(run_dir, device, splits)
-    return load_mnist_predictor(run_dir, device, splits)
+        return load_sprites_predictor(run_dir, device, splits, captured)
+    return load_mnist_predictor(run_dir, device, splits, captured)
 
 
-def serve_run(args, device: torch.device, splits: dict = None) -> dict:
-    """--run_dir: load the run's predictor, serve the queries, write
-    --out.  Returns the metrics, and under "state" the encodings, aux
-    data, predictor and the served (aux_query, images, p_m, p_v)."""
-    loaded = load_predictor(args.run_dir, device, splits)
-    predict = serving.make_predict_fn(loaded["predictor"], loaded["vae"],
-                                      sample=not args.mean)
+def serve_run(args, device: torch.device, splits: dict = None,
+              why: Optional[str] = None) -> dict:
+    """--run_dir: load the run's predictor, serve the queries
+    --n_requests times (each request draws afresh; --out holds the
+    first), write --out.  Unless `why` says why not, the encode chunks and
+    the request each replay a captured CUDA graph per input shape.
+    Returns the metrics, and under "state" the encodings, aux data,
+    predictor and the served (aux_query, images, p_m, p_v) of each
+    request."""
+    captured = why is None
+    loaded = load_predictor(args.run_dir, device, splits, captured)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    request = serving.make_request_fn(
+        loaded["predictor"], loaded["vae"], device, sample=not args.mean,
+        generator=generator, captured=captured)
     truth = None
     if args.queries:
-        aux_q = torch.as_tensor(np.load(args.queries), dtype=torch.float32,
-                                device=device)
+        aux_q = np.load(args.queries).astype(np.float32)
     elif "test" in loaded:  # MNIST demo: held-out-angle rows
         test = loaded["test"]
-        aux_q = torch.as_tensor(test["aux_data"][:args.limit],
-                                dtype=torch.float32, device=device)
+        aux_q = np.asarray(test["aux_data"][:args.limit], np.float32)
         truth = torch.as_tensor(test["images"][:args.limit],
                                 dtype=torch.float32, device=device)
     else:  # SPRITES demo: the first unseen character
@@ -334,27 +384,37 @@ def serve_run(args, device: torch.device, splits: dict = None) -> dict:
         aux_q = sprites_query_aux(loaded["repr_net"], frames[:n_ctx],
                                   tc["aux_data"][n_ctx:N_ACTIONS, 1])
         truth = frames[n_ctx:]
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    t0 = time.perf_counter()
-    images, p_m, p_v = predict(aux_q, generator)
-    _sync(device)
-    t_predict = time.perf_counter() - t0
-    out = {"images": images, "p_m": p_m, "p_v": p_v, "aux_query": aux_q}
+    served, t_requests = [], []
+    for _ in range(args.n_requests):
+        t0 = time.perf_counter()
+        out = dict(zip(("aux_query", "images", "p_m", "p_v"),
+                       request(aux_q)))
+        _sync(device)
+        t_requests.append(time.perf_counter() - t0)
+        served.append(out)
+    out = served[0]
     if parallel.is_writer():
-        np.savez(args.out, **{k: v.cpu().numpy() for k, v in out.items()})
-    sec = dict(loaded["seconds"], predict=t_predict)
+        np.savez(args.out, **{k: out[k].cpu().numpy() for k in (
+            "images", "p_m", "p_v", "aux_query")})
+    sec = dict(loaded["seconds"], predict=t_requests[0],
+               requests=t_requests)
     print(f"encode {len(loaded['means'])} rows: {sec['encode']:.3f} s; fit: "
           f"{sec['fit']:.3f} s; predict {len(aux_q)} queries: "
-          f"{1e3 * t_predict:.2f} ms")
+          f"{1e3 * t_requests[0]:.2f} ms"
+          + (f", request p50 {1e3 * float(np.median(t_requests)):.2f} ms "
+             f"over {len(t_requests)}" if len(t_requests) > 1 else "")
+          + ("" if captured else f" (uncaptured: {why})"))
     result = {"n_queries": len(aux_q), "seconds": sec,
               "fit_launches": loaded["fit_launches"], "step": loaded["step"],
               "state": {k: loaded[k] for k in ("means", "variances", "aux",
-                                               "predictor")}}
-    result["state"]["served"] = [out]
+                                               "predictor")},
+              **graph_record(encode=loaded["encode_calls"],
+                             request=request)}
+    result["state"]["served"] = served
     if truth is not None:
         K = truth.shape[1] * truth.shape[2]
-        result["cgen_mse"] = float(torch.sum((truth - images) ** 2)) / (
-            K * len(truth))
+        result["cgen_mse"] = float(torch.sum((truth - out["images"]) ** 2)
+                                   ) / (K * len(truth))
         print(f"cgen MSE over {len(truth)} queries: "
               f"{result['cgen_mse']:.5f}")
     print(f"served {len(aux_q)} queries -> {args.out}")
@@ -370,12 +430,16 @@ def load_splits(args) -> dict:
     return data.load_sprites(args.sprites_data_path)
 
 
-def main(argv=None, splits: dict = None) -> dict:
+def main(argv=None, splits: dict = None, eager: bool = False) -> dict:
     """Run the serve; `splits` (the run's data with --run_dir, else as
     data.generate_synthetic_sprites returns) skips loading the data.
-    Returns the metrics and, under "state", the encodings, aux data,
-    predictor and the served (aux_query, images, p_m, p_v), and under
-    "fit_launches" the kernel launches made inside `serving.fit`."""
+    `eager` runs the encode chunks and the requests without CUDA graphs
+    on a CUDA device (the card's yardstick of the graphs).  Returns the
+    metrics and, under "state", the encodings, aux data, predictor and
+    the served (aux_query, images, p_m, p_v), under "fit_launches" the
+    kernel launches made inside `serving.fit`, and under "graph_replays"
+    and "graph_launches" those of each captured graph ("encode:<chunk
+    shapes>", "request:<input shapes>")."""
     args = build_parser().parse_args(argv)
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
@@ -383,22 +447,24 @@ def main(argv=None, splits: dict = None) -> dict:
     ranks = parallel.resolve_data_parallel(args.data_parallel, 0,
                                            args.device)
     if parallel.needs_launch(ranks):
+        kw = {} if splits is None else {"splits": splits}
         return parallel.launch("svgpvae_tpu_torch.cli.serve", argv,
-                               {} if splits is None else {"splits": splits},
+                               dict(kw, eager=True) if eager else kw,
                                ranks, args.device)
     with parallel.active(ranks):
         device = parallel.device(args.device)
         if ranks > 1:
             print(f"sharding fit over {ranks} ranks")
-        return _main(args, device, splits)
+        return _main(args, device, splits, eager)
 
 
-def _main(args, device, splits):
+def _main(args, device, splits, eager=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN (the GP math needs IEEE fp32)")
+    why = "main(eager=True)" if eager else uncaptured_reason(device)
     if args.run_dir:
-        return serve_run(args, device, splits)
+        return serve_run(args, device, splits, why)
 
     if splits is None:
         splits = load_splits(args)
@@ -409,30 +475,40 @@ def _main(args, device, splits):
                          "characters in the corpus")
     vae, repr_net, gp = build_model(args, device)
 
+    captured = why is None
+    print("encode chunks and requests: " + (
+        "each input shape replays a captured CUDA graph" if captured
+        else f"uncaptured ({why})"))
     t0 = time.perf_counter()
-    means, variances, aux = encode_train(
+    means, variances, aux, encode_calls = encode_train(
         vae, repr_net, train_d["frames"],
-        np.ascontiguousarray(train_d["aux_data"][:, 1]), device)
+        np.ascontiguousarray(train_d["aux_data"][:, 1]), device,
+        captured=captured)
     _sync(device)
     t_encode = time.perf_counter() - t0
 
     predictor, t_fit, fit_launches = _timed_fit(gp, means, variances, aux,
                                                 device)
 
-    predict = serving.make_predict_fn(predictor, vae, sample=not args.mean)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    # a request: the context frames and target action ids copied to the
+    # device, the repr net's character vector paired with the ids, predict
+    request = serving.make_request_fn(
+        predictor, vae, device, sample=not args.mean, generator=generator,
+        query_fn=lambda frames, ids: sprites_query_aux(repr_net, frames,
+                                                       ids),
+        captured=captured)
     sq_err, n_queries, t_requests, served = 0.0, 0, [], []
     for c in range(args.n_requests):
         block = slice(c * N_ACTIONS, (c + 1) * N_ACTIONS)
-        frames = torch.from_numpy(test_c["frames"][block]).to(device)
-        aids = test_c["aux_data"][block, 1]
+        frames = test_c["frames"][block]
+        aids = np.asarray(test_c["aux_data"][block, 1], np.float32)
         t0 = time.perf_counter()
-        aux_q = sprites_query_aux(repr_net, frames[:args.N_context],
-                                  aids[args.N_context:])
-        images, p_m, p_v = predict(aux_q, generator)
+        aux_q, images, p_m, p_v = request(frames[:args.N_context],
+                                          aids[args.N_context:])
         _sync(device)
         t_requests.append(time.perf_counter() - t0)
-        truth = frames[args.N_context:]
+        truth = torch.as_tensor(frames[args.N_context:], device=device)
         sq_err += float(torch.sum((truth - images) ** 2))
         n_queries += len(truth)
         served.append({"aux_query": aux_q, "images": images, "p_m": p_m,
@@ -450,7 +526,8 @@ def _main(args, device, splits):
                         "requests": t_requests},
             "fit_launches": fit_launches,
             "state": {"means": means, "variances": variances, "aux": aux,
-                      "predictor": predictor, "served": served}}
+                      "predictor": predictor, "served": served},
+            **graph_record(encode=encode_calls, request=request)}
 
 
 if __name__ == "__main__":

@@ -88,12 +88,13 @@ def predict_cgen_casale(vae, gp: CasaleGP, test_images: Tensor,
     pca...]) conditioned on the train latents (train rows [global index,
     id, angle, pca...]), sampled with `eps` (x, L) (the mean alone with
     `take_mean`), decoded.  `noise_override` replaces the trained noise in
-    this smoother only.  Returns (recon images, mean per-pixel squared
+    this smoother only (a float, or a 0-d tensor on the device: a
+    captured call's).  Returns (recon images, mean per-pixel squared
     error)."""
     L = latent_train.shape[1]
     noise = (casale_noise(gp) if noise_override is None else
-             torch.tensor(noise_override, dtype=latent_train.dtype,
-                          device=latent_train.device))
+             torch.as_tensor(noise_override, dtype=latent_train.dtype,
+                             device=latent_train.device))
 
     @linalg.precise
     def posterior_mean_var():

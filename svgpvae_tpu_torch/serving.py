@@ -8,13 +8,17 @@ and SPRITES GP families.
     rank on its share of the rows, parallel.sharded_precompute_gp_params,
     as the JAX `fit` under a mesh);
   * `predict` — a function of the query auxiliary data only: GP posterior
-    at the queries -> decode -> images.
+    at the queries -> decode -> images;
+  * `make_request_fn` — a request: its inputs (the aux queries, or what
+    builds them: SPRITES's context frames and action ids) -> `predict`,
+    on a CUDA device as one captured CUDA graph per input shape (JAX's
+    jitted `predict`, one program per query shape).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch import Tensor
@@ -22,6 +26,7 @@ from torch import Tensor
 from svgpvae_tpu_torch import gp as gpm
 from svgpvae_tpu_torch import linalg, parallel
 from svgpvae_tpu_torch.models.svgpvae import PVAR_CLIP
+from svgpvae_tpu_torch.train import capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +71,31 @@ def make_predict_fn(predictor: CGenPredictor, vae, sample: bool = True):
         return vae.decode(z), p_m, p_v
 
     return predict
+
+
+def make_request_fn(predictor: CGenPredictor, vae, device: torch.device,
+                    sample: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    query_fn: Optional[Callable] = None,
+                    captured: bool = False) -> capture.CallPerShape:
+    """request(*inputs) -> (aux_query, images, p_m, p_v) on `device`:
+    query_fn(*inputs) builds the aux queries (by default the one input is
+    the aux query), then `predict` draws from `generator`.  Inputs are
+    tensors on any device, or arrays.  With `captured` each shape of the
+    inputs is one captured CUDA graph (capture.CallPerShape: the inputs
+    copied into its static buffers before each replay), with `generator`
+    (the device's default one when None) registered, so that every replay
+    draws fresh noise, the draws an eager request would take."""
+    predict = make_predict_fn(predictor, vae, sample=sample)
+    query_fn = query_fn or (lambda aux_query: aux_query)
+    if captured and sample and generator is None:
+        index = torch.device(device).index
+        generator = torch.cuda.default_generators[
+            torch.cuda.current_device() if index is None else index]
+
+    def body(*inputs):
+        aux_query = query_fn(*inputs)
+        return (aux_query, *predict(aux_query, generator))
+
+    return capture.CallPerShape(body, device, [generator] if sample else [],
+                                captured=captured)

@@ -2,9 +2,10 @@
 form of the JAX package's one-program loops (train.make_epoch_fn,
 make_multi_epoch_fn and make_generative_chunk_fn: the drivers' default
 epochs, every MNIST runner's among them, the SPRITES pretraining epochs,
-MNIST's --epoch_chunk, the ball's sample -> step chunks) and of its
-eval programs (MNIST's --eval_bundle, the SPRITES eval pass's recon,
-encode, fit and cgen).  On CUDA, "one program, one readback" is a graph
+MNIST's --epoch_chunk, the ball's sample -> step chunks), of its eval
+programs (MNIST's --eval_bundle and unbundled passes, Casale's cgen, the
+SPRITES eval pass's recon, encode, fit and cgen) and of the serve's jitted
+encode and predict.  On CUDA, "one program, one readback" is a graph
 captured once and replayed; the drivers use these on a CUDA device, in a
 1-process run or a data-parallel run over NCCL (the all-reduces inside
 the graphs), and say why their steps run one by one elsewhere (the CPU,
@@ -42,10 +43,13 @@ the graphs), and say why their steps run one by one elsewhere (the CPU,
   * `GenerativeSteps`: make_generative_chunk_fn's `graphs`, one graph of
     a step that draws its own batch on the device (the ball's videos),
     then its noise, and trains.
-  * `CapturedCall`: an argument-less function (the eval bundle, a
-    SPRITES eval call): the first call runs it once eagerly (its
-    warm-up, whose results and launches are discarded), captures it and
-    replays it; later calls replay it.
+  * `CapturedCall`: an argument-less function (the eval bundle, an
+    MNIST eval pass, a SPRITES eval call): the first call runs it once
+    eagerly (its warm-up, whose results, launches and draws are
+    discarded), captures it and replays it; later calls replay it.
+  * `CallPerShape`: a function of input tensors (the serve's encode
+    chunk and request), one CapturedCall per input shape, its inputs
+    copied into static buffers before each replay.
 
 What a graph needs that an eager step does not:
   - inputs at fixed addresses.  A step gathers its batch rows in the
@@ -398,19 +402,64 @@ class GenerativeSteps(StepGraphs):
 class CapturedCall:
     """fn() -> outputs, with no arguments (it reads tensors at fixed
     addresses): the first call runs fn once eagerly on a side stream (the
-    warm-up: its outputs are dropped and its launches taken out of the
-    counters), captures it and replays it; later calls replay.  Returns
-    the graph's outputs, which the next call overwrites."""
+    warm-up: its outputs are dropped, its launches taken out of the
+    counters and its draws given back: each generator of `generators`
+    returns to its state before it), captures it with those generators
+    registered and replays it; later calls replay, each advancing the
+    generators as an eager call would.  Returns the graph's outputs,
+    which the next call overwrites."""
 
-    def __init__(self, fn: Callable):
-        self.fn, self.graph = fn, None
+    def __init__(self, fn: Callable,
+                 generators: Sequence[torch.Generator] = ()):
+        self.fn, self.graph, self.generators = fn, None, list(generators)
 
     def __call__(self):
         if self.graph is None:
             stream = torch.cuda.Stream()
             before = ops.launch_counts()
+            states = [g.get_state() for g in self.generators]
             with cusolver_linalg(), side_stream(stream):
                 self.fn()
+            for g, st in zip(self.generators, states):
+                g.set_state(st)
             ops.add_launch_counts(launch_delta(before), -1)
-            self.graph = Graph(self.fn, stream)
+            self.graph = Graph(self.fn, stream, self.generators)
         return self.graph.replay()
+
+
+class CallPerShape:
+    """fn(*inputs), for inputs given as tensors on any device or as arrays
+    (JAX's jitted function, one program per input shape).  With
+    `captured` each shape and dtype of the inputs is one CapturedCall: a
+    call copies its inputs into that shape's static buffers on `device`,
+    outside the graph, replays it and returns copies of its outputs
+    (the next replay overwrites the graph's own); else fn runs eagerly on
+    the inputs moved to `device`.  `graphs`: {(shapes and dtypes): Graph}
+    of the calls captured so far."""
+
+    def __init__(self, fn: Callable, device: torch.device,
+                 generators: Sequence[torch.Generator] = (),
+                 captured: bool = True):
+        self.fn, self.device, self.generators = fn, device, generators
+        self.captured = captured
+        self.calls: Dict[tuple, tuple] = {}
+
+    def __call__(self, *inputs):
+        inputs = [torch.as_tensor(x) for x in inputs]
+        if not self.captured:
+            return self.fn(*(x.to(self.device) for x in inputs))
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        if key not in self.calls:
+            static = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                      for x in inputs]
+            self.calls[key] = (static, CapturedCall(
+                lambda: self.fn(*static), self.generators))
+        static, call = self.calls[key]
+        for buf, x in zip(static, inputs):
+            buf.copy_(x)
+        return tuple(t.clone() for t in call())
+
+    @property
+    def graphs(self) -> Dict[tuple, Graph]:
+        return {k: c.graph for k, (_, c) in self.calls.items()
+                if c.graph is not None}

@@ -6,8 +6,8 @@ graph-path tests (imports no jax, so spawned ranks may use it too).
 capture.Graph becomes EagerGraph, whose replay runs eagerly what the
 graph would have captured; Adam's lr becomes a float64 tensor
 (tensor_lr_adam); the cusolver backend, the side streams and
-torch.cuda.Stream become no-ops; and cli.mnist.uncaptured_reason says
-that the graphs run.
+torch.cuda.Stream become no-ops; and cli.mnist's and cli.serve's
+uncaptured_reason say that the graphs run.
 """
 
 import contextlib
@@ -15,6 +15,7 @@ import contextlib
 import torch
 
 from svgpvae_tpu_torch.cli import mnist as tmnist
+from svgpvae_tpu_torch.cli import serve as tserve
 from svgpvae_tpu_torch.train import capture
 
 
@@ -42,7 +43,8 @@ def tensor_lr_adam(optimizer, device):
 
 
 def patch(setattr):
-    """cli.mnist's (and so every driver's) graph paths on the CPU, with
+    """cli.mnist's (and so every driver's) and cli.serve's graph paths on
+    the CPU, with
     EagerGraph for the graphs and no stream or cusolver backend."""
     setattr(capture, "Graph", EagerGraph)
     setattr(capture, "capturable_adam", tensor_lr_adam)
@@ -50,6 +52,7 @@ def patch(setattr):
     setattr(capture, "side_stream", lambda stream: contextlib.nullcontext())
     setattr(torch.cuda, "Stream", lambda *a, **k: None)
     setattr(tmnist, "uncaptured_reason", lambda device: None)
+    setattr(tserve, "uncaptured_reason", lambda device: None)
 
 
 @contextlib.contextmanager

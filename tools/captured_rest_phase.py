@@ -2,10 +2,10 @@
 CUDA card: the MNIST driver's last loops replayed from captured CUDA
 graphs (VAE, CVAE, the --opt_regime VAE phases, Casale at
 --casale_taylor_every 1 and 2) beside phase 15's per-step runs, and
-phase 8's SPRITES run with its pretraining epochs and eval calls
-captured (21(b) in fp32: the run held to phase 8's, its pretraining too;
-then the traced eval calls).  The card's name and power limit come
-first.
+21(b)'s fp32 SPRITES run with its pretraining epochs and eval calls
+captured (on 21(b)'s small corpus, held to its per-step run there, its
+pretraining too; then the traced eval calls).  The card's name and
+power limit come first.
 
     PYTHONPATH=. python3 tools/captured_rest_phase.py
 """
@@ -25,7 +25,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("captured_rest_phase: no CUDA device")
     from svgpvae_tpu_torch import data
-    from svgpvae_tpu_torch.cli import serve
+    from svgpvae_tpu_torch.cli import sprites
     from svgpvae_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -37,13 +37,14 @@ def main() -> int:
     cs.log(f"build: {time.perf_counter() - t0:.2f} s")
     splits = cs.mnist_splits()
     corpus = data.generate_synthetic_sprites(
-        n_train_chars=cs.SERVE_CHARS, n_test_chars=cs.SERVE_CHARS // 4,
-        n_frames_train=50, seed=serve.CORPUS_SEED)
+        n_train_chars=cs.DEFAULT_LOOP_CHARS,
+        n_test_chars=cs.DEFAULT_LOOP_CHARS // 4, n_frames_train=50, seed=0)
     with tempfile.TemporaryDirectory(prefix="captured_rest_") as runs:
         t0 = time.perf_counter()
         sp_argv = cs.SPRITES_ARGV + cs.SAVE_ARGV + ["--base_dir", runs]
-        phase8 = cs.phase_sprites_train(corpus, sp_argv)
-        seen = cs.sprites_default_loop("21(b) sprites", sp_argv, phase8,
+        eager = cs.launched(sprites.main, sp_argv, splits=corpus,
+                            per_step=True)
+        seen = cs.sprites_default_loop("21(b) sprites", sp_argv, eager,
                                        (2, 1, 0), corpus, runs)
         eval_seen = cs.sprites_eval_trace(corpus)
         cs.log(f"[21(b) sprites: {time.perf_counter() - t0:.1f} s] traced "

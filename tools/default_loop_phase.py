@@ -1,7 +1,8 @@
 """chip_smoke.py's phase 21 alone on one CUDA card: the default training
 loops replayed from captured CUDA graphs (MNIST at --epoch_chunk 1, the
-SPRITES epochs, the ball's chunks), beside the per-step runs of phases 6,
-11, 8, 17(a), 12 and 14 that it holds them to, then 20(b)'s deterministic
+SPRITES epochs on the phase's small corpus, the ball's chunks), beside the
+per-step runs of phases 6, 11 and 14 (and its own SPRITES per-step runs)
+that it holds them to, then 20(b)'s deterministic
 resume check (ROADMAP.md section C 12).  The card's name and power limit
 come first.
 
@@ -22,8 +23,6 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("default_loop_phase: no CUDA device")
-    from svgpvae_tpu_torch import data
-    from svgpvae_tpu_torch.cli import serve
     from svgpvae_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,26 +33,14 @@ def main() -> int:
     _build.load()
     cs.log(f"build: {time.perf_counter() - t0:.2f} s")
     splits = cs.mnist_splits()
-    corpus = data.generate_synthetic_sprites(
-        n_train_chars=cs.SERVE_CHARS, n_test_chars=cs.SERVE_CHARS // 4,
-        n_frames_train=50, seed=serve.CORPUS_SEED)
     phase6 = cs.phase_train(splits)
     phase11 = cs.phase_train(splits, cs.TITSIAS_ARGV, 32, cs.TRAIN_STEPS,
                              cs.CAPTURE_STEP, "mnist titsias train", 2)
     with tempfile.TemporaryDirectory(prefix="default_loop_") as runs:
-        phase8 = cs.phase_sprites_train(
-            corpus, cs.SPRITES_ARGV + cs.SAVE_ARGV + ["--base_dir", runs])
-        phase17 = cs.phase_sprites_train(
-            corpus, cs.SPRITES_ARGV + ["--bf16"], tag="sprites --bf16")
-        phase12 = cs.phase_sprites_train(
-            corpus, cs.SPRITES_TITSIAS_ARGV, 72, 16,
-            cs.SPRITES_PRETRAIN_STEPS, cs.SPRITES_CAPTURE,
-            "sprites titsias train (record flags)", (0, 2))
         phase14 = {tag: cs.phase_ball_train(tag, runs)
                    for tag in cs.BALL_RUNS}
         t0 = time.perf_counter()
-        launches = cs.phase_default_loops(splits, corpus, phase6, phase11,
-                                          phase8, phase17, phase12, phase14,
+        launches = cs.phase_default_loops(splits, phase6, phase11, phase14,
                                           runs)
         cs.log(f"[phase 21: {time.perf_counter() - t0:.1f} s] {launches}")
         t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """chip_smoke.py's phase 23 alone: --data_parallel over NCCL, one rank a
 card, on a machine with 4 cards (the 4-card runs need them; on 2 or 3 the
 phase runs what fits).  The north-star MNIST run, its Titsias and deep
-SVIGP runs, the SPRITES run and the serve, each per step over 2 and 4
+SVIGP runs, the SPRITES run, the MNIST VAE run (the VAE runner's epochs,
+captured over NCCL) and the serve, each per step over 2 and 4
 cards held to its 1-process run, then on its default loop (CUDA graphs
 with the all-reduces inside) held to its per-step run, the 1-process
 yardstick runs in the same process (chip_smoke.py's comment above
@@ -13,7 +14,7 @@ Exits non-zero when any hold or check failed.
 
     PYTHONPATH=. python3 tools/nccl_phase.py
         [--out chiprun_out/nccl_phase.json]
-        [--parts mnist,mnist_titsias,svigp,sprites,serve]
+        [--parts mnist,mnist_titsias,svigp,sprites,vae,serve]
 
 --parts runs those parts alone (a short first run on the cards).
 """
